@@ -1,0 +1,77 @@
+"""Synthetic drift-data generator on torch (the port of
+``bodywork_tpu.data.generator``).
+
+The behavioural spec is the reference's (``stage_3_synthetic_data_generation.py:28-43``)::
+
+    y = alpha(d) + beta * X + sigma * eps
+    X ~ U(0, 100), eps ~ N(0, 1), n = 24*60 rows/day, keep y >= 0
+    alpha(d) = kappa + A * sin(2*pi*f*(d-1)/364)      # d = day of year
+
+The draws come from a ``torch.Generator`` seeded from ``(cfg.seed,
+date ordinal)`` on the requested device, so every day's dataset is
+reproducible per device. They are NOT ``jax.random``'s threefry bits: the
+port's days are different samples of the same distribution (bit-identical
+draws are a later ROADMAP item). :func:`_sample_day` is the sampler's
+algebra as a pure function of the draws, so tests feed both packages the
+same numpy draws.
+"""
+from __future__ import annotations
+
+import math
+from datetime import date
+
+import numpy as np
+import torch
+
+from bodywork_tpu_torch.data.drift_config import DriftConfig
+from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.utils.dates import day_of_year
+
+__all__ = ["DriftConfig", "alpha", "generate_day", "seed_for_date"]
+
+
+def alpha(day, cfg: DriftConfig = DriftConfig()) -> torch.Tensor:
+    """Drifting intercept for a given day-of-year (``stage_3:31-33``),
+    in float32 like the JAX version."""
+    day = torch.as_tensor(day, dtype=torch.float32)
+    return cfg.kappa + cfg.amplitude * torch.sin(
+        2.0 * math.pi * cfg.freq * (day - 1.0) / 364.0
+    )
+
+
+def seed_for_date(d: date, cfg: DriftConfig = DriftConfig()) -> int:
+    """The per-day generator seed: the config seed folded with the date's
+    ordinal (the counterpart of ``key_for_date``'s ``fold_in``)."""
+    return (int(cfg.seed) << 32) ^ d.toordinal()
+
+
+def _sample_day(x: torch.Tensor, eps: torch.Tensor, day,
+                cfg: DriftConfig) -> torch.Tensor:
+    """One (3, n) tensor stacking (X, y, valid_mask) from the draws ``x``
+    (uniform on [x_low, x_high)) and ``eps`` (standard normal)."""
+    a = alpha(day, cfg).to(x.device)
+    if cfg.hetero:
+        # heteroscedastic scenario: noise scale ramps linearly with x
+        span = max(cfg.x_high - cfg.x_low, 1e-9)
+        scale = cfg.sigma * (1.0 + cfg.hetero * (x - cfg.x_low) / span)
+        y = a + cfg.beta * x + scale * eps
+    else:
+        y = a + cfg.beta * x + cfg.sigma * eps
+    return torch.stack([x, y, (y >= 0.0).to(x.dtype)])
+
+
+def generate_day(
+    d: date, cfg: DriftConfig = DriftConfig(), device=None
+) -> tuple[np.ndarray, np.ndarray]:
+    """Generate one simulated day's data on ``device`` (the card unless
+    asked for the CPU); returns host float32 arrays (X, y). Rows with
+    ``y < 0`` are dropped, as in the reference's ``query('y >= 0')``."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed_for_date(d, cfg))
+    n = cfg.n_samples
+    x = torch.rand(n, generator=gen, device=dev) * (cfg.x_high - cfg.x_low) + cfg.x_low
+    eps = torch.randn(n, generator=gen, device=dev)
+    stacked = _sample_day(x, eps, day_of_year(d), cfg).cpu().numpy()
+    x, y, mask = stacked[0], stacked[1], stacked[2] > 0.0
+    return x[mask], y[mask]

@@ -1,0 +1,17 @@
+from bodywork_tpu_torch.monitor.tester import (
+    HttpScoringClient,
+    compute_test_metrics,
+    persist_test_metrics,
+    run_service_test,
+    score_dataset,
+    scoring_endpoint,
+)
+
+__all__ = [
+    "HttpScoringClient",
+    "compute_test_metrics",
+    "persist_test_metrics",
+    "run_service_test",
+    "score_dataset",
+    "scoring_endpoint",
+]

@@ -1,0 +1,251 @@
+"""Live-service tester (the port of ``bodywork_tpu.monitor.tester``), on
+the standard library and numpy: no requests, no pandas.
+
+Black-box tests the deployed scoring service over HTTP with the latest
+day's labeled data, computes the drift metrics and persists them under
+``test-metrics/``. Metric definitions are the JAX package's
+(``tester.py:306-348``): MAPE = mean APE (label-guarded denominator),
+``r_squared`` = Pearson correlation of score vs label, ``max_residual`` =
+max APE, ``mean_response_time`` of the HTTP round-trip, ``n_failures``
+counted apart and excluded, plus the bias channel ``mean_error``,
+``error_std`` (sample std, ddof=1) and ``n_scored``.
+
+The client retries 5xx/429 responses and connection failures through the
+shared policy (:mod:`bodywork_tpu_torch.utils.retry`), with a numeric
+``Retry-After`` as a floor under the backoff — the JAX client's budget.
+"""
+from __future__ import annotations
+
+import io
+import json
+import math
+import urllib.error
+import urllib.request
+from datetime import date
+from time import perf_counter
+
+import numpy as np
+
+from bodywork_tpu_torch.data.io import Dataset, load_latest_dataset
+from bodywork_tpu_torch.store.base import ArtefactStore
+from bodywork_tpu_torch.store.schema import test_metrics_key
+from bodywork_tpu_torch.utils.logging import get_logger
+from bodywork_tpu_torch.utils.retry import RetryPolicy, call_with_retry, is_transient
+
+log = get_logger("monitor.tester")
+
+_APE_EPS = 2.220446049250313e-16
+
+#: response statuses worth retrying: rate limiting and transient server
+#: failures (a 4xx other than 429 is a deterministic client error)
+RETRYABLE_STATUSES = frozenset({429, 500, 502, 503, 504})
+
+#: rows per ``/score/v1/batch`` request in batch mode
+BATCH_ROWS = 512
+
+#: the client's budget: the JAX client's defaults (3 retries, 50 ms base
+#: backoff capped at 1 s, a 30 s deadline, 10 s per request)
+RETRY_POLICY = RetryPolicy(attempts=4, base_delay_s=0.05, max_delay_s=1.0, deadline_s=30.0)
+TIMEOUT_S = 10.0
+
+#: the metrics record's columns, in the JAX package's order
+METRIC_COLUMNS = (
+    "date", "MAPE", "r_squared", "max_residual", "mean_response_time",
+    "n_failures", "mean_error", "error_std", "n_scored",
+)
+
+
+class _RetryableStatus(Exception):
+    def __init__(self, status_code: int, retry_after_s: float | None):
+        super().__init__(f"retryable scoring response: HTTP {status_code}")
+        self.status_code = status_code
+        self.retry_after_s = retry_after_s
+
+
+def _retry_after_seconds(headers) -> float | None:
+    raw = headers.get("Retry-After")
+    if raw is None:
+        return None
+    try:
+        return max(float(raw), 0.0)
+    except ValueError:
+        return None
+
+
+def scoring_endpoint(base_url: str, mode: str = "single") -> str:
+    """Normalise a scoring-service URL (a bare base, or one already
+    carrying ``/score/v1[/batch]``) to the endpoint for ``mode``."""
+    url = base_url.rstrip("/")
+    for suffix in ("/score/v1/batch", "/score/v1"):
+        if url.endswith(suffix):
+            url = url[: -len(suffix)]
+            break
+    return url + ("/score/v1/batch" if mode == "batch" else "/score/v1")
+
+
+class HttpScoringClient:
+    """Scores over real HTTP (``urllib.request``) with per-request retries
+    covering connection failures and retryable response statuses: full
+    jitter backoff floored by a numeric ``Retry-After``, bounded by
+    attempts and a deadline budget."""
+
+    def __init__(self, url: str):
+        self.url = url
+
+    def _post(self, payload: dict):
+        request = urllib.request.Request(
+            self.url, data=json.dumps(payload).encode(), method="POST",
+            headers={"Content-Type": "application/json"},
+        )
+        try:
+            with urllib.request.urlopen(request, timeout=TIMEOUT_S) as resp:
+                status, headers, body = resp.status, resp.headers, resp.read()
+        except urllib.error.HTTPError as exc:  # a non-2xx response
+            status, headers, body = exc.code, exc.headers, exc.read()
+        if status in RETRYABLE_STATUSES:
+            raise _RetryableStatus(status, _retry_after_seconds(headers))
+        return status, body
+
+    def score(self, payload: dict) -> tuple[bool, list[float], float]:
+        """POST a payload; returns (ok, predictions, seconds). The elapsed
+        time covers retries."""
+        start = perf_counter()
+        try:
+            status, body = call_with_retry(
+                lambda: self._post(payload), RETRY_POLICY,
+                is_retryable=lambda e: isinstance(e, _RetryableStatus) or is_transient(e),
+            )
+        except _RetryableStatus as exc:
+            log.error(f"scoring request failed after retries: HTTP {exc.status_code}")
+            return False, [], perf_counter() - start
+        except OSError as exc:  # URLError, timeouts, refused connections
+            log.error(f"scoring request failed: {exc!r}")
+            return False, [], perf_counter() - start
+        elapsed = perf_counter() - start
+        if 200 <= status < 300:
+            doc = json.loads(body)
+            preds = doc["predictions"] if "predictions" in doc else [doc["prediction"]]
+            return True, [float(p) for p in preds], elapsed
+        log.error(f"scoring request failed: HTTP {status}")
+        return False, [], elapsed
+
+
+def _ape(score: float, label: float) -> float:
+    return abs(score - label) / max(abs(label), _APE_EPS)
+
+
+def score_dataset(client, ds: Dataset, mode: str = "single") -> dict[str, np.ndarray]:
+    """Score every labeled row via the live service. Returns the results
+    as columns ``score, label, APE, response_time, ok`` (the reference's
+    ``stage_4:98`` plus ``ok``)."""
+    rows = []
+    multi = ds.X.shape[1] > 1
+
+    def _payload_row(i: int):
+        # scalar for 1-feature parity with the reference payloads
+        if multi:
+            return [float(v) for v in ds.X[i]]
+        return float(ds.X[i, 0])
+
+    if mode == "single":
+        for i, label in enumerate(ds.y):
+            ok, preds, elapsed = client.score({"X": _payload_row(i)})
+            score = preds[0] if ok else np.nan
+            ape = _ape(score, float(label)) if ok else np.nan
+            rows.append((score, float(label), ape, elapsed, ok))
+    elif mode == "batch":
+        for i in range(0, len(ds.y), BATCH_ROWS):
+            yb = ds.y[i : i + BATCH_ROWS]
+            xb = ds.X[i : i + BATCH_ROWS]
+            if multi:
+                payload = [[float(v) for v in row] for row in xb]
+            else:
+                payload = [float(v) for v in xb[:, 0]]
+            ok, preds, elapsed = client.score({"X": payload})
+            per_row_time = elapsed / max(len(xb), 1)
+            if ok and len(preds) == len(xb):
+                for p, label in zip(preds, yb):
+                    rows.append((p, float(label), _ape(p, float(label)), per_row_time, True))
+            else:
+                rows.extend(
+                    (np.nan, float(label), np.nan, per_row_time, False) for label in yb
+                )
+    else:
+        raise ValueError(f"unknown scoring mode: {mode!r}")
+    cols = list(zip(*rows)) if rows else [(), (), (), (), ()]
+    return {
+        "score": np.asarray(cols[0], dtype=np.float64),
+        "label": np.asarray(cols[1], dtype=np.float64),
+        "APE": np.asarray(cols[2], dtype=np.float64),
+        "response_time": np.asarray(cols[3], dtype=np.float64),
+        "ok": np.asarray(cols[4], dtype=bool),
+    }
+
+
+def compute_test_metrics(results: dict, results_date: date) -> dict:
+    """One metrics record, keys in :data:`METRIC_COLUMNS` order."""
+    ok = results["ok"]
+    n_ok = int(ok.sum())
+    nan = float("nan")
+    mape = r_squared = max_residual = mean_error = error_std = nan
+    if n_ok:
+        score, label, ape = results["score"][ok], results["label"][ok], results["APE"][ok]
+        mape = float(ape.mean())
+        max_residual = float(ape.max())
+        if n_ok > 1 and score.std() > 0 and label.std() > 0:
+            r_squared = float(np.corrcoef(score, label)[0, 1])
+        err = score - label
+        mean_error = float(err.mean())
+        error_std = float(err.std(ddof=1)) if n_ok > 1 else nan
+    times = results["response_time"]
+    return {
+        "date": results_date,
+        "MAPE": mape,
+        "r_squared": r_squared,
+        "max_residual": max_residual,
+        "mean_response_time": float(times.mean()) if len(times) else nan,
+        "n_failures": int((~ok).sum()),
+        "mean_error": mean_error,
+        "error_std": error_std,
+        "n_scored": n_ok,
+    }
+
+
+def _csv_value(v) -> str:
+    # pandas' to_csv spelling: NaN as an empty field, floats as repr
+    if isinstance(v, float):
+        return "" if math.isnan(v) else repr(v)
+    return str(v)
+
+
+def persist_test_metrics(store: ArtefactStore, metrics: dict, results_date: date) -> str:
+    """Write ``test-metrics/regressor-test-results-<date>.csv``
+    (``stage_4:116-134``), the JAX package's columns and order."""
+    key = test_metrics_key(results_date)
+    buf = io.StringIO()
+    buf.write(",".join(METRIC_COLUMNS) + "\n")
+    buf.write(",".join(_csv_value(metrics[c]) for c in METRIC_COLUMNS) + "\n")
+    store.put_text(key, buf.getvalue())
+    log.info(f"persisted test metrics to {key}")
+    return key
+
+
+def run_service_test(store: ArtefactStore, client, mode: str = "single",
+                     max_rows: int | None = None) -> dict:
+    """Full test-stage flow: latest dataset -> score via the live service
+    -> metrics -> persist. ``max_rows`` caps the scored rows (head of the
+    day) for cheap smoke tests. Returns the metrics record."""
+    ds = load_latest_dataset(store)
+    if max_rows is not None and len(ds) > max_rows:
+        ds = Dataset(ds.X[:max_rows], ds.y[:max_rows], ds.date)
+    results = score_dataset(client, ds, mode=mode)
+    metrics = compute_test_metrics(results, ds.date)
+    persist_test_metrics(store, metrics, ds.date)
+    log.info(
+        f"live test on {len(results['ok'])} rows ({ds.date}): "
+        f"MAPE={metrics['MAPE']:.4f} corr={metrics['r_squared']:.4f} "
+        f"maxAPE={metrics['max_residual']:.2f} "
+        f"mean_rt={metrics['mean_response_time'] * 1000:.2f}ms "
+        f"failures={metrics['n_failures']}"
+    )
+    return metrics

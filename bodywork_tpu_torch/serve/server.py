@@ -1,0 +1,188 @@
+"""Scoring-service lifecycle (the port of ``bodywork_tpu.serve.server``).
+
+:func:`serve_latest_model` loads the newest checkpoint from the store onto
+the card, picks the engine, warms every bucket and serves over
+``http.server.ThreadingHTTPServer``; with ``block=False`` it returns a
+started :class:`ServiceHandle`.
+
+Engine names map one to one onto the JAX package's (:data:`ENGINE_NAMES`):
+``xla`` -> ``torch`` (plain f32 torch), ``pallas*`` -> ``kernel*`` (the
+fused CUDA kernel in f32, bf16 or int8). The quantized plain engines
+``torch-bf16`` / ``torch-int8`` (the JAX ``xla-bf16`` / ``xla-int8``) are
+not ported yet and raise.
+"""
+from __future__ import annotations
+
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
+from bodywork_tpu_torch.models.mlp import MLPRegressor
+from bodywork_tpu_torch.serve.app import ScoringApp
+from bodywork_tpu_torch.store import open_store
+from bodywork_tpu_torch.utils.logging import get_logger
+
+log = get_logger("serve.server")
+
+#: JAX engine name -> the port's engine name
+ENGINE_NAMES = {
+    "xla": "torch",
+    "xla-bf16": "torch-bf16",
+    "xla-int8": "torch-int8",
+    "pallas": "kernel",
+    "pallas-bf16": "kernel-bf16",
+    "pallas-int8": "kernel-int8",
+}
+
+_KERNEL_DTYPES = {"kernel": None, "kernel-bf16": "bfloat16", "kernel-int8": "int8"}
+
+#: minimum hidden width at which ``engine="auto"`` picks the kernel. This
+#: is the JAX package's cut (``PALLAS_AUTO_MIN_WIDTH``), a TPU v5e
+#: measurement; it stands until the card's own width sweep sets one.
+KERNEL_AUTO_MIN_WIDTH = 256
+
+
+def resolve_engine(engine: str, model, device) -> str:
+    """Resolve ``engine="auto"``: the fused kernel for an MLP whose
+    narrowest hidden layer is at least :data:`KERNEL_AUTO_MIN_WIDTH` wide
+    on a CUDA device, the plain ``torch`` engine otherwise. Explicit
+    engine choices pass through untouched."""
+    if engine != "auto":
+        return engine
+    if not isinstance(model, MLPRegressor) or device.type != "cuda":
+        return "torch"
+    widths = [layer.w.shape[1] for layer in model.net.layers[:-1]]
+    if widths and min(widths) >= KERNEL_AUTO_MIN_WIDTH:
+        return "kernel"
+    return "torch"
+
+
+def build_predictor(model, engine: str = "auto",
+                    buckets: tuple[int, ...] | None = None):
+    """The predictor for an engine choice (``auto`` resolved against the
+    model's device)."""
+    from bodywork_tpu_torch.serve.predictor import (
+        DEFAULT_BUCKETS,
+        KernelMLPPredictor,
+        PaddedPredictor,
+    )
+
+    engine = resolve_engine(engine, model, model.device)
+    if engine in _KERNEL_DTYPES:
+        return KernelMLPPredictor(model, buckets, compute_dtype=_KERNEL_DTYPES[engine])
+    if engine == "torch":
+        return PaddedPredictor(model, buckets or DEFAULT_BUCKETS)
+    if engine in ("torch-bf16", "torch-int8"):
+        raise ValueError(
+            f"engine {engine!r} (the JAX package's "
+            f"{'xla-bf16' if engine == 'torch-bf16' else 'xla-int8'}) is not "
+            "ported yet: the quantized plain engines and their shadow gate are "
+            "ROADMAP Queue 1 (c); use 'kernel-bf16' / 'kernel-int8'"
+        )
+    raise ValueError(
+        f"unknown serving engine {engine!r}; expected 'auto' or one of "
+        f"{sorted(set(ENGINE_NAMES.values()))}"
+    )
+
+
+def _handler_for(app: ScoringApp):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def _respond(self, method: str) -> None:
+            length = int(self.headers.get("Content-Length") or 0)
+            body = self.rfile.read(length) if length else b""
+            status, headers, payload = app.handle(
+                method, self.path, body, self.headers.get("Content-Type"),
+            )
+            self.send_response(status)
+            for name, value in headers.items():
+                self.send_header(name, value)
+            self.send_header("Content-Length", str(len(payload)))
+            self.end_headers()
+            self.wfile.write(payload)
+
+        def do_GET(self):
+            self._respond("GET")
+
+        def do_POST(self):
+            self._respond("POST")
+
+        def log_message(self, format, *args):
+            log.debug(format % args)
+
+    return Handler
+
+
+class ServiceHandle:
+    """A scoring service on a ``ThreadingHTTPServer`` (one thread per
+    connection). ``port=0`` lets the OS pick a free port."""
+
+    def __init__(self, app: ScoringApp, host: str = "127.0.0.1", port: int = 5000):
+        self.app = app
+        self._server = ThreadingHTTPServer((host, port), _handler_for(app))
+        self._server.daemon_threads = True
+        self.host = host
+        self.port = self._server.server_port
+        self._thread = threading.Thread(
+            # poll_interval bounds how long shutdown() blocks
+            target=lambda: self._server.serve_forever(poll_interval=0.005),
+            name="scoring-service",
+            daemon=True,
+        )
+
+    @property
+    def base_url(self) -> str:
+        host = "127.0.0.1" if self.host in ("0.0.0.0", "") else self.host
+        return f"http://{host}:{self.port}"
+
+    @property
+    def url(self) -> str:
+        return f"{self.base_url}/score/v1"
+
+    def start(self) -> "ServiceHandle":
+        self._thread.start()
+        log.info(f"scoring service listening on {self.url}")
+        return self
+
+    def serve_forever(self) -> None:
+        """Serve in the calling thread (pod-entrypoint mode)."""
+        log.info(f"scoring service listening on {self.url}")
+        try:
+            self._server.serve_forever()
+        finally:
+            self._server.server_close()
+
+    def stop(self) -> None:
+        self._server.shutdown()
+        self._server.server_close()
+        if self._thread.ident is not None:
+            self._thread.join(timeout=10)
+        log.info("scoring service stopped")
+
+
+def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
+                       block: bool = True, engine: str = "auto", device=None,
+                       buckets: tuple[int, ...] | None = None):
+    """Load the newest checkpoint onto ``device`` (the card unless asked
+    for the CPU; no CUDA and no ``device="cpu"`` raises), build the
+    engine's predictor, warm every bucket, and serve. ``store`` is an
+    artefact store or a store directory. With ``block=False`` returns a
+    started :class:`ServiceHandle`."""
+    dev = resolve_device(device)
+    store = open_store(store)
+    served_key, served_source = resolve_serving_key(store)
+    model, model_date = load_model(store, served_key, device=dev)
+    predictor = build_predictor(model, engine, buckets=buckets)
+    log.info(f"serving {model.info} on {dev} through engine {predictor.engine!r}")
+    app = ScoringApp(
+        model, model_date, predictor=predictor,
+        model_key=served_key, model_source=served_source,
+    )
+    predictor.warmup()
+    handle = ServiceHandle(app, host, port)
+    if block:
+        handle.serve_forever()
+        return None
+    return handle.start()

@@ -1,0 +1,70 @@
+"""Artefact store interface (the port's copy of ``bodywork_tpu.store.base``,
+cut to what the serving slice uses).
+
+A flat byte store with ``/``-separated keys, versioned by a date embedded
+in each key (the reference's S3 protocol, ``stage_1_train_model.py:61-67``):
+``history`` lists the date-keyed artefacts under a prefix oldest first and
+``latest`` is the newest. Compare-and-swap writes, metrics instrumentation
+and the wrapper stack wait for the slices that need them.
+"""
+from __future__ import annotations
+
+import abc
+from datetime import date
+
+from bodywork_tpu_torch.utils.dates import date_from_key
+
+
+class ArtefactNotFound(KeyError):
+    """No artefact exists at the requested key/prefix."""
+
+
+class ArtefactStore(abc.ABC):
+    """Flat byte store with ``/``-separated keys and date-key versioning."""
+
+    @staticmethod
+    def validate_key(key: str) -> str:
+        """Reject keys that could escape or alias the store namespace."""
+        if not key or key.startswith(("/", "..")) or ".." in key.split("/"):
+            raise ValueError(f"invalid artefact key: {key!r}")
+        return key
+
+    # -- raw byte plane ----------------------------------------------------
+    @abc.abstractmethod
+    def put_bytes(self, key: str, data: bytes) -> None: ...
+
+    @abc.abstractmethod
+    def get_bytes(self, key: str) -> bytes: ...
+
+    @abc.abstractmethod
+    def list_keys(self, prefix: str = "") -> list[str]:
+        """All keys under ``prefix``, sorted lexicographically."""
+
+    @abc.abstractmethod
+    def exists(self, key: str) -> bool: ...
+
+    # -- text convenience --------------------------------------------------
+    def put_text(self, key: str, text: str) -> None:
+        self.put_bytes(key, text.encode("utf-8"))
+
+    def get_text(self, key: str) -> str:
+        return self.get_bytes(key).decode("utf-8")
+
+    # -- date-key versioning protocol -------------------------------------
+    def history(self, prefix: str) -> list[tuple[str, date]]:
+        """All date-keyed artefacts under ``prefix``, oldest first. Keys
+        without an embedded date are ignored."""
+        keyed = []
+        for key in self.list_keys(prefix):
+            d = date_from_key(key)
+            if d is not None:
+                keyed.append((key, d))
+        keyed.sort(key=lambda e: (e[1], e[0]))
+        return keyed
+
+    def latest(self, prefix: str) -> tuple[str, date]:
+        """Key and date of the most recent artefact under ``prefix``."""
+        hist = self.history(prefix)
+        if not hist:
+            raise ArtefactNotFound(f"no date-keyed artefacts under '{prefix}'")
+        return hist[-1]

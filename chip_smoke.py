@@ -1,0 +1,493 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``bodywork_tpu_torch``) on one NVIDIA H100.
+
+Run from the repository root with no arguments::
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure exits non-zero):
+
+1. ``device``  — the card's name, compute capability (must be 9.0) and
+   ``nvidia-smi`` name and power limit;
+2. ``build``   — compiles the CUDA kernels from the repository's sources
+   with ``nvcc`` (``ops/_build.py``) and prints the seconds and the
+   compiler's register/shared-memory report;
+3. ``kernels`` — each fused-MLP kernel variant (``kernel``, ``kernel-bf16``,
+   ``kernel-int8``) at the served model's widths (1 -> 1024 -> 1024 -> 1024
+   -> 1) on {1, 8, 300, 4096} rows, held against its plain PyTorch version
+   on the card;
+4. ``slice``   — the serving main path at full width: three days of drift
+   data generated on the card, a (1024, 1024, 1024) MLP checkpoint with
+   seeded He-init weights, ``serve_latest_model(engine="auto")`` (which
+   must pick the ``kernel`` engine on ``cuda``), single and batch requests
+   over HTTP checked against the plain version, then the port's test stage
+   over HTTP on the latest day; ``slice-bf16`` / ``slice-int8`` serve the
+   same checkpoint through the other two kernels. Kernel launch counts are
+   set to 0 just before each path and read just after it;
+5. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+   events (warm-up, then the median of 30): the kernel, its plain version,
+   and the folded stack through ``torch.addmm`` in the variant's dtype
+   with TF32 off (a yardstick the port never calls), beside the card's
+   bound; then one ``kernels`` line summing every kernel up.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the rest of the repository beside it, the script exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import urllib.request
+from datetime import date
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+WIDTHS = (1, 1024, 1024, 1024, 1)  # the served model: hidden (1024, 1024, 1024)
+HIDDEN = WIDTHS[1:-1]
+VARIANTS = {"kernel": None, "kernel-bf16": "bfloat16", "kernel-int8": "int8"}
+SOURCE = "bodywork_tpu_torch/ops/csrc/mlp_kernel.cu"
+REPLACES = {
+    "kernel": "bodywork_tpu/ops/mlp_kernel.py:65",
+    "kernel-bf16": "bodywork_tpu/ops/mlp_kernel.py:65",
+    "kernel-int8": "bodywork_tpu/ops/mlp_kernel.py:86",
+}
+#: agreement with the plain version, as max|kernel - plain| / max(1, max|plain|):
+#: f32 differs only in summation order; bf16 and int8 may also flip a
+#: rounding of an activation, hence the JAX package's own bars for them
+#: (tests/test_ops.py:55, tests/test_compiled.py:398)
+BARS = {"kernel": 1e-4, "kernel-bf16": 2e-2, "kernel-int8": 2e-2}
+KERNEL_ROWS = (1, 8, 300, 4096)
+TIMING_ROWS = (256, 4096)
+TIMING_REPS = 30
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def peaks(name: str) -> dict:
+    """Published dense peaks of the card (NVIDIA data sheets): f32 on the
+    CUDA cores, bf16 on the tensor cores, and the memory rate."""
+    if "PCIe" in name:
+        return {"part": "H100 PCIe", "f32": 51e12, "bf16": 756e12, "bytes_s": 2.0e12}
+    if "NVL" in name:
+        return {"part": "H100 NVL", "f32": 60e12, "bf16": 835e12, "bytes_s": 3.9e12}
+    return {"part": "H100 SXM", "f32": 67e12, "bf16": 989e12, "bytes_s": 3.35e12}
+
+
+def bound(rows: int, engine: str, card: dict) -> tuple[float, str]:
+    """The least time the card could take for one forward of ``rows``
+    rows: the larger of its bytes (X read once, weights/biases/scales read
+    once, the head written once) over the memory rate, and its operations
+    (2 per MAC) over the peak rate for the operands' type. The f32 and
+    int8 kernels multiply in f32 on the CUDA cores; the bf16 operands'
+    peak is the tensor cores'."""
+    pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
+    macs = rows * sum(k * n for k, n in pairs)
+    weight_bytes = {"kernel": 4, "kernel-bf16": 2, "kernel-int8": 1}[engine]
+    nbytes = (
+        rows * WIDTHS[0] * 4 + sum(k * n for k, n in pairs) * weight_bytes
+        + sum(n for _, n in pairs) * 4 * (2 if engine == "kernel-int8" else 1)
+        + rows * 4
+    )
+    t_ops = 2 * macs / (card["bf16"] if engine == "kernel-bf16" else card["f32"])
+    t_bytes = nbytes / card["bytes_s"]
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(got, want) -> tuple[float, float]:
+    diff = float((got - want).abs().max())
+    return diff, diff / max(1.0, float(want.abs().max()))
+
+
+def make_params(torch, dev, X: "torch.Tensor", y: "torch.Tensor", seed: int = 0) -> dict:
+    """Seeded He-init weights (an explicit torch.Generator) and the
+    scaler's statistics over the generated days."""
+    from bodywork_tpu_torch.models.mlp import _masked_stats, init_mlp_params
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    net = init_mlp_params(gen, WIDTHS, device=dev)
+    w = torch.ones(X.shape[0], device=dev)
+    x_mean, x_std = _masked_stats(X, w)
+    y_mean, y_std = _masked_stats(y, w)
+    return {
+        "net": net,
+        "scaler": {"x_mean": x_mean[None], "x_std": x_std[None],
+                   "y_mean": y_mean, "y_std": y_std},
+    }
+
+
+def post(url: str, payload) -> dict:
+    request = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(request, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def get(url: str) -> dict:
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def phase_device(torch) -> dict:
+    name = torch.cuda.get_device_name(0)
+    cap = torch.cuda.get_device_capability(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    emit("device", name=name, capability=list(cap), count=torch.cuda.device_count(),
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+    print(smi, flush=True)
+    if tuple(cap) != (9, 0):
+        raise RuntimeError(f"expected a Hopper card (capability 9.0), got {cap}")
+    return {"name": name, "smi": smi, **peaks(name)}
+
+
+def phase_build() -> None:
+    from bodywork_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    info = _build.build_all()
+    seconds = time.perf_counter() - t0
+    report = {
+        name: [line.strip() for line in r["log"].splitlines()
+               if "registers" in line or "spill" in line or "Compiling entry" in line]
+        for name, r in info.items()
+    }
+    emit("build", seconds=seconds,
+         libraries={n: {"built": r["built"], "nvcc_seconds": r["seconds"]} for n, r in info.items()},
+         ptxas=report)
+
+
+def phase_kernels(torch, dev) -> dict:
+    from bodywork_tpu_torch.ops.mlp_kernel import (
+        LAUNCHES,
+        make_kernel_mlp_apply,
+        mlp_stack_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    X_all = torch.rand(4096, 1, generator=gen, device=dev) * 100.0
+    params = make_params(torch, dev, X_all[:, 0], 0.5 * X_all[:, 0] + 1.0)
+    errors = {}
+    for engine, dtype in VARIANTS.items():
+        apply = make_kernel_mlp_apply(params, dev, compute_dtype=dtype)
+        before = LAUNCHES[engine]
+        per_rows = {}
+        for rows in KERNEL_ROWS:
+            X = X_all[:rows]
+            got = apply(X)
+            want = mlp_stack_plain(apply.layers, X, dtype)
+            torch.cuda.synchronize()
+            if got.shape != (rows,) or not bool(torch.isfinite(got).all()):
+                raise RuntimeError(f"{engine}: bad output at {rows} rows")
+            max_abs, rel = rel_err(got, want)
+            per_rows[rows] = {"max_abs_err": max_abs, "err_over_scale": rel}
+            if rel >= BARS[engine]:
+                raise RuntimeError(
+                    f"{engine} disagrees with its plain version at {rows} rows: "
+                    f"{rel:.3g} >= {BARS[engine]}"
+                )
+        launched = LAUNCHES[engine] - before
+        if launched != len(KERNEL_ROWS):
+            raise RuntimeError(f"{engine}: {launched} launches for {len(KERNEL_ROWS)} calls")
+        errors[engine] = per_rows[4096]["max_abs_err"]
+        emit("kernels", engine=engine, bar=BARS[engine], rows=per_rows,
+             block_rows={rows: apply.launch.block_rows(rows) for rows in KERNEL_ROWS})
+        _check_ragged(torch, dev, engine, dtype)
+    torch.cuda.synchronize()
+    return errors
+
+
+def _check_ragged(torch, dev, engine: str, dtype) -> None:
+    """The kernel's other paths at small cost: 3 features, ragged widths,
+    and a 1100-wide layer that needs two column passes (so two ping-pong
+    activation buffers), at 8 and 16 rows per block. At 32 rows those
+    buffers exceed a block's shared memory, which the wrapper refuses."""
+    from bodywork_tpu_torch.models.mlp import init_mlp_params
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply, mlp_stack_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    params = {
+        "net": init_mlp_params(gen, (3, 1100, 40, 1), device=dev),
+        "scaler": {"x_mean": torch.full((3,), 50.0, device=dev),
+                   "x_std": torch.full((3,), 29.0, device=dev),
+                   "y_mean": torch.tensor(26.0, device=dev),
+                   "y_std": torch.tensor(15.0, device=dev)},
+    }
+    X = torch.rand(37, 3, generator=gen, device=dev) * 100.0
+    worst = 0.0
+    for block_rows in (8, 16):
+        apply = make_kernel_mlp_apply(params, dev, compute_dtype=dtype, block_rows=block_rows)
+        worst = max(worst, rel_err(apply(X), mlp_stack_plain(apply.layers, X, dtype))[1])
+    torch.cuda.synchronize()
+    if worst >= BARS[engine]:
+        raise RuntimeError(f"{engine} disagrees on the ragged two-pass stack: {worst:.3g}")
+    try:
+        make_kernel_mlp_apply(params, dev, compute_dtype=dtype, block_rows=32)
+    except ValueError as exc:
+        refusal = str(exc)
+    else:
+        raise RuntimeError(f"{engine}: 2 x 32 x 1100 floats of activations were not refused")
+    emit("kernels-ragged", engine=engine, widths=[3, 1100, 40, 1], rows=37,
+         block_rows=[8, 16], err_over_scale=worst, refused_32=refusal)
+
+
+def _serve_path(torch, dev, store, engine: str, singles, batches) -> dict:
+    """Serve the store's newest checkpoint through ``engine``, send the
+    requests over HTTP and hold every answer against the plain version.
+    Returns the handle (started) and the check summary."""
+    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
+    from bodywork_tpu_torch.serve import serve_latest_model
+
+    handle = serve_latest_model(store, host="127.0.0.1", port=0, block=False,
+                                engine=engine, device=dev)
+    health = get(handle.base_url + "/healthz")
+    predictor = handle.app.predictor
+    layers, dtype = predictor.kernel.layers, {"float32": None}.get(predictor.dtype, predictor.dtype)
+    worst = 0.0
+    latencies = []
+    for x in singles:
+        t0 = time.perf_counter()
+        got = post(handle.url, {"X": x})["prediction"]
+        latencies.append(time.perf_counter() - t0)
+        want = mlp_stack_plain(layers, torch.tensor([[x]], device=dev), dtype)
+        worst = max(worst, rel_err(torch.tensor([got], device=dev), want)[1])
+    for X in batches:
+        body = post(handle.url + "/batch", {"X": X.tolist()})
+        got = torch.tensor(body["predictions"], device=dev)
+        if body["n"] != len(X) or not bool(torch.isfinite(got).all()):
+            raise RuntimeError(f"{engine}: bad batch answer for {len(X)} rows")
+        worst = max(worst, rel_err(got, mlp_stack_plain(layers, X[:, None], dtype))[1])
+    return handle, health, {"worst_err_over_scale": worst,
+                            "single_latency_ms": [1e3 * t for t in latencies]}
+
+
+def phase_slice(torch, dev, workdir: str) -> dict:
+    import numpy as np
+
+    from bodywork_tpu_torch.data import Dataset, generate_day, load_latest_dataset, persist_dataset
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor, save_model
+    from bodywork_tpu_torch.monitor import HttpScoringClient, run_service_test, scoring_endpoint
+    from bodywork_tpu_torch.monitor.tester import BATCH_ROWS
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import test_metrics_key as metrics_key
+
+    store = FilesystemStore(os.path.join(workdir, "store"))
+    days = [date(2026, 7, d) for d in (1, 2, 3)]
+    Xs, ys = [], []
+    for d in days:
+        X, y = generate_day(d, device=dev)
+        persist_dataset(store, Dataset(X, y, d))
+        Xs.append(X)
+        ys.append(y)
+    X_hist = torch.as_tensor(np.concatenate(Xs), device=dev)
+    y_hist = torch.as_tensor(np.concatenate(ys), device=dev)
+    model = MLPRegressor(MLPConfig(hidden=HIDDEN), make_params(torch, dev, X_hist, y_hist))
+    save_model(store, model, days[-1])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    batches = [torch.rand(n, generator=gen, device=dev) * 100.0 for n in (300, 4096)]
+    singles = [50.0, 10.0, 90.0]
+    launches = {}
+
+    # the main path: engine auto -> kernel, then the test stage over HTTP
+    reset_launches()
+    handle, health, checks = _serve_path(torch, dev, store, "auto", singles, batches)
+    try:
+        if health["engine"] != "kernel" or health["device"] != "cuda":
+            raise RuntimeError(f"auto served {health['engine']} on {health['device']}")
+        if checks["worst_err_over_scale"] >= BARS["kernel"]:
+            raise RuntimeError(f"served answers disagree with the plain version: {checks}")
+        client = HttpScoringClient(scoring_endpoint(handle.url, "batch"))
+        t0 = time.perf_counter()
+        metrics = run_service_test(store, client, mode="batch")
+        test_seconds = time.perf_counter() - t0
+    finally:
+        handle.stop()
+    launches["kernel"] = LAUNCHES["kernel"]
+    n_rows = len(load_latest_dataset(store))
+    n_requests = len(singles) + len(batches) + -(-n_rows // BATCH_ROWS)
+    if not store.exists(metrics_key(days[-1])) or metrics["n_failures"] != 0:
+        raise RuntimeError(f"test stage failed: {metrics}")
+    if metrics["n_scored"] != n_rows:
+        raise RuntimeError(f"test stage scored {metrics['n_scored']} of {n_rows} rows")
+    if launches["kernel"] < n_requests:
+        raise RuntimeError(f"{launches['kernel']} kernel launches for {n_requests} requests")
+    emit("slice", engine=health["engine"], device=health["device"],
+         model_info=health["model_info"], model_key=health["model_key"],
+         requests=n_requests, launches=launches["kernel"], test_rows=n_rows,
+         test_seconds=test_seconds,
+         test_metrics={k: (str(v) if isinstance(v, date) else v) for k, v in metrics.items()},
+         **checks)
+
+    # the other two kernels serve the same checkpoint on their own paths
+    for engine in ("kernel-bf16", "kernel-int8"):
+        reset_launches()
+        handle, health, checks = _serve_path(torch, dev, store, engine, singles[:2], batches[:1])
+        handle.stop()
+        launches[engine] = LAUNCHES[engine]
+        if health["engine"] != engine or checks["worst_err_over_scale"] >= BARS[engine]:
+            raise RuntimeError(f"{engine} path failed: {health} {checks}")
+        if launches[engine] < 3:
+            raise RuntimeError(f"{engine}: {launches[engine]} launches for 3 requests")
+        emit(f"slice-{engine.split('-')[1]}", engine=engine, launches=launches[engine], **checks)
+    torch.cuda.synchronize()
+    return launches
+
+
+def _median_ms(torch, fn, reps: int = TIMING_REPS) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def phase_timing(torch, dev, card: dict) -> dict:
+    from bodywork_tpu_torch.ops.mlp_kernel import (
+        BLOCK_ROWS,
+        make_kernel_mlp_apply,
+        mlp_stack_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    X_all = torch.rand(4096, 1, generator=gen, device=dev) * 100.0
+    params = make_params(torch, dev, X_all[:, 0], 0.5 * X_all[:, 0] + 1.0)
+    out = {}
+    for engine, dtype in VARIANTS.items():
+        apply = make_kernel_mlp_apply(params, dev, compute_dtype=dtype)
+        # the library yardstick: one addmm per layer in the variant's dtype
+        # (int8 has no f32-activation int8 product: dequantized f32 weights)
+        lib_dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+        lib_layers = [
+            ((layer["w"].float() * layer["scale"][None, :]) if dtype == "int8"
+             else layer["w"]).to(lib_dtype).contiguous()
+            for layer in apply.layers
+        ]
+        lib_bias = [layer["b"].to(lib_dtype) for layer in apply.layers]
+
+        def library(X, lib_layers=lib_layers, lib_bias=lib_bias):
+            h = X.to(lib_dtype)
+            for i, (w, b) in enumerate(zip(lib_layers, lib_bias)):
+                h = torch.addmm(b, h, w)
+                if i < len(lib_layers) - 1:
+                    h = torch.relu(h)
+            return h[:, 0]
+
+        out[engine] = {}
+        for rows in TIMING_ROWS:
+            X = X_all[:rows].contiguous()
+            bound_ms, bound_by = bound(rows, engine, card)
+            row = {
+                "kernel_ms": _median_ms(torch, lambda: apply.launch(X)),
+                "plain_ms": _median_ms(torch, lambda: mlp_stack_plain(apply.layers, X, dtype)),
+                "library_ms": _median_ms(torch, lambda: library(X)),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+            }
+            out[engine][rows] = row
+            emit("timing", engine=engine, rows=rows, block_rows=apply.launch.block_rows(rows),
+                 reps=TIMING_REPS, **row)
+    # rows per CUDA block is the kernel's one launch parameter, picked per
+    # batch size by the wrapper: time every choice at the served buckets
+    sweep = {}
+    for block_rows in BLOCK_ROWS:
+        apply = make_kernel_mlp_apply(params, dev, block_rows=block_rows)
+        sweep[block_rows] = {
+            rows: _median_ms(torch, lambda: apply.launch(X_all[:rows].contiguous()))
+            for rows in (256, 512, 4096)
+        }
+    emit("timing-block-rows", engine="kernel", kernel_ms=sweep)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--phases", default="device,build,kernels,slice,timing",
+        help="comma-separated subset of the phases to run (default: all)",
+    )
+    args = parser.parse_args(argv)
+    phases = set(args.phases.split(","))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke runs on the card",
+              file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(ROOT, "bodywork_tpu_torch")):
+        print("chip_smoke: bodywork_tpu_torch/ is not beside this script; run "
+              "it from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from bodywork_tpu_torch.device import resolve_device
+
+    dev = resolve_device("cuda")
+    card = phase_device(torch)
+    if "build" in phases:
+        phase_build()
+    errors = phase_kernels(torch, dev) if "kernels" in phases else {}
+    launches, timing = {}, {}
+    if "slice" in phases:
+        workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
+        try:
+            launches = phase_slice(torch, dev, workdir)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+    if "timing" in phases:
+        timing = phase_timing(torch, dev, card)
+    if phases >= {"kernels", "slice", "timing"}:
+        kernels = []
+        for engine in VARIANTS:
+            t = timing[engine][4096]
+            kernels.append({
+                "name": engine, "route": "cuda", "source": SOURCE,
+                "replaces": REPLACES[engine], "launches": launches[engine],
+                "max_abs_err": errors[engine], "ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
+        print(card["smi"], flush=True)
+        print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+def _scratch_dir() -> str:
+    """A scratch directory inside the checkout (``build/`` is ignored by
+    git), so the run writes nothing outside the repository."""
+    path = os.path.join(ROOT, "build", "chip_smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+if __name__ == "__main__":
+    sys.exit(main())
