@@ -4,8 +4,9 @@ Each source under ``ops/csrc/`` is compiled by ``nvcc`` into a shared
 library with a plain C interface and loaded with ``ctypes`` — no PyTorch
 headers, so a build takes seconds, not minutes. Libraries are built at
 first use into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads the existing library.
+``.gitignore``), named by a hash of the source, the shared headers and
+the flags, so an edited source or header rebuilds and an unchanged one
+loads the existing library.
 Nothing is built or loaded when a module is imported.
 """
 from __future__ import annotations
@@ -20,8 +21,13 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 
-#: kernel library name -> its CUDA source
-SOURCES = {"mlp_kernel": _CSRC / "mlp_kernel.cu"}
+#: kernel library name -> its CUDA source (which may include the headers
+#: ``csrc/*.cuh``)
+SOURCES = {
+    "mlp_kernel": _CSRC / "mlp_kernel.cu",
+    "mlp_bf16_tc": _CSRC / "mlp_bf16_tc.cu",
+    "mlp_int8": _CSRC / "mlp_int8.cu",
+}
 
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -48,8 +54,9 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        SOURCES[name].read_bytes() + "\0".join(NVCC_FLAGS).encode()
+        SOURCES[name].read_bytes() + headers + "\0".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -92,31 +99,52 @@ def build_all(names=None) -> dict[str, dict]:
     return results
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    """argtypes/restype for every entry point: pointers and the stream as
-    ``c_void_p`` (a bare Python int would be cut to 32 bits), ints as
-    ``c_int``."""
-    ptrs = ctypes.POINTER(ctypes.c_void_p)
-    for fn in (lib.mlp_forward_f32, lib.mlp_forward_bf16, lib.mlp_forward_int8):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int), ptrs, ptrs, ptrs,
-            ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    lib.mlp_max_dynamic_smem.argtypes = [ctypes.c_int]
-    lib.mlp_max_dynamic_smem.restype = ctypes.c_int
-    lib.mlp_error_string.argtypes = [ctypes.c_int]
-    lib.mlp_error_string.restype = ctypes.c_char_p
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
+_INTS = ctypes.POINTER(ctypes.c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: (x, out, n_rows, n_layers, d_in, kp, np, w, b, then bf16: cluster, stages,
+#: smem_bytes, stream; int8: scale, cluster, smem_bytes, stream)
+_CLUSTER_FORWARD = [_P, _P, _I, _I, _I, _INTS, _INTS, _PTRS, _PTRS]
+
+#: library -> every ``extern "C"`` entry point of its source, as
+#: (argtypes, restype): pointers and the stream as ``c_void_p`` (a bare
+#: Python int would be cut to 32 bits), ints as ``c_int``
+DECLARATIONS = {
+    "mlp_kernel": {
+        "mlp_forward_f32": (
+            [_P, _P, _I, _I, _INTS, _PTRS, _PTRS, _PTRS, _I, _P], _I),
+        "mlp_max_dynamic_smem": ([_I], _I),
+        "mlp_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mlp_bf16_tc": {
+        "mlp_bf16_forward": (_CLUSTER_FORWARD + [_I, _I, _I, _P], _I),
+        "mlp_bf16_max_active_clusters": ([_I, _I], _I),
+        "mlp_bf16_error_string": ([_I], ctypes.c_char_p),
+    },
+    "mlp_int8": {
+        "mlp_int8_forward": (_CLUSTER_FORWARD + [_PTRS, _I, _I, _P], _I),
+        "mlp_int8_max_active_clusters": ([_I, _I], _I),
+        "mlp_int8_error_string": ([_I], ctypes.c_char_p),
+    },
+}
 
 
-def load_library(name: str = "mlp_kernel") -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
+def _declare(lib: ctypes.CDLL, name: str) -> None:
+    """argtypes/restype for every entry point of library ``name``."""
+    for fn_name, (argtypes, restype) in DECLARATIONS[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (a key of :data:`SOURCES`),
+    building it first if needed."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             info = build_all([name])[name]
             lib = ctypes.CDLL(info["path"])
-            _declare(lib)
+            _declare(lib, name)
             _LIBS[name] = lib
         return lib

@@ -1,24 +1,18 @@
 // Fused MLP scoring forward for Hopper (sm_90a): the whole folded dense
-// stack in ONE launch, for f32, bf16 and int8 weights.
+// stack in ONE launch, with f32 weights.
 //
 // Replaces the Pallas TPU kernel `make_pallas_mlp_apply` in
 // bodywork_tpu/ops/mlp_kernel.py: `_mlp_kernel` with f32 operands (engine
-// `pallas` -> `kernel`), `_mlp_kernel` with bf16 operands (`pallas-bf16` ->
-// `kernel-bf16`) and `_mlp_kernel_int8` (`pallas-int8` -> `kernel-int8`).
+// `pallas` -> `kernel`). The bf16 and int8 variants have kernels of their
+// own, designed for Hopper: mlp_bf16_tc.cu (tensor cores) and mlp_int8.cu.
 //
 // What it computes: h = X; for each layer h = h.W_i + b_i with f32
 // accumulation, ReLU between layers, the last layer linear; the output is
 // column 0 of the last layer (the regression head). The scaler is already
 // folded into the first and last layers by the wrapper
-// (ops/mlp_kernel.py fold_scaler_into_net).
-//   f32  : IEEE f32 FMA on the CUDA cores; no TF32, no tensor cores.
-//   bf16 : weights stored bf16; each layer's input activation is rounded
-//          to bf16 (__float2bfloat16_rn) and products and sums are taken in
-//          f32 - exactly the Pallas variant's arithmetic, since a bf16 x bf16
-//          product is exact in f32. Bias and ReLU stay f32.
-//   int8 : symmetric per-output-column int8 weights; each weight is
-//          dequantized float(q) * scale[col] in registers right before an
-//          f32 FMA, as the Pallas kernel dequantizes before its dot.
+// (ops/mlp_kernel.py fold_scaler_into_net). IEEE f32 FMA on the CUDA
+// cores; no TF32, no tensor cores. The template keeps its weight-type
+// parameter WT (`load_weight`, `operand`) for f32 alone.
 //
 // Design. The TPU kernel keeps every weight VMEM-resident and never writes
 // an intermediate activation to HBM. On Hopper the wide model's weights
@@ -48,23 +42,17 @@
 //
 // Bound on an H100 SXM at the slice's 4096-row bucket (1 -> 1024 -> 1024
 // -> 1024 -> 1: 2,099,200 MACs a row, 17.2 GFLOP):
-//   f32 and int8: the work is f32 FMA on the CUDA cores, so operations
-//     bound it: about 0.26 ms at the data sheet's 67 TFLOP/s f32;
-//   bf16: 17 us if it ran on the tensor cores at 989 TFLOP/s. This simple
-//     FMA kernel does not use them and will be far from that bound.
-// The weight bytes (8.4 / 4.2 / 2.1 MB) take 1-3 us at 3.35 TB/s, so every
-// variant is compute-bound. (An H100 PCIe's data sheet gives 51 TFLOP/s
-// f32, 756 TFLOP/s bf16 and 2.0 TB/s; the card's own name says which
-// figures apply.) The L2 re-reads of the weights, once per R rows, and
-// the latency of those reads keep this kernel well above its bound;
-// wgmma and TMA, which would move the bf16 variant onto the tensor cores,
-// are later work.
+//   the work is f32 FMA on the CUDA cores, so operations bound it: about
+//   0.26 ms at the data sheet's 67 TFLOP/s f32. The 8.4 MB of weights take
+//   2.5 us at 3.35 TB/s. (An H100 PCIe's data sheet gives 51 TFLOP/s f32
+//   and 2.0 TB/s; the card's own name says which figures apply.) The L2
+//   re-reads of the weights, once per R rows, and the latency of those
+//   reads keep this kernel well above its bound.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC (ops/_build.py). The C entry points launch on the
 // caller's stream, allocate nothing, and return cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -76,7 +64,7 @@
 struct MlpLayers {
   const void* w[MLP_MAX_LAYERS];       // (K, N) row-major, element type WT
   const float* b[MLP_MAX_LAYERS];      // (N,)
-  const float* scale[MLP_MAX_LAYERS];  // (N,) int8 dequant scales, else null
+  const float* scale[MLP_MAX_LAYERS];  // unused by f32: null
   int width[MLP_MAX_LAYERS + 1];       // width[0] = features, width[l+1] = N_l
   int n_layers;
   int max_width;
@@ -87,20 +75,10 @@ struct MlpLayers {
 __device__ __forceinline__ float load_weight(const float* w, size_t i, float) {
   return __ldg(w + i);
 }
-__device__ __forceinline__ float load_weight(const __nv_bfloat16* w, size_t i, float) {
-  return __bfloat162float(__ldg(w + i));
-}
-__device__ __forceinline__ float load_weight(const int8_t* w, size_t i, float s) {
-  return __fmul_rn(static_cast<float>(__ldg(w + i)), s);
-}
 
 template <typename WT>
 __device__ __forceinline__ float operand(float a) {
   return a;
-}
-template <>
-__device__ __forceinline__ float operand<__nv_bfloat16>(float a) {
-  return __bfloat162float(__float2bfloat16_rn(a));
 }
 
 template <typename WT, int R, bool IN_PLACE>
@@ -288,21 +266,6 @@ int mlp_forward_f32(const float* x, float* out, int n_rows, int n_layers,
                     void* const* scale, int block_rows, void* stream) {
   return forward<float>(x, out, n_rows, n_layers, widths, w, b, nullptr,
                         block_rows, stream);
-}
-
-int mlp_forward_bf16(const float* x, float* out, int n_rows, int n_layers,
-                     const int* widths, void* const* w, void* const* b,
-                     void* const* scale, int block_rows, void* stream) {
-  return forward<__nv_bfloat16>(x, out, n_rows, n_layers, widths, w, b,
-                                nullptr, block_rows, stream);
-}
-
-int mlp_forward_int8(const float* x, float* out, int n_rows, int n_layers,
-                     const int* widths, void* const* w, void* const* b,
-                     void* const* scale, int block_rows, void* stream) {
-  if (scale == nullptr) return (int)cudaErrorInvalidValue;
-  return forward<int8_t>(x, out, n_rows, n_layers, widths, w, b, scale,
-                         block_rows, stream);
 }
 
 // the most dynamic shared memory one block may opt into on `device`

@@ -12,17 +12,22 @@ layers once per model, so the kernel is a pure dense stack:
 layers in one of three weight types — f32 (engine ``kernel``), bf16
 (``kernel-bf16``) and symmetric per-output-column int8 (``kernel-int8``),
 the counterparts of the Pallas ``pallas``, ``pallas-bf16`` and
-``pallas-int8`` engines. For a CUDA tensor ``apply`` launches the kernel
-in ``ops/csrc/mlp_kernel.cu`` (see its header for the design and the
-bound) or raises; only a tensor on the CPU takes the plain version,
-:func:`mlp_stack_plain`, which computes the same function in plain torch
-ops — that is how the CPU tests run, and what ``chip_smoke.py`` holds the
-kernel against on the card.
+``pallas-int8`` engines. For a CUDA tensor ``apply`` launches the
+engine's kernel or raises: ``ops/csrc/mlp_kernel.cu`` (f32),
+``ops/csrc/mlp_bf16_tc.cu`` (bf16 on the tensor cores) or
+``ops/csrc/mlp_int8.cu`` (int8 weights, f32 FMA); each source's header
+gives its design and bound. The bf16 and int8 kernels split every layer's
+columns over a thread-block cluster; :func:`launch_plan` picks their row
+tile and cluster size per batch. Only a tensor on the CPU takes the plain
+version, :func:`mlp_stack_plain`, which computes the same function in
+plain torch ops — that is how the CPU tests run, and what
+``chip_smoke.py`` holds each kernel against on the card.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -36,10 +41,11 @@ ROW_TILE = 256
 #: compute dtype -> serving engine name of its kernel
 KERNEL_ENGINES = {None: "kernel", "bfloat16": "kernel-bf16", "int8": "kernel-int8"}
 
+#: engine -> (kernel library, its C entry point)
 _ENTRY_POINTS = {
-    "kernel": "mlp_forward_f32",
-    "kernel-bf16": "mlp_forward_bf16",
-    "kernel-int8": "mlp_forward_int8",
+    "kernel": ("mlp_kernel", "mlp_forward_f32"),
+    "kernel-bf16": ("mlp_bf16_tc", "mlp_bf16_forward"),
+    "kernel-int8": ("mlp_int8", "mlp_int8_forward"),
 }
 
 #: launches of each kernel variant since the last :func:`reset_launches`;
@@ -49,7 +55,8 @@ _LAUNCH_LOCK = threading.Lock()
 
 #: the C entry points take at most MAX_LAYERS layers
 MAX_LAYERS = 16
-#: rows of the batch one CUDA block owns (the kernel's template instances)
+#: rows of the batch one CUDA block of the f32 kernel owns (its template
+#: instances)
 BLOCK_ROWS = (8, 16, 32)
 #: output columns one pass of a block covers (MLP_COLS * MLP_THREADS in the
 #: source): a stack whose layers are all at most this wide keeps its
@@ -142,6 +149,293 @@ def activation_bytes(widths, block_rows: int) -> int:
     return buffers * block_rows * max(widths) * 4
 
 
+@dataclass(frozen=True)
+class _Geometry:
+    """The shape of one cluster kernel (mirrors the #defines of its
+    source): rows per tile, k per ring stage (the first layer's K pads to
+    it), columns per unit (every N pads to it), the most units one CTA
+    computes per layer, bytes of one activation, shared-memory bytes per
+    unit of the CTA's widest slice outside a ring the wrapper sizes,
+    fixed bytes (bf16's alignment slack and mbarriers); the ring depths
+    the wrapper may pick (empty where the source fixes its ring), the most
+    units one such ring stage holds and its bytes per unit; and
+    ``unit_cost``, the time one more column unit adds to a CTA relative
+    to its fixed chain of ring steps, barriers and exchanges (see
+    :func:`launch_plan`)."""
+
+    rows: int
+    k_chunk: int
+    unit: int
+    max_units: int
+    act_bytes: int
+    unit_bytes: int
+    fixed_bytes: int
+    stages: tuple
+    stage_units: int
+    stage_unit_bytes: int
+    unit_cost: float
+
+
+#: the bf16 kernel (mlp_bf16_tc.cu: a ring of 2-6 stages of up to 4 units
+#: of 64 x 64 bf16) and the int8 kernel (mlp_int8.cu: per unit, its fixed
+#: ring of 2 stages of 32 x 64 int8 and a 32 x 64 f32 tile). ``unit_cost``
+#: is a two-point fit to the ``timing-launch-plan`` sweep of
+#: ``chip_smoke.py`` on an H100 SXM: the one-wave times at 256 rows with 8
+#: and 4 units per CTA (clusters of 2 and 4). bf16 took 0.101 and 0.077
+#: ms, 0.0061 ms a unit over a fixed 0.052 ms; int8 took 0.380 and 0.251
+#: ms, 0.032 ms a unit over a fixed 0.122 ms.
+CLUSTER_KERNELS = {
+    "kernel-bf16": _Geometry(rows=64, k_chunk=64, unit=64, max_units=8, act_bytes=2,
+                             unit_bytes=0, fixed_bytes=1088, stages=(2, 3, 4, 5, 6),
+                             stage_units=4, stage_unit_bytes=64 * 64 * 2, unit_cost=0.12),
+    "kernel-int8": _Geometry(rows=32, k_chunk=32, unit=64, max_units=8, act_bytes=4,
+                             unit_bytes=2 * 32 * 64 + 32 * 64 * 4, fixed_bytes=0, stages=(),
+                             stage_units=0, stage_unit_bytes=0, unit_cost=0.26),
+}
+#: thread-block cluster sizes the wrapper may launch (above 8 is a
+#: non-portable size, allowed on Hopper where the card can schedule it)
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+
+
+@dataclass(frozen=True)
+class LaunchPlan:
+    """One launch of a cluster kernel: ``tiles`` row tiles of
+    ``rows_per_tile`` rows, each computed by a cluster of ``cluster`` CTAs
+    (``grid = tiles * cluster``), each CTA owning at most
+    ``units_per_cta`` 64-column units of a layer, with a weight ring of
+    ``stages`` stages (0 where the source fixes its ring) and
+    ``smem_bytes`` of dynamic shared memory."""
+
+    engine: str
+    rows_per_tile: int
+    cluster: int
+    tiles: int
+    grid: int
+    units_per_cta: int
+    stages: int
+    smem_bytes: int
+
+
+def _ceil_to(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def padded_widths(widths, engine: str) -> tuple[list[int], list[int]]:
+    """Per layer, the padded K and N the cluster kernel of ``engine``
+    computes: N to a multiple of the unit, the first K to the ring's k
+    chunk, every later K to the previous layer's padded N."""
+    geo = CLUSTER_KERNELS[engine]
+    n_pad = [_ceil_to(n, geo.unit) for n in widths[1:]]
+    k_pad = [_ceil_to(widths[0], geo.k_chunk)] + n_pad[:-1]
+    return k_pad, n_pad
+
+
+def plan_smem_bytes(widths, engine: str, cluster: int, stages: int) -> tuple[int, int]:
+    """(dynamic shared memory bytes, most units per CTA) of the cluster
+    kernel of ``engine`` at ``cluster`` CTAs a cluster and ``stages`` ring
+    stages (0 where the source fixes its ring): the tile's widest padded
+    input in the kernel's activation type, plus the ring (and int8's f32
+    tile) sized for the CTA's widest column slice, as the source reckons
+    it."""
+    geo = CLUSTER_KERNELS[engine]
+    k_pad, n_pad = padded_widths(widths, engine)
+    units = max(-(-(n // geo.unit) // cluster) for n in n_pad)
+    smem = (geo.fixed_bytes + geo.rows * max(k_pad) * geo.act_bytes
+            + units * geo.unit_bytes
+            + stages * min(units, geo.stage_units) * geo.stage_unit_bytes)
+    return smem, units
+
+
+def launch_plans(widths, n_rows: int, engine: str, n_sms: int, smem_budget: int,
+                 clusters: dict | None = None) -> list[LaunchPlan]:
+    """Every launch the cluster kernel of ``engine`` can make for an
+    ``n_rows`` batch through a stack of ``widths``, smallest cluster first,
+    each with the deepest ring that fits. ``clusters`` maps a cluster size
+    to how many such clusters the card holds at once (default:
+    ``n_sms // size`` for each of :data:`CLUSTER_SIZES`). Raises
+    ``ValueError`` where none fits."""
+    geo = CLUSTER_KERNELS[engine]
+    if clusters is None:
+        clusters = {c: n_sms // c for c in CLUSTER_SIZES}
+    tiles = -(-n_rows // geo.rows)
+    plans = []
+    for c in sorted(clusters):
+        for stages in sorted(geo.stages, reverse=True) or [0]:
+            smem, units = plan_smem_bytes(widths, engine, c, stages)
+            if clusters[c] > 0 and units <= geo.max_units and smem <= smem_budget:
+                plans.append(LaunchPlan(engine, geo.rows, c, tiles, tiles * c, units,
+                                        stages, smem))
+                break
+    if not plans:
+        smem, _ = plan_smem_bytes(widths, engine, max(clusters, default=1),
+                                  min(geo.stages, default=0))
+        raise ValueError(
+            f"{engine}: layer widths up to {max(widths)} need {smem} bytes of shared "
+            f"memory per CTA at {geo.rows} rows per tile (or more than "
+            f"{geo.max_units} column units per CTA) at every cluster size in "
+            f"{sorted(clusters)}; the device allows {smem_budget}"
+        )
+    return plans
+
+
+def launch_plan(widths, n_rows: int, engine: str, n_sms: int, smem_budget: int,
+                clusters: dict | None = None) -> LaunchPlan:
+    """The launch for an ``n_rows`` batch, among :func:`launch_plans`.
+
+    - A batch of at most :data:`ROW_TILE` rows (a single request's
+      bucket) takes the plan that spreads it over the most CTAs in one
+      wave of clusters, so that one request reaches many SMs.
+    - A larger batch takes the least reckoned time: waves of clusters
+      (``tiles`` over the clusters resident at once) times the time of one
+      CTA, ``1 + unit_cost * units_per_cta`` (the engine's fitted
+      ``unit_cost``, :data:`CLUSTER_KERNELS`); ties go to the smaller
+      cluster.
+
+    Where no plan runs a small batch in one wave, the time decides too."""
+    geo = CLUSTER_KERNELS[engine]
+    if clusters is None:
+        clusters = {c: n_sms // c for c in CLUSTER_SIZES}
+    plans = launch_plans(widths, n_rows, engine, n_sms, smem_budget, clusters)
+
+    def waves(p: LaunchPlan) -> int:
+        return -(-p.tiles // clusters[p.cluster])
+
+    one_wave = [p for p in plans if waves(p) == 1]
+    if n_rows <= ROW_TILE and one_wave:
+        return max(one_wave, key=lambda p: p.grid)
+    return min(plans, key=lambda p: (waves(p) * (1 + geo.unit_cost * p.units_per_cta),
+                                     p.cluster))
+
+
+def pad_layers(layers: list[dict], engine: str) -> list[dict]:
+    """The prepared layers in the layout the cluster kernel of ``engine``
+    reads, zero-padded to :func:`padded_widths` (zero padding is exact),
+    with ``b`` (N_pad,) f32, zeros past N:
+
+    - bf16: ``w`` is W^T (N_pad, K_pad) cut into tiles of 64 columns x 64
+      k, ordered (k chunk, column unit, row, 16-byte chunk, 8 values),
+      each 128-byte row already in the 128-byte swizzle (a
+      ``(K_pad/64, N_pad/64, 64, 8, 8)`` bf16 tensor);
+    - int8: ``w`` is (K_pad, N_pad) int8, ``scale`` (N_pad,) with 1 on
+      padded columns."""
+    widths = [layers[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in layers]
+    k_pad, n_pad = padded_widths(widths, engine)
+    out = []
+    for layer, kp, np_ in zip(layers, k_pad, n_pad):
+        w = layer["w"]
+        k, n = w.shape
+        b = torch.zeros(np_, dtype=torch.float32, device=w.device)
+        b[:n] = layer["b"]
+        padded = {"b": b, "scale": None}
+        if engine == "kernel-bf16":
+            wt = torch.zeros(np_, kp, dtype=torch.bfloat16, device=w.device)
+            wt[:n, :k] = w.t()
+            tiles = wt.view(np_ // 64, 64, kp // 64, 8, 8).permute(2, 0, 1, 3, 4)
+            # 16-byte chunk c of tile row r goes to position c ^ (r % 8)
+            rows = torch.arange(64, device=w.device)[:, None]
+            swizzle = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)
+            padded["w"] = tiles[:, :, rows, swizzle].contiguous()
+        else:
+            wq = torch.zeros(kp, np_, dtype=torch.int8, device=w.device)
+            wq[:k, :n] = w
+            scale = torch.ones(np_, dtype=torch.float32, device=w.device)
+            scale[:n] = layer["scale"]
+            padded["w"], padded["scale"] = wq, scale
+        out.append(padded)
+    return out
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    tensors = list(tensors)
+    return (ctypes.c_void_p * len(tensors))(*(t.data_ptr() for t in tensors))
+
+
+class _ClusterLaunch:
+    """Launch state of the bf16 or int8 cluster kernel for one prepared
+    layer list on one CUDA device: the padded weights and the ctypes
+    argument arrays are built once, and each cluster size the card can
+    schedule for this stack is found once (``cudaOccupancyMaxActiveClusters``)."""
+
+    def __init__(self, layers: list[dict], engine: str, cluster: int | None):
+        from bodywork_tpu_torch.ops._build import load_library
+
+        device = layers[0]["w"].device
+        props = torch.cuda.get_device_properties(device)
+        self.n_sms = props.multi_processor_count
+        self.smem_budget = props.shared_memory_per_block_optin
+        self.widths = [layers[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in layers]
+        sizes = CLUSTER_SIZES if cluster is None else (cluster,)
+        fitting = launch_plans(self.widths, 1, engine, self.n_sms, self.smem_budget,
+                               {c: self.n_sms // c for c in sizes})
+        library, entry = _ENTRY_POINTS[engine]
+        lib = load_library(library)
+        prefix = entry.rsplit("_", 1)[0]  # mlp_bf16 / mlp_int8
+        max_active = getattr(lib, f"{prefix}_max_active_clusters")
+        #: cluster size -> clusters of it the card holds at once, for this stack
+        self.clusters = {}
+        for p in fitting:
+            n = max_active(p.cluster, p.smem_bytes)
+            if n > 0:
+                self.clusters[p.cluster] = n
+        if not self.clusters:
+            raise ValueError(
+                f"{engine}: no cluster size in {[p.cluster for p in fitting]} can be "
+                f"scheduled for layer widths {self.widths} on {props.name}"
+            )
+        self.layers = layers
+        self.engine = engine
+        self.device = device
+        self.padded = pad_layers(layers, engine)
+        k_pad, n_pad = padded_widths(self.widths, engine)
+        n = len(layers)
+        self._kp = (ctypes.c_int * n)(*k_pad)
+        self._np = (ctypes.c_int * n)(*n_pad)
+        self._w = _ptrs(layer["w"] for layer in self.padded)
+        self._b = _ptrs(layer["b"] for layer in self.padded)
+        self._scale = (_ptrs(layer["scale"] for layer in self.padded)
+                       if engine == "kernel-int8" else None)
+        self._fn = getattr(lib, entry)
+        self._error_string = getattr(lib, f"{prefix}_error_string")
+        self._plans: dict[int, LaunchPlan] = {}
+
+    def plan(self, n_rows: int) -> LaunchPlan:
+        """The launch for an ``n_rows`` batch (:func:`launch_plan` over
+        the cluster sizes this card can schedule)."""
+        p = self._plans.get(n_rows)
+        if p is None:
+            p = launch_plan(self.widths, n_rows, self.engine, self.n_sms,
+                            self.smem_budget, self.clusters)
+            if len(self._plans) < 64:
+                self._plans[n_rows] = p
+        return p
+
+    def __call__(self, X: torch.Tensor) -> torch.Tensor:
+        if X.device != self.device:
+            raise ValueError(f"input on {X.device}, kernel weights on {self.device}")
+        X = X.to(torch.float32).contiguous()
+        n = X.shape[0]
+        if n >= 2**31:
+            raise ValueError(f"{n} rows exceed the kernel's 32-bit row count")
+        out = torch.empty(n, dtype=torch.float32, device=X.device)
+        plan = self.plan(n)
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        # int8 takes its scales; bf16 its ring depth
+        shape = ((self._scale, plan.cluster) if self._scale is not None
+                 else (plan.cluster, plan.stages))
+        rc = self._fn(
+            X.data_ptr(), out.data_ptr(), n, len(self.layers), self.widths[0],
+            self._kp, self._np, self._w, self._b, *shape, plan.smem_bytes, stream,
+        )
+        if rc != 0:
+            raise RuntimeError(
+                f"{self.engine} kernel launch failed: "
+                f"{self._error_string(rc).decode()} (cudaError {rc})"
+            )
+        with _LAUNCH_LOCK:
+            LAUNCHES[self.engine] += 1
+        return out
+
+
 class _KernelLaunch:
     """Launch plan for one prepared layer list on one CUDA device: the
     ctypes argument arrays (pointers into the layer tensors, which this
@@ -152,7 +446,8 @@ class _KernelLaunch:
 
         device = layers[0]["w"].device
         widths = [layers[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in layers]
-        lib = load_library()
+        library, entry = _ENTRY_POINTS[engine]
+        lib = load_library(library)
         budget = lib.mlp_max_dynamic_smem(device.index)
         if block_rows is not None and block_rows not in BLOCK_ROWS:
             raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, got {block_rows}")
@@ -170,7 +465,7 @@ class _KernelLaunch:
         self.engine = engine
         self.device = device
         self._sms = torch.cuda.get_device_properties(device).multi_processor_count
-        self._fn = getattr(lib, _ENTRY_POINTS[engine])
+        self._fn = getattr(lib, entry)
         self._error_string = lib.mlp_error_string
         n = len(layers)
         self._widths = (ctypes.c_int * (n + 1))(*widths)
@@ -217,7 +512,8 @@ class _KernelLaunch:
 def make_kernel_mlp_apply(params: dict, device=None,
                           compute_dtype: str | None = None,
                           row_tile: int | None = None,
-                          block_rows: int | None = None):
+                          block_rows: int | None = None,
+                          cluster: int | None = None):
     """Build ``apply(X) -> y`` running the folded MLP through the fused
     kernel (on ``device``: the card unless asked for the CPU).
 
@@ -231,22 +527,40 @@ def make_kernel_mlp_apply(params: dict, device=None,
     :data:`ROW_TILE`, a positive multiple of 8, else ``ValueError``);
     the kernel predictor pads batches to its multiples. The kernel itself
     masks ragged rows and widths, so ``apply`` pads nothing.
-    ``block_rows`` (8, 16 or 32) pins the rows each CUDA block owns; by
-    default each launch picks them from its batch size
-    (``_KernelLaunch.block_rows``).
+    ``block_rows`` pins the row tile, from the engine's own set: 8, 16 or
+    32 rows per CUDA block for ``kernel``, 64 for ``kernel-bf16``, 32 for
+    ``kernel-int8`` (``ValueError`` outside it). ``cluster`` pins the
+    thread-block cluster size of ``kernel-bf16`` / ``kernel-int8`` (one of
+    :data:`CLUSTER_SIZES`; ``kernel`` takes none). By default each launch
+    picks them from its batch size (``_KernelLaunch.block_rows``,
+    :func:`launch_plan`).
     """
     tile = int(row_tile or ROW_TILE)
     if tile < 8 or tile % 8 != 0:
         raise ValueError(f"row_tile must be a positive multiple of 8, got {tile}")
     dev = resolve_device(device)
     engine = KERNEL_ENGINES.get(compute_dtype)
+    if engine == "kernel":
+        if block_rows is not None and block_rows not in BLOCK_ROWS:
+            raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, got {block_rows}")
+        if cluster is not None:
+            raise ValueError("the f32 kernel launches no clusters: cluster must be None")
+    elif engine is not None:
+        rows = CLUSTER_KERNELS[engine].rows
+        if block_rows not in (None, rows):
+            raise ValueError(f"{engine}: block_rows must be {rows}, got {block_rows}")
+        if cluster is not None and cluster not in CLUSTER_SIZES:
+            raise ValueError(f"cluster must be one of {CLUSTER_SIZES}, got {cluster}")
     layers = prepare_layers(
         fold_scaler_into_net(_params_on(params, dev)), compute_dtype
     )
     if len(layers) > MAX_LAYERS:
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, got {len(layers)}")
     d_in = layers[0]["w"].shape[0]
-    launch = _KernelLaunch(layers, engine, block_rows) if dev.type == "cuda" else None
+    launch = None
+    if dev.type == "cuda":
+        launch = (_KernelLaunch(layers, engine, block_rows) if engine == "kernel"
+                  else _ClusterLaunch(layers, engine, cluster))
 
     def apply(X) -> torch.Tensor:
         if isinstance(X, torch.Tensor) and X.device.type != dev.type:

@@ -44,7 +44,7 @@ def _imported_roots(path: Path) -> set[str]:
 
 def test_pyproject_names_every_port_subpackage_and_its_cuda_sources():
     """An installed port must hold every subpackage and the .cu sources
-    its kernels are built from."""
+    (and the headers they include) its kernels are built from."""
     import tomllib
 
     setuptools = tomllib.loads((ROOT / "pyproject.toml").read_text())["tool"]["setuptools"]
@@ -53,8 +53,11 @@ def test_pyproject_names_every_port_subpackage_and_its_cuda_sources():
         for p in (ROOT / "bodywork_tpu_torch").glob("*/__init__.py")
     }
     assert on_disk <= set(setuptools["packages"])
-    assert setuptools["package-data"]["bodywork_tpu_torch.ops"] == ["csrc/*.cu"]
-    assert list((ROOT / "bodywork_tpu_torch" / "ops" / "csrc").glob("*.cu"))
+    ops = ROOT / "bodywork_tpu_torch" / "ops"
+    shipped = {p for pattern in setuptools["package-data"]["bodywork_tpu_torch.ops"]
+               for p in ops.glob(pattern)}
+    assert list((ops / "csrc").glob("*.cu"))
+    assert shipped == set((ops / "csrc").iterdir())  # every source and header
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
