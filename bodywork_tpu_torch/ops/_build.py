@@ -102,8 +102,9 @@ def build_all(names=None) -> dict[str, dict]:
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INTS = ctypes.POINTER(ctypes.c_int)
 _P, _I = ctypes.c_void_p, ctypes.c_int
-#: (x, out, n_rows, n_layers, d_in, kp, np, w, b, then bf16: cluster, stages,
-#: smem_bytes, stream; int8: scale, cluster, smem_bytes, stream)
+#: (x, out, n_rows, n_layers, d_in, kp, np, w, b, then f32 and bf16:
+#: cluster, stages, smem_bytes, stream; int8: scale, cluster, smem_bytes,
+#: stream)
 _CLUSTER_FORWARD = [_P, _P, _I, _I, _I, _INTS, _INTS, _PTRS, _PTRS]
 
 #: library -> every ``extern "C"`` entry point of its source, as
@@ -111,10 +112,9 @@ _CLUSTER_FORWARD = [_P, _P, _I, _I, _I, _INTS, _INTS, _PTRS, _PTRS]
 #: Python int would be cut to 32 bits), ints as ``c_int``
 DECLARATIONS = {
     "mlp_kernel": {
-        "mlp_forward_f32": (
-            [_P, _P, _I, _I, _INTS, _PTRS, _PTRS, _PTRS, _I, _P], _I),
-        "mlp_max_dynamic_smem": ([_I], _I),
-        "mlp_error_string": ([_I], ctypes.c_char_p),
+        "mlp_f32_forward": (_CLUSTER_FORWARD + [_I, _I, _I, _P], _I),
+        "mlp_f32_max_active_clusters": ([_I, _I], _I),
+        "mlp_f32_error_string": ([_I], ctypes.c_char_p),
     },
     "mlp_bf16_tc": {
         "mlp_bf16_forward": (_CLUSTER_FORWARD + [_I, _I, _I, _P], _I),

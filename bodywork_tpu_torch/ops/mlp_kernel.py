@@ -13,11 +13,11 @@ layers in one of three weight types — f32 (engine ``kernel``), bf16
 (``kernel-bf16``) and symmetric per-output-column int8 (``kernel-int8``),
 the counterparts of the Pallas ``pallas``, ``pallas-bf16`` and
 ``pallas-int8`` engines. For a CUDA tensor ``apply`` launches the
-engine's kernel or raises: ``ops/csrc/mlp_kernel.cu`` (f32),
-``ops/csrc/mlp_bf16_tc.cu`` (bf16 on the tensor cores) or
-``ops/csrc/mlp_int8.cu`` (int8 weights, f32 FMA); each source's header
-gives its design and bound. The bf16 and int8 kernels split every layer's
-columns over a thread-block cluster; :func:`launch_plan` picks their row
+engine's kernel or raises: ``ops/csrc/mlp_kernel.cu`` (f32 products as
+three TF32 ``mma.sync`` each), ``ops/csrc/mlp_bf16_tc.cu`` (bf16 on the
+tensor cores) or ``ops/csrc/mlp_int8.cu`` (int8 weights, f32 FMA); each
+source's header gives its design and bound. All three split every layer's
+columns over a thread-block cluster; :func:`launch_plan` picks the row
 tile and cluster size per batch. Only a tensor on the CPU takes the plain
 version, :func:`mlp_stack_plain`, which computes the same function in
 plain torch ops — that is how the CPU tests run, and what
@@ -43,7 +43,7 @@ KERNEL_ENGINES = {None: "kernel", "bfloat16": "kernel-bf16", "int8": "kernel-int
 
 #: engine -> (kernel library, its C entry point)
 _ENTRY_POINTS = {
-    "kernel": ("mlp_kernel", "mlp_forward_f32"),
+    "kernel": ("mlp_kernel", "mlp_f32_forward"),
     "kernel-bf16": ("mlp_bf16_tc", "mlp_bf16_forward"),
     "kernel-int8": ("mlp_int8", "mlp_int8_forward"),
 }
@@ -55,13 +55,6 @@ _LAUNCH_LOCK = threading.Lock()
 
 #: the C entry points take at most MAX_LAYERS layers
 MAX_LAYERS = 16
-#: rows of the batch one CUDA block of the f32 kernel owns (its template
-#: instances)
-BLOCK_ROWS = (8, 16, 32)
-#: output columns one pass of a block covers (MLP_COLS * MLP_THREADS in the
-#: source): a stack whose layers are all at most this wide keeps its
-#: activations in ONE shared-memory buffer, updated in place
-COLUMNS_PER_PASS = 1024
 
 
 def reset_launches() -> None:
@@ -141,14 +134,6 @@ def mlp_stack_plain(layers: list[dict], X: torch.Tensor,
     return h[:, 0]
 
 
-def activation_bytes(widths, block_rows: int) -> int:
-    """Dynamic shared memory one block needs: its rows' activations at the
-    widest layer, in one buffer when every layer's outputs come from one
-    column pass, else two (ping-pong)."""
-    buffers = 1 if max(widths[1:]) <= COLUMNS_PER_PASS else 2
-    return buffers * block_rows * max(widths) * 4
-
-
 @dataclass(frozen=True)
 class _Geometry:
     """The shape of one cluster kernel (mirrors the #defines of its
@@ -158,10 +143,12 @@ class _Geometry:
     unit of the CTA's widest slice outside a ring the wrapper sizes,
     fixed bytes (bf16's alignment slack and mbarriers); the ring depths
     the wrapper may pick (empty where the source fixes its ring), the most
-    units one such ring stage holds and its bytes per unit; and
+    units one such ring stage holds and its bytes per unit;
     ``unit_cost``, the time one more column unit adds to a CTA relative
     to its fixed chain of ring steps, barriers and exchanges (see
-    :func:`launch_plan`)."""
+    :func:`launch_plan`); and ``full_stages``, whether a stage always
+    holds ``stage_units`` units (a narrower slice then takes longer k
+    chunks) rather than the CTA's widest slice."""
 
     rows: int
     k_chunk: int
@@ -174,17 +161,23 @@ class _Geometry:
     stage_units: int
     stage_unit_bytes: int
     unit_cost: float
+    full_stages: bool = False
 
 
-#: the bf16 kernel (mlp_bf16_tc.cu: a ring of 2-6 stages of up to 4 units
-#: of 64 x 64 bf16) and the int8 kernel (mlp_int8.cu: per unit, its fixed
-#: ring of 2 stages of 32 x 64 int8 and a 32 x 64 f32 tile). ``unit_cost``
-#: is a two-point fit to the ``timing-launch-plan`` sweep of
-#: ``chip_smoke.py`` on an H100 SXM: the one-wave times at 256 rows with 8
-#: and 4 units per CTA (clusters of 2 and 4). bf16 took 0.101 and 0.077
-#: ms, 0.0061 ms a unit over a fixed 0.052 ms; int8 took 0.380 and 0.251
-#: ms, 0.032 ms a unit over a fixed 0.122 ms.
+#: the f32 kernel (mlp_kernel.cu: a ring of 2-3 stages, each 16 k-rows of 8
+#: units of 64 f32 columns, or as many more k-rows of fewer units), the bf16
+#: kernel (mlp_bf16_tc.cu: a ring of 2-6 stages of up to 4 units of 64 x 64
+#: bf16) and the int8 kernel (mlp_int8.cu: per unit, its fixed ring of 2
+#: stages of 32 x 64 int8 and a 32 x 64 f32 tile). ``unit_cost`` is a two-point fit to the
+#: ``timing-launch-plan`` sweep of ``chip_smoke.py`` on an H100 SXM: the
+#: one-wave times at 256 rows with 8 and 4 units per CTA (clusters of 2 and
+#: 4). f32 took 0.350 and 0.220 ms, 0.0325 ms a unit over a fixed 0.090
+#: ms; bf16 took 0.101 and 0.077 ms, 0.0061 ms a unit over a fixed 0.052
+#: ms; int8 took 0.380 and 0.251 ms, 0.032 ms a unit over a fixed 0.122 ms.
 CLUSTER_KERNELS = {
+    "kernel": _Geometry(rows=32, k_chunk=16, unit=64, max_units=8, act_bytes=4,
+                        unit_bytes=0, fixed_bytes=0, stages=(2, 3), stage_units=8,
+                        stage_unit_bytes=16 * 64 * 4, unit_cost=0.36, full_stages=True),
     "kernel-bf16": _Geometry(rows=64, k_chunk=64, unit=64, max_units=8, act_bytes=2,
                              unit_bytes=0, fixed_bytes=1088, stages=(2, 3, 4, 5, 6),
                              stage_units=4, stage_unit_bytes=64 * 64 * 2, unit_cost=0.12),
@@ -240,9 +233,9 @@ def plan_smem_bytes(widths, engine: str, cluster: int, stages: int) -> tuple[int
     geo = CLUSTER_KERNELS[engine]
     k_pad, n_pad = padded_widths(widths, engine)
     units = max(-(-(n // geo.unit) // cluster) for n in n_pad)
+    stage_units = geo.stage_units if geo.full_stages else min(units, geo.stage_units)
     smem = (geo.fixed_bytes + geo.rows * max(k_pad) * geo.act_bytes
-            + units * geo.unit_bytes
-            + stages * min(units, geo.stage_units) * geo.stage_unit_bytes)
+            + units * geo.unit_bytes + stages * stage_units * geo.stage_unit_bytes)
     return smem, units
 
 
@@ -316,8 +309,8 @@ def pad_layers(layers: list[dict], engine: str) -> list[dict]:
       k, ordered (k chunk, column unit, row, 16-byte chunk, 8 values),
       each 128-byte row already in the 128-byte swizzle (a
       ``(K_pad/64, N_pad/64, 64, 8, 8)`` bf16 tensor);
-    - int8: ``w`` is (K_pad, N_pad) int8, ``scale`` (N_pad,) with 1 on
-      padded columns."""
+    - f32 and int8: ``w`` is (K_pad, N_pad) in its own type; int8's
+      ``scale`` is (N_pad,) with 1 on padded columns."""
     widths = [layers[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in layers]
     k_pad, n_pad = padded_widths(widths, engine)
     out = []
@@ -336,11 +329,11 @@ def pad_layers(layers: list[dict], engine: str) -> list[dict]:
             swizzle = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)
             padded["w"] = tiles[:, :, rows, swizzle].contiguous()
         else:
-            wq = torch.zeros(kp, np_, dtype=torch.int8, device=w.device)
-            wq[:k, :n] = w
-            scale = torch.ones(np_, dtype=torch.float32, device=w.device)
-            scale[:n] = layer["scale"]
-            padded["w"], padded["scale"] = wq, scale
+            padded["w"] = torch.zeros(kp, np_, dtype=w.dtype, device=w.device)
+            padded["w"][:k, :n] = w
+            if layer["scale"] is not None:
+                padded["scale"] = torch.ones(np_, dtype=torch.float32, device=w.device)
+                padded["scale"][:n] = layer["scale"]
         out.append(padded)
     return out
 
@@ -351,7 +344,7 @@ def _ptrs(tensors) -> ctypes.Array:
 
 
 class _ClusterLaunch:
-    """Launch state of the bf16 or int8 cluster kernel for one prepared
+    """Launch state of an engine's cluster kernel for one prepared
     layer list on one CUDA device: the padded weights and the ctypes
     argument arrays are built once, and each cluster size the card can
     schedule for this stack is found once (``cudaOccupancyMaxActiveClusters``)."""
@@ -369,7 +362,7 @@ class _ClusterLaunch:
                                {c: self.n_sms // c for c in sizes})
         library, entry = _ENTRY_POINTS[engine]
         lib = load_library(library)
-        prefix = entry.rsplit("_", 1)[0]  # mlp_bf16 / mlp_int8
+        prefix = entry.rsplit("_", 1)[0]  # mlp_f32 / mlp_bf16 / mlp_int8
         max_active = getattr(lib, f"{prefix}_max_active_clusters")
         #: cluster size -> clusters of it the card holds at once, for this stack
         self.clusters = {}
@@ -419,85 +412,12 @@ class _ClusterLaunch:
         out = torch.empty(n, dtype=torch.float32, device=X.device)
         plan = self.plan(n)
         stream = torch.cuda.current_stream(X.device).cuda_stream
-        # int8 takes its scales; bf16 its ring depth
+        # int8 takes its scales; f32 and bf16 their ring depth
         shape = ((self._scale, plan.cluster) if self._scale is not None
                  else (plan.cluster, plan.stages))
         rc = self._fn(
             X.data_ptr(), out.data_ptr(), n, len(self.layers), self.widths[0],
             self._kp, self._np, self._w, self._b, *shape, plan.smem_bytes, stream,
-        )
-        if rc != 0:
-            raise RuntimeError(
-                f"{self.engine} kernel launch failed: "
-                f"{self._error_string(rc).decode()} (cudaError {rc})"
-            )
-        with _LAUNCH_LOCK:
-            LAUNCHES[self.engine] += 1
-        return out
-
-
-class _KernelLaunch:
-    """Launch plan for one prepared layer list on one CUDA device: the
-    ctypes argument arrays (pointers into the layer tensors, which this
-    object keeps alive) are built once, not per call."""
-
-    def __init__(self, layers: list[dict], engine: str, block_rows: int | None):
-        from bodywork_tpu_torch.ops._build import load_library
-
-        device = layers[0]["w"].device
-        widths = [layers[0]["w"].shape[0]] + [layer["w"].shape[1] for layer in layers]
-        library, entry = _ENTRY_POINTS[engine]
-        lib = load_library(library)
-        budget = lib.mlp_max_dynamic_smem(device.index)
-        if block_rows is not None and block_rows not in BLOCK_ROWS:
-            raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, got {block_rows}")
-        self.fitting = [
-            r for r in BLOCK_ROWS
-            if activation_bytes(widths, r) <= budget and block_rows in (None, r)
-        ]
-        if not self.fitting:
-            r = block_rows or BLOCK_ROWS[0]
-            raise ValueError(
-                f"layer widths up to {max(widths)} need {activation_bytes(widths, r)} "
-                f"bytes of shared memory at {r} rows per block; the device allows {budget}"
-            )
-        self.layers = layers
-        self.engine = engine
-        self.device = device
-        self._sms = torch.cuda.get_device_properties(device).multi_processor_count
-        self._fn = getattr(lib, entry)
-        self._error_string = lib.mlp_error_string
-        n = len(layers)
-        self._widths = (ctypes.c_int * (n + 1))(*widths)
-        self._w = (ctypes.c_void_p * n)(*(layer["w"].data_ptr() for layer in layers))
-        self._b = (ctypes.c_void_p * n)(*(layer["b"].data_ptr() for layer in layers))
-        self._scale = (
-            (ctypes.c_void_p * n)(*(layer["scale"].data_ptr() for layer in layers))
-            if layers[0]["scale"] is not None else None
-        )
-
-    def block_rows(self, n_rows: int) -> int:
-        """Rows per block for an ``n_rows`` batch: the most rows (each
-        block re-reads every weight from L2 once) whose grid still gives
-        at least 90% of the SMs a block; small batches take the fewest
-        rows, to spread over more SMs."""
-        for r in sorted(self.fitting, reverse=True):
-            if -(-n_rows // r) >= 0.9 * self._sms:
-                return r
-        return min(self.fitting)
-
-    def __call__(self, X: torch.Tensor) -> torch.Tensor:
-        if X.device != self.device:
-            raise ValueError(f"input on {X.device}, kernel weights on {self.device}")
-        X = X.to(torch.float32).contiguous()
-        n = X.shape[0]
-        if n >= 2**31:
-            raise ValueError(f"{n} rows exceed the kernel's 32-bit row count")
-        out = torch.empty(n, dtype=torch.float32, device=X.device)
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = self._fn(
-            X.data_ptr(), out.data_ptr(), n, len(self.layers), self._widths,
-            self._w, self._b, self._scale, self.block_rows(n), stream,
         )
         if rc != 0:
             raise RuntimeError(
@@ -527,25 +447,18 @@ def make_kernel_mlp_apply(params: dict, device=None,
     :data:`ROW_TILE`, a positive multiple of 8, else ``ValueError``);
     the kernel predictor pads batches to its multiples. The kernel itself
     masks ragged rows and widths, so ``apply`` pads nothing.
-    ``block_rows`` pins the row tile, from the engine's own set: 8, 16 or
-    32 rows per CUDA block for ``kernel``, 64 for ``kernel-bf16``, 32 for
-    ``kernel-int8`` (``ValueError`` outside it). ``cluster`` pins the
-    thread-block cluster size of ``kernel-bf16`` / ``kernel-int8`` (one of
-    :data:`CLUSTER_SIZES`; ``kernel`` takes none). By default each launch
-    picks them from its batch size (``_KernelLaunch.block_rows``,
-    :func:`launch_plan`).
+    ``block_rows`` can only restate the engine's row tile: 32 rows for
+    ``kernel`` and ``kernel-int8``, 64 for ``kernel-bf16`` (``ValueError``
+    otherwise). ``cluster`` pins the thread-block cluster size (one of
+    :data:`CLUSTER_SIZES`). By default each launch picks it from its batch
+    size (:func:`launch_plan`).
     """
     tile = int(row_tile or ROW_TILE)
     if tile < 8 or tile % 8 != 0:
         raise ValueError(f"row_tile must be a positive multiple of 8, got {tile}")
     dev = resolve_device(device)
     engine = KERNEL_ENGINES.get(compute_dtype)
-    if engine == "kernel":
-        if block_rows is not None and block_rows not in BLOCK_ROWS:
-            raise ValueError(f"block_rows must be one of {BLOCK_ROWS}, got {block_rows}")
-        if cluster is not None:
-            raise ValueError("the f32 kernel launches no clusters: cluster must be None")
-    elif engine is not None:
+    if engine is not None:
         rows = CLUSTER_KERNELS[engine].rows
         if block_rows not in (None, rows):
             raise ValueError(f"{engine}: block_rows must be {rows}, got {block_rows}")
@@ -557,10 +470,7 @@ def make_kernel_mlp_apply(params: dict, device=None,
     if len(layers) > MAX_LAYERS:
         raise ValueError(f"the kernel takes at most {MAX_LAYERS} layers, got {len(layers)}")
     d_in = layers[0]["w"].shape[0]
-    launch = None
-    if dev.type == "cuda":
-        launch = (_KernelLaunch(layers, engine, block_rows) if engine == "kernel"
-                  else _ClusterLaunch(layers, engine, cluster))
+    launch = _ClusterLaunch(layers, engine, cluster) if dev.type == "cuda" else None
 
     def apply(X) -> torch.Tensor:
         if isinstance(X, torch.Tensor) and X.device.type != dev.type:

@@ -17,11 +17,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``kernel-bf16``: ``mlp_bf16_tc.cu``; ``kernel-int8``: ``mlp_int8.cu``)
    at the served model's widths (1 -> 1024 -> 1024 -> 1024 -> 1) on {1, 8,
    300, 4096} rows, held against its plain PyTorch version on the card,
-   with each launch's shape (rows per block, or row tile and cluster
-   size), and the readings of cheaper arithmetic (``controls``), which
-   each bar must refuse; ``kernels-ragged`` runs a ragged 3 -> 1100 -> 40
-   -> 1 stack the same way and checks that a stack past each kernel's
-   shared memory is refused;
+   with each launch's shape (row tile, cluster size, ring stages, dynamic
+   shared memory), and the readings of cheaper arithmetic (``controls``),
+   which each bar must refuse; ``kernels-ragged`` runs a ragged 3 -> 1100
+   -> 40 -> 1 stack the same way at every cluster size the card schedules
+   and checks that a stack past each kernel's shared memory is refused;
 4. ``slice``   — the serving main path at full width: three days of drift
    data generated on the card, a (1024, 1024, 1024) MLP checkpoint with
    seeded He-init weights, ``serve_latest_model(engine="auto")`` (which
@@ -37,9 +37,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and the folded stack through ``torch.addmm`` in the variant's dtype
    with TF32 off (a yardstick the port never calls), eager
    (``library_ms``) and from a graph (``library_graph_ms``), beside the
-   card's bound; ``timing-block-rows`` and ``timing-launch-plan`` time
-   every launch shape the f32 and the cluster kernels can take at 256, 512
-   and 4096 rows; then one ``kernels`` line summing every kernel up.
+   card's bound; ``timing-launch-plan`` times every cluster size each
+   kernel can take at 256, 512 and 4096 rows; then one ``kernels`` line
+   summing every kernel up.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -91,21 +91,36 @@ def emit(phase: str, **fields) -> None:
 
 def peaks(name: str) -> dict:
     """Published dense peaks of the card (NVIDIA data sheets): f32 on the
-    CUDA cores, bf16 on the tensor cores, and the memory rate."""
+    CUDA cores, TF32 and bf16 on the tensor cores (PCIe and NVL: half the
+    sheet's with-sparsity figure), and the memory rate."""
     if "PCIe" in name:
-        return {"part": "H100 PCIe", "f32": 51e12, "bf16": 756e12, "bytes_s": 2.0e12}
+        return {"part": "H100 PCIe", "f32": 51e12, "tf32": 378e12, "bf16": 756e12,
+                "bytes_s": 2.0e12}
     if "NVL" in name:
-        return {"part": "H100 NVL", "f32": 60e12, "bf16": 835e12, "bytes_s": 3.9e12}
-    return {"part": "H100 SXM", "f32": 67e12, "bf16": 989e12, "bytes_s": 3.35e12}
+        return {"part": "H100 NVL", "f32": 60e12, "tf32": 417.5e12, "bf16": 835e12,
+                "bytes_s": 3.9e12}
+    return {"part": "H100 SXM", "f32": 67e12, "tf32": 495e12, "bf16": 989e12,
+            "bytes_s": 3.35e12}
+
+
+def f32_product_ms(rows: int, card: dict) -> dict:
+    """The two ways to run f32-accurate products on the card, in ms for
+    one forward of ``rows`` rows: FFMA on the CUDA cores (2 operations a
+    MAC at the f32 peak) and 3xTF32 on the tensor cores (three TF32
+    products a MAC, 2 operations each, at the dense TF32 peak)."""
+    macs = rows * sum(k * n for k, n in zip(WIDTHS[:-1], WIDTHS[1:]))
+    return {"ffma_ms": 1e3 * 2 * macs / card["f32"],
+            "tf32x3_ms": 1e3 * 3 * 2 * macs / card["tf32"]}
 
 
 def bound(rows: int, engine: str, card: dict) -> tuple[float, str]:
     """The least time the card could take for one forward of ``rows``
     rows: the larger of its bytes (X read once, weights/biases/scales read
     once, the head written once) over the memory rate, and its operations
-    (2 per MAC) over the peak rate for the operands' type. The f32 and
-    int8 kernels multiply in f32 on the CUDA cores; the bf16 operands'
-    peak is the tensor cores'."""
+    over the peak rate for the operands' type. The f32 and int8 kernels
+    need f32-accurate products: the faster of FFMA and 3xTF32
+    (:func:`f32_product_ms`); the bf16 operands' peak is the tensor
+    cores'."""
     pairs = list(zip(WIDTHS[:-1], WIDTHS[1:]))
     macs = rows * sum(k * n for k, n in pairs)
     weight_bytes = {"kernel": 4, "kernel-bf16": 2, "kernel-int8": 1}[engine]
@@ -114,7 +129,10 @@ def bound(rows: int, engine: str, card: dict) -> tuple[float, str]:
         + sum(n for _, n in pairs) * 4 * (2 if engine == "kernel-int8" else 1)
         + rows * 4
     )
-    t_ops = 2 * macs / (card["bf16"] if engine == "kernel-bf16" else card["f32"])
+    if engine == "kernel-bf16":
+        t_ops = 2 * macs / card["bf16"]
+    else:
+        t_ops = 1e-3 * min(f32_product_ms(rows, card).values())
     t_bytes = nbytes / card["bytes_s"]
     return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
@@ -265,25 +283,22 @@ def phase_kernels(torch, dev) -> dict:
 
 
 def _launch_shape(apply, rows_list) -> dict:
-    """What each launch of ``apply`` looks like per batch size: the f32
-    kernel's rows per block, or the cluster kernels' (row tile, cluster)."""
-    if apply.engine == "kernel":
-        return {"block_rows": {rows: apply.launch.block_rows(rows) for rows in rows_list}}
+    """What each launch of ``apply`` looks like per batch size: [row tile,
+    cluster size, ring stages (0 where the source fixes its ring), dynamic
+    shared memory bytes a CTA]."""
+    plans = {rows: apply.launch.plan(rows) for rows in rows_list}
     return {"launch_plan": {
-        rows: [apply.launch.plan(rows).rows_per_tile, apply.launch.plan(rows).cluster]
-        for rows in rows_list
+        rows: [p.rows_per_tile, p.cluster, p.stages, p.smem_bytes] for rows, p in plans.items()
     }}
 
 
 def _check_ragged(torch, dev, engine: str, dtype) -> None:
     """The kernels' other paths at small cost: 3 features, ragged widths
-    and a 1100-wide layer, held against the plain version. The f32 kernel
-    needs two column passes (two ping-pong activation buffers) there, run
-    at 8 and 16 rows per block; at 32 rows those buffers exceed a block's
-    shared memory, which the wrapper refuses. The cluster kernels run it at
-    their row tile and every cluster size the card schedules for it, and
-    must refuse a 2048-wide layer, past their shared-memory limit (1536
-    features for bf16, 1600 for int8: the headers of their sources)."""
+    and a 1100-wide layer, held against the plain version at the kernel's
+    row tile and every cluster size the card schedules for it. Each kernel
+    must refuse a 2048-wide layer, past its shared-memory limit (1280
+    features for f32, 1536 for bf16, 1600 for int8: the headers of their
+    sources)."""
     from bodywork_tpu_torch.models.mlp import init_mlp_params
     from bodywork_tpu_torch.ops.mlp_kernel import (
         CLUSTER_KERNELS,
@@ -305,14 +320,10 @@ def _check_ragged(torch, dev, engine: str, dtype) -> None:
 
     params = params_for((3, 1100, 40, 1))
     X = torch.rand(37, 3, generator=gen, device=dev) * 100.0
-    if engine == "kernel":
-        shapes = [{"block_rows": r} for r in (8, 16)]
-        refuse = dict(params=params, block_rows=32)
-    else:
-        rows = CLUSTER_KERNELS[engine].rows
-        probe = make_kernel_mlp_apply(params, dev, compute_dtype=dtype, block_rows=rows)
-        shapes = [{"block_rows": rows, "cluster": c} for c in sorted(probe.launch.clusters)]
-        refuse = dict(params=params_for((3, 2048, 1)), block_rows=rows)
+    rows = CLUSTER_KERNELS[engine].rows
+    probe = make_kernel_mlp_apply(params, dev, compute_dtype=dtype, block_rows=rows)
+    shapes = [{"block_rows": rows, "cluster": c} for c in sorted(probe.launch.clusters)]
+    refuse = dict(params=params_for((3, 2048, 1)), block_rows=rows)
     worst = 0.0
     for shape in shapes:
         apply = make_kernel_mlp_apply(params, dev, compute_dtype=dtype, **shape)
@@ -468,7 +479,6 @@ def _graph_ms(torch, fn) -> float:
 
 def phase_timing(torch, dev, card: dict) -> dict:
     from bodywork_tpu_torch.ops.mlp_kernel import (
-        BLOCK_ROWS,
         CLUSTER_KERNELS,
         make_kernel_mlp_apply,
         mlp_stack_plain,
@@ -512,19 +522,11 @@ def phase_timing(torch, dev, card: dict) -> dict:
                 "library_graph_ms": _graph_ms(torch, lambda: library(X)),
                 "bound_ms": bound_ms, "bound_by": bound_by,
             }
+            if engine != "kernel-bf16":
+                row["bound_products_ms"] = f32_product_ms(rows, card)
             out[engine][rows] = row
             emit("timing", engine=engine, rows=rows, reps=TIMING_REPS,
                  **_launch_shape(apply, [rows]), **row)
-    # rows per CUDA block is the f32 kernel's one launch parameter, picked
-    # per batch size by the wrapper: time every choice at the served buckets
-    sweep = {}
-    for block_rows in BLOCK_ROWS:
-        apply = make_kernel_mlp_apply(params, dev, block_rows=block_rows)
-        sweep[block_rows] = {
-            rows: _median_ms(torch, lambda: apply.launch(X_all[:rows].contiguous()))
-            for rows in (256, 512, 4096)
-        }
-    emit("timing-block-rows", engine="kernel", kernel_ms=sweep)
     # the cluster kernels' launch plan: (row tile, cluster size) per batch;
     # time every cluster size the card schedules, beside the planner's pick
     for engine in CLUSTER_KERNELS:

@@ -211,8 +211,9 @@ def test_block_rows_outside_the_engines_own_set_raise(engine, dtype, bad):
 
 def test_cluster_pins_are_checked():
     params = _params(1, (8,))
-    with pytest.raises(ValueError, match="f32 kernel launches no clusters"):
-        port.make_kernel_mlp_apply(params, "cpu", cluster=2)
+    with pytest.raises(ValueError, match="cluster must be one of"):
+        port.make_kernel_mlp_apply(params, "cpu", cluster=3)
+    assert port.make_kernel_mlp_apply(params, "cpu", block_rows=32, cluster=2).engine == "kernel"
     with pytest.raises(ValueError, match="cluster must be one of"):
         port.make_kernel_mlp_apply(params, "cpu", compute_dtype="int8", cluster=3)
     apply = port.make_kernel_mlp_apply(params, "cpu", compute_dtype="bfloat16",
