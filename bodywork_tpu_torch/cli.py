@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test``.
+generate|serve|test|train|run-day|run-sim``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -8,7 +8,17 @@ generate|serve|test``.
   kernel for a wide MLP on the card);
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
-  and persists the test metrics.
+  and persists the test metrics;
+- ``train --store S [--model linear|mlp] [--mode full|incremental]`` fits
+  on all history and persists the checkpoint and its metrics (only the
+  ``full`` refit is ported);
+- ``run-day --store S [--date D]`` runs one simulated day of the default
+  pipeline (train -> serve -> generate -> test) in-process, and
+  ``run-sim --store S --days N [--date D] [--samples-per-day R]`` runs N.
+  Both take ``--model linear|mlp`` and ``--mode single|batch`` (the
+  test stage's requests); ``train``, ``run-day`` and ``run-sim`` take
+  ``--mlp-hidden 1024,1024,1024``, ``--mlp-steps`` and ``--mlp-lr`` to
+  override the MLP's config.
 
 ``--device`` defaults to ``cuda``: without a card the command refuses to
 run unless ``--device cpu`` is given.
@@ -21,6 +31,10 @@ import sys
 from datetime import date
 
 from bodywork_tpu_torch.utils.dates import date_range, parse_date
+
+#: the train command's modes (``train.trainer.TRAIN_MODES``, kept here so
+#: building the parser imports no torch)
+TRAIN_MODES = ("full", "incremental")
 
 #: serving engines the cli offers (``auto`` + the port's engine names);
 #: ``torch-bf16`` / ``torch-int8`` are not ported yet
@@ -67,6 +81,89 @@ def cmd_test(args) -> int:
     return 0
 
 
+def _mlp_kwargs(args) -> dict:
+    """The MLP config overrides given on the command line, as the flat
+    kwargs ``make_model`` takes."""
+    kwargs = {}
+    if args.mlp_hidden is not None:
+        kwargs["hidden"] = args.mlp_hidden
+    if args.mlp_steps is not None:
+        kwargs["n_steps"] = args.mlp_steps
+    if args.mlp_lr is not None:
+        kwargs["learning_rate"] = args.mlp_lr
+    if kwargs and args.model != "mlp":
+        raise SystemExit("--mlp-hidden/--mlp-steps/--mlp-lr apply to --model mlp only")
+    return kwargs
+
+
+def cmd_train(args) -> int:
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.train import train_on_history
+
+    result = train_on_history(open_store(args.store), args.model,
+                              model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
+                              device=args.device)
+    m = result.metrics
+    print(f"{result.model_artefact_key} MAPE={m['MAPE']:.4f} r2={m['r_squared']:.4f} "
+          f"mode={result.mode} rows_touched={result.rows_touched}")
+    return 0
+
+
+def _runner(args):
+    from bodywork_tpu_torch.data.drift_config import DriftConfig
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.store import open_store
+
+    spec = default_pipeline(args.model, args.mode)
+    spec.stages[TRAIN_STAGE].args.update(_mlp_kwargs(args))
+    samples = getattr(args, "samples_per_day", None)
+    drift = DriftConfig(n_samples=samples) if samples else None
+    return LocalRunner(spec, open_store(args.store), drift=drift, device=args.device)
+
+
+def _print_day(r) -> None:
+    print(f"day {r.day}: {r.wall_clock_s:.3f}s")
+    for name, secs in r.stage_seconds.items():
+        print(f"  {name}: {secs:.3f}s")
+    sys.stdout.flush()
+
+
+def cmd_run_day(args) -> int:
+    runner = _runner(args)
+    d = parse_date(args.date) if args.date else date.today()
+    runner.bootstrap(d)
+    _print_day(runner.run_day(d))
+    return 0
+
+
+def cmd_run_sim(args) -> int:
+    runner = _runner(args)
+    start = parse_date(args.date) if args.date else date.today()
+    results = runner.run_simulation(start, args.days, on_day=_print_day)
+    total = sum(r.wall_clock_s for r in results)
+    print(f"total {total:.3f}s over {args.days} day(s), "
+          f"mean {total / max(args.days, 1):.3f}s/day")
+    return 0
+
+
+def _positive_int(raw: str) -> int:
+    value = int(raw)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {raw}")
+    return value
+
+
+def _widths(raw: str) -> tuple[int, ...]:
+    try:
+        widths = tuple(int(w) for w in raw.split(",") if w.strip())
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"widths must be comma-separated integers, got {raw!r}")
+    if not widths or any(w < 1 for w in widths):
+        raise argparse.ArgumentTypeError(f"widths must be positive integers, got {raw!r}")
+    return widths
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="bodywork_tpu_torch",
@@ -106,6 +203,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scoring-url", required=True)
     p.add_argument("--mode", default="single", choices=["single", "batch"])
     p.add_argument("--max-rows", type=int, default=None)
+
+    def add_model_args(p) -> None:
+        p.add_argument("--store", **store)
+        p.add_argument("--model", default="linear", choices=["linear", "mlp"])
+        p.add_argument("--mlp-hidden", type=_widths, default=None, metavar="W,W,...",
+                       help="the MLP's hidden widths (default: the config's 64,64)")
+        p.add_argument("--mlp-steps", type=_positive_int, default=None,
+                       help="Adam steps per fit (default 2000)")
+        p.add_argument("--mlp-lr", type=float, default=None,
+                       help="Adam learning rate (default 1e-2)")
+        p.add_argument("--device", **device)
+
+    p = sub.add_parser("train", help="train on all history and persist the model")
+    p.set_defaults(fn=cmd_train)
+    add_model_args(p)
+    p.add_argument("--mode", default="full", choices=list(TRAIN_MODES),
+                   help="full refit on all history (incremental is not ported yet)")
+
+    for name, fn, help_ in (
+        ("run-day", cmd_run_day, "run one simulated day in-process"),
+        ("run-sim", cmd_run_sim, "run an N-day drift simulation in-process"),
+    ):
+        p = sub.add_parser(name, help=help_)
+        p.set_defaults(fn=fn)
+        add_model_args(p)
+        p.add_argument("--date", default=None, help="(first) day, YYYY-MM-DD (default today)")
+        p.add_argument("--mode", default="batch", choices=["single", "batch"],
+                       help="the test stage's requests: one row or one batch each")
+        if name == "run-sim":
+            p.add_argument("--days", type=_positive_int, required=True)
+            p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
+                           help="rows the generator draws a day (default 1440)")
     return parser
 
 

@@ -6,22 +6,39 @@ The schema is the reference's (``stage_3:46-61``): a CSV with header
 ``datasets/regression-dataset-<date>.csv``. Values are written as the
 shortest decimal that reads back to the same float32 (what pandas writes
 for a float32 column), so a day round-trips bit-exact through either
-package.
+package. :func:`load_all_datasets` reads the whole history for the train
+stage: plain (list, parse, concatenate), without the JAX package's
+snapshot and parse caches (ROADMAP).
 """
 from __future__ import annotations
 
 import csv
 import io
+import math
 from datetime import date
 
 import numpy as np
 
-from bodywork_tpu_torch.store.base import ArtefactStore
+from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore
 from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, dataset_key
 from bodywork_tpu_torch.utils.dates import date_from_key
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("data.io")
+
+
+def csv_value(v) -> str:
+    """One field of a metrics record as pandas' ``to_csv`` writes it: NaN
+    as an empty field, floats as their shortest round-trip repr."""
+    if isinstance(v, float):
+        return "" if math.isnan(v) else repr(v)
+    return str(v)
+
+
+def csv_record(columns, record: dict) -> str:
+    """A one-row CSV (header + row) of ``record``'s ``columns``, in the
+    spelling pandas' ``to_csv(index=False)`` gives the JAX package."""
+    return ",".join(columns) + "\n" + ",".join(csv_value(record[c]) for c in columns) + "\n"
 
 
 class Dataset:
@@ -81,3 +98,18 @@ def load_latest_dataset(store: ArtefactStore) -> Dataset:
     """Latest day's dataset (``stage_4:39-63``)."""
     key, _ = store.latest(DATASETS_PREFIX)
     return load_dataset(store, key)
+
+
+def load_all_datasets(store: ArtefactStore) -> Dataset:
+    """All available history, oldest first, concatenated, dated by the
+    most recent day (``stage_1:39-76``): the same ``Dataset`` as the JAX
+    package's ``load_all_datasets`` on the same store."""
+    hist = store.history(DATASETS_PREFIX)
+    if not hist:
+        raise ArtefactNotFound(f"no datasets under '{DATASETS_PREFIX}'")
+    parts = [load_dataset(store, key) for key, _ in hist]
+    X = np.concatenate([p.X for p in parts])
+    y = np.concatenate([p.y for p in parts])
+    most_recent = hist[-1][1]
+    log.info(f"loaded {len(parts)} day(s), {len(y)} rows, most recent {most_recent}")
+    return Dataset(X, y, most_recent)

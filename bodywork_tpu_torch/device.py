@@ -9,25 +9,27 @@ speed its operator sized it for; failing at boot is the honest outcome.
 :func:`fence` is the counterpart of ``bodywork_tpu.utils.sync.fence``:
 CUDA kernels launch asynchronously, so timing and error-surfacing code
 waits for the device with ``torch.cuda.synchronize``.
+
+Matrix-product precision: the port's float32 products (training, the
+linear fit, the plain ``torch`` engine) run at full IEEE float32, because
+they are held to the JAX package's float32 tolerances, which TF32's ~3
+decimal digits would miss. The port never changes PyTorch's process-wide
+TF32 switches itself: :func:`require_ieee_f32_matmul` refuses to run
+those products on the card when the caller's process has TF32 on, and
+:func:`matmul_precision` reports the settings in force.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "fence"]
+__all__ = ["fence", "matmul_precision", "require_ieee_f32_matmul", "resolve_device"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """The device an entry point runs on: ``cuda`` by default, ``cpu``
     only when asked for. Raises ``RuntimeError`` when CUDA is asked for
     (explicitly or by default) and no CUDA device is present.
-
-    Also pins float32 matrix products and convolutions to full IEEE
-    float32 (no TF32): the f32 engines are held to the JAX package's
-    2e-4 tolerances, which TF32's ~3 decimal digits would not meet.
     """
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -40,6 +42,30 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def matmul_precision() -> dict:
+    """PyTorch's float32 matrix-product settings in force in this process."""
+    return {
+        "allow_tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+        "float32_matmul_precision": torch.get_float32_matmul_precision(),
+    }
+
+
+def require_ieee_f32_matmul(device: torch.device) -> None:
+    """Refuse float32 products on the card while the process has TF32
+    (or bf16) float32 products switched on: the port's f32 paths are held
+    to IEEE float32. CPU products are always IEEE float32."""
+    if device.type != "cuda":
+        return
+    setting = matmul_precision()
+    if setting["allow_tf32"] or setting["float32_matmul_precision"] != "highest":
+        raise RuntimeError(
+            f"float32 matrix products are set to reduced precision in this "
+            f"process ({setting}); the port's float32 paths need IEEE float32: "
+            "set torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')"
+        )
 
 
 def _tensors(out):

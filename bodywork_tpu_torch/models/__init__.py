@@ -6,6 +6,9 @@ from bodywork_tpu_torch.models.checkpoint import (
     save_model,
     save_model_bytes,
 )
+from bodywork_tpu_torch.models.base import Regressor, TrainSplit, train_test_split
+from bodywork_tpu_torch.models.linear import LinearConfig, LinearRegressor
+from bodywork_tpu_torch.models.metrics import regression_metrics
 from bodywork_tpu_torch.models.mlp import (
     MLPConfig,
     MLPNet,
@@ -16,6 +19,8 @@ from bodywork_tpu_torch.models.mlp import (
 )
 
 __all__ = [
+    "LinearConfig",
+    "LinearRegressor",
     "MODEL_REGISTRY",
     "MLPConfig",
     "MLPNet",
@@ -24,8 +29,12 @@ __all__ = [
     "load_model",
     "load_model_bytes",
     "mlp_apply",
+    "Regressor",
+    "TrainSplit",
     "params_from_jax",
+    "regression_metrics",
     "resolve_serving_key",
     "save_model",
     "save_model_bytes",
+    "train_test_split",
 ]

@@ -16,6 +16,7 @@ from datetime import date
 import numpy as np
 
 from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.models.linear import LinearRegressor
 from bodywork_tpu_torch.models.mlp import MLPRegressor, params_from_jax, params_to_host
 from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore
 from bodywork_tpu_torch.store.schema import (
@@ -32,9 +33,8 @@ log = get_logger("models.checkpoint")
 
 _META_KEY = "__meta__"
 
-#: the model types this slice serves; the JAX package's ``linear`` model
-#: is ported with its train stage in a later slice
-MODEL_REGISTRY = {MLPRegressor.model_type: MLPRegressor}
+#: checkpoint model type -> model class (the JAX package's registry)
+MODEL_REGISTRY = {cls.model_type: cls for cls in (LinearRegressor, MLPRegressor)}
 
 
 def _flatten(node, prefix: str = ""):
@@ -95,9 +95,8 @@ def load_model_bytes(data: bytes, device=None):
     cls = MODEL_REGISTRY.get(model_type)
     if cls is None:
         raise ValueError(
-            f"checkpoint model type {model_type!r} is not served by the port "
-            "yet: the linear model comes with its train stage in a later "
-            "slice (ROADMAP Queue 1 (a))"
+            f"unknown checkpoint model type {model_type!r}; expected one of "
+            f"{sorted(MODEL_REGISTRY)}"
         )
     params = params_from_jax(_unflatten_paths(arrays), resolve_device(device))
     return cls.from_config_dict(meta["config"], params)

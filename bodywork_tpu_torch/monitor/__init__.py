@@ -1,5 +1,6 @@
 from bodywork_tpu_torch.monitor.tester import (
     HttpScoringClient,
+    InProcessScoringClient,
     compute_test_metrics,
     persist_test_metrics,
     run_service_test,
@@ -9,6 +10,7 @@ from bodywork_tpu_torch.monitor.tester import (
 
 __all__ = [
     "HttpScoringClient",
+    "InProcessScoringClient",
     "compute_test_metrics",
     "persist_test_metrics",
     "run_service_test",

@@ -10,15 +10,16 @@ max APE, ``mean_response_time`` of the HTTP round-trip, ``n_failures``
 counted apart and excluded, plus the bias channel ``mean_error``,
 ``error_std`` (sample std, ddof=1) and ``n_scored``.
 
-The client retries 5xx/429 responses and connection failures through the
-shared policy (:mod:`bodywork_tpu_torch.utils.retry`), with a numeric
-``Retry-After`` as a floor under the backoff — the JAX client's budget.
+The HTTP client retries 5xx/429 responses and connection failures
+through the shared policy (:mod:`bodywork_tpu_torch.utils.retry`), with a
+numeric ``Retry-After`` as a floor under the backoff — the JAX client's
+budget. :class:`InProcessScoringClient` sends the same requests straight
+to a scoring app object, with the same status retries: the day loop's
+test stage without sockets.
 """
 from __future__ import annotations
 
-import io
 import json
-import math
 import urllib.error
 import urllib.request
 from datetime import date
@@ -26,7 +27,7 @@ from time import perf_counter
 
 import numpy as np
 
-from bodywork_tpu_torch.data.io import Dataset, load_latest_dataset
+from bodywork_tpu_torch.data.io import Dataset, csv_record, load_latest_dataset
 from bodywork_tpu_torch.store.base import ArtefactStore
 from bodywork_tpu_torch.store.schema import test_metrics_key
 from bodywork_tpu_torch.utils.logging import get_logger
@@ -40,8 +41,9 @@ _APE_EPS = 2.220446049250313e-16
 #: failures (a 4xx other than 429 is a deterministic client error)
 RETRYABLE_STATUSES = frozenset({429, 500, 502, 503, 504})
 
-#: rows per ``/score/v1/batch`` request in batch mode
-BATCH_ROWS = 512
+#: rows per ``/score/v1/batch`` request in batch mode, unless the caller
+#: says otherwise (the default pipeline's test stage sends 2048)
+DEFAULT_BATCH_SIZE = 512
 
 #: the client's budget: the JAX client's defaults (3 retries, 50 ms base
 #: backoff capped at 1 s, a 30 s deadline, 10 s per request)
@@ -130,14 +132,57 @@ class HttpScoringClient:
         return False, [], elapsed
 
 
+class InProcessScoringClient:
+    """Scores through a scoring app's ``handle`` (a :class:`ScoringApp`
+    or a replica front) without sockets, with the HTTP client's status
+    retries on a tighter backoff: there is no network to be polite to."""
+
+    POLICY = RetryPolicy(attempts=4, base_delay_s=0.005, max_delay_s=0.05, deadline_s=5.0)
+
+    def __init__(self, app, path: str = "/score/v1"):
+        self.app = app
+        self.path = path
+
+    def batch_sibling(self) -> "InProcessScoringClient":
+        return InProcessScoringClient(self.app, "/score/v1/batch")
+
+    def _post(self, payload: dict):
+        status, headers, body = self.app.handle(
+            "POST", self.path, json.dumps(payload).encode(), "application/json",
+        )
+        if status in RETRYABLE_STATUSES:
+            raise _RetryableStatus(status, _retry_after_seconds(headers))
+        return status, body
+
+    def score(self, payload: dict) -> tuple[bool, list[float], float]:
+        start = perf_counter()
+        try:
+            status, body = call_with_retry(
+                lambda: self._post(payload), self.POLICY,
+                is_retryable=lambda e: isinstance(e, _RetryableStatus),
+            )
+        except _RetryableStatus as exc:
+            log.error(f"scoring request failed after retries: HTTP {exc.status_code}")
+            return False, [], perf_counter() - start
+        elapsed = perf_counter() - start
+        if status == 200:
+            doc = json.loads(body)
+            preds = doc["predictions"] if "predictions" in doc else [doc["prediction"]]
+            return True, [float(p) for p in preds], elapsed
+        log.error(f"scoring request failed: HTTP {status}")
+        return False, [], elapsed
+
+
 def _ape(score: float, label: float) -> float:
     return abs(score - label) / max(abs(label), _APE_EPS)
 
 
-def score_dataset(client, ds: Dataset, mode: str = "single") -> dict[str, np.ndarray]:
-    """Score every labeled row via the live service. Returns the results
-    as columns ``score, label, APE, response_time, ok`` (the reference's
-    ``stage_4:98`` plus ``ok``)."""
+def score_dataset(client, ds: Dataset, mode: str = "single",
+                  batch_size: int = DEFAULT_BATCH_SIZE) -> dict[str, np.ndarray]:
+    """Score every labeled row via the live service, one row per request
+    (``single``) or ``batch_size`` rows per request (``batch``). Returns
+    the results as columns ``score, label, APE, response_time, ok`` (the
+    reference's ``stage_4:98`` plus ``ok``)."""
     rows = []
     multi = ds.X.shape[1] > 1
 
@@ -154,9 +199,11 @@ def score_dataset(client, ds: Dataset, mode: str = "single") -> dict[str, np.nda
             ape = _ape(score, float(label)) if ok else np.nan
             rows.append((score, float(label), ape, elapsed, ok))
     elif mode == "batch":
-        for i in range(0, len(ds.y), BATCH_ROWS):
-            yb = ds.y[i : i + BATCH_ROWS]
-            xb = ds.X[i : i + BATCH_ROWS]
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        for i in range(0, len(ds.y), batch_size):
+            yb = ds.y[i : i + batch_size]
+            xb = ds.X[i : i + batch_size]
             if multi:
                 payload = [[float(v) for v in row] for row in xb]
             else:
@@ -211,34 +258,28 @@ def compute_test_metrics(results: dict, results_date: date) -> dict:
     }
 
 
-def _csv_value(v) -> str:
-    # pandas' to_csv spelling: NaN as an empty field, floats as repr
-    if isinstance(v, float):
-        return "" if math.isnan(v) else repr(v)
-    return str(v)
-
-
 def persist_test_metrics(store: ArtefactStore, metrics: dict, results_date: date) -> str:
     """Write ``test-metrics/regressor-test-results-<date>.csv``
     (``stage_4:116-134``), the JAX package's columns and order."""
     key = test_metrics_key(results_date)
-    buf = io.StringIO()
-    buf.write(",".join(METRIC_COLUMNS) + "\n")
-    buf.write(",".join(_csv_value(metrics[c]) for c in METRIC_COLUMNS) + "\n")
-    store.put_text(key, buf.getvalue())
+    store.put_text(key, csv_record(METRIC_COLUMNS, metrics))
     log.info(f"persisted test metrics to {key}")
     return key
 
 
 def run_service_test(store: ArtefactStore, client, mode: str = "single",
-                     max_rows: int | None = None) -> dict:
+                     max_rows: int | None = None,
+                     batch_size: int = DEFAULT_BATCH_SIZE) -> dict:
     """Full test-stage flow: latest dataset -> score via the live service
     -> metrics -> persist. ``max_rows`` caps the scored rows (head of the
-    day) for cheap smoke tests. Returns the metrics record."""
+    day) for cheap smoke tests; ``batch_size`` is the rows per request in
+    batch mode. Returns the metrics record."""
     ds = load_latest_dataset(store)
     if max_rows is not None and len(ds) > max_rows:
         ds = Dataset(ds.X[:max_rows], ds.y[:max_rows], ds.date)
-    results = score_dataset(client, ds, mode=mode)
+    if mode == "batch" and isinstance(client, InProcessScoringClient):
+        client = client.batch_sibling()
+    results = score_dataset(client, ds, mode=mode, batch_size=batch_size)
     metrics = compute_test_metrics(results, ds.date)
     persist_test_metrics(store, metrics, ds.date)
     log.info(

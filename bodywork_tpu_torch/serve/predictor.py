@@ -7,7 +7,8 @@ small, pre-warmable set of shapes whatever the traffic. The buckets are
 the JAX package's, so the same requests pad to the same shapes in both:
 
 - :class:`PaddedPredictor` (engine ``torch``): buckets
-  ``(1, 8, 64, 512, 4096)`` over the plain float32 ``mlp_apply``;
+  ``(1, 8, 64, 512, 4096)`` over the model's plain float32 ``apply``
+  (``mlp_apply`` or ``linear_apply``);
 - :class:`KernelMLPPredictor` (engines ``kernel``, ``kernel-bf16``,
   ``kernel-int8``): the fused CUDA kernel (``ops.mlp_kernel``) with the
   Pallas predictor's bucket policy ``(tile, 2·tile, 16·tile)``.
@@ -21,7 +22,7 @@ import numpy as np
 import torch
 
 from bodywork_tpu_torch.device import fence
-from bodywork_tpu_torch.models.mlp import MLPRegressor, mlp_apply
+from bodywork_tpu_torch.models.mlp import MLPRegressor
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve.predictor")
@@ -30,7 +31,8 @@ DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
 
 
 class PaddedPredictor:
-    """Bucket-padding predictor over the model's plain f32 apply.
+    """Bucket-padding predictor over the model's plain f32 apply (full
+    IEEE float32 products: :func:`require_ieee_f32_matmul`).
     Subclasses override :meth:`_dispatch_padded` to change the engine
     while reusing the bucket/pad/chunk logic here."""
 
@@ -48,7 +50,7 @@ class PaddedPredictor:
         on a CUDA device: the result is a device tensor)."""
         X = torch.as_tensor(Xp, device=self.device)
         with torch.inference_mode():
-            return mlp_apply(self.model.params, X)
+            return self.model.apply(self.model.params, X)
 
     def _predict_padded(self, Xp: np.ndarray) -> np.ndarray:
         return self._dispatch_padded(Xp).cpu().numpy()

@@ -1,9 +1,12 @@
 """Scoring-service lifecycle (the port of ``bodywork_tpu.serve.server``).
 
 :func:`serve_latest_model` loads the newest checkpoint from the store onto
-the card, picks the engine, warms every bucket and serves over
-``http.server.ThreadingHTTPServer``; with ``block=False`` it returns a
-started :class:`ServiceHandle`.
+the card and hands it to :func:`serve_model`, which picks the engine,
+warms every bucket and serves over ``http.server.ThreadingHTTPServer``
+(the day loop's serve stage calls :func:`serve_model` itself); with
+``block=False`` they return a started :class:`ServiceHandle`. With
+``replicas > 1`` the requests alternate over N scoring apps that share
+one predictor (:class:`RoundRobinApp`).
 
 Engine names map one to one onto the JAX package's (:data:`ENGINE_NAMES`):
 ``xla`` -> ``torch`` (plain f32 torch), ``pallas*`` -> ``kernel*`` (the
@@ -13,10 +16,11 @@ not ported yet and raise.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
 from bodywork_tpu_torch.models.mlp import MLPRegressor
 from bodywork_tpu_torch.serve.app import ScoringApp
@@ -72,6 +76,7 @@ def build_predictor(model, engine: str = "auto",
     if engine in _KERNEL_DTYPES:
         return KernelMLPPredictor(model, buckets, compute_dtype=_KERNEL_DTYPES[engine])
     if engine == "torch":
+        require_ieee_f32_matmul(model.device)
         return PaddedPredictor(model, buckets or DEFAULT_BUCKETS)
     if engine in ("torch-bf16", "torch-int8"):
         raise ValueError(
@@ -86,7 +91,35 @@ def build_predictor(model, engine: str = "auto",
     )
 
 
-def _handler_for(app: ScoringApp):
+class RoundRobinApp:
+    """A front alternating requests over N replica apps (the port of the
+    JAX ``RoundRobinApp``): the local stand-in for a k8s Service over the
+    reference's 2 replicas (``bodywork.yaml:40-42``). Replicas are
+    stateless over read-only model state, so any of them serves a request
+    identically; the front makes every replica take traffic."""
+
+    def __init__(self, apps):
+        if not apps:
+            raise ValueError("need at least one replica app")
+        self.apps = list(apps)
+        self._counter = itertools.count()
+        self._lock = threading.Lock()
+
+    @property
+    def predictor(self):
+        return self.apps[0].predictor
+
+    def healthz_payload(self) -> dict:
+        return self.apps[0].healthz_payload()
+
+    def handle(self, method: str, path: str, body: bytes = b"",
+               content_type: str | None = None):
+        with self._lock:
+            app = self.apps[next(self._counter) % len(self.apps)]
+        return app.handle(method, path, body, content_type)
+
+
+def _handler_for(app):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -119,8 +152,10 @@ class ServiceHandle:
     """A scoring service on a ``ThreadingHTTPServer`` (one thread per
     connection). ``port=0`` lets the OS pick a free port."""
 
-    def __init__(self, app: ScoringApp, host: str = "127.0.0.1", port: int = 5000):
+    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000):
         self.app = app
+        #: the scoring apps behind the front (one unless replicated)
+        self.replica_apps = list(getattr(app, "apps", [app]))
         self._server = ThreadingHTTPServer((host, port), _handler_for(app))
         self._server.daemon_threads = True
         self.host = host
@@ -162,27 +197,42 @@ class ServiceHandle:
         log.info("scoring service stopped")
 
 
-def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
-                       block: bool = True, engine: str = "auto", device=None,
-                       buckets: tuple[int, ...] | None = None):
-    """Load the newest checkpoint onto ``device`` (the card unless asked
-    for the CPU; no CUDA and no ``device="cpu"`` raises), build the
-    engine's predictor, warm every bucket, and serve. ``store`` is an
-    artefact store or a store directory. With ``block=False`` returns a
-    started :class:`ServiceHandle`."""
-    dev = resolve_device(device)
-    store = open_store(store)
-    served_key, served_source = resolve_serving_key(store)
-    model, model_date = load_model(store, served_key, device=dev)
+def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
+                block: bool = True, engine: str = "auto",
+                buckets: tuple[int, ...] | None = None, replicas: int = 1,
+                model_key: str | None = None, model_source: str | None = None):
+    """Serve a loaded model from its device: build the engine's predictor,
+    warm every bucket (so a kernel that fails to build or launch fails the
+    start, not a request), and serve through ``replicas`` scoring apps that
+    share the predictor. With ``block=False`` returns a started
+    :class:`ServiceHandle`."""
     predictor = build_predictor(model, engine, buckets=buckets)
-    log.info(f"serving {model.info} on {dev} through engine {predictor.engine!r}")
-    app = ScoringApp(
-        model, model_date, predictor=predictor,
-        model_key=served_key, model_source=served_source,
-    )
+    log.info(f"serving {model.info} on {model.device} through engine "
+             f"{predictor.engine!r} ({max(replicas, 1)} replica(s))")
+    apps = [
+        ScoringApp(model, model_date, predictor=predictor,
+                   model_key=model_key, model_source=model_source)
+        for _ in range(max(replicas, 1))
+    ]
     predictor.warmup()
-    handle = ServiceHandle(app, host, port)
+    handle = ServiceHandle(RoundRobinApp(apps) if len(apps) > 1 else apps[0], host, port)
     if block:
         handle.serve_forever()
         return None
     return handle.start()
+
+
+def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
+                       block: bool = True, engine: str = "auto", device=None,
+                       buckets: tuple[int, ...] | None = None):
+    """Load the newest checkpoint onto ``device`` (the card unless asked
+    for the CPU; no CUDA and no ``device="cpu"`` raises) and serve it
+    (:func:`serve_model`). ``store`` is an artefact store or a store
+    directory. With ``block=False`` returns a started
+    :class:`ServiceHandle`."""
+    dev = resolve_device(device)
+    store = open_store(store)
+    served_key, served_source = resolve_serving_key(store)
+    model, model_date = load_model(store, served_key, device=dev)
+    return serve_model(model, model_date, host, port, block=block, engine=engine,
+                       buckets=buckets, model_key=served_key, model_source=served_source)

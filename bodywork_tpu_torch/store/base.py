@@ -4,8 +4,9 @@ cut to what the serving slice uses).
 A flat byte store with ``/``-separated keys, versioned by a date embedded
 in each key (the reference's S3 protocol, ``stage_1_train_model.py:61-67``):
 ``history`` lists the date-keyed artefacts under a prefix oldest first and
-``latest`` is the newest. Compare-and-swap writes, metrics instrumentation
-and the wrapper stack wait for the slices that need them.
+``latest`` is the newest. :class:`DelegatingStore` is the base of the
+wrappers (the day loop's write fence, ``store.epoch``); compare-and-swap
+writes and metrics instrumentation wait for the slices that need them.
 """
 from __future__ import annotations
 
@@ -68,3 +69,26 @@ class ArtefactStore(abc.ABC):
         if not hist:
             raise ArtefactNotFound(f"no date-keyed artefacts under '{prefix}'")
         return hist[-1]
+
+
+class DelegatingStore(ArtefactStore):
+    """A store that forwards every operation to an inner store; wrappers
+    subclass it and override only what they change."""
+
+    def __init__(self, inner: ArtefactStore):
+        self._inner = inner
+
+    def put_bytes(self, key: str, data: bytes) -> None:
+        self._inner.put_bytes(key, data)
+
+    def get_bytes(self, key: str) -> bytes:
+        return self._inner.get_bytes(key)
+
+    def list_keys(self, prefix: str = "") -> list[str]:
+        return self._inner.list_keys(prefix)
+
+    def exists(self, key: str) -> bool:
+        return self._inner.exists(key)
+
+    def __repr__(self) -> str:
+        return f"{type(self).__name__}({self._inner!r})"

@@ -4,6 +4,8 @@ stores:
 
 - ``datasets/regression-dataset-<date>.csv``
 - ``models/regressor-<date>.npz``
+- ``model-metrics/regressor-<date>.csv`` — the train stage's held-out
+  metrics
 - ``test-metrics/regressor-test-results-<date>.csv``
 - ``registry/`` — the JAX package's model registry (records + the alias
   document). The port does not read it yet, and refuses to serve from a
@@ -15,6 +17,7 @@ from datetime import date
 
 DATASETS_PREFIX = "datasets/"
 MODELS_PREFIX = "models/"
+MODEL_METRICS_PREFIX = "model-metrics/"
 TEST_METRICS_PREFIX = "test-metrics/"
 REGISTRY_RECORDS_PREFIX = "registry/records/"
 REGISTRY_ALIAS_KEY = "registry/aliases.json"
@@ -26,6 +29,10 @@ def dataset_key(d: date) -> str:
 
 def model_key(d: date, suffix: str = "npz") -> str:
     return f"{MODELS_PREFIX}regressor-{d}.{suffix}"
+
+
+def model_metrics_key(d: date) -> str:
+    return f"{MODEL_METRICS_PREFIX}regressor-{d}.csv"
 
 
 def test_metrics_key(d: date) -> str:

@@ -30,7 +30,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
    over HTTP on the latest day; ``slice-bf16`` / ``slice-int8`` serve the
    same checkpoint through the other two kernels. Kernel launch counts are
    set to 0 just before each path and read just after it;
-5. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+5. ``day-loop`` — the daily train -> serve -> generate -> test loop
+   (``run_simulation``) for 7 simulated days on the card: the MLP at
+   hidden (1024, 1024, 1024) trained with Adam (lr 1e-3, batch 256, 2000
+   steps) and served by ``auto``, which must resolve to ``kernel`` every
+   day, with the kernel's launches counted over the loop (counts set to 0
+   just before it, read just after); then the last day's checkpoint
+   through the kernel held against its plain version; then the linear
+   model's loop (the ``torch`` engine, no kernel). One line per day (the
+   engine, the launches, the train and test metrics, the wall-clock and
+   the seconds of each stage), one line per loop, the float32 matrix
+   product settings in force, and 20 Adam steps at width 1024 from one
+   init and one index stream on the card and on the CPU: the first
+   step's loss and gradients within 1e-5 (TF32 products must fail both
+   bars) and the loss trajectories' largest relative gap; and a profiled
+   window of 50 training steps (host time a step, the device's busy
+   share, the kernels);
+6. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -49,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import shutil
 import statistics
@@ -83,6 +100,23 @@ BARS = {"kernel": 1e-4, "kernel-bf16": 2.5e-3, "kernel-int8": 1e-4}
 KERNEL_ROWS = (1, 8, 300, 4096)
 TIMING_ROWS = (256, 4096)
 TIMING_REPS = 30
+#: the day loop: 7 simulated days from this date; the MLP trained with the
+#: repository's wide-training settings (``bench.py:1092-1094``)
+LOOP_DAYS = 7
+LOOP_START = date(2026, 7, 1)
+LOOP_MLP = {"hidden": HIDDEN, "learning_rate": 1e-3, "batch_size": 256, "n_steps": 2000}
+#: card against CPU: Adam steps, and the bars on the largest relative
+#: gaps of the first step's loss and gradients, computed from the same
+#: params on both sides: IEEE float32 differs there by summation order
+#: alone (~5e-7 at width 1024 on an H100), TF32 products by ~1e-4 (loss)
+#: and ~4e-3 (gradients). The loss trajectory over the 20 steps is
+#: printed and has no bar: from the second step on, Adam's ±lr steps
+#: carry each rounding difference forward (percents by step 20 on some
+#: days' data, in IEEE float32 too)
+PARITY_STEPS = 20
+PARITY_BARS = {"loss_step0": 1e-5, "grad_step0": 1e-5}
+#: Adam steps in the profiled window of the training loop
+PROFILE_STEPS = 50
 
 
 def emit(phase: str, **fields) -> None:
@@ -378,7 +412,7 @@ def phase_slice(torch, dev, workdir: str) -> dict:
     from bodywork_tpu_torch.data import Dataset, generate_day, load_latest_dataset, persist_dataset
     from bodywork_tpu_torch.models import MLPConfig, MLPRegressor, save_model
     from bodywork_tpu_torch.monitor import HttpScoringClient, run_service_test, scoring_endpoint
-    from bodywork_tpu_torch.monitor.tester import BATCH_ROWS
+    from bodywork_tpu_torch.monitor.tester import DEFAULT_BATCH_SIZE
     from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
     from bodywork_tpu_torch.store import FilesystemStore
     from bodywork_tpu_torch.store.schema import test_metrics_key as metrics_key
@@ -417,7 +451,7 @@ def phase_slice(torch, dev, workdir: str) -> dict:
         handle.stop()
     launches["kernel"] = LAUNCHES["kernel"]
     n_rows = len(load_latest_dataset(store))
-    n_requests = len(singles) + len(batches) + -(-n_rows // BATCH_ROWS)
+    n_requests = len(singles) + len(batches) + -(-n_rows // DEFAULT_BATCH_SIZE)
     if not store.exists(metrics_key(days[-1])) or metrics["n_failures"] != 0:
         raise RuntimeError(f"test stage failed: {metrics}")
     if metrics["n_scored"] != n_rows:
@@ -444,6 +478,236 @@ def phase_slice(torch, dev, workdir: str) -> dict:
         emit(f"slice-{engine.split('-')[1]}", engine=engine, launches=launches[engine], **checks)
     torch.cuda.synchronize()
     return launches
+
+
+def _day_line(model_type: str, r, launched: int) -> dict:
+    """One simulated day's readings from its ``DayResult``."""
+    from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE, TEST_STAGE, TRAIN_STAGE
+
+    train = r.stage_results[TRAIN_STAGE]
+    test = r.stage_results[TEST_STAGE]
+    health = r.stage_results[SERVE_STAGE].app.healthz_payload()
+    line = {
+        "model": model_type, "day": str(r.day), "engine": health["engine"],
+        "device": health["device"], "model_info": health["model_info"],
+        "launches": launched, "train_rows": train.n_rows,
+        "train_metrics": train.metrics,
+        "test_metrics": {k: test[k] for k in ("MAPE", "r_squared", "max_residual",
+                                             "n_failures", "n_scored")},
+        "wall_clock_s": r.wall_clock_s, "stage_seconds": r.stage_seconds,
+    }
+    values = [*train.metrics.values(), test["MAPE"]]
+    if not all(math.isfinite(v) for v in values) or test["n_failures"] != 0:
+        raise RuntimeError(f"{model_type} day {r.day} is not healthy: {line}")
+    return line
+
+
+def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
+    """7 days of the default pipeline on the card, through
+    ``run_simulation``; the kernels' launch counts are set to 0 just
+    before it and read just after."""
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    spec = default_pipeline(model_type, "batch")
+    spec.stages[TRAIN_STAGE].args.update(train_args)
+    runner = LocalRunner(spec, FilesystemStore(os.path.join(root, model_type)), device=dev)
+    days, seen = [], {"kernel": 0}
+
+    def on_day(r):
+        launched = LAUNCHES["kernel"] - seen["kernel"]
+        seen["kernel"] = LAUNCHES["kernel"]
+        days.append(_day_line(model_type, r, launched))
+        emit("day-loop-day", **days[-1])
+
+    reset_launches()
+    results = runner.run_simulation(LOOP_START, LOOP_DAYS, on_day=on_day)
+    launches = dict(LAUNCHES)
+    walls = [r.wall_clock_s for r in results]
+    stages = {name: statistics.median(r.stage_seconds[name] for r in results[1:])
+              for name in results[0].stage_seconds}
+    summary = {"model": model_type, "days": LOOP_DAYS, "launches": launches,
+               "engines": sorted({d["engine"] for d in days}),
+               "wall_clock_s": walls, "day1_s": walls[0],
+               "median_days_2_7_s": statistics.median(walls[1:]),
+               "median_stage_seconds_days_2_7": stages}
+    return {"summary": summary, "days": days, "runner": runner}
+
+
+def phase_day_loop(torch, dev, workdir: str) -> dict:
+    """The daily loop on the card for the MLP (served by the f32 kernel)
+    and the linear model, then the card-against-CPU training check."""
+    from bodywork_tpu_torch.data import load_latest_dataset
+    from bodywork_tpu_torch.device import matmul_precision
+    from bodywork_tpu_torch.models.checkpoint import load_model
+    from bodywork_tpu_torch.models.mlp import mlp_apply
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply, mlp_stack_plain
+
+    emit("day-loop-precision", **matmul_precision())
+    mlp = _run_loop(torch, dev, workdir, "mlp", LOOP_MLP)
+    bad = [d["day"] for d in mlp["days"] if d["engine"] != "kernel" or d["launches"] < 1]
+    if bad:
+        raise RuntimeError(f"the MLP loop did not serve through the kernel on {bad}")
+    emit("day-loop", **mlp["summary"])
+
+    # the last day's checkpoint once more: through the kernel on the rows
+    # its service was tested on, against its plain version and the plain
+    # torch engine
+    store = mlp["runner"].store
+    model, model_date = load_model(store, device=dev)
+    tested = load_latest_dataset(store)
+    X = torch.as_tensor(tested.X, device=dev)
+    apply = make_kernel_mlp_apply(model.params, dev)
+    got = apply(X)
+    want = mlp_stack_plain(apply.layers, X, None)
+    with torch.no_grad():
+        unfolded = mlp_apply(model.params, X)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    rel_unfolded = rel_err(got, unfolded)[1]
+    if rel >= BARS["kernel"] or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"the trained model's kernel answers disagree: {rel:.3g}")
+    emit("day-loop-served", model_date=str(model_date), rows_of=str(tested.date),
+         rows=int(X.shape[0]),
+         max_abs_err=err, err_over_scale=rel, bar=BARS["kernel"],
+         err_over_scale_vs_unfolded=rel_unfolded)
+
+    linear = _run_loop(torch, dev, workdir, "linear", {})
+    if linear["summary"]["engines"] != ["torch"] or any(linear["summary"]["launches"].values()):
+        raise RuntimeError(f"the linear loop should run no kernel: {linear['summary']}")
+    emit("day-loop", **linear["summary"], note="the torch engine: this loop runs no kernel")
+
+    parity = _card_against_cpu(torch, dev, mlp["runner"].store)
+    emit("day-loop-train-profile", **_train_profile(torch, dev, mlp["runner"].store))
+    return {"mlp": mlp["summary"], "linear": linear["summary"], "served_err": err,
+            "card_vs_cpu": parity["max_rel_gap"]}
+
+
+def _card_against_cpu(torch, dev, store) -> dict:
+    """Training on the card against the CPU, at width 1024 on the loop's
+    history, from one init and one index stream: the first step's loss
+    and gradients (the same params on both: no step amplifies a rounding
+    difference) and the loss trajectory over 20 Adam steps, as largest
+    relative gaps. The same with TF32 products on the card is the
+    control: it must fail both step-0 bars, so that they tell IEEE
+    float32 from TF32."""
+    from bodywork_tpu_torch.data import load_all_datasets
+    from bodywork_tpu_torch.device import matmul_precision
+    from bodywork_tpu_torch.models.base import pad_rows
+    from bodywork_tpu_torch.models.mlp import (
+        MLPConfig,
+        _loss,
+        _scaled_splits,
+        draw_indices,
+        init_mlp_params,
+        train_core,
+    )
+
+    cfg = MLPConfig(**{**LOOP_MLP, "n_steps": PARITY_STEPS})
+    ds = load_all_datasets(store)
+    arrays = [torch.as_tensor(a) for a in pad_rows(ds.X, ds.y)]
+    gen = torch.Generator()
+    gen.manual_seed(11)
+    net = init_mlp_params(gen, WIDTHS)
+    idx = draw_indices(gen, PARITY_STEPS, cfg.batch_size, arrays[0].shape[0])
+
+    def run(device):
+        Xs, ys, _ = _scaled_splits(*(a.to(device) for a in arrays))
+        w = arrays[2].to(device)
+        on = {"layers": [{k: t.to(device) for k, t in layer.items()} for layer in net["layers"]]}
+        leaves = [t.clone().requires_grad_(True) for layer in on["layers"] for t in layer.values()]
+        shaped = {"layers": [dict(zip(layer, leaves[2 * i:2 * i + 2]))
+                             for i, layer in enumerate(on["layers"])]}
+        i0 = idx[0].to(device)
+        loss0 = _loss(shaped, Xs[i0], ys[i0], w[i0])
+        grads = torch.autograd.grad(loss0, leaves)
+        _, losses = train_core(on, Xs, ys, w, idx.to(device), cfg)
+        return losses.double().cpu(), [g.double().cpu() for g in grads]
+
+    def gaps(got, want) -> dict:
+        traj = ((got[0] - want[0]).abs() / want[0].abs()).tolist()
+        return {"loss_step0": traj[0], "loss_max": max(traj), "loss_per_step": traj,
+                "grad_step0": max(float((a - b).norm() / b.norm()) for a, b in zip(got[1], want[1]))}
+
+    cpu = run(torch.device("cpu"))
+    card = run(dev)
+    measured = gaps(card, cpu)
+    setting = matmul_precision()
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = gaps(run(dev), cpu)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+    out = {"steps": PARITY_STEPS, "widths": list(WIDTHS), "batch_size": cfg.batch_size,
+           "rows": int(arrays[0].shape[0]), "precision": setting,
+           "loss_card": card[0].tolist(), "loss_cpu": cpu[0].tolist(),
+           "max_rel_gap": measured["loss_max"], "gaps": measured, "bars": PARITY_BARS,
+           "tf32_control": control}
+    emit("day-loop-card-vs-cpu", **out)
+    over = [k for k, bar in PARITY_BARS.items() if measured[k] >= bar]
+    if over:
+        raise RuntimeError(f"training on the card drifts from the CPU: {over}")
+    if any(control[k] < bar for k, bar in PARITY_BARS.items()):
+        raise RuntimeError(f"the step-0 bars do not refuse TF32 products: {control}")
+    return out
+
+
+def _train_profile(torch, dev, store) -> dict:
+    """Where a training step's time goes on the card: PROFILE_STEPS Adam
+    steps of the loop's MLP on its history, timed on the host clock
+    (ending in a synchronize) without and then with ``torch.profiler``,
+    whose kernel times give the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bodywork_tpu_torch.data import load_all_datasets
+    from bodywork_tpu_torch.models.base import pad_rows
+    from bodywork_tpu_torch.models.mlp import (
+        MLPConfig,
+        _scaled_splits,
+        draw_indices,
+        init_mlp_params,
+        train_core,
+    )
+
+    cfg = MLPConfig(**{**LOOP_MLP, "n_steps": PROFILE_STEPS})
+    ds = load_all_datasets(store)
+    Xp, yp, w = (torch.as_tensor(a, device=dev) for a in pad_rows(ds.X, ds.y))
+    Xs, ys, _ = _scaled_splits(Xp, yp, w)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    net = init_mlp_params(gen, WIDTHS, device=dev)
+    idx = draw_indices(gen, PROFILE_STEPS, cfg.batch_size, Xp.shape[0], device=dev)
+
+    def window() -> float:
+        t0 = time.perf_counter()
+        train_core(net, Xs, ys, w, idx, cfg)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    window()  # warm-up
+    wall_s = window()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled_s = window()
+    # the kernels' own rows: an operator's row also carries its kernels' time
+    kernels = [r for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(float(r.self_device_time_total) for r in kernels)
+    top = sorted(kernels, key=lambda r: r.self_device_time_total, reverse=True)[:6]
+    return {
+        "steps": PROFILE_STEPS, "ms_per_step": 1e3 * wall_s / PROFILE_STEPS,
+        "profiled_ms_per_step": 1e3 * profiled_s / PROFILE_STEPS,
+        "device_ms_per_step": busy_us / 1e3 / PROFILE_STEPS if busy_us else "not measured",
+        # of the profiled window, and of an unprofiled step (the profiler
+        # slows the host, not the kernels)
+        "device_busy_share": busy_us / 1e6 / profiled_s if busy_us else "not measured",
+        "device_share_of_unprofiled_step": busy_us / 1e6 / wall_s if busy_us else "not measured",
+        "kernels_per_step": sum(r.count for r in kernels) / PROFILE_STEPS,
+        "top_kernels_ms_per_step": {
+            r.key[:70]: float(r.self_device_time_total) / 1e3 / PROFILE_STEPS for r in top},
+    }
 
 
 def _median_ms(torch, fn, reps: int = TIMING_REPS) -> float:
@@ -550,7 +814,7 @@ def phase_timing(torch, dev, card: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--phases", default="device,build,kernels,slice,timing",
+        "--phases", default="device,build,kernels,slice,day-loop,timing",
         help="comma-separated subset of the phases to run (default: all)",
     )
     args = parser.parse_args(argv)
@@ -568,28 +832,39 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, ROOT)
     from bodywork_tpu_torch.device import resolve_device
+    from bodywork_tpu_torch.utils.logging import configure_logger
+
+    # stdout carries the JSON lines; the port's logs go to stderr
+    configure_logger("WARNING", stream=sys.stderr)
 
     dev = resolve_device("cuda")
     card = phase_device(torch)
     if "build" in phases:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
-    launches, timing = {}, {}
-    if "slice" in phases:
+    launches, loop, timing = {}, {}, {}
+    for phase in ("slice", "day-loop"):
+        if phase not in phases:
+            continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
         try:
-            launches = phase_slice(torch, dev, workdir)
+            if phase == "slice":
+                launches = phase_slice(torch, dev, workdir)
+            else:
+                loop = phase_day_loop(torch, dev, workdir)
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     if "timing" in phases:
         timing = phase_timing(torch, dev, card)
-    if phases >= {"kernels", "slice", "timing"}:
+    if phases >= {"kernels", "slice", "day-loop", "timing"}:
         kernels = []
         for engine in VARIANTS:
             t = timing[engine][4096]
+            by_path = {"slice": launches[engine], "day-loop": loop["mlp"]["launches"][engine]}
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
-                "replaces": REPLACES[engine], "launches": launches[engine],
+                "replaces": REPLACES[engine], "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": errors[engine], "ms": t["kernel_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],

@@ -102,11 +102,19 @@ def test_mlpnet_holds_weights_in_jax_layout(jax_model):
 
 
 def test_linear_checkpoint_names_the_later_slice():
+    """The later slice has landed: a linear checkpoint loads and scores,
+    and a model type neither package knows is refused by name."""
     rng = np.random.default_rng(1)
     X = rng.uniform(0, 100, 64).astype(np.float32)
     linear = LinearRegressor().fit(X, 0.5 * X + 1.0)
-    with pytest.raises(ValueError, match="later slice"):
-        port_ckpt.load_model_bytes(jax_ckpt.save_model_bytes(linear), device="cpu")
+    model = port_ckpt.load_model_bytes(jax_ckpt.save_model_bytes(linear), device="cpu")
+    assert model.info == linear.info
+    np.testing.assert_allclose(model.predict(X), linear.predict(X), rtol=1e-6, atol=1e-5)
+    buf = io.BytesIO()
+    meta = json.dumps({"model_type": "forest", "config": {}}).encode()
+    np.savez(buf, w=np.zeros(1, np.float32), __meta__=np.frombuffer(meta, dtype=np.uint8))
+    with pytest.raises(ValueError, match="'forest'"):
+        port_ckpt.load_model_bytes(buf.getvalue(), device="cpu")
 
 
 def test_store_round_trip_across_packages(tmp_path, jax_model, X):

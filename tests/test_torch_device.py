@@ -11,7 +11,12 @@ import torch
 
 from bodywork_tpu_torch import cli
 from bodywork_tpu_torch.data import Dataset, generate_day, persist_dataset
-from bodywork_tpu_torch.device import fence, resolve_device
+from bodywork_tpu_torch.device import (
+    fence,
+    matmul_precision,
+    require_ieee_f32_matmul,
+    resolve_device,
+)
 from bodywork_tpu_torch.models import MLPConfig, MLPRegressor, params_from_jax, save_model
 from bodywork_tpu_torch.serve import serve_latest_model
 from bodywork_tpu_torch.store import FilesystemStore
@@ -54,11 +59,28 @@ def test_default_device_is_cuda_and_refuses_without_one(no_cuda):
 
 
 def test_cpu_only_when_asked_for():
+    # resolving a device changes no process-wide precision setting: the
+    # port states its f32 precision and refuses TF32 where it would
+    # matter (require_ieee_f32_matmul) instead of switching it off
+    before = matmul_precision(), torch.backends.cudnn.allow_tf32
     assert resolve_device("cpu") == torch.device("cpu")
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
+    assert (matmul_precision(), torch.backends.cudnn.allow_tf32) == before
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")
+
+
+def test_reduced_precision_f32_products_are_refused_on_the_card_only():
+    require_ieee_f32_matmul(torch.device("cpu"))
+    require_ieee_f32_matmul(torch.device("cuda", 0))
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        assert matmul_precision()["float32_matmul_precision"] == "high"
+        with pytest.raises(RuntimeError, match="IEEE float32"):
+            require_ieee_f32_matmul(torch.device("cuda", 0))
+        require_ieee_f32_matmul(torch.device("cpu"))
+    finally:
+        torch.set_float32_matmul_precision(before)
 
 
 def test_fence_passes_cpu_results_through():
