@@ -1,11 +1,12 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test|train|run-day|run-sim``.
+generate|serve|test|train|run-day|run-sim|registry``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
 - ``serve --store S [--engine E] [--device cuda|cpu] [--host H]
-  [--port P]`` serves the newest checkpoint (engine ``auto``: the fused
-  kernel for a wide MLP on the card);
+  [--port P]`` serves the registry's ``production`` model (the newest
+  checkpoint on a store without a registry; engine ``auto``: the fused
+  kernel for a wide MLP it can launch, on the card);
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
   and persists the test metrics;
@@ -13,12 +14,22 @@ generate|serve|test|train|run-day|run-sim``.
   on all history and persists the checkpoint and its metrics (only the
   ``full`` refit is ported);
 - ``run-day --store S [--date D]`` runs one simulated day of the default
-  pipeline (train -> serve -> generate -> test) in-process, and
-  ``run-sim --store S --days N [--date D] [--samples-per-day R]`` runs N.
+  pipeline (train -> registry gate -> serve -> generate -> test)
+  in-process, and ``run-sim --store S --days N [--date D]
+  [--samples-per-day R]`` runs N.
   Both take ``--model linear|mlp`` and ``--mode single|batch`` (the
   test stage's requests); ``train``, ``run-day`` and ``run-sim`` take
   ``--mlp-hidden 1024,1024,1024``, ``--mlp-steps`` and ``--mlp-lr`` to
   override the MLP's config.
+
+- ``registry list|show|promote|rollback|gate --store S`` reads and moves
+  the model registry with the JAX command's flags, output and exit codes:
+  ``show WHAT`` (a model key, a date, ``production``, ``previous`` or
+  ``aliases``), ``promote --model M [--date D]``, ``rollback [--date D]``
+  (exit 8 when the restore target fails pre-verification: the alias did
+  not move), ``gate [--model M] [--date D] [--dry-run] [--shadow-days K]
+  [--device cuda|cpu]``. A registry error exits 1. (The canary verbs
+  are a later slice.)
 
 ``--device`` defaults to ``cuda``: without a card the command refuses to
 run unless ``--device cpu`` is given.
@@ -123,9 +134,17 @@ def _runner(args):
 
 
 def _print_day(r) -> None:
+    from bodywork_tpu_torch.pipeline.runner import GATE_RESULT
+
     print(f"day {r.day}: {r.wall_clock_s:.3f}s")
     for name, secs in r.stage_seconds.items():
         print(f"  {name}: {secs:.3f}s")
+    if r.gate_seconds is not None:
+        decision = r.stage_results.get(GATE_RESULT)
+        verdict = ("nothing to gate" if decision is None
+                   else f"{'PROMOTED' if decision.promote else 'REJECTED'} "
+                        f"{decision.model_key}")
+        print(f"  {GATE_RESULT}: {r.gate_seconds:.3f}s ({verdict})")
     sys.stdout.flush()
 
 
@@ -144,6 +163,158 @@ def cmd_run_sim(args) -> int:
     total = sum(r.wall_clock_s for r in results)
     print(f"total {total:.3f}s over {args.days} day(s), "
           f"mean {total / max(args.days, 1):.3f}s/day")
+    return 0
+
+
+#: ``registry rollback`` exit when the restore target fails
+#: pre-verification (missing ``previous`` checkpoint, or bytes that no
+#: longer match its record's digest): the alias did NOT move
+ROLLBACK_REFUSED_EXIT = 8
+
+#: alias names ``registry show`` resolves
+_REGISTRY_ALIASES = ("production", "previous")
+
+
+def _date(args) -> date:
+    return parse_date(args.date) if args.date else date.today()
+
+
+def _registry_model_key(raw: str) -> str:
+    """A full model key, a bare checkpoint basename, or a date."""
+    from bodywork_tpu_torch.store.schema import MODELS_PREFIX
+
+    if raw.startswith(MODELS_PREFIX):
+        return raw
+    try:
+        return f"{MODELS_PREFIX}regressor-{parse_date(raw)}.npz"
+    except ValueError:
+        return f"{MODELS_PREFIX}{raw}"
+
+
+def _registry_errors(fn):
+    """Run a registry command; a registry error is logged and exits 1."""
+    def run(args) -> int:
+        from bodywork_tpu_torch.registry import RegistryCorrupt, RegistryError
+        from bodywork_tpu_torch.utils.logging import get_logger
+
+        try:
+            return fn(args)
+        except (RegistryError, RegistryCorrupt) as exc:
+            get_logger("cli").error(exc)
+            return 1
+
+    return run
+
+
+@_registry_errors
+def cmd_registry_list(args) -> int:
+    from bodywork_tpu_torch.registry import ModelRegistry, read_aliases
+    from bodywork_tpu_torch.store import open_store
+
+    store = open_store(args.store)
+    records = ModelRegistry(store).records()
+    if not records:
+        print("no registry records")
+        return 0
+    aliases = read_aliases(store) or {}
+    production, previous = aliases.get("production"), aliases.get("previous")
+    print(f"{'MODEL KEY':<42} {'STATUS':<10} {'DATE':<10} ALIAS")
+    for record in records:
+        alias = ("production" if record["model_key"] == production
+                 else "previous" if record["model_key"] == previous else "")
+        print(f"{record['model_key']:<42} {record['status']:<10} "
+              f"{record.get('data_date') or '-':<10} {alias}")
+    return 0
+
+
+@_registry_errors
+def cmd_registry_show(args) -> int:
+    from bodywork_tpu_torch.registry import read_aliases, resolve_alias
+    from bodywork_tpu_torch.registry.records import load_record
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    store = open_store(args.store)
+    what = args.what
+    if what in _REGISTRY_ALIASES:
+        key = resolve_alias(store, what)
+        if key is None:
+            log.error(f"alias {what!r} is not set (no promotion yet?)")
+            return 1
+    elif what == "aliases":
+        doc = read_aliases(store)
+        if doc is None:
+            log.error("no registry alias document")
+            return 1
+        print(json.dumps(doc, indent=2, sort_keys=True))
+        return 0
+    elif "/" not in what and "." not in what and not any(c.isdigit() for c in what):
+        log.error(f"unknown alias {what!r}; known aliases: "
+                  f"{', '.join(_REGISTRY_ALIASES)} (or pass a model key/date)")
+        return 1
+    else:
+        key = _registry_model_key(what)
+    record = load_record(store, key)
+    if record is None:
+        log.error(f"no registry record for {key!r}")
+        return 1
+    print(json.dumps(record, indent=2, sort_keys=True))
+    return 0
+
+
+@_registry_errors
+def cmd_registry_promote(args) -> int:
+    from bodywork_tpu_torch.registry import ModelRegistry
+    from bodywork_tpu_torch.store import open_store
+
+    doc = ModelRegistry(open_store(args.store)).promote(
+        _registry_model_key(args.model), day=_date(args), reason="cli: operator promote")
+    print(f"production -> {doc['production']} (previous: {doc['previous']})")
+    return 0
+
+
+@_registry_errors
+def cmd_registry_rollback(args) -> int:
+    from bodywork_tpu_torch.registry import ModelRegistry, RollbackBlocked
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    try:
+        doc = ModelRegistry(open_store(args.store)).rollback(
+            day=_date(args), reason="cli: operator rollback")
+    except RollbackBlocked as exc:
+        get_logger("cli").error(
+            f"rollback refused: {exc} — the alias did not move; repair the "
+            "checkpoint (or promote a known-good one) and retry"
+        )
+        return ROLLBACK_REFUSED_EXIT
+    print(f"production -> {doc['production']} (previous: {doc['previous']})")
+    return 0
+
+
+@_registry_errors
+def cmd_registry_gate(args) -> int:
+    from bodywork_tpu_torch.device import resolve_device
+    from bodywork_tpu_torch.registry import GatePolicy, ModelRegistry
+    from bodywork_tpu_torch.store import open_store
+
+    policy = GatePolicy()
+    device = None
+    if args.shadow_days is not None:
+        policy.shadow_days = args.shadow_days
+        device = resolve_device(args.device)  # the shadow scores on it
+    registry = ModelRegistry(open_store(args.store), policy=policy, device=device)
+    key = _registry_model_key(args.model) if args.model else None
+    decision = registry.gate(day=_date(args), model_key=key, dry_run=args.dry_run)
+    if decision is None:
+        print("no candidate to gate")
+        return 0
+    verdict = "PROMOTE" if decision.promote else "REJECT"
+    prefix = "dry-run: would " if args.dry_run else ""
+    print(f"{prefix}{verdict} {decision.model_key}")
+    for check in decision.checks:
+        print(f"  [{'ok' if check['ok'] else 'FAIL'}] {check['name']}: {check['detail']}")
     return 0
 
 
@@ -193,7 +364,7 @@ def build_parser() -> argparse.ArgumentParser:
         "--engine", default="auto", choices=SERVE_ENGINES,
         help="plain f32 torch, the fused CUDA kernel (f32, bf16 or int8 "
              "weights), or auto (the f32 kernel for an MLP whose hidden "
-             "layers are all >= 256 wide, on the card)",
+             "layers are all >= 256 wide and that it can launch, on the card)",
     )
     p.add_argument("--device", **device)
 
@@ -235,6 +406,50 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--days", type=_positive_int, required=True)
             p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
                            help="rows the generator draws a day (default 1440)")
+
+    p = sub.add_parser("registry", help="model registry: gated promotion, shadow eval, "
+                                        "rollback")
+    registry_sub = p.add_subparsers(dest="registry_command", required=True)
+    p = registry_sub.add_parser("list", help="list registry records + aliases")
+    p.set_defaults(fn=cmd_registry_list)
+    p.add_argument("--store", **store)
+    p = registry_sub.add_parser(
+        "show", help="show one record (by model key or date) or resolve an alias "
+                     "(production/previous) or dump the alias doc (aliases)")
+    p.set_defaults(fn=cmd_registry_show)
+    p.add_argument("--store", **store)
+    p.add_argument("what", help="model key, date, 'production', 'previous', or 'aliases'")
+    p = registry_sub.add_parser(
+        "promote", help="point the production alias at a registered model (one CAS; "
+                        "old production becomes 'previous')")
+    p.set_defaults(fn=cmd_registry_promote)
+    p.add_argument("--store", **store)
+    p.add_argument("--model", required=True, help="model key or date to promote")
+    p.add_argument("--date", default=None,
+                   help="day to stamp the promotion events with (YYYY-MM-DD; default today)")
+    p = registry_sub.add_parser(
+        "rollback", help="ONE operation back to the previous production (a single alias "
+                         "CAS flip). The restore target is pre-verified first: a missing "
+                         "or digest-mismatched 'previous' refuses with exit 8")
+    p.set_defaults(fn=cmd_registry_rollback)
+    p.add_argument("--store", **store)
+    p.add_argument("--date", default=None,
+                   help="day to stamp the rollback events with (YYYY-MM-DD; default today)")
+    p = registry_sub.add_parser(
+        "gate", help="adjudicate the newest candidate (promote or reject): the step "
+                     "run-day runs between train and serve")
+    p.set_defaults(fn=cmd_registry_gate)
+    p.add_argument("--store", **store)
+    p.add_argument("--model", default=None,
+                   help="candidate to gate (default: newest record in candidate status)")
+    p.add_argument("--date", default=None, help="day to stamp decision events with (YYYY-MM-DD)")
+    p.add_argument("--dry-run", action="store_true",
+                   help="evaluate and print the decision WITHOUT writing anything")
+    p.add_argument("--shadow-days", type=_positive_int, default=None, metavar="K",
+                   help="also shadow-evaluate the candidate against production over the "
+                        "last K dataset days (in-process, no live traffic; default off)")
+    p.add_argument("--device", **{**device, "help": "where the shadow evaluation scores "
+                                                     "(default cuda)"})
     return parser
 
 

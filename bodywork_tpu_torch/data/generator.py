@@ -7,11 +7,14 @@ The behavioural spec is the reference's (``stage_3_synthetic_data_generation.py:
     X ~ U(0, 100), eps ~ N(0, 1), n = 24*60 rows/day, keep y >= 0
     alpha(d) = kappa + A * sin(2*pi*f*(d-1)/364)      # d = day of year
 
-The draws come from a ``torch.Generator`` seeded from ``(cfg.seed,
-date ordinal)`` on the requested device, so every day's dataset is
-reproducible per device. They are NOT ``jax.random``'s threefry bits: the
-port's days are different samples of the same distribution (bit-identical
-draws are a later ROADMAP item). :func:`_sample_day` is the sampler's
+Each day is a function of ``(cfg.seed, date)`` alone, drawn as the JAX
+package draws it: ``key_for_date = fold_in(PRNGKey(seed), ordinal)``,
+``split`` into ``(kx, ke)``, ``uniform(kx)`` and ``normal(ke)``, through
+the port's threefry (:mod:`bodywork_tpu_torch.data.prng`) on the device
+it is given. ``X`` and the kept-row mask are bit-identical to the JAX
+package's and the same on every device; ``eps`` and ``y`` are within the
+few ulps that XLA's own ``log1p`` and ``sin`` put between them (measured
+in ``tests/test_torch_prng.py``). :func:`_sample_day` is the sampler's
 algebra as a pure function of the draws, so tests feed both packages the
 same numpy draws.
 """
@@ -23,26 +26,29 @@ from datetime import date
 import numpy as np
 import torch
 
+from bodywork_tpu_torch.data import prng
 from bodywork_tpu_torch.data.drift_config import DriftConfig
 from bodywork_tpu_torch.device import resolve_device
 from bodywork_tpu_torch.utils.dates import day_of_year
 
-__all__ = ["DriftConfig", "alpha", "generate_day", "seed_for_date"]
+__all__ = ["DriftConfig", "alpha", "generate_day", "key_for_date"]
 
 
 def alpha(day, cfg: DriftConfig = DriftConfig()) -> torch.Tensor:
-    """Drifting intercept for a given day-of-year (``stage_3:31-33``),
-    in float32 like the JAX version."""
-    day = torch.as_tensor(day, dtype=torch.float32)
-    return cfg.kappa + cfg.amplitude * torch.sin(
+    """Drifting intercept for a given day-of-year (``stage_3:31-33``), in
+    float32 like the JAX version. It is computed in float64 and rounded
+    once, so it is the same float32 on every device (float32 ``sin``
+    differs between libraries in the last bit)."""
+    day = torch.as_tensor(day, dtype=torch.float64)
+    return (cfg.kappa + cfg.amplitude * torch.sin(
         2.0 * math.pi * cfg.freq * (day - 1.0) / 364.0
-    )
+    )).to(torch.float32)
 
 
-def seed_for_date(d: date, cfg: DriftConfig = DriftConfig()) -> int:
-    """The per-day generator seed: the config seed folded with the date's
-    ordinal (the counterpart of ``key_for_date``'s ``fold_in``)."""
-    return (int(cfg.seed) << 32) ^ d.toordinal()
+def key_for_date(d: date, cfg: DriftConfig = DriftConfig(), device=None) -> torch.Tensor:
+    """The day's threefry key, ``fold_in(PRNGKey(seed), ordinal)``, as the
+    JAX package's ``key_for_date`` makes it."""
+    return prng.fold_in(prng.PRNGKey(cfg.seed, device=device), d.toordinal())
 
 
 def _sample_day(x: torch.Tensor, eps: torch.Tensor, day,
@@ -67,11 +73,10 @@ def generate_day(
     asked for the CPU); returns host float32 arrays (X, y). Rows with
     ``y < 0`` are dropped, as in the reference's ``query('y >= 0')``."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed_for_date(d, cfg))
-    n = cfg.n_samples
-    x = torch.rand(n, generator=gen, device=dev) * (cfg.x_high - cfg.x_low) + cfg.x_low
-    eps = torch.randn(n, generator=gen, device=dev)
+    # kx's and ke's draws in one pass of the hash (one row each)
+    bits = prng.random_bits(prng.split(key_for_date(d, cfg, device=dev)), cfg.n_samples)
+    x = prng.uniform_from_bits(bits[0], cfg.x_low, cfg.x_high)
+    eps = prng.normal_from_bits(bits[1])
     stacked = _sample_day(x, eps, day_of_year(d), cfg).cpu().numpy()
     x, y, mask = stacked[0], stacked[1], stacked[2] > 0.0
     return x[mask], y[mask]

@@ -19,12 +19,7 @@ from bodywork_tpu_torch.device import resolve_device
 from bodywork_tpu_torch.models.linear import LinearRegressor
 from bodywork_tpu_torch.models.mlp import MLPRegressor, params_from_jax, params_to_host
 from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore
-from bodywork_tpu_torch.store.schema import (
-    MODELS_PREFIX,
-    REGISTRY_ALIAS_KEY,
-    REGISTRY_RECORDS_PREFIX,
-    model_key,
-)
+from bodywork_tpu_torch.store.schema import MODELS_PREFIX, REGISTRY_RECORDS_PREFIX, model_key
 from bodywork_tpu_torch.utils.dates import date_from_key
 from bodywork_tpu_torch.utils.logging import get_logger
 from bodywork_tpu_torch.version import __version__
@@ -112,25 +107,41 @@ def save_model(store: ArtefactStore, model, artefact_date: date,
 
 
 def resolve_serving_key(store: ArtefactStore) -> tuple[str, str]:
-    """The (key, source) serving loads: the newest date-keyed checkpoint
-    under ``models/``, source ``"latest"`` — the JAX package's
-    registry-less path (``checkpoint.py:145-149``).
+    """The (key, source) serving loads with no explicit key, as the JAX
+    package resolves it (``bodywork_tpu/models/checkpoint.py:116-162``):
 
-    A store that carries the JAX package's model registry (an alias
-    document or registry records) is refused: there the gate decides
-    what serves, and serving the newest checkpoint would serve past it.
-    The registry read path is a later slice (ROADMAP Queue 1 (d)).
-    """
-    if store.exists(REGISTRY_ALIAS_KEY) or store.list_keys(REGISTRY_RECORDS_PREFIX):
-        raise RuntimeError(
-            "this store has a model registry (registry/): the port does not "
-            "read registry aliases or records yet (ROADMAP Queue 1 (d)), and "
-            "will not serve past the promotion gate"
-        )
+    - a store with an active registry (an alias document) serves the
+      ``production`` alias, so only gate-promoted checkpoints take
+      traffic; source ``"production"``;
+    - otherwise the newest date-keyed checkpoint under ``models/`` that
+      the gate has not rejected (a store whose first candidates failed
+      the gate must not serve them); source ``"latest"``. On a store
+      without registry records that is the newest checkpoint.
+
+    No serviceable checkpoint raises :class:`ArtefactNotFound`; a corrupt
+    alias document raises :class:`~bodywork_tpu_torch.registry.RegistryCorrupt`
+    rather than fall back to the ungated latest checkpoint."""
+    from bodywork_tpu_torch.registry.records import load_record, resolve_alias
+
+    key = resolve_alias(store, "production")
+    if key is not None:
+        return key, "production"
     hist = store.history(MODELS_PREFIX)
     if not hist:
         raise ArtefactNotFound(f"no date-keyed artefacts under '{MODELS_PREFIX}'")
-    return hist[-1][0], "latest"
+    if not store.list_keys(REGISTRY_RECORDS_PREFIX):
+        return hist[-1][0], "latest"
+    for candidate_key, _d in reversed(hist):
+        record = load_record(store, candidate_key)
+        if record is not None and record.get("status") == "rejected":
+            log.info(f"skipping gate-rejected checkpoint {candidate_key} in "
+                     "latest-fallback resolution")
+            continue
+        return candidate_key, "latest"
+    raise ArtefactNotFound(
+        f"every checkpoint under '{MODELS_PREFIX}' was gate-rejected "
+        "and none was ever promoted"
+    )
 
 
 def load_model(store: ArtefactStore, key: str | None = None, device=None):

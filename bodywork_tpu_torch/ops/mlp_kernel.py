@@ -25,6 +25,7 @@ plain torch ops — that is how the CPU tests run, and what
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from dataclasses import dataclass
@@ -271,6 +272,69 @@ def launch_plans(widths, n_rows: int, engine: str, n_sms: int, smem_budget: int,
     return plans
 
 
+def launch_refusal(widths, engine: str, n_sms: int, smem_budget: int,
+                   max_active=None) -> str | None:
+    """Why the cluster kernel of ``engine`` cannot launch a stack of
+    ``widths`` (input, hidden..., output) on a card with ``n_sms`` SMs and
+    ``smem_budget`` bytes of opt-in shared memory a block, or None where
+    it can. A plan-time answer: the stack must have at most
+    :data:`MAX_LAYERS` layers and fit :func:`launch_plans` (a stack that
+    does not, or is no width list at all, gives its reason and never
+    raises), and where ``max_active(cluster, smem_bytes)`` is given (the
+    card's ``cudaOccupancyMaxActiveClusters`` query,
+    :func:`occupancy_query`), at least one fitting plan must be one the
+    card can schedule. A query that fails (a negative answer is
+    -cudaError) raises: a kernel the card cannot query is broken, which is
+    no reason to serve without it."""
+    try:
+        widths = [int(w) for w in widths]
+        if len(widths) < 2 or min(widths) < 1:
+            return f"no stack of layers has the widths {widths}"
+        if len(widths) - 1 > MAX_LAYERS:
+            return f"the kernel takes at most {MAX_LAYERS} layers, got {len(widths) - 1}"
+        plans = launch_plans(widths, 1, engine, n_sms, smem_budget)
+    except (TypeError, ValueError) as exc:
+        return str(exc) or repr(exc)
+    if max_active is None:
+        return None
+    for p in plans:
+        n = max_active(p.cluster, p.smem_bytes)
+        if n < 0:
+            raise RuntimeError(f"{engine}: the occupancy query failed for a cluster of "
+                               f"{p.cluster} with {p.smem_bytes} bytes (cudaError {-n})")
+        if n > 0:
+            return None
+    return (f"{engine}: no cluster size in {[p.cluster for p in plans]} can be "
+            f"scheduled for layer widths {widths}")
+
+
+def occupancy_query(engine: str, device=None):
+    """``max_active(cluster, smem_bytes)``: how many clusters of the
+    kernel of ``engine`` the card (``device``, else the current one)
+    holds at once (``cudaOccupancyMaxActiveClusters``). Its first call
+    loads the kernel's library, building it where it is not built yet (a
+    build failure raises). A failed query raises, naming the CUDA
+    error."""
+    from bodywork_tpu_torch.ops._build import load_library
+
+    library, entry = _ENTRY_POINTS[engine]
+    prefix = entry.rsplit("_", 1)[0]  # mlp_f32 / mlp_bf16 / mlp_int8
+
+    def max_active(cluster: int, smem_bytes: int) -> int:
+        lib = load_library(library)
+        with torch.cuda.device(device) if device is not None else contextlib.nullcontext():
+            n = getattr(lib, f"{prefix}_max_active_clusters")(cluster, smem_bytes)
+        if n < 0:
+            error = getattr(lib, f"{prefix}_error_string")(-n).decode()
+            raise RuntimeError(
+                f"{engine}: the occupancy query failed for a cluster of {cluster} with "
+                f"{smem_bytes} bytes: {error} (cudaError {-n})"
+            )
+        return n
+
+    return max_active
+
+
 def launch_plan(widths, n_rows: int, engine: str, n_sms: int, smem_budget: int,
                 clusters: dict | None = None) -> LaunchPlan:
     """The launch for an ``n_rows`` batch, among :func:`launch_plans`.
@@ -363,7 +427,7 @@ class _ClusterLaunch:
         library, entry = _ENTRY_POINTS[engine]
         lib = load_library(library)
         prefix = entry.rsplit("_", 1)[0]  # mlp_f32 / mlp_bf16 / mlp_int8
-        max_active = getattr(lib, f"{prefix}_max_active_clusters")
+        max_active = occupancy_query(engine)
         #: cluster size -> clusters of it the card holds at once, for this stack
         self.clusters = {}
         for p in fitting:

@@ -16,6 +16,10 @@ orchestrator guarantees:
   until ``max_startup_time_s`` (``bodywork.yaml:39``, the k8s readiness
   probe);
 - stages within one DAG step run concurrently, steps in order;
+- the model registry's promotion gate runs at the step barrier once every
+  train stage has finished, before any later step resolves what to
+  serve: today's candidate is promoted to the ``production`` alias or
+  rejected, so a bad retrain never takes traffic;
 - a failed stage fails the day with a :class:`StageFailure` naming it,
   and services are stopped at day end either way.
 
@@ -23,9 +27,10 @@ orchestrator guarantees:
 (the reference's "re-run the deployment every day", README.md:5).
 
 Not ported yet (ROADMAP): the run journal and its lease (resume), the
-registry gate between train and serve, the lookahead train, dataset
-prefetch, the history snapshot compactor, compile prewarm, spans and the
-day report, and profiling.
+gate's same-day full-refit fallback for a rejected incremental candidate
+(with incremental training, Queue 1 item 3), the lookahead train,
+dataset prefetch, the history snapshot compactor, compile prewarm, spans
+and the day report, and profiling.
 """
 from __future__ import annotations
 
@@ -71,7 +76,16 @@ class DayResult:
     day: date
     wall_clock_s: float
     stage_seconds: dict[str, float]
+    #: stage name -> its return value; ``"registry-gate"`` holds the
+    #: gate's ``GateDecision`` (None when there was nothing to gate)
     stage_results: dict[str, object]
+    #: seconds of the registry gate between train and serve (None when the
+    #: spec has no train stage); not in ``stage_seconds``, which keeps to
+    #: the spec's declared stages
+    gate_seconds: float | None = None
+
+#: ``stage_results`` key of the registry gate's decision
+GATE_RESULT = "registry-gate"
 
 
 def resolve_executable(path: str):
@@ -230,6 +244,48 @@ class LocalRunner:
         ctx.stage_results[name] = result
         log.info(f"[{ctx.today}] {name} done in {stage_seconds[name]:.3f}s")
 
+    # -- the registry gate -------------------------------------------------
+    def _run_registry_gate(self, today: date, ctx: StageContext) -> float:
+        """The promotion gate between train and serve: adjudicate the
+        candidate the train step just registered (promote it to the
+        ``production`` alias or reject it) before the serve step resolves
+        what to load. The decision goes to ``stage_results`` under
+        :data:`GATE_RESULT`. No retries; a gate that FAILS (as opposed to
+        rejecting) is logged and the day goes on, serving the current
+        production (or the latest checkpoint on a store never promoted).
+        A rejected incremental candidate's same-day full refit waits for
+        incremental training (ROADMAP Queue 1 item 3). Returns the
+        seconds it took."""
+        t0 = time.perf_counter()
+        try:
+            from bodywork_tpu_torch.registry import ModelRegistry
+
+            decision = ModelRegistry(self.store, device=self.device).gate(day=today)
+            ctx.stage_results[GATE_RESULT] = decision
+            if decision is not None:
+                verdict = "PROMOTED" if decision.promote else "REJECTED"
+                log.info(f"[{today}] registry gate: {verdict} {decision.model_key}")
+        except Exception as exc:  # noqa: BLE001 - a failed gate is not fatal
+            log.error(f"registry gate failed (non-fatal): {exc!r}")
+        return time.perf_counter() - t0
+
+    def _train_stages(self) -> set[str]:
+        """The spec's train stages, which the gate waits for; warns when
+        one shares a DAG step with a service, which then resolves its
+        model before today's candidate is gated."""
+        train = {name for name, s in self.spec.stages.items()
+                 if s.executable.endswith(":train_stage")}
+        if any(set(step) & train
+               and any(self.spec.stages[n].kind == "service" for n in step)
+               for step in self.spec.dag):
+            log.warning(
+                "pipeline spec places a train stage and a service stage in the "
+                "same DAG step: the registry gate runs at the step boundary, so "
+                "the service resolves its model BEFORE today's candidate is gated "
+                "(it serves the previous production / latest)"
+            )
+        return train
+
     # -- DAG execution -----------------------------------------------------
     def run_day(self, today: date, scoring_url: str | None = None) -> DayResult:
         """Run the DAG for one simulated day; raises :class:`StageFailure`
@@ -237,32 +293,40 @@ class LocalRunner:
         ctx = StageContext(store=self.store, today=today, device=self.device,
                            drift=self.drift, scoring_url=scoring_url)
         stage_seconds: dict[str, float] = {}
+        train_stages = self._train_stages()
+        gate_seconds = None
         day_start = time.perf_counter()
         try:
             for step in self.spec.dag:
                 if len(step) == 1:
                     self._run_stage_timed(step[0], ctx, stage_seconds)
-                    continue
-                # stages within a step are independent and run concurrently
-                threads = [
-                    threading.Thread(target=self._run_stage_timed,
-                                     args=(name, ctx, stage_seconds, True),
-                                     name=f"step-{name}")
-                    for name in step
-                ]
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join()
-                failed = [n for n in step if n in ctx.failures]
-                if failed:
-                    raise ctx.failures[failed[0]]
+                else:
+                    # stages within a step are independent and run concurrently
+                    threads = [
+                        threading.Thread(target=self._run_stage_timed,
+                                         args=(name, ctx, stage_seconds, True),
+                                         name=f"step-{name}")
+                        for name in step
+                    ]
+                    for t in threads:
+                        t.start()
+                    for t in threads:
+                        t.join()
+                    failed = [n for n in step if n in ctx.failures]
+                    if failed:
+                        raise ctx.failures[failed[0]]
+                # the gate: once every train stage has registered its
+                # candidate, before any later step resolves what to serve
+                if (train_stages and gate_seconds is None
+                        and train_stages <= set(ctx.stage_results)):
+                    gate_seconds = self._run_registry_gate(today, ctx)
         finally:
             for handle in ctx.services.values():
                 handle.stop()
         return DayResult(
             day=today, wall_clock_s=time.perf_counter() - day_start,
             stage_seconds=stage_seconds, stage_results=ctx.stage_results,
+            gate_seconds=gate_seconds,
         )
 
     # -- multi-day simulation ----------------------------------------------

@@ -78,7 +78,8 @@ def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None 
 def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
                 engine: str = "auto"):
-    """Load the checkpoint to serve onto the device and start the scoring
+    """Load the checkpoint to serve (the registry's ``production`` alias
+    where the store has one) onto the device and start the scoring
     service on a background thread (reference stage 2); returns the
     handle. ``replicas > 1`` serves through N apps sharing one predictor
     behind a round-robin front; ``buckets`` narrows the warmed shapes to
@@ -86,7 +87,7 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     store, which stays the source of truth, rather than reused from the
     train stage's memory."""
     from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
-    from bodywork_tpu_torch.serve.server import serve_model
+    from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
     served_key, served_source = resolve_serving_key(ctx.store)
     model, model_date = load_model(ctx.store, served_key, device=ctx.device)
@@ -94,6 +95,7 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
         model, model_date, host=host, port=port, block=False, engine=engine,
         buckets=tuple(buckets) if buckets else None, replicas=replicas,
         model_key=served_key, model_source=served_source,
+        model_bounds=registry_bounds(ctx.store, served_key),
     )
 
 

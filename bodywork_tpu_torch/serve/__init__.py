@@ -1,4 +1,9 @@
-from bodywork_tpu_torch.serve.app import ScoringApp
+from bodywork_tpu_torch.serve.app import (
+    PredictionSanityError,
+    ScoringApp,
+    as_bounds,
+    sanity_violation,
+)
 from bodywork_tpu_torch.serve.predictor import KernelMLPPredictor, PaddedPredictor
 from bodywork_tpu_torch.serve.server import (
     ENGINE_NAMES,
@@ -14,11 +19,14 @@ __all__ = [
     "ENGINE_NAMES",
     "KernelMLPPredictor",
     "PaddedPredictor",
+    "PredictionSanityError",
     "RoundRobinApp",
     "ScoringApp",
     "ServiceHandle",
+    "as_bounds",
     "build_predictor",
     "resolve_engine",
+    "sanity_violation",
     "serve_latest_model",
     "serve_model",
 ]

@@ -1,7 +1,8 @@
 """Scoring-service lifecycle (the port of ``bodywork_tpu.serve.server``).
 
-:func:`serve_latest_model` loads the newest checkpoint from the store onto
-the card and hands it to :func:`serve_model`, which picks the engine,
+:func:`serve_latest_model` loads the checkpoint to serve (the registry's
+``production`` alias, or the newest checkpoint on a store without one)
+onto the card and hands it to :func:`serve_model`, which picks the engine,
 warms every bucket and serves over ``http.server.ThreadingHTTPServer``
 (the day loop's serve stage calls :func:`serve_model` itself); with
 ``block=False`` they return a started :class:`ServiceHandle`. With
@@ -19,6 +20,8 @@ from __future__ import annotations
 import itertools
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+import torch
 
 from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
@@ -47,19 +50,43 @@ _KERNEL_DTYPES = {"kernel": None, "kernel-bf16": "bfloat16", "kernel-int8": "int
 KERNEL_AUTO_MIN_WIDTH = 256
 
 
-def resolve_engine(engine: str, model, device) -> str:
-    """Resolve ``engine="auto"``: the fused kernel for an MLP whose
-    narrowest hidden layer is at least :data:`KERNEL_AUTO_MIN_WIDTH` wide
-    on a CUDA device, the plain ``torch`` engine otherwise. Explicit
-    engine choices pass through untouched."""
+def resolve_engine(engine: str, model, device, n_sms: int | None = None,
+                   smem_budget: int | None = None, max_active=None) -> str:
+    """Resolve ``engine="auto"``: on a CUDA device, the fused f32 kernel
+    for an MLP whose narrowest hidden layer is at least
+    :data:`KERNEL_AUTO_MIN_WIDTH` wide and that the kernel can launch;
+    the plain ``torch`` engine otherwise. Explicit engine choices pass
+    through untouched (and a kernel that cannot launch the model raises
+    when the predictor is built).
+
+    Whether the kernel can launch is a plan-time question
+    (:func:`~bodywork_tpu_torch.ops.mlp_kernel.launch_refusal`): the
+    layer cap, the card's SM count and opt-in shared memory a block
+    (``n_sms`` / ``smem_budget``, read from the device when not given),
+    and the card's cluster occupancy query (``max_active``, the built
+    kernel's own when not given). A refusal is logged with its reason."""
     if engine != "auto":
         return engine
     if not isinstance(model, MLPRegressor) or device.type != "cuda":
         return "torch"
-    widths = [layer.w.shape[1] for layer in model.net.layers[:-1]]
-    if widths and min(widths) >= KERNEL_AUTO_MIN_WIDTH:
-        return "kernel"
-    return "torch"
+    layers = model.net.layers
+    widths = [layers[0].w.shape[0]] + [layer.w.shape[1] for layer in layers]
+    if min(widths[1:-1], default=0) < KERNEL_AUTO_MIN_WIDTH:
+        return "torch"
+    from bodywork_tpu_torch.ops.mlp_kernel import launch_refusal, occupancy_query
+
+    if n_sms is None or smem_budget is None:
+        props = torch.cuda.get_device_properties(device)
+        n_sms = props.multi_processor_count if n_sms is None else n_sms
+        if smem_budget is None:
+            smem_budget = props.shared_memory_per_block_optin
+    reason = launch_refusal(widths, "kernel", n_sms, smem_budget,
+                            max_active or occupancy_query("kernel", device))
+    if reason is not None:
+        log.warning(f"auto: the f32 kernel cannot launch {model.info} "
+                    f"({reason}); serving through the torch engine")
+        return "torch"
+    return "kernel"
 
 
 def build_predictor(model, engine: str = "auto",
@@ -83,7 +110,7 @@ def build_predictor(model, engine: str = "auto",
             f"engine {engine!r} (the JAX package's "
             f"{'xla-bf16' if engine == 'torch-bf16' else 'xla-int8'}) is not "
             "ported yet: the quantized plain engines and their shadow gate are "
-            "ROADMAP Queue 1 (c); use 'kernel-bf16' / 'kernel-int8'"
+            "ROADMAP Queue 1 item 5; use 'kernel-bf16' / 'kernel-int8'"
         )
     raise ValueError(
         f"unknown serving engine {engine!r}; expected 'auto' or one of "
@@ -197,21 +224,37 @@ class ServiceHandle:
         log.info("scoring service stopped")
 
 
+def registry_bounds(store, key: str | None):
+    """The prediction-sanity band of a checkpoint's registry record, or
+    None (no key, no record, or an unreadable registry: the band is an
+    enhancement and never blocks a start)."""
+    if key is None:
+        return None
+    try:
+        from bodywork_tpu_torch.registry.records import load_record
+
+        return (load_record(store, key) or {}).get("prediction_bounds")
+    except Exception:  # noqa: BLE001
+        return None
+
+
 def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 block: bool = True, engine: str = "auto",
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
-                model_key: str | None = None, model_source: str | None = None):
+                model_key: str | None = None, model_source: str | None = None,
+                model_bounds=None):
     """Serve a loaded model from its device: build the engine's predictor,
     warm every bucket (so a kernel that fails to build or launch fails the
     start, not a request), and serve through ``replicas`` scoring apps that
-    share the predictor. With ``block=False`` returns a started
+    share the predictor, each behind the prediction-sanity firewall with
+    ``model_bounds`` as its band. With ``block=False`` returns a started
     :class:`ServiceHandle`."""
     predictor = build_predictor(model, engine, buckets=buckets)
     log.info(f"serving {model.info} on {model.device} through engine "
              f"{predictor.engine!r} ({max(replicas, 1)} replica(s))")
     apps = [
-        ScoringApp(model, model_date, predictor=predictor,
-                   model_key=model_key, model_source=model_source)
+        ScoringApp(model, model_date, predictor=predictor, model_key=model_key,
+                   model_source=model_source, model_bounds=model_bounds)
         for _ in range(max(replicas, 1))
     ]
     predictor.warmup()
@@ -225,14 +268,17 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
 def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        block: bool = True, engine: str = "auto", device=None,
                        buckets: tuple[int, ...] | None = None):
-    """Load the newest checkpoint onto ``device`` (the card unless asked
-    for the CPU; no CUDA and no ``device="cpu"`` raises) and serve it
-    (:func:`serve_model`). ``store`` is an artefact store or a store
-    directory. With ``block=False`` returns a started
-    :class:`ServiceHandle`."""
+    """Load the checkpoint to serve (the ``production`` alias where the
+    store has a registry, else the newest checkpoint the gate has not
+    rejected: :func:`resolve_serving_key`) onto ``device`` (the card
+    unless asked for the CPU; no CUDA and no ``device="cpu"`` raises) and
+    serve it (:func:`serve_model`) with its record's sanity band.
+    ``store`` is an artefact store or a store directory. With
+    ``block=False`` returns a started :class:`ServiceHandle`."""
     dev = resolve_device(device)
     store = open_store(store)
     served_key, served_source = resolve_serving_key(store)
     model, model_date = load_model(store, served_key, device=dev)
     return serve_model(model, model_date, host, port, block=block, engine=engine,
-                       buckets=buckets, model_key=served_key, model_source=served_source)
+                       buckets=buckets, model_key=served_key, model_source=served_source,
+                       model_bounds=registry_bounds(store, served_key))

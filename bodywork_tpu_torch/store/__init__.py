@@ -5,10 +5,10 @@ from __future__ import annotations
 
 import os
 
-from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore
+from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore, CasConflict
 from bodywork_tpu_torch.store.filesystem import FilesystemStore
 
-__all__ = ["ArtefactNotFound", "ArtefactStore", "FilesystemStore", "open_store"]
+__all__ = ["ArtefactNotFound", "ArtefactStore", "CasConflict", "FilesystemStore", "open_store"]
 
 
 def open_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:

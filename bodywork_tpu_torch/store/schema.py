@@ -7,9 +7,9 @@ stores:
 - ``model-metrics/regressor-<date>.csv`` — the train stage's held-out
   metrics
 - ``test-metrics/regressor-test-results-<date>.csv``
-- ``registry/`` — the JAX package's model registry (records + the alias
-  document). The port does not read it yet, and refuses to serve from a
-  store that has one (``models.checkpoint.resolve_serving_key``).
+- ``registry/records/regressor-<date>.json`` — one model registry record
+  per checkpoint, and ``registry/aliases.json``, the alias document
+  (``bodywork_tpu_torch.registry``)
 """
 from __future__ import annotations
 
@@ -37,3 +37,12 @@ def model_metrics_key(d: date) -> str:
 
 def test_metrics_key(d: date) -> str:
     return f"{TEST_METRICS_PREFIX}regressor-test-results-{d}.csv"
+
+
+def registry_record_key(model_key: str) -> str:
+    """The registry record's key for a model key: the checkpoint's
+    basename, extension dropped, under ``registry/records/`` (so records
+    carry the model's date and sort by it)."""
+    base = model_key.rsplit("/", 1)[-1]
+    stem = base.rsplit(".", 1)[0] if "." in base else base
+    return f"{REGISTRY_RECORDS_PREFIX}{stem}.json"

@@ -3,13 +3,14 @@
 
 Flow, the reference's ``main()``: load all dataset history -> 80/20 split
 (seed 42) -> fit the regressor on the device -> metrics on the held-out
-split -> persist the date-keyed checkpoint and the metrics CSV.
+split -> persist the date-keyed checkpoint and the metrics CSV, and
+register the checkpoint as a model-registry candidate (with the
+prediction-sanity band of its training labels), which the promotion
+gate then adjudicates.
 
 Not ported yet (ROADMAP): the incremental mode (``mode="incremental"``)
-and the device mesh (``mesh_data`` / ``mesh_model``) raise; no registry
-candidate is registered (the port refuses a store with ``registry/``
-state until the registry read path lands); and there is no compile
-prewarm, which is XLA machinery.
+and the device mesh (``mesh_data`` / ``mesh_model``) raise; there is no
+compile prewarm, which is XLA machinery.
 """
 from __future__ import annotations
 
@@ -98,12 +99,33 @@ def persist_metrics(store: ArtefactStore, metrics: dict[str, float], data_date: 
     return key
 
 
+def _register_candidate(store: ArtefactStore, model_key_: str, metrics_key: str,
+                        data_date: date, model_bytes: bytes,
+                        prediction_bounds: dict | None = None) -> None:
+    """Register the persisted checkpoint as a registry candidate: it takes
+    traffic only once the promotion gate moves the ``production`` alias.
+    ``model_bytes`` is the buffer just written, so the lineage digest
+    costs no re-read. A failure is logged and not fatal: the artefacts
+    are durable, and a registry-less store still serves the latest
+    checkpoint."""
+    try:
+        from bodywork_tpu_torch.registry.records import register_candidate
+
+        register_candidate(store, model_key_, metrics_key=metrics_key, day=data_date,
+                           model_bytes=model_bytes, prediction_bounds=prediction_bounds)
+    except Exception as exc:  # noqa: BLE001 - non-fatal by design
+        log.warning(f"candidate registration failed (non-fatal): {exc!r}")
+
+
 def persist_train_result(store: ArtefactStore, result: TrainResult) -> TrainResult:
-    """Write a computed-but-unpersisted result's checkpoint and metrics
-    and return it with its keys filled in."""
-    model_key_ = save_model(store, result.model, result.data_date,
-                            data=save_model_bytes(result.model))
+    """Write a computed-but-unpersisted result's checkpoint and metrics,
+    register the checkpoint as a registry candidate, and return the
+    result with its keys filled in."""
+    data = save_model_bytes(result.model)
+    model_key_ = save_model(store, result.model, result.data_date, data=data)
     metrics_key = persist_metrics(store, result.metrics, result.data_date)
+    _register_candidate(store, model_key_, metrics_key, result.data_date, data,
+                        prediction_bounds=result.prediction_bounds)
     return dataclasses.replace(
         result, model_artefact_key=model_key_, metrics_artefact_key=metrics_key,
     )
@@ -129,12 +151,12 @@ def train_on_history(
         raise ValueError(f"unknown train mode {mode!r}; expected one of {TRAIN_MODES}")
     if mode == "incremental":
         raise NotImplementedError(
-            "incremental training is not ported yet (ROADMAP Queue 1 (h), "
+            "incremental training is not ported yet (ROADMAP Queue 1 item 3, "
             "train/incremental.py); use mode='full'"
         )
     if (mesh_data or 0) > 1 or mesh_model > 1:
         raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP item 12, "
+            "training over a device mesh is not ported yet (ROADMAP Queue 1 item 19, "
             "the mesh on torch.distributed)"
         )
     dev = resolve_device(device)

@@ -8,7 +8,11 @@ Run from the repository root with no arguments::
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. ``device``  — the card's name, compute capability (must be 9.0) and
-   ``nvidia-smi`` name and power limit;
+   ``nvidia-smi`` name and power limit; then ``generator``: the drift
+   generator's threefry draws for all 365 dates of 2026 on the card
+   against the CPU (``X`` and the kept-row mask must be bit-equal; the
+   ``eps`` and ``y`` gaps are printed in ulps) and the card's time for
+   one day;
 2. ``build``   — compiles the CUDA kernels from the repository's sources
    with ``nvcc``, one process per source, all started together
    (``ops/_build.py``), and prints the seconds and the compiler's
@@ -28,18 +32,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
    must pick the ``kernel`` engine on ``cuda``), single and batch requests
    over HTTP checked against the plain version, then the port's test stage
    over HTTP on the latest day; ``slice-bf16`` / ``slice-int8`` serve the
-   same checkpoint through the other two kernels. Kernel launch counts are
-   set to 0 just before each path and read just after it;
-5. ``day-loop`` — the daily train -> serve -> generate -> test loop
-   (``run_simulation``) for 7 simulated days on the card: the MLP at
-   hidden (1024, 1024, 1024) trained with Adam (lr 1e-3, batch 256, 2000
-   steps) and served by ``auto``, which must resolve to ``kernel`` every
-   day, with the kernel's launches counted over the loop (counts set to 0
-   just before it, read just after); then the last day's checkpoint
-   through the kernel held against its plain version; then the linear
+   same checkpoint through the other two kernels; ``slice-auto-wide``
+   serves a (1344, 1344, 1344) MLP, which the f32 kernel cannot launch, on
+   ``auto``, which must resolve to the ``torch`` engine with no launch;
+   ``slice-nan`` serves a model whose output is NaN through ``kernel``,
+   which must answer 500 over HTTP without the value. Kernel launch counts
+   are set to 0 just before each path and read just after it;
+5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
+   -> test loop (``run_simulation``) for 7 simulated days on the card: the
+   MLP at hidden (1024, 1024, 1024) trained with Adam (lr 1e-3, batch 256,
+   2000 steps), registered as a candidate, gated, and served from the
+   registry's ``production`` alias by ``auto``, which must resolve to
+   ``kernel`` every day, with the kernel's launches counted over the loop
+   (counts set to 0 just before it, read just after); every day's gate
+   must have reached a decision and every day's served key must come from
+   ``production``. Then the last day's checkpoint through the kernel held
+   against its plain version; then a forced rejection on a copy of the
+   store (``day-loop-gate-rejection``: a candidate whose metrics fail
+   ``min_r2`` is rejected, and the serve stage serves the previous
+   production through ``kernel``, launches counted); then the linear
    model's loop (the ``torch`` engine, no kernel). One line per day (the
-   engine, the launches, the train and test metrics, the wall-clock and
-   the seconds of each stage), one line per loop, the float32 matrix
+   engine, the launches, the gate's verdict and seconds, the served key
+   and its source, the train and test metrics, the wall-clock and the
+   seconds of each stage), one line per loop, the float32 matrix
    product settings in force, and 20 Adam steps at width 1024 from one
    init and one index stream on the card and on the CPU: the first
    step's loss and gradients within 1e-5 (TF32 products must fail both
@@ -74,7 +89,7 @@ import sys
 import tempfile
 import time
 import urllib.request
-from datetime import date
+from datetime import date, timedelta
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTHS = (1, 1024, 1024, 1024, 1)  # the served model: hidden (1024, 1024, 1024)
@@ -117,6 +132,12 @@ PARITY_STEPS = 20
 PARITY_BARS = {"loss_step0": 1e-5, "grad_step0": 1e-5}
 #: Adam steps in the profiled window of the training loop
 PROFILE_STEPS = 50
+#: the generator phase: every date of this year on the card and the CPU,
+#: and this many days timed on the card
+GENERATOR_YEAR = date(2026, 1, 1)
+GENERATOR_TIMED_DAYS = 30
+#: a stack the f32 kernel cannot launch (its widest layer is 1280)
+TOO_WIDE = (1, 1344, 1344, 1344, 1)
 
 
 def emit(phase: str, **fields) -> None:
@@ -203,14 +224,15 @@ def controls(torch, layers, X, dtype) -> dict:
     return out
 
 
-def make_params(torch, dev, X: "torch.Tensor", y: "torch.Tensor", seed: int = 0) -> dict:
+def make_params(torch, dev, X: "torch.Tensor", y: "torch.Tensor", seed: int = 0,
+                widths: tuple = WIDTHS) -> dict:
     """Seeded He-init weights (an explicit torch.Generator) and the
     scaler's statistics over the generated days."""
     from bodywork_tpu_torch.models.mlp import _masked_stats, init_mlp_params
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    net = init_mlp_params(gen, WIDTHS, device=dev)
+    net = init_mlp_params(gen, widths, device=dev)
     w = torch.ones(X.shape[0], device=dev)
     x_mean, x_std = _masked_stats(X, w)
     y_mean, y_std = _masked_stats(y, w)
@@ -248,6 +270,56 @@ def phase_device(torch) -> dict:
     if tuple(cap) != (9, 0):
         raise RuntimeError(f"expected a Hopper card (capability 9.0), got {cap}")
     return {"name": name, "smi": smi, **peaks(name)}
+
+
+def _ulps(torch, a: "torch.Tensor", b: "torch.Tensor") -> int:
+    """The most float32 ulps between two arrays of draws."""
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def phase_generator(torch, dev) -> dict:
+    """The drift generator's draws for every date of 2026, on the card
+    and on the CPU: ``X`` and the kept-row mask must be bit-equal."""
+    from bodywork_tpu_torch.data import prng
+    from bodywork_tpu_torch.data.drift_config import DriftConfig
+    from bodywork_tpu_torch.data.generator import _sample_day, generate_day, key_for_date
+    from bodywork_tpu_torch.utils.dates import day_of_year
+
+    cfg = DriftConfig()
+
+    def draws(d, device):  # generate_day's draws, before the mask's compaction
+        bits = prng.random_bits(prng.split(key_for_date(d, cfg, device=device)), cfg.n_samples)
+        x = prng.uniform_from_bits(bits[0], cfg.x_low, cfg.x_high)
+        eps = prng.normal_from_bits(bits[1])
+        return eps, _sample_day(x, eps, day_of_year(d), cfg)
+
+    dates = [GENERATOR_YEAR + timedelta(days=i) for i in range(365)]
+    x_equal = mask_equal = eps_equal = y_equal = 0
+    eps_ulps = y_ulps = 0
+    for d in dates:
+        eps_card, card = (t.cpu() for t in draws(d, dev))
+        eps_cpu, cpu = draws(d, torch.device("cpu"))
+        x_equal += bool(torch.equal(card[0].view(torch.int32), cpu[0].view(torch.int32)))
+        mask_equal += bool(torch.equal(card[2], cpu[2]))
+        eps_equal += bool(torch.equal(eps_card.view(torch.int32), eps_cpu.view(torch.int32)))
+        y_equal += bool(torch.equal(card[1].view(torch.int32), cpu[1].view(torch.int32)))
+        eps_ulps = max(eps_ulps, _ulps(torch, eps_card, eps_cpu))
+        y_ulps = max(y_ulps, _ulps(torch, card[1], cpu[1]))
+    times = []
+    for d in dates[:GENERATOR_TIMED_DAYS]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate_day(d, cfg, device=dev)  # ends on the device-to-host copy
+        times.append(time.perf_counter() - t0)
+    out = {"dates": len(dates), "x_bit_equal": x_equal, "mask_equal": mask_equal,
+           "eps_bit_equal": eps_equal, "y_bit_equal": y_equal,
+           "eps_max_ulps": eps_ulps, "y_max_ulps": y_ulps,
+           "generate_day_ms_median": 1e3 * statistics.median(times),
+           "generate_day_timed_days": len(times)}
+    emit("generator", **out)
+    if x_equal != len(dates) or mask_equal != len(dates):
+        raise RuntimeError(f"the card's draws differ from the CPU's: {out}")
+    return out
 
 
 def phase_build() -> None:
@@ -476,21 +548,101 @@ def phase_slice(torch, dev, workdir: str) -> dict:
         if launches[engine] < 3:
             raise RuntimeError(f"{engine}: {launches[engine]} launches for 3 requests")
         emit(f"slice-{engine.split('-')[1]}", engine=engine, launches=launches[engine], **checks)
+    _serve_too_wide(torch, dev, X_hist, y_hist, batches[0])
+    _serve_nan_model(torch, dev, X_hist, y_hist)
     torch.cuda.synchronize()
     return launches
+
+
+def _serve_too_wide(torch, dev, X_hist, y_hist, X) -> None:
+    """A stack the f32 kernel cannot launch, on ``auto``: the plan-time
+    check must pick the ``torch`` engine, which serves it on the card."""
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor
+    from bodywork_tpu_torch.models.mlp import mlp_apply
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import serve_model
+
+    model = MLPRegressor(MLPConfig(hidden=TOO_WIDE[1:-1]),
+                         make_params(torch, dev, X_hist, y_hist, widths=TOO_WIDE))
+    reset_launches()
+    handle = serve_model(model, None, host="127.0.0.1", port=0, block=False, engine="auto")
+    try:
+        health = get(handle.base_url + "/healthz")
+        got = torch.tensor(post(handle.url + "/batch", {"X": X.tolist()})["predictions"],
+                           device=dev)
+    finally:
+        handle.stop()
+    launched = sum(LAUNCHES.values())
+    with torch.no_grad():
+        want = mlp_apply(model.params, X[:, None])
+    err = rel_err(got, want)[1]
+    emit("slice-auto-wide", hidden=list(TOO_WIDE[1:-1]), engine=health["engine"],
+         device=health["device"], launches=launched, rows=int(X.shape[0]),
+         err_over_scale_vs_plain=err)
+    if health["engine"] != "torch" or health["device"] != "cuda" or launched:
+        raise RuntimeError(f"auto on a too-wide stack: {health} ({launched} launches)")
+    if err >= BARS["kernel"] or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"the torch engine's answers disagree: {err:.3g}")
+
+
+def _serve_nan_model(torch, dev, X_hist, y_hist) -> None:
+    """A model whose output is NaN, served through the f32 kernel: the
+    prediction-sanity firewall must answer 500 over HTTP, without the
+    value, for a single row and a batch."""
+    import urllib.error
+
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import serve_model
+
+    params = make_params(torch, dev, X_hist, y_hist)
+    params["net"]["layers"][-1]["b"] = torch.full_like(params["net"]["layers"][-1]["b"],
+                                                       float("nan"))
+    model = MLPRegressor(MLPConfig(hidden=HIDDEN), params)
+    reset_launches()
+    handle = serve_model(model, None, host="127.0.0.1", port=0, block=False, engine="auto",
+                         model_source="production")
+    answers = []
+    try:
+        health = get(handle.base_url + "/healthz")
+        for url, body in ((handle.url, {"X": 50.0}), (handle.url + "/batch", {"X": [1.0, 2.0]})):
+            try:
+                post(url, body)
+                answers.append((200, b""))
+            except urllib.error.HTTPError as exc:
+                answers.append((exc.code, exc.read()))
+    finally:
+        handle.stop()
+    launched = LAUNCHES["kernel"]
+    emit("slice-nan", engine=health["engine"], launches=launched,
+         statuses=[code for code, _ in answers], bodies=[b.decode() for _, b in answers])
+    if health["engine"] != "kernel" or launched < 2:
+        raise RuntimeError(f"the NaN model was not served through the kernel: {health}")
+    if any(code != 500 or b"nan" in body.lower() for code, body in answers):
+        raise RuntimeError(f"a NaN prediction was not refused: {answers}")
 
 
 def _day_line(model_type: str, r, launched: int) -> dict:
     """One simulated day's readings from its ``DayResult``."""
     from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE, TEST_STAGE, TRAIN_STAGE
 
+    from bodywork_tpu_torch.pipeline.runner import GATE_RESULT
+    from bodywork_tpu_torch.registry import GateDecision
+
     train = r.stage_results[TRAIN_STAGE]
     test = r.stage_results[TEST_STAGE]
+    gate = r.stage_results.get(GATE_RESULT)
     health = r.stage_results[SERVE_STAGE].app.healthz_payload()
     line = {
         "model": model_type, "day": str(r.day), "engine": health["engine"],
         "device": health["device"], "model_info": health["model_info"],
-        "launches": launched, "train_rows": train.n_rows,
+        "launches": launched,
+        "gate": ({"promote": gate.promote, "candidate": gate.model_key,
+                  "checks": {c["name"]: c["ok"] for c in gate.checks}}
+                 if isinstance(gate, GateDecision) else repr(gate)),
+        "gate_seconds": r.gate_seconds,
+        "served_key": health["model_key"], "served_source": health["model_source"],
+        "train_rows": train.n_rows,
         "train_metrics": train.metrics,
         "test_metrics": {k: test[k] for k in ("MAPE", "r_squared", "max_residual",
                                              "n_failures", "n_scored")},
@@ -499,6 +651,10 @@ def _day_line(model_type: str, r, launched: int) -> dict:
     values = [*train.metrics.values(), test["MAPE"]]
     if not all(math.isfinite(v) for v in values) or test["n_failures"] != 0:
         raise RuntimeError(f"{model_type} day {r.day} is not healthy: {line}")
+    # a gate that raised is logged and the day goes on; here it fails the phase
+    if not isinstance(gate, GateDecision) or health["model_source"] != "production":
+        raise RuntimeError(f"{model_type} day {r.day} was not gated and served from "
+                           f"production: {line}")
     return line
 
 
@@ -530,6 +686,11 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
               for name in results[0].stage_seconds}
     summary = {"model": model_type, "days": LOOP_DAYS, "launches": launches,
                "engines": sorted({d["engine"] for d in days}),
+               "gate_verdicts": [d["gate"]["promote"] for d in days],
+               "served_sources": sorted({d["served_source"] for d in days}),
+               "gate_seconds": [r.gate_seconds for r in results],
+               "median_gate_seconds_days_2_7": statistics.median(
+                   r.gate_seconds for r in results[1:]),
                "wall_clock_s": walls, "day1_s": walls[0],
                "median_days_2_7_s": statistics.median(walls[1:]),
                "median_stage_seconds_days_2_7": stages}
@@ -537,8 +698,9 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
 
 
 def phase_day_loop(torch, dev, workdir: str) -> dict:
-    """The daily loop on the card for the MLP (served by the f32 kernel)
-    and the linear model, then the card-against-CPU training check."""
+    """The daily loop on the card for the MLP (gated, and served from the
+    production alias by the f32 kernel) and the linear model, a forced
+    gate rejection, then the card-against-CPU training check."""
     from bodywork_tpu_torch.data import load_latest_dataset
     from bodywork_tpu_torch.device import matmul_precision
     from bodywork_tpu_torch.models.checkpoint import load_model
@@ -573,6 +735,7 @@ def phase_day_loop(torch, dev, workdir: str) -> dict:
          rows=int(X.shape[0]),
          max_abs_err=err, err_over_scale=rel, bar=BARS["kernel"],
          err_over_scale_vs_unfolded=rel_unfolded)
+    rejection = _forced_rejection(torch, dev, store, workdir)
 
     linear = _run_loop(torch, dev, workdir, "linear", {})
     if linear["summary"]["engines"] != ["torch"] or any(linear["summary"]["launches"].values()):
@@ -582,7 +745,67 @@ def phase_day_loop(torch, dev, workdir: str) -> dict:
     parity = _card_against_cpu(torch, dev, mlp["runner"].store)
     emit("day-loop-train-profile", **_train_profile(torch, dev, mlp["runner"].store))
     return {"mlp": mlp["summary"], "linear": linear["summary"], "served_err": err,
-            "card_vs_cpu": parity["max_rel_gap"]}
+            "card_vs_cpu": parity["max_rel_gap"], "rejection": rejection}
+
+
+def _forced_rejection(torch, dev, store, workdir: str) -> dict:
+    """On a copy of the MLP loop's store: a day-8 candidate whose held-out
+    metrics fail the gate's ``min_r2`` is rejected, and the serve stage
+    then serves the previous production through the f32 kernel (launches
+    counted from 0 just before the serve stage, read after one request),
+    whose answers are held against the plain version of that model."""
+    from bodywork_tpu_torch.data.io import csv_record
+    from bodywork_tpu_torch.models.checkpoint import load_model, save_model
+    from bodywork_tpu_torch.models.mlp import mlp_apply
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline.stages import StageContext, serve_stage
+    from bodywork_tpu_torch.registry import GatePolicy, ModelRegistry, register_candidate
+    from bodywork_tpu_torch.registry.records import resolve_alias
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import model_metrics_key
+    from bodywork_tpu_torch.train.trainer import METRIC_COLUMNS
+
+    copy = FilesystemStore(shutil.copytree(store.root, os.path.join(workdir, "rejection")))
+    production = resolve_alias(copy)
+    model, _ = load_model(copy, production, device=dev)
+    day = LOOP_START + timedelta(days=LOOP_DAYS)
+    key = save_model(copy, model, day)
+    copy.put_text(model_metrics_key(day), csv_record(
+        METRIC_COLUMNS, {"date": day, "MAPE": 5.0, "r_squared": 0.05, "max_residual": 99.0}))
+    register_candidate(copy, key, day=day)
+    t0 = time.perf_counter()
+    decision = ModelRegistry(copy, device=dev).gate(day=day)
+    gate_seconds = time.perf_counter() - t0
+    failed = [c["name"] for c in decision.checks if not c["ok"]]
+    rows = [10.0, 50.0, 90.0]
+    reset_launches()
+    handle = serve_stage(StageContext(store=copy, today=day, device=dev),
+                         buckets=[2048], replicas=2)
+    try:
+        health = handle.app.healthz_payload()
+        got = torch.tensor(post(handle.url + "/batch", {"X": rows})["predictions"],
+                           device=dev)
+    finally:
+        handle.stop()
+    launches = dict(LAUNCHES)
+    with torch.no_grad():
+        want = mlp_apply(model.params, torch.tensor(rows, device=dev)[:, None])
+    err = rel_err(got, want)[1]
+    out = {"candidate": key, "promote": decision.promote, "failed_checks": failed,
+           "min_r2": GatePolicy().min_r2, "gate_seconds": gate_seconds,
+           "served_key": health["model_key"], "served_source": health["model_source"],
+           "previous_production": production, "engine": health["engine"],
+           "launches": launches, "err_over_scale_vs_plain": err}
+    emit("day-loop-gate-rejection", **out)
+    if decision.promote or "candidate-metrics" not in failed:
+        raise RuntimeError(f"the failing candidate was not rejected by min_r2: {out}")
+    if (health["model_key"], health["model_source"]) != (production, "production"):
+        raise RuntimeError(f"the serve stage did not keep the previous production: {out}")
+    if health["engine"] != "kernel" or launches["kernel"] < 2:
+        raise RuntimeError(f"the previous production was not served by the kernel: {out}")
+    if err >= BARS["kernel"] or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"the previous production's answers disagree: {err:.3g}")
+    return out
 
 
 def _card_against_cpu(torch, dev, store) -> dict:
@@ -814,7 +1037,7 @@ def phase_timing(torch, dev, card: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--phases", default="device,build,kernels,slice,day-loop,timing",
+        "--phases", default="device,generator,build,kernels,slice,day-loop,timing",
         help="comma-separated subset of the phases to run (default: all)",
     )
     args = parser.parse_args(argv)
@@ -839,6 +1062,8 @@ def main(argv=None) -> int:
 
     dev = resolve_device("cuda")
     card = phase_device(torch)
+    if "generator" in phases:
+        phase_generator(torch, dev)
     if "build" in phases:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
@@ -860,7 +1085,8 @@ def main(argv=None) -> int:
         kernels = []
         for engine in VARIANTS:
             t = timing[engine][4096]
-            by_path = {"slice": launches[engine], "day-loop": loop["mlp"]["launches"][engine]}
+            by_path = {"slice": launches[engine], "day-loop": loop["mlp"]["launches"][engine],
+                       "gate-rejection": loop["rejection"]["launches"][engine]}
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

@@ -147,12 +147,25 @@ def test_resolve_serving_key_is_the_registry_less_path(tmp_path, jax_model):
     "registry/records/regressor-2026-07-01.json",
 ])
 def test_resolve_serving_key_refuses_a_gated_store(tmp_path, jax_model, registry_key):
-    """A store with registry state must never be served past the gate."""
+    """A store with registry state must never be served past the gate:
+    the port resolves it as the JAX package does. An unreadable alias
+    document raises in both (it must not fall back to the ungated latest
+    checkpoint); an unreadable record reads as absent in both."""
     store = FilesystemStore(tmp_path / "s")
     store.put_bytes("models/regressor-2026-07-01.npz", jax_ckpt.save_model_bytes(jax_model))
     store.put_text(registry_key, "{}")
-    with pytest.raises(RuntimeError, match="registry"):
-        port_ckpt.resolve_serving_key(store)
+
+    def outcome(resolve, s):
+        try:
+            return resolve(s)
+        except Exception as exc:  # noqa: BLE001 - the outcome is compared
+            return type(exc).__name__
+
+    got = outcome(port_ckpt.resolve_serving_key, store)
+    want = outcome(jax_ckpt.resolve_serving_key, JaxStore(tmp_path / "s"))
+    assert got == want
+    if registry_key == "registry/aliases.json":
+        assert got == "RegistryCorrupt"
 
 
 @pytest.mark.parametrize("rows,minimum", [(5, 1024), (1024, 1024), (1500, 1024), (300, 256)])

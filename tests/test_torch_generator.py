@@ -1,9 +1,9 @@
 """The port's drift generator and dataset I/O against the JAX package's.
 
-The port draws from a torch.Generator, not jax.random's threefry, so a
-day's rows differ between the packages; the sampler's ALGEBRA is held
-equal on shared numpy draws, and the generated days are held to the same
-distribution by statistical bands."""
+The sampler's ALGEBRA is held equal on shared numpy draws, and the
+generated days are held to the same distribution by statistical bands.
+The draws themselves are jax.random's threefry bits
+(``tests/test_torch_prng.py`` holds them to the JAX package's)."""
 from datetime import date, timedelta
 
 import jax.numpy as jnp

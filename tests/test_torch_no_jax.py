@@ -18,6 +18,10 @@ import bodywork_tpu_torch.ops.mlp_kernel, bodywork_tpu_torch.ops._build
 import bodywork_tpu_torch.monitor.tester, bodywork_tpu_torch.data.generator
 import bodywork_tpu_torch.train.trainer, bodywork_tpu_torch.pipeline.runner
 import bodywork_tpu_torch.models.linear
+import bodywork_tpu_torch.registry, bodywork_tpu_torch.registry.manager
+import bodywork_tpu_torch.registry.gates, bodywork_tpu_torch.registry.shadow
+import bodywork_tpu_torch.data.prng, bodywork_tpu_torch.monitor.analytics
+import bodywork_tpu_torch.utils.integrity
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))

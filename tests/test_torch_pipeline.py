@@ -271,11 +271,14 @@ def test_run_day_tests_the_service_over_http_in_single_mode(store):
 
 
 def test_serve_stage_resolves_auto_to_torch_off_the_card(store):
+    """The day's candidate must pass the registry gate (r² >= 0.2) to be
+    served, so the MLP takes enough steps to fit."""
     runner = LocalRunner(default_pipeline("mlp"), store, device="cpu")
     spec = runner.spec.stages["stage-1-train-model"]
-    spec.args.update(hidden=(8,), n_steps=10)
+    spec.args.update(hidden=(8,), n_steps=200)
     runner.bootstrap(START)
     result = runner.run_day(START)
+    assert result.stage_results["registry-gate"].promote
     handle = result.stage_results["stage-2-serve-model"]
     health = handle.app.healthz_payload()
     assert health["engine"] == "torch" and health["device"] == "cpu"

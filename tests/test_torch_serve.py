@@ -192,12 +192,15 @@ def _port_model(hidden, device="cpu"):
 
 def test_auto_engine_resolution():
     """auto: the kernel for an MLP whose hidden widths are all >= 256 on
-    CUDA, the plain torch engine otherwise — and always on the CPU."""
+    CUDA, the plain torch engine otherwise — and always on the CPU. On
+    CUDA the kernel must also be able to launch the model, asked of the
+    card (here an H100's 132 SMs, 232448-byte budget and occupancy)."""
     wide, narrow = _port_model((256, 512)), _port_model((16, 16))
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    h100 = {"n_sms": 132, "smem_budget": 232_448, "max_active": lambda c, smem: 132 // c}
     assert resolve_engine("auto", wide, cpu) == "torch"
-    assert resolve_engine("auto", wide, cuda) == "kernel"
-    assert resolve_engine("auto", narrow, cuda) == "torch"
+    assert resolve_engine("auto", wide, cuda, **h100) == "kernel"
+    assert resolve_engine("auto", narrow, cuda, **h100) == "torch"
     assert resolve_engine("kernel-int8", narrow, cpu) == "kernel-int8"
     assert isinstance(build_predictor(wide, "auto"), PaddedPredictor)
     assert not isinstance(build_predictor(wide, "auto"), KernelMLPPredictor)

@@ -1,5 +1,6 @@
 """The train stage over a store: the port's ``train_on_history`` and the
 JAX package's on the same JAX-generated days, with the same artefacts."""
+import json
 import shutil
 from datetime import date, timedelta
 
@@ -107,8 +108,12 @@ def test_mlp_train_on_history_lands_beside_jax(twin_stores):
     assert abs(got.metrics["r_squared"] - want.metrics["r_squared"]) < 0.05, (got, want)
     assert abs(got.metrics["MAPE"] - want.metrics["MAPE"]) < 0.25 * want.metrics["MAPE"]
     assert port_store.exists("model-metrics/regressor-2026-07-03.csv")
-    # no registry candidate: the port does not write registry/ state
-    assert not port_store.list_keys("registry/")
+    # both register the checkpoint as a candidate, under the same key
+    assert port_store.list_keys("registry/") == jax_store.list_keys("registry/") == [
+        "registry/records/regressor-2026-07-03.json"]
+    record = json.loads(port_store.get_text("registry/records/regressor-2026-07-03.json"))
+    assert record["status"] == "candidate"
+    assert record["prediction_bounds"] == got.prediction_bounds
 
 
 def test_persist_false_defers_the_artefacts(twin_stores):
@@ -120,9 +125,9 @@ def test_persist_false_defers_the_artefacts(twin_stores):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"mode": "incremental"}, "Queue 1 \\(h\\)"),
-    ({"mesh_data": 2}, "item 12"),
-    ({"mesh_model": 2}, "item 12"),
+    ({"mode": "incremental"}, "Queue 1 item 3\\b"),
+    ({"mesh_data": 2}, "Queue 1 item 19"),
+    ({"mesh_model": 2}, "Queue 1 item 19"),
 ])
 def test_unported_modes_raise_naming_their_roadmap_entry(twin_stores, kwargs, match):
     _, store = twin_stores
