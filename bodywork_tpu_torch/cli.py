@@ -3,20 +3,26 @@ generate|serve|test|train|run-day|run-sim|registry``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
-- ``serve --store S [--engine E] [--device cuda|cpu] [--host H]
-  [--port P]`` serves the registry's ``production`` model (the newest
-  checkpoint on a store without a registry; engine ``auto``: the fused
-  kernel for a wide MLP it can launch, on the card);
+- ``serve --store S [--engine E] [--dtype float32|bfloat16|int8]
+  [--device cuda|cpu] [--host H] [--port P]`` serves the registry's
+  ``production`` model (the newest checkpoint on a store without a
+  registry; engine ``auto``: the fused kernel for a wide MLP it can
+  launch, on the card); a quantized ``--dtype`` (default from
+  ``BODYWORK_TPU_SERVE_DTYPE``) serves only if the shadow quality gate
+  admits it, and f32 serves otherwise;
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
   and persists the test metrics;
 - ``train --store S [--model linear|mlp] [--mode full|incremental]`` fits
-  on all history and persists the checkpoint and its metrics (only the
-  ``full`` refit is ported);
+  and persists the checkpoint and its metrics: a full refit on all
+  history, or the incremental fold (default from
+  ``BODYWORK_TPU_TRAIN_MODE``), which prints its fallback reason when it
+  ran as a full refit;
 - ``run-day --store S [--date D]`` runs one simulated day of the default
   pipeline (train -> registry gate -> serve -> generate -> test)
   in-process, and ``run-sim --store S --days N [--date D]
-  [--samples-per-day R]`` runs N.
+  [--samples-per-day R]`` runs N; their train and serve stages read
+  ``BODYWORK_TPU_TRAIN_MODE`` and ``BODYWORK_TPU_SERVE_DTYPE``.
   Both take ``--model linear|mlp`` and ``--mode single|batch`` (the
   test stage's requests); ``train``, ``run-day`` and ``run-sim`` take
   ``--mlp-hidden 1024,1024,1024``, ``--mlp-steps`` and ``--mlp-lr`` to
@@ -38,18 +44,32 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 from datetime import date
 
 from bodywork_tpu_torch.utils.dates import date_range, parse_date
 
-#: the train command's modes (``train.trainer.TRAIN_MODES``, kept here so
-#: building the parser imports no torch)
+#: the train command's modes (``train.trainer.TRAIN_MODES``) and the
+#: serving dtypes (``serve.predictor.SERVE_DTYPES``), kept here so building
+#: the parser imports no torch
 TRAIN_MODES = ("full", "incremental")
+SERVE_DTYPES = ("float32", "bfloat16", "int8")
 
-#: serving engines the cli offers (``auto`` + the port's engine names);
-#: ``torch-bf16`` / ``torch-int8`` are not ported yet
-SERVE_ENGINES = ("auto", "torch", "kernel", "kernel-bf16", "kernel-int8")
+#: serving engines the cli offers (``auto`` + the port's engine names)
+SERVE_ENGINES = ("auto", "torch", "torch-bf16", "torch-int8", "kernel", "kernel-bf16",
+                 "kernel-int8")
+
+
+def _env_choice(name: str, choices: tuple, default: str) -> str:
+    """An enum flag's default from the environment: a value outside
+    ``choices`` is ignored with a note on stderr."""
+    raw = os.environ.get(name, "").strip()
+    if raw and raw not in choices:
+        print(f"warning: ignoring {name}={raw!r} (expected one of {', '.join(choices)})",
+              file=sys.stderr)
+        raw = ""
+    return raw or default
 
 
 def cmd_generate(args) -> int:
@@ -71,7 +91,7 @@ def cmd_serve(args) -> int:
 
     serve_latest_model(
         args.store, host=args.host, port=args.port, block=True,
-        engine=args.engine, device=args.device,
+        engine=args.engine, device=args.device, dtype=args.dtype,
     )
     return 0
 
@@ -115,8 +135,9 @@ def cmd_train(args) -> int:
                               model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
                               device=args.device)
     m = result.metrics
+    fallback = f" fallback={result.fallback_reason}" if result.fallback_reason else ""
     print(f"{result.model_artefact_key} MAPE={m['MAPE']:.4f} r2={m['r_squared']:.4f} "
-          f"mode={result.mode} rows_touched={result.rows_touched}")
+          f"mode={result.mode} rows_touched={result.rows_touched}{fallback}")
     return 0
 
 
@@ -362,9 +383,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=5000)
     p.add_argument(
         "--engine", default="auto", choices=SERVE_ENGINES,
-        help="plain f32 torch, the fused CUDA kernel (f32, bf16 or int8 "
-             "weights), or auto (the f32 kernel for an MLP whose hidden "
-             "layers are all >= 256 wide and that it can launch, on the card)",
+        help="plain torch (f32, bf16, or int8 weights), the fused CUDA kernel "
+             "(f32, bf16 or int8 weights), or auto (the f32 kernel for an MLP whose "
+             "hidden layers are all >= 256 wide and that it can launch, on the card)",
+    )
+    p.add_argument(
+        "--dtype", default=_env_choice("BODYWORK_TPU_SERVE_DTYPE", SERVE_DTYPES, "float32"),
+        choices=list(SERVE_DTYPES),
+        help="serving precision (env BODYWORK_TPU_SERVE_DTYPE overrides the default "
+             "float32): bfloat16 or int8 serve the resolved engine's quantized variant "
+             "(MLP only) once the shadow quality gate admits it against the f32 "
+             "predictions of the same checkpoint; otherwise f32 serves",
     )
     p.add_argument("--device", **device)
 
@@ -389,8 +418,14 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("train", help="train on all history and persist the model")
     p.set_defaults(fn=cmd_train)
     add_model_args(p)
-    p.add_argument("--mode", default="full", choices=list(TRAIN_MODES),
-                   help="full refit on all history (incremental is not ported yet)")
+    p.add_argument("--mode", default=_env_choice("BODYWORK_TPU_TRAIN_MODE", TRAIN_MODES, "full"),
+                   choices=list(TRAIN_MODES),
+                   help="'full' refits on all history (the default; env "
+                        "BODYWORK_TPU_TRAIN_MODE overrides it); 'incremental' folds in "
+                        "only the new days: persisted sufficient statistics for the "
+                        "linear model, a warm-started fine-tune for the mlp, both "
+                        "falling back to a full refit (reason printed) when the store "
+                        "lacks what they need")
 
     for name, fn, help_ in (
         ("run-day", cmd_run_day, "run one simulated day in-process"),

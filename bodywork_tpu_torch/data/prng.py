@@ -34,8 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["PRNGKey", "erf_inv", "fold_in", "normal", "normal_from_bits", "random_bits",
-           "split", "threefry2x32", "uniform", "uniform_from_bits"]
+__all__ = ["PRNGKey", "erf_inv", "fold_in", "key_chain", "normal", "normal_from_bits",
+           "randint", "random_bits", "split", "threefry2x32", "uniform", "uniform_from_bits"]
 
 _MASK = 0xFFFFFFFF
 #: the Threefry key-schedule parity constant
@@ -44,22 +44,20 @@ _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
-    return ((x << r) & _MASK) | (x >> (32 - r))
-
-
 def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor):
     """The Threefry-2x32 hash of the counter words ``(x1, x2)`` under the
     key ``(k1, k2)``: 20 rounds with a key injection every four (JAX's
     ``_threefry2x32_lowering``). Words are uint32 values in ``int64``
-    tensors; ``k1``/``k2`` are 0-d tensors or ints. Returns two words."""
+    tensors, or Python ints; ``k1``/``k2`` are 0-d tensors or ints.
+    Returns two words. (The rotation is written out in the loop: a call
+    per round doubled the host walk of :func:`key_chain`.)"""
     ks = (k1, k2, k1 ^ k2 ^ _PARITY)
     x0 = (x1 + ks[0]) & _MASK
     x1 = (x2 + ks[1]) & _MASK
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
             x0 = (x0 + x1) & _MASK
-            x1 = _rotl(x1, r) ^ x0
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
         x0 = (x0 + ks[(i + 1) % 3]) & _MASK
         x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
     return x0, x1
@@ -98,9 +96,25 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
 
 def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split``: a (num, 2) tensor of keys, key ``i`` the two
-    output words of the hash of counter ``i``."""
+    output words of the hash of counter ``i``. A stack of keys (``(k,
+    2)``) splits into ``(k, num, 2)`` in one pass."""
     bits1, bits2 = _hash_counters(key, num)
-    return torch.stack([bits1, bits2], dim=1)
+    return torch.stack([bits1, bits2], dim=-1)
+
+
+def key_chain(key: torch.Tensor, n: int) -> torch.Tensor:
+    """The keys a ``lax.scan`` carries through ``n`` steps of ``key, sub =
+    split(key)``: row ``t`` is the key step ``t`` splits (row 0 is
+    ``key``), an ``(n, 2)`` tensor on ``key``'s device. The chain is
+    serial, so it is walked on the host in Python ints (one hash a step,
+    no tensor op per step); each step's ``sub`` is then row ``t``'s
+    second split, drawn for every step at once (``split(chain)[:, 1]``)."""
+    k1, k2 = (int(v) for v in key.tolist())
+    chain = []
+    for _ in range(n):
+        chain.append((k1, k2))
+        k1, k2 = threefry2x32(k1, k2, 0, 0)  # split(key)[0]: counter 0
+    return torch.tensor(chain, dtype=torch.int64, device=key.device).reshape(n, 2)
 
 
 def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
@@ -110,6 +124,28 @@ def random_bits(key: torch.Tensor, n: int) -> torch.Tensor:
     what its key alone draws."""
     bits1, bits2 = _hash_counters(key, n)
     return bits1 ^ bits2
+
+
+def randint(key: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, (n,), minval, maxval)`` with JAX's default
+    int32: two 32-bit draws per value from ``split(key)``, folded into
+    ``[minval, maxval)`` with unsigned 32-bit ``rem`` and ``mul`` that wrap
+    mod 2**32, as ``jax._src.random._randint`` does. A stack of keys
+    (``(k, 2)``) draws ``(k, n)``, each row what its key alone draws.
+    Values come back in an ``int64`` tensor."""
+    minval, maxval = int(minval), int(maxval)
+    if not (-(2**31) <= minval < 2**31 and -(2**31) <= maxval < 2**31):
+        raise ValueError(f"randint bounds [{minval}, {maxval}) do not fit int32")
+    # maxval <= minval returns minval (span 1), as JAX does
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    keys = split(key)
+    higher = random_bits(keys[..., 0, :], n)
+    lower = random_bits(keys[..., 1, :], n)
+    # 2**32 mod span, formed as (2**16 mod span)**2 mod span in uint32
+    multiplier = (2**16) % span
+    multiplier = ((multiplier * multiplier) & _MASK) % span
+    offset = (((higher % span) * multiplier) & _MASK) + (lower % span)
+    return minval + (offset & _MASK) % span
 
 
 def _f32(value) -> np.float32:

@@ -14,12 +14,18 @@ Training is the JAX package's ``lax.scan`` loop as a Python loop of
 plain torch ops with autograd (``mlp.py:108-130``): each step gathers a
 minibatch by index, takes the gradient of the weighted MSE and applies
 Adam as ``optax.adam(lr)`` configures it (b1 0.9, b2 0.999, eps 1e-8
-outside the square root, bias-corrected). The index stream is drawn up
-front from an explicit ``torch.Generator`` as an ``(n_steps, batch)``
-tensor over the PADDED row count, so padding rows are drawn with weight
-0 exactly as in the JAX loop, and a test can feed the JAX loop's own
-indices to :func:`train_core`. ``compute_dtype="bfloat16"`` casts the
-matmul operands to bf16; params, optimizer state and loss stay f32.
+outside the square root, bias-corrected). ``compute_dtype="bfloat16"``
+casts the matmul operands to bf16; params, optimizer state and loss stay
+f32.
+
+The seeded draws are the JAX package's, on any device: the He init and
+the minibatch index stream come from ``jax.random``'s threefry
+(:mod:`bodywork_tpu_torch.data.prng`) under the keys the JAX package
+derives from ``PRNGKey(seed)``. The index stream is drawn up front as an
+``(n_steps, batch)`` tensor over the PADDED row count, so padding rows
+are drawn with weight 0 exactly as in the JAX loop: :func:`draw_indices`
+walks the scan's key chain on the host and hashes every step's indices
+in one batched pass on the model's device.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from bodywork_tpu_torch.data import prng
 from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.base import Regressor, as_rows, pad_rows
 
@@ -74,16 +81,17 @@ class MLPNet(nn.Module):
         return {"layers": [{"w": layer.w, "b": layer.b} for layer in self.layers]}
 
 
-def init_mlp_params(generator: torch.Generator, sizes: tuple[int, ...],
-                    device=None) -> dict:
-    """He-initialised dense stack; sizes = (in, *hidden, out). The
-    counterpart of the JAX ``init_mlp_params`` (``mlp.py:49-56``): the
-    same distribution, drawn from ``generator`` instead of a JAX key."""
+def init_mlp_params(key: torch.Tensor, sizes: tuple[int, ...], device=None) -> dict:
+    """He-initialised dense stack; sizes = (in, *hidden, out). The JAX
+    ``init_mlp_params`` (``mlp.py:49-56``) on a threefry key: one key per
+    layer from ``split(key, L)``, a standard normal ``(fan_in, fan_out)``
+    draw (row-major, as ``jax.random.normal`` counts) times
+    ``sqrt(2 / fan_in)`` rounded to float32, on ``device``."""
+    keys = prng.split(key.to(device), len(sizes) - 1)
     layers = []
-    for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
-        w = torch.randn(
-            (fan_in, fan_out), generator=generator, device=device
-        ) * float(np.sqrt(2.0 / fan_in))
+    for k, (fan_in, fan_out) in zip(keys, zip(sizes[:-1], sizes[1:])):
+        scale = float(np.sqrt(np.float32(2.0 / fan_in)))  # float32, as jnp.sqrt forms it
+        w = prng.normal(k, fan_in * fan_out).reshape(fan_in, fan_out) * scale
         layers.append({"w": w, "b": torch.zeros((fan_out,), device=device)})
     return {"layers": layers}
 
@@ -105,12 +113,15 @@ def mlp_forward(net_params: dict, x: torch.Tensor,
     return out[:, 0].to(torch.float32)
 
 
-def mlp_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Full apply incl. the folded-in scaler: raw X -> raw prediction, in
-    float32 (the ``torch`` serving engine; the JAX ``xla`` engine)."""
+def mlp_apply(params: dict, x: torch.Tensor, compute_dtype: str | None = None) -> torch.Tensor:
+    """Full apply incl. the folded-in scaler: raw X -> raw prediction (the
+    ``torch`` serving engine; the JAX ``xla`` engine). ``compute_dtype=
+    "bfloat16"`` runs the dense stack in bf16, activations and biases
+    included (the ``torch-bf16`` engine); the scaler arithmetic and the
+    output stay float32 either way."""
     s = params["scaler"]
     h = (x - s["x_mean"]) / s["x_std"]
-    out = mlp_forward(params["net"], h)
+    out = mlp_forward(params["net"], h, compute_dtype)
     return out * s["y_std"] + s["y_mean"]
 
 
@@ -142,13 +153,16 @@ def _loss(net_params: dict, xb, yb, wb, compute_dtype: str | None = None) -> tor
     return torch.sum(wb * (pred - yb) ** 2) / torch.clamp(torch.sum(wb), min=1.0)
 
 
-def draw_indices(generator: torch.Generator, n_steps: int, batch_size: int,
+def draw_indices(key: torch.Tensor, n_steps: int, batch_size: int,
                  n_rows: int, device=None) -> torch.Tensor:
     """The training loop's minibatch index stream, ``(n_steps,
-    batch_size)`` uniform over ``[0, n_rows)`` — ``n_rows`` the PADDED
-    row count, as the JAX loop draws (``mlp.py:117-120``)."""
-    return torch.randint(0, n_rows, (n_steps, batch_size), generator=generator,
-                         device=device)
+    batch_size)`` over ``[0, n_rows)`` — ``n_rows`` the PADDED row count —
+    bit for bit what the JAX loop's scan draws from the train key ``key``
+    (``mlp.py:112-120``: ``key, k_idx = split(key)``, then ``randint``
+    each step). The key chain is walked on the host; every step's
+    ``k_idx`` and indices are hashed at once on ``device``."""
+    chain = prng.key_chain(key.cpu(), n_steps).to(device)
+    return prng.randint(prng.split(chain)[:, 1], batch_size, 0, n_rows)
 
 
 def _adam_update(params, grads, mu, nu, count: int, lr: float) -> None:
@@ -216,10 +230,11 @@ def params_to_host(params):
     return params.detach().cpu().numpy()
 
 
-def _generator(device: torch.device, seed: int) -> torch.Generator:
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed))
-    return gen
+def fit_keys(seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(k_init, k_train)``: ``split(PRNGKey(seed))``, as the JAX ``fit``
+    and ``fit_and_evaluate`` derive them (``mlp.py:177-185,212``)."""
+    k_init, k_train = prng.split(prng.PRNGKey(seed))
+    return k_init, k_train
 
 
 class MLPRegressor(Regressor):
@@ -243,13 +258,15 @@ class MLPRegressor(Regressor):
     def device(self) -> torch.device:
         return self.net.layers[0].w.device
 
-    def _train(self, gen, Xp, yp, w):
-        """Scaler, He init and the Adam loop over padded device arrays;
+    def _train(self, seed: int | None, Xp, yp, w):
+        """Scaler, He init and the Adam loop over padded device arrays,
+        with the JAX fit's draws for ``seed`` (the config's when None);
         returns (params, losses)."""
         cfg = self.config
+        k_init, k_train = fit_keys(cfg.seed if seed is None else seed)
         Xs, ys, scaler = _scaled_splits(Xp, yp, w)
-        net = init_mlp_params(gen, (Xp.shape[1],) + cfg.hidden + (1,), device=Xp.device)
-        idx = draw_indices(gen, cfg.n_steps, cfg.batch_size, Xp.shape[0], device=Xp.device)
+        net = init_mlp_params(k_init, (Xp.shape[1],) + cfg.hidden + (1,), device=Xp.device)
+        idx = draw_indices(k_train, cfg.n_steps, cfg.batch_size, Xp.shape[0], device=Xp.device)
         net, losses = train_core(net, Xs, ys, w, idx, cfg)
         return {"net": net, "scaler": scaler}, losses
 
@@ -257,8 +274,7 @@ class MLPRegressor(Regressor):
         dev = resolve_device(device)
         require_ieee_f32_matmul(dev)
         arrays = pad_rows(*as_rows(X, y))
-        gen = _generator(dev, self.config.seed if seed is None else seed)
-        params, losses = self._train(gen, *(torch.as_tensor(a, device=dev) for a in arrays))
+        params, losses = self._train(seed, *(torch.as_tensor(a, device=dev) for a in arrays))
         fitted = MLPRegressor(self.config, params)
         fitted.final_loss = float(losses[-1])
         return fitted
@@ -275,8 +291,7 @@ class MLPRegressor(Regressor):
             torch.as_tensor(a, device=dev)
             for a in self._pad_splits(X_train, y_train, X_test, y_test)
         )
-        gen = _generator(dev, self.config.seed if seed is None else seed)
-        params, losses = self._train(gen, Xp, yp, w)
+        params, losses = self._train(seed, Xp, yp, w)
         with torch.no_grad():
             m = _metrics(ye, mlp_apply(params, Xe), we)
         tail = torch.stack([*m, losses[-1]]).tolist()
@@ -289,7 +304,9 @@ class MLPRegressor(Regressor):
         from THIS model's params for ``n_steps`` on (X, y), on its device.
         The donor's scaler is KEPT, so predictions stay continuous with
         the donor's, and the optimizer state restarts fresh (checkpoints
-        hold params only). The tuned model carries the original config."""
+        hold params only). The index stream is the JAX ``fine_tune``'s:
+        the scan's chain straight from ``PRNGKey(seed)``, no init split.
+        The tuned model carries the original config."""
         if self.net is None:
             raise ValueError("cannot fine-tune an unfitted model")
         dev = self.device
@@ -301,8 +318,8 @@ class MLPRegressor(Regressor):
         # rows stay harmless (weight 0 in the loss)
         Xs = torch.as_tensor((Xp - s["x_mean"]) / s["x_std"], device=dev)
         ys = torch.as_tensor((yp - s["y_mean"]) / s["y_std"], device=dev)
-        gen = _generator(dev, self.config.seed if seed is None else seed)
-        idx = draw_indices(gen, n_steps, cfg.batch_size, Xp.shape[0], device=dev)
+        key = prng.PRNGKey(self.config.seed if seed is None else seed)
+        idx = draw_indices(key, n_steps, cfg.batch_size, Xp.shape[0], device=dev)
         net, losses = train_core(self.net.params(), Xs, ys,
                                  torch.as_tensor(w, device=dev), idx, cfg)
         tuned = MLPRegressor(self.config, {"net": net, "scaler": dict(self.scaler)})

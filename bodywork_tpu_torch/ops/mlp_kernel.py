@@ -30,10 +30,10 @@ import ctypes
 import threading
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.models.fused import quantize_int8
 
 #: the default serving bucket row tile (the Pallas ``ROW_TILE``): the
 #: kernel predictor's buckets are (tile, 2*tile, 16*tile)
@@ -77,18 +77,6 @@ def fold_scaler_into_net(params: dict) -> list[tuple[torch.Tensor, torch.Tensor]
     wl, bl = layers[-1]
     layers[-1] = (wl * s["y_std"], bl * s["y_std"] + s["y_mean"])
     return layers
-
-
-def quantize_int8(w) -> tuple[np.ndarray, np.ndarray]:
-    """Symmetric per-output-channel int8 quantization of a 2-D weight
-    matrix (a copy of ``bodywork_tpu.models.fused.quantize_int8``):
-    returns ``(q, scale)`` with ``w ≈ q * scale[None, :]``. An all-zero
-    column gets scale 1.0 (q is zero anyway)."""
-    w = np.asarray(w, dtype=np.float32)
-    absmax = np.max(np.abs(w), axis=0)
-    scale = np.where(absmax > 0.0, absmax / 127.0, 1.0).astype(np.float32)
-    q = np.clip(np.rint(w / scale[None, :]), -127, 127).astype(np.int8)
-    return q, scale
 
 
 def prepare_layers(folded, compute_dtype: str | None = None) -> list[dict]:

@@ -19,7 +19,9 @@ orchestrator guarantees:
 - the model registry's promotion gate runs at the step barrier once every
   train stage has finished, before any later step resolves what to
   serve: today's candidate is promoted to the ``production`` alias or
-  rejected, so a bad retrain never takes traffic;
+  rejected, so a bad retrain never takes traffic. An incremental
+  candidate is gated with shadow evaluation, and a rejected one is
+  replaced the same day by a full refit, gated again;
 - a failed stage fails the day with a :class:`StageFailure` naming it,
   and services are stopped at day end either way.
 
@@ -27,9 +29,7 @@ orchestrator guarantees:
 (the reference's "re-run the deployment every day", README.md:5).
 
 Not ported yet (ROADMAP): the run journal and its lease (resume), the
-gate's same-day full-refit fallback for a rejected incremental candidate
-(with incremental training, Queue 1 item 3), the lookahead train,
-dataset prefetch, the history snapshot compactor, compile prewarm, spans
+lookahead train, dataset prefetch, the history snapshot compactor, compile prewarm, spans
 and the day report, and profiling.
 """
 from __future__ import annotations
@@ -245,22 +245,52 @@ class LocalRunner:
         log.info(f"[{ctx.today}] {name} done in {stage_seconds[name]:.3f}s")
 
     # -- the registry gate -------------------------------------------------
-    def _run_registry_gate(self, today: date, ctx: StageContext) -> float:
+    def _full_refit_fallback(self, today: date, ctx: StageContext,
+                             stage_names: list[str]) -> None:
+        """The gate rejected today's incremental candidate: run the train
+        stage(s) again as a full refit, so the day still ends with a
+        gateable candidate. The refit re-registers the same date-keyed
+        checkpoint with new bytes (the rejected record goes back to
+        candidate on a digest change), and its result records
+        ``fallback_reason="gate_rejected"``."""
+        for name in stage_names:
+            log.warning(f"[{today}] incremental candidate rejected by the gate; "
+                        f"re-running {name} as a full refit")
+            stage = self.spec.stages[name]
+            fn = resolve_executable(stage.executable)
+            with self._device_scope():
+                result = fn(ctx, **{**stage.args, "mode": "full"})
+            ctx.stage_results[name] = dataclasses.replace(result, fallback_reason="gate_rejected")
+
+    def _run_registry_gate(self, today: date, ctx: StageContext,
+                           train_stages: set[str]) -> float:
         """The promotion gate between train and serve: adjudicate the
         candidate the train step just registered (promote it to the
         ``production`` alias or reject it) before the serve step resolves
         what to load. The decision goes to ``stage_results`` under
-        :data:`GATE_RESULT`. No retries; a gate that FAILS (as opposed to
+        :data:`GATE_RESULT`. An incremental candidate is gated with shadow
+        evaluation over ``INCREMENTAL_SHADOW_DAYS``, and a rejection runs
+        :meth:`_full_refit_fallback` and gates the refit under the
+        standard policy. No retries; a gate that FAILS (as opposed to
         rejecting) is logged and the day goes on, serving the current
         production (or the latest checkpoint on a store never promoted).
-        A rejected incremental candidate's same-day full refit waits for
-        incremental training (ROADMAP Queue 1 item 3). Returns the
-        seconds it took."""
+        Returns the seconds it took."""
         t0 = time.perf_counter()
         try:
-            from bodywork_tpu_torch.registry import ModelRegistry
+            from bodywork_tpu_torch.registry import GatePolicy, ModelRegistry
+            from bodywork_tpu_torch.train.incremental import INCREMENTAL_SHADOW_DAYS
 
-            decision = ModelRegistry(self.store, device=self.device).gate(day=today)
+            results = ctx.stage_results
+            incremental = [n for n in sorted(train_stages)
+                           if getattr(results.get(n), "mode", None) == "incremental"]
+            policy = GatePolicy(shadow_days=INCREMENTAL_SHADOW_DAYS) if incremental else None
+            decision = ModelRegistry(self.store, policy=policy, device=self.device).gate(day=today)
+            if decision is not None and not decision.promote:
+                rejected = [n for n in incremental
+                            if results[n].model_artefact_key == decision.model_key]
+                if rejected:
+                    self._full_refit_fallback(today, ctx, rejected)
+                    decision = ModelRegistry(self.store, device=self.device).gate(day=today)
             ctx.stage_results[GATE_RESULT] = decision
             if decision is not None:
                 verdict = "PROMOTED" if decision.promote else "REJECTED"
@@ -319,7 +349,7 @@ class LocalRunner:
                 # candidate, before any later step resolves what to serve
                 if (train_stages and gate_seconds is None
                         and train_stages <= set(ctx.stage_results)):
-                    gate_seconds = self._run_registry_gate(today, ctx)
+                    gate_seconds = self._run_registry_gate(today, ctx, train_stages)
         finally:
             for handle in ctx.services.values():
                 handle.stop()

@@ -61,17 +61,48 @@ def generate_stage(ctx: StageContext, offset_days: int = 1) -> str:
     return persist_dataset(ctx.store, Dataset(X, y, target))
 
 
+def _env_choice(name: str, choices: tuple, default: str) -> str:
+    """A deployed enum knob from the environment: a value outside
+    ``choices`` is ignored with a warning (a typo must not crash the
+    pod) and the default applies."""
+    import os
+
+    raw = os.environ.get(name, "").strip()
+    if raw and raw not in choices:
+        log.warning(f"ignoring {name}={raw!r} (expected one of {choices})")
+        raw = ""
+    return raw or default
+
+
+def _train_env_mode() -> str:
+    """The deployed train mode (``BODYWORK_TPU_TRAIN_MODE``): ``full`` or
+    ``incremental``, ``full`` when unset or malformed."""
+    from bodywork_tpu_torch.train.trainer import TRAIN_MODES
+
+    return _env_choice("BODYWORK_TPU_TRAIN_MODE", TRAIN_MODES, "full")
+
+
+def _serve_env_dtype() -> str:
+    """The deployed serving precision (``BODYWORK_TPU_SERVE_DTYPE``), one
+    of ``SERVE_DTYPES``; ``float32`` when unset or malformed."""
+    from bodywork_tpu_torch.serve.predictor import SERVE_DTYPES
+
+    return _env_choice("BODYWORK_TPU_SERVE_DTYPE", SERVE_DTYPES, "float32")
+
+
 def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None = None,
                 mesh_data: int | None = None, mesh_model: int = 1, **model_kwargs):
-    """Train on all data to date and persist the checkpoint and its
-    metrics (reference stage 1); returns the ``TrainResult``. The flat
-    ``model_kwargs`` are the model's config fields."""
+    """Train on the data to date and persist the checkpoint and its
+    metrics (reference stage 1); returns the ``TrainResult``. ``mode``
+    picks the full refit or the incremental path (None: the
+    ``BODYWORK_TPU_TRAIN_MODE`` knob). The flat ``model_kwargs`` are the
+    model's config fields."""
     from bodywork_tpu_torch.train import train_on_history
 
     return train_on_history(
         ctx.store, model_type, model_kwargs=model_kwargs or None,
-        mesh_data=mesh_data, mesh_model=mesh_model, mode=mode or "full",
-        device=ctx.device,
+        mesh_data=mesh_data, mesh_model=mesh_model,
+        mode=mode if mode is not None else _train_env_mode(), device=ctx.device,
     )
 
 
@@ -83,9 +114,11 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     service on a background thread (reference stage 2); returns the
     handle. ``replicas > 1`` serves through N apps sharing one predictor
     behind a round-robin front; ``buckets`` narrows the warmed shapes to
-    the tester's request sizes. The checkpoint is read back from the
-    store, which stays the source of truth, rather than reused from the
-    train stage's memory."""
+    the tester's request sizes. The serving precision comes from the
+    ``BODYWORK_TPU_SERVE_DTYPE`` knob: a quantized dtype serves only if
+    the shadow quality gate admits it. The checkpoint is read back from
+    the store, which stays the source of truth, rather than reused from
+    the train stage's memory."""
     from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
     from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
@@ -95,7 +128,8 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
         model, model_date, host=host, port=port, block=False, engine=engine,
         buckets=tuple(buckets) if buckets else None, replicas=replicas,
         model_key=served_key, model_source=served_source,
-        model_bounds=registry_bounds(ctx.store, served_key),
+        model_bounds=registry_bounds(ctx.store, served_key), dtype=_serve_env_dtype(),
+        store=ctx.store,
     )
 
 

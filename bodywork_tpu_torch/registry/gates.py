@@ -81,8 +81,7 @@ class GatePolicy:
     #: gate: a quantized predictor scores the last K days next to the f32
     #: predictor of the SAME checkpoint, and may only take traffic when
     #: the delta passes the candidate shadow check's ceilings
-    #: (:func:`evaluate_quantization`; its serving half is ROADMAP Queue
-    #: 1 item 5)
+    #: (:func:`evaluate_quantization`; ``serve.server.build_serving_predictor``)
     quantized_shadow_days: int = 3
 
 

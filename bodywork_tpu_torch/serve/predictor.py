@@ -9,9 +9,17 @@ the JAX package's, so the same requests pad to the same shapes in both:
 - :class:`PaddedPredictor` (engine ``torch``): buckets
   ``(1, 8, 64, 512, 4096)`` over the model's plain float32 ``apply``
   (``mlp_apply`` or ``linear_apply``);
+- :class:`BF16MLPPredictor` (engine ``torch-bf16``) and
+  :class:`Int8MLPPredictor` (``torch-int8``): an MLP's plain apply with
+  bf16 activations, weights and biases, or from int8 weights quantized
+  once and kept on the device (the JAX ``xla-bf16`` / ``xla-int8``),
+  on the same buckets;
 - :class:`KernelMLPPredictor` (engines ``kernel``, ``kernel-bf16``,
   ``kernel-int8``): the fused CUDA kernel (``ops.mlp_kernel``) with the
   Pallas predictor's bucket policy ``(tile, 2·tile, 16·tile)``.
+
+Each predictor names its serving ``dtype`` (:data:`SERVE_DTYPES`), which
+``/healthz`` reports as ``serving_dtype``.
 
 The JAX package's AOT executable cache has no counterpart here yet: torch
 runs eagerly, and a CUDA-graph cache is a later ROADMAP item.
@@ -21,13 +29,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from bodywork_tpu_torch.device import fence
-from bodywork_tpu_torch.models.mlp import MLPRegressor
+from bodywork_tpu_torch.device import fence, require_ieee_f32_matmul
+from bodywork_tpu_torch.models.mlp import MLPRegressor, mlp_apply
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve.predictor")
 
 DEFAULT_BUCKETS = (1, 8, 64, 512, 4096)
+
+#: the serving precisions (``serve --dtype``): a quantized one serves only
+#: after the shadow quality gate admits it (``serve.server``)
+SERVE_DTYPES = ("float32", "bfloat16", "int8")
 
 
 class PaddedPredictor:
@@ -92,6 +104,55 @@ class PaddedPredictor:
         else:
             Xp = X
         return self._predict_padded(Xp)[:n]
+
+
+def _require_mlp(model, engine: str) -> None:
+    if not isinstance(model, MLPRegressor):
+        raise ValueError(f"engine {engine!r} serves MLP models; got {model.info}")
+
+
+class BF16MLPPredictor(PaddedPredictor):
+    """Serves an MLP with the dense stack in bfloat16, activations and
+    biases included (``mlp_apply(..., compute_dtype="bfloat16")``; the JAX
+    ``xla-bf16`` engine), unlike ``kernel-bf16``, which keeps f32
+    activations. Predictions carry bf16's ~3 significant digits."""
+
+    dtype = "bfloat16"
+    engine = "torch-bf16"
+
+    def __init__(self, model, buckets: tuple[int, ...] | None = None):
+        _require_mlp(model, self.engine)
+        super().__init__(model, buckets or DEFAULT_BUCKETS)
+
+    def _dispatch_padded(self, Xp: np.ndarray) -> torch.Tensor:
+        X = torch.as_tensor(Xp, device=self.device)
+        with torch.inference_mode():
+            return mlp_apply(self.model.params, X, compute_dtype="bfloat16")
+
+
+class Int8MLPPredictor(PaddedPredictor):
+    """Serves an MLP from int8 weights (the JAX ``xla-int8`` engine): each
+    dense weight is quantized once, here, to symmetric per-column int8
+    (``models.fused.quantize_mlp_params_int8``) and kept on the device;
+    every forward dequantizes it before an IEEE f32 product."""
+
+    dtype = "int8"
+    engine = "torch-int8"
+
+    def __init__(self, model, buckets: tuple[int, ...] | None = None):
+        from bodywork_tpu_torch.models import fused
+
+        _require_mlp(model, self.engine)
+        require_ieee_f32_matmul(model.device)
+        super().__init__(model, buckets or DEFAULT_BUCKETS)
+        self._qparams = fused.quantize_mlp_params_int8(model.params)
+
+    def _dispatch_padded(self, Xp: np.ndarray) -> torch.Tensor:
+        from bodywork_tpu_torch.models.fused import int8_mlp_apply
+
+        X = torch.as_tensor(Xp, device=self.device)
+        with torch.inference_mode():
+            return int8_mlp_apply(self._qparams, X)
 
 
 class KernelMLPPredictor(PaddedPredictor):

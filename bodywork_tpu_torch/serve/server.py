@@ -10,10 +10,15 @@ warms every bucket and serves over ``http.server.ThreadingHTTPServer``
 one predictor (:class:`RoundRobinApp`).
 
 Engine names map one to one onto the JAX package's (:data:`ENGINE_NAMES`):
-``xla`` -> ``torch`` (plain f32 torch), ``pallas*`` -> ``kernel*`` (the
-fused CUDA kernel in f32, bf16 or int8). The quantized plain engines
-``torch-bf16`` / ``torch-int8`` (the JAX ``xla-bf16`` / ``xla-int8``) are
-not ported yet and raise.
+``xla*`` -> ``torch*`` (plain torch in f32, bf16 or from int8 weights),
+``pallas*`` -> ``kernel*`` (the fused CUDA kernel in f32, bf16 or int8).
+
+A serving dtype (``serve --dtype bfloat16|int8``) picks the quantized
+variant of the resolved engine (:func:`quantized_engine_for`: ``torch`` ->
+``torch-bf16|int8``, ``kernel`` -> ``kernel-bf16|int8``), which serves only
+after the shadow quality gate admits it against the f32 predictions of
+the same checkpoint (:func:`build_serving_predictor`); otherwise f32
+keeps serving, and ``/healthz`` says which dtype serves.
 """
 from __future__ import annotations
 
@@ -92,9 +97,12 @@ def resolve_engine(engine: str, model, device, n_sms: int | None = None,
 def build_predictor(model, engine: str = "auto",
                     buckets: tuple[int, ...] | None = None):
     """The predictor for an engine choice (``auto`` resolved against the
-    model's device)."""
+    model's device). The quantized engines refuse a model that is not an
+    MLP with ``ValueError``."""
     from bodywork_tpu_torch.serve.predictor import (
         DEFAULT_BUCKETS,
+        BF16MLPPredictor,
+        Int8MLPPredictor,
         KernelMLPPredictor,
         PaddedPredictor,
     )
@@ -105,17 +113,100 @@ def build_predictor(model, engine: str = "auto",
     if engine == "torch":
         require_ieee_f32_matmul(model.device)
         return PaddedPredictor(model, buckets or DEFAULT_BUCKETS)
-    if engine in ("torch-bf16", "torch-int8"):
-        raise ValueError(
-            f"engine {engine!r} (the JAX package's "
-            f"{'xla-bf16' if engine == 'torch-bf16' else 'xla-int8'}) is not "
-            "ported yet: the quantized plain engines and their shadow gate are "
-            "ROADMAP Queue 1 item 5; use 'kernel-bf16' / 'kernel-int8'"
-        )
+    if engine == "torch-bf16":
+        return BF16MLPPredictor(model, buckets)
+    if engine == "torch-int8":
+        return Int8MLPPredictor(model, buckets)
     raise ValueError(
         f"unknown serving engine {engine!r}; expected 'auto' or one of "
         f"{sorted(set(ENGINE_NAMES.values()))}"
     )
+
+
+#: (base engine, serving dtype) -> the engine that implements it
+_QUANTIZED_VARIANTS = {
+    ("torch", "bfloat16"): "torch-bf16",
+    ("torch", "int8"): "torch-int8",
+    ("kernel", "bfloat16"): "kernel-bf16",
+    ("kernel", "int8"): "kernel-int8",
+}
+
+
+def quantized_engine_for(engine: str, dtype: str) -> str:
+    """Map a (resolved base engine, serving dtype) pair onto the engine
+    variant that implements it (``torch`` + int8 -> ``torch-int8``,
+    ``kernel`` + bfloat16 -> ``kernel-bf16``, ...; float32 keeps the
+    engine). An explicit quantized engine may not be combined with a
+    contradicting dtype (``bodywork_tpu/serve/server.py:165-202``)."""
+    from bodywork_tpu_torch.serve.predictor import SERVE_DTYPES
+
+    if dtype not in SERVE_DTYPES:
+        raise ValueError(f"unknown serving dtype {dtype!r}; expected one of {SERVE_DTYPES}")
+    if dtype == "float32":
+        return engine
+    if engine in _QUANTIZED_VARIANTS.values():
+        implied = "bfloat16" if engine.endswith("bf16") else "int8"
+        if implied != dtype:
+            raise ValueError(f"--engine {engine} contradicts --dtype {dtype}")
+        return engine
+    variant = _QUANTIZED_VARIANTS.get((engine, dtype))
+    if variant is None:
+        raise ValueError(f"engine {engine!r} has no {dtype} variant; use engine "
+                         "'torch' or 'kernel' with --dtype")
+    return variant
+
+
+def build_serving_predictor(store, model, engine: str = "auto",
+                            buckets: tuple[int, ...] | None = None,
+                            dtype: str = "float32", policy=None):
+    """The predictor serving runs for an (engine, dtype) choice, and the
+    dtype that serves: ``(predictor, served_dtype)``.
+
+    float32 is :func:`build_predictor`. A quantized dtype builds the f32
+    predictor of the resolved engine and its quantized variant, scores
+    both over the store's last ``policy.quantized_shadow_days`` dataset
+    days (``registry.shadow.shadow_compare``) and holds the delta to the
+    gate's ceilings (``registry.gates.evaluate_quantization``). f32 keeps
+    serving (``served_dtype="float32"``), with the outcome logged, when
+    the variant fails the gate (``rejected_quality``), when the store has
+    no dataset to shadow over (``no_shadow_data``) or when the model has
+    no such variant (``unsupported_model``, a ``ValueError`` building
+    it). A kernel that fails to build or launch raises."""
+    if dtype in (None, "float32"):
+        return build_predictor(model, engine, buckets=buckets), "float32"
+    from bodywork_tpu_torch.registry.gates import GatePolicy, evaluate_quantization
+    from bodywork_tpu_torch.registry.shadow import shadow_compare
+
+    policy = policy or GatePolicy()
+    base_engine = resolve_engine(engine, model, model.device)
+    quant_engine = quantized_engine_for(base_engine, dtype)
+    # the f32 baseline: the gate's reference, and what serves on a refusal
+    f32_engine = "kernel" if base_engine.startswith("kernel") else "torch"
+    f32_predictor = build_predictor(model, f32_engine, buckets=buckets)
+    try:
+        quant_predictor = build_predictor(model, quant_engine, buckets=buckets)
+    except ValueError as exc:
+        # e.g. a linear checkpoint under a fleet-wide --dtype int8: keep f32
+        log.warning(f"dtype={dtype} unavailable for this checkpoint ({exc}); "
+                    "keeping f32 serving (quantization gate outcome=unsupported_model)")
+        return f32_predictor, "float32"
+    try:
+        report = shadow_compare(store, quant_predictor.predict, f32_predictor.predict,
+                                days=policy.quantized_shadow_days)
+    except ValueError as exc:
+        if "no dataset history" not in str(exc):
+            raise
+        log.warning(f"dtype={dtype}: no dataset history to shadow the quantized variant "
+                    "over; keeping f32 serving (quantization gate outcome=no_shadow_data)")
+        return f32_predictor, "float32"
+    ok, detail = evaluate_quantization(report, policy)
+    if not ok:
+        log.warning(f"dtype={dtype} REJECTED by the shadow quality gate ({detail}); keeping "
+                    "f32 serving (quantization gate outcome=rejected_quality)")
+        return f32_predictor, "float32"
+    log.info(f"dtype={dtype} admitted by the shadow quality gate ({detail}) "
+             f"(quantization gate outcome=served)")
+    return quant_predictor, dtype
 
 
 class RoundRobinApp:
@@ -242,16 +333,21 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 block: bool = True, engine: str = "auto",
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
                 model_key: str | None = None, model_source: str | None = None,
-                model_bounds=None):
-    """Serve a loaded model from its device: build the engine's predictor,
-    warm every bucket (so a kernel that fails to build or launch fails the
-    start, not a request), and serve through ``replicas`` scoring apps that
-    share the predictor, each behind the prediction-sanity firewall with
-    ``model_bounds`` as its band. With ``block=False`` returns a started
-    :class:`ServiceHandle`."""
-    predictor = build_predictor(model, engine, buckets=buckets)
+                model_bounds=None, dtype: str = "float32", store=None):
+    """Serve a loaded model from its device: build the predictor for the
+    engine and dtype (:func:`build_serving_predictor`; a quantized dtype
+    shadows over ``store``'s datasets), warm every bucket (so a kernel that
+    fails to build or launch fails the start, not a request), and serve
+    through ``replicas`` scoring apps that share the predictor, each behind
+    the prediction-sanity firewall with ``model_bounds`` as its band. With
+    ``block=False`` returns a started :class:`ServiceHandle`."""
+    if dtype not in (None, "float32") and store is None:
+        raise ValueError(f"dtype={dtype} needs the store whose datasets its shadow "
+                         "gate scores")
+    predictor, served_dtype = build_serving_predictor(store, model, engine,
+                                                      buckets=buckets, dtype=dtype)
     log.info(f"serving {model.info} on {model.device} through engine "
-             f"{predictor.engine!r} ({max(replicas, 1)} replica(s))")
+             f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} replica(s))")
     apps = [
         ScoringApp(model, model_date, predictor=predictor, model_key=model_key,
                    model_source=model_source, model_bounds=model_bounds)
@@ -267,18 +363,20 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
 
 def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        block: bool = True, engine: str = "auto", device=None,
-                       buckets: tuple[int, ...] | None = None):
+                       buckets: tuple[int, ...] | None = None, dtype: str = "float32"):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
     unless asked for the CPU; no CUDA and no ``device="cpu"`` raises) and
-    serve it (:func:`serve_model`) with its record's sanity band.
-    ``store`` is an artefact store or a store directory. With
-    ``block=False`` returns a started :class:`ServiceHandle`."""
+    serve it (:func:`serve_model`) with its record's sanity band, in
+    ``dtype`` if the shadow quality gate admits it. ``store`` is an
+    artefact store or a store directory. With ``block=False`` returns a
+    started :class:`ServiceHandle`."""
     dev = resolve_device(device)
     store = open_store(store)
     served_key, served_source = resolve_serving_key(store)
     model, model_date = load_model(store, served_key, device=dev)
     return serve_model(model, model_date, host, port, block=block, engine=engine,
                        buckets=buckets, model_key=served_key, model_source=served_source,
-                       model_bounds=registry_bounds(store, served_key))
+                       model_bounds=registry_bounds(store, served_key), dtype=dtype,
+                       store=store)

@@ -10,6 +10,8 @@ stores:
 - ``registry/records/regressor-<date>.json`` — one model registry record
   per checkpoint, and ``registry/aliases.json``, the alias document
   (``bodywork_tpu_torch.registry``)
+- ``trainstate/<model_type>-suffstats.json`` — incremental training's
+  sufficient statistics (``bodywork_tpu_torch.train.incremental``)
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ MODEL_METRICS_PREFIX = "model-metrics/"
 TEST_METRICS_PREFIX = "test-metrics/"
 REGISTRY_RECORDS_PREFIX = "registry/records/"
 REGISTRY_ALIAS_KEY = "registry/aliases.json"
+TRAINSTATE_PREFIX = "trainstate/"
 
 
 def dataset_key(d: date) -> str:
@@ -46,3 +49,11 @@ def registry_record_key(model_key: str) -> str:
     base = model_key.rsplit("/", 1)[-1]
     stem = base.rsplit(".", 1)[0] if "." in base else base
     return f"{REGISTRY_RECORDS_PREFIX}{stem}.json"
+
+
+def trainstate_key(model_type: str) -> str:
+    """The incremental-training sufficient-statistics document of one
+    model type. It carries no date: like the alias document it is a live,
+    compare-and-swap mutated document, outside the ``history``/``latest``
+    protocol."""
+    return f"{TRAINSTATE_PREFIX}{model_type}-suffstats.json"

@@ -8,9 +8,12 @@ register the checkpoint as a model-registry candidate (with the
 prediction-sanity band of its training labels), which the promotion
 gate then adjudicates.
 
-Not ported yet (ROADMAP): the incremental mode (``mode="incremental"``)
-and the device mesh (``mesh_data`` / ``mesh_model``) raise; there is no
-compile prewarm, which is XLA machinery.
+``mode="incremental"`` retrains from persisted sufficient statistics
+(linear) or by a warm-started fine-tune (MLP), degrading to this full
+refit where it cannot run (:mod:`bodywork_tpu_torch.train.incremental`).
+Not ported yet (ROADMAP): the device mesh (``mesh_data`` /
+``mesh_model``) raises; there is no compile prewarm, which is XLA
+machinery.
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train")
 
-#: the JAX package's training modes; only ``full`` is ported
+#: the training modes: ``full`` refits on all history, ``incremental``
+#: folds in only the new days (``train/incremental.py``)
 TRAIN_MODES = ("full", "incremental")
 
 #: the model-metrics record's columns (``stage_1:84-89``)
@@ -55,10 +59,20 @@ class TrainResult:
     n_rows: int
     #: serving-side sanity band from the training labels (``{"lo", "hi"}``)
     prediction_bounds: dict | None = None
-    #: how the model was produced: always a ``full`` refit here
+    #: how the model was produced: ``full`` or ``incremental``; an
+    #: incremental request that fell back reports ``full`` and a reason
     mode: str = "full"
     #: dataset rows read to produce this result
     rows_touched: int | None = None
+    #: why an incremental request ran as a full refit: trainstate_absent,
+    #: _corrupt or _stale, no_donor, donor_incompatible, unsupported_model,
+    #: or gate_rejected (the runner's same-day fallback); None otherwise
+    fallback_reason: str | None = None
+    #: the ``trainstate/`` document the persisted result wrote
+    trainstate_artefact_key: str | None = None
+    #: the trainstate document still to write (incremental linear), which
+    #: ``persist_train_result`` CAS-writes after the candidate
+    pending_trainstate: dict | None = dataclasses.field(default=None, repr=False)
 
 
 def _prediction_bounds(y) -> dict:
@@ -119,15 +133,22 @@ def _register_candidate(store: ArtefactStore, model_key_: str, metrics_key: str,
 
 def persist_train_result(store: ArtefactStore, result: TrainResult) -> TrainResult:
     """Write a computed-but-unpersisted result's checkpoint and metrics,
-    register the checkpoint as a registry candidate, and return the
-    result with its keys filled in."""
+    register the checkpoint as a registry candidate, CAS-write its pending
+    trainstate document, and return the result with its keys filled in."""
     data = save_model_bytes(result.model)
     model_key_ = save_model(store, result.model, result.data_date, data=data)
     metrics_key = persist_metrics(store, result.metrics, result.data_date)
     _register_candidate(store, model_key_, metrics_key, result.data_date, data,
                         prediction_bounds=result.prediction_bounds)
+    trainstate_key_ = result.trainstate_artefact_key
+    if result.pending_trainstate is not None:
+        from bodywork_tpu_torch.train.incremental import persist_trainstate
+
+        trainstate_key_ = persist_trainstate(store, result.model.model_type,
+                                             result.pending_trainstate)
     return dataclasses.replace(
         result, model_artefact_key=model_key_, metrics_artefact_key=metrics_key,
+        trainstate_artefact_key=trainstate_key_, pending_trainstate=None,
     )
 
 
@@ -144,21 +165,25 @@ def train_on_history(
     mode: str = "full",
     device=None,
 ) -> TrainResult:
-    """Run the full train stage against an artefact store, fitting on
-    ``device`` (the card unless asked for the CPU). ``persist=False``
-    leaves the artefact writes to the caller (:func:`persist_train_result`)."""
+    """Run the train stage against an artefact store, fitting on
+    ``device`` (the card unless asked for the CPU). ``mode="incremental"``
+    routes to :func:`~bodywork_tpu_torch.train.incremental.train_incremental`,
+    which degrades to this full refit (with ``fallback_reason`` set) where
+    it cannot run. ``persist=False`` leaves the artefact writes to the
+    caller (:func:`persist_train_result`)."""
     if mode not in TRAIN_MODES:
         raise ValueError(f"unknown train mode {mode!r}; expected one of {TRAIN_MODES}")
-    if mode == "incremental":
-        raise NotImplementedError(
-            "incremental training is not ported yet (ROADMAP Queue 1 item 3, "
-            "train/incremental.py); use mode='full'"
-        )
     if (mesh_data or 0) > 1 or mesh_model > 1:
         raise NotImplementedError(
             "training over a device mesh is not ported yet (ROADMAP Queue 1 item 19, "
             "the mesh on torch.distributed)"
         )
+    if mode == "incremental":
+        from bodywork_tpu_torch.train.incremental import train_incremental
+
+        return train_incremental(store, model_type, model_kwargs=model_kwargs,
+                                 test_size=test_size, split_seed=split_seed,
+                                 fit_seed=fit_seed, persist=persist, device=device)
     dev = resolve_device(device)
     ds = load_all_datasets(store)
     split = train_test_split(ds.X, ds.y, test_size=test_size, seed=split_seed)

@@ -12,7 +12,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    generator's threefry draws for all 365 dates of 2026 on the card
    against the CPU (``X`` and the kept-row mask must be bit-equal; the
    ``eps`` and ``y`` gaps are printed in ulps) and the card's time for
-   one day;
+   one day; then ``mlp-draws``: the seeded MLP fit's threefry draws (the
+   2000-step minibatch index stream and the 1024-wide He init) on the
+   card against the CPU, bit-equal, with the card's draw times;
 2. ``build``   — compiles the CUDA kernels from the repository's sources
    with ``nvcc``, one process per source, all started together
    (``ops/_build.py``), and prints the seconds and the compiler's
@@ -61,7 +63,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bars) and the loss trajectories' largest relative gap; and a profiled
    window of 50 training steps (host time a step, the device's busy
    share, the kernels);
-6. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+6. ``incremental`` — incremental training on the card: (a) the linear
+   loop for 30 days in ``mode="incremental"``, its train seconds a day
+   and their last-third over first-third ratio (days 2-30; day 1 builds
+   the trainstate and is reported apart), the final coefficients
+   within 1e-4 of a float64 refit, and the trainstate bytes equal to the
+   same days folded on the CPU (``incremental-linear``); (b) the
+   1024-wide MLP loop for 7 days, day 1 a full refit, days 2-7 fine-tunes
+   of production (500 steps), each gated with 3 shadow days and served
+   through ``kernel`` (``incremental-day`` lines, ``incremental-mlp``);
+   (c) on a copy of (b)'s store, a day whose fine-tune is made to fail:
+   the gate rejects it and the runner refits in full the same day,
+   re-gates and serves the refit (``incremental-gate-rejection``); then
+   ``quantized``: the serve stage with ``BODYWORK_TPU_SERVE_DTYPE`` at
+   ``bfloat16`` and ``int8`` on (b)'s production, which ``auto`` resolves
+   to ``kernel``, so the shadow quantization gate must admit
+   ``kernel-bf16`` / ``kernel-int8``, whose answers over HTTP are held
+   against their plain versions (the gate's report and verdict and the
+   launches per kernel printed); and ``quantized-torch``: ``--engine
+   torch`` at each dtype (``torch-bf16`` / ``torch-int8``) on the card
+   against the same predictor on the CPU;
+7. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -138,6 +160,19 @@ GENERATOR_YEAR = date(2026, 1, 1)
 GENERATOR_TIMED_DAYS = 30
 #: a stack the f32 kernel cannot launch (its widest layer is 1280)
 TOO_WIDE = (1, 1344, 1344, 1344, 1)
+#: the MLP fit's index stream: over the 7-day loop's padded rows and a
+#: count that is not a power of two; timed reps
+DRAW_ROWS = (16384, 10000)
+DRAW_REPS = 5
+#: the incremental linear loop's days, and its coefficients' bar against
+#: a float64 refit (``bench.py:2548``)
+INC_LINEAR_DAYS = 30
+REFIT_ATOL = 1e-4
+#: the plain quantized engines on the card against the same predictor on
+#: the CPU, as max|card - cpu| / max(1, max|cpu|): int8 differs by f32
+#: summation order alone; bf16 also where a bf16 rounding of an activation
+#: flips (the JAX package's bf16 bar)
+CARD_CPU_BARS = {"torch-int8": 1e-4, "torch-bf16": 2e-2}
 
 
 def emit(phase: str, **fields) -> None:
@@ -226,13 +261,11 @@ def controls(torch, layers, X, dtype) -> dict:
 
 def make_params(torch, dev, X: "torch.Tensor", y: "torch.Tensor", seed: int = 0,
                 widths: tuple = WIDTHS) -> dict:
-    """Seeded He-init weights (an explicit torch.Generator) and the
-    scaler's statistics over the generated days."""
-    from bodywork_tpu_torch.models.mlp import _masked_stats, init_mlp_params
+    """Seeded He-init weights (the JAX fit's threefry init for ``seed``)
+    and the scaler's statistics over the generated days."""
+    from bodywork_tpu_torch.models.mlp import _masked_stats, fit_keys, init_mlp_params
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    net = init_mlp_params(gen, widths, device=dev)
+    net = init_mlp_params(fit_keys(seed)[0], widths, device=dev)
     w = torch.ones(X.shape[0], device=dev)
     x_mean, x_std = _masked_stats(X, w)
     y_mean, y_std = _masked_stats(y, w)
@@ -405,6 +438,7 @@ def _check_ragged(torch, dev, engine: str, dtype) -> None:
     must refuse a 2048-wide layer, past its shared-memory limit (1280
     features for f32, 1536 for bf16, 1600 for int8: the headers of their
     sources)."""
+    from bodywork_tpu_torch.data.prng import PRNGKey
     from bodywork_tpu_torch.models.mlp import init_mlp_params
     from bodywork_tpu_torch.ops.mlp_kernel import (
         CLUSTER_KERNELS,
@@ -417,7 +451,7 @@ def _check_ragged(torch, dev, engine: str, dtype) -> None:
 
     def params_for(widths):
         return {
-            "net": init_mlp_params(gen, widths, device=dev),
+            "net": init_mlp_params(PRNGKey(sum(widths)), widths, device=dev),
             "scaler": {"x_mean": torch.full((widths[0],), 50.0, device=dev),
                        "x_std": torch.full((widths[0],), 29.0, device=dev),
                        "y_mean": torch.tensor(26.0, device=dev),
@@ -452,11 +486,19 @@ def _serve_path(torch, dev, store, engine: str, singles, batches) -> dict:
     """Serve the store's newest checkpoint through ``engine``, send the
     requests over HTTP and hold every answer against the plain version.
     Returns the handle (started) and the check summary."""
-    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
     from bodywork_tpu_torch.serve import serve_latest_model
 
     handle = serve_latest_model(store, host="127.0.0.1", port=0, block=False,
                                 engine=engine, device=dev)
+    return (handle, *_check_served(torch, dev, handle, singles, batches))
+
+
+def _check_served(torch, dev, handle, singles, batches) -> tuple[dict, dict]:
+    """Send the requests over HTTP to a started kernel service and hold
+    every answer against the kernel's plain version; returns ``/healthz``
+    and the check summary."""
+    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
+
     health = get(handle.base_url + "/healthz")
     predictor = handle.app.predictor
     layers, dtype = predictor.kernel.layers, {"float32": None}.get(predictor.dtype, predictor.dtype)
@@ -474,8 +516,8 @@ def _serve_path(torch, dev, store, engine: str, singles, batches) -> dict:
         if body["n"] != len(X) or not bool(torch.isfinite(got).all()):
             raise RuntimeError(f"{engine}: bad batch answer for {len(X)} rows")
         worst = max(worst, rel_err(got, mlp_stack_plain(layers, X[:, None], dtype))[1])
-    return handle, health, {"worst_err_over_scale": worst,
-                            "single_latency_ms": [1e3 * t for t in latencies]}
+    return health, {"worst_err_over_scale": worst,
+                    "single_latency_ms": [1e3 * t for t in latencies]}
 
 
 def phase_slice(torch, dev, workdir: str) -> dict:
@@ -642,7 +684,8 @@ def _day_line(model_type: str, r, launched: int) -> dict:
                  if isinstance(gate, GateDecision) else repr(gate)),
         "gate_seconds": r.gate_seconds,
         "served_key": health["model_key"], "served_source": health["model_source"],
-        "train_rows": train.n_rows,
+        "train_rows": train.n_rows, "train_mode": train.mode,
+        "fallback_reason": train.fallback_reason, "rows_touched": train.rows_touched,
         "train_metrics": train.metrics,
         "test_metrics": {k: test[k] for k in ("MAPE", "r_squared", "max_residual",
                                              "n_failures", "n_scored")},
@@ -658,8 +701,9 @@ def _day_line(model_type: str, r, launched: int) -> dict:
     return line
 
 
-def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
-    """7 days of the default pipeline on the card, through
+def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
+              n_days: int = LOOP_DAYS, line: str = "day-loop-day") -> dict:
+    """``n_days`` days of the default pipeline on the card, through
     ``run_simulation``; the kernels' launch counts are set to 0 just
     before it and read just after."""
     from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
@@ -669,22 +713,23 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
 
     spec = default_pipeline(model_type, "batch")
     spec.stages[TRAIN_STAGE].args.update(train_args)
-    runner = LocalRunner(spec, FilesystemStore(os.path.join(root, model_type)), device=dev)
+    name = f"{model_type}-{train_args.get('mode', 'full')}"
+    runner = LocalRunner(spec, FilesystemStore(os.path.join(root, name)), device=dev)
     days, seen = [], {"kernel": 0}
 
     def on_day(r):
         launched = LAUNCHES["kernel"] - seen["kernel"]
         seen["kernel"] = LAUNCHES["kernel"]
         days.append(_day_line(model_type, r, launched))
-        emit("day-loop-day", **days[-1])
+        emit(line, **days[-1])
 
     reset_launches()
-    results = runner.run_simulation(LOOP_START, LOOP_DAYS, on_day=on_day)
+    results = runner.run_simulation(LOOP_START, n_days, on_day=on_day)
     launches = dict(LAUNCHES)
     walls = [r.wall_clock_s for r in results]
     stages = {name: statistics.median(r.stage_seconds[name] for r in results[1:])
               for name in results[0].stage_seconds}
-    summary = {"model": model_type, "days": LOOP_DAYS, "launches": launches,
+    summary = {"model": model_type, "days": n_days, "launches": launches,
                "engines": sorted({d["engine"] for d in days}),
                "gate_verdicts": [d["gate"]["promote"] for d in days],
                "served_sources": sorted({d["served_source"] for d in days}),
@@ -694,7 +739,7 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict) -> dict:
                "wall_clock_s": walls, "day1_s": walls[0],
                "median_days_2_7_s": statistics.median(walls[1:]),
                "median_stage_seconds_days_2_7": stages}
-    return {"summary": summary, "days": days, "runner": runner}
+    return {"summary": summary, "days": days, "runner": runner, "results": results}
 
 
 def phase_day_loop(torch, dev, workdir: str) -> dict:
@@ -824,6 +869,7 @@ def _card_against_cpu(torch, dev, store) -> dict:
         _loss,
         _scaled_splits,
         draw_indices,
+        fit_keys,
         init_mlp_params,
         train_core,
     )
@@ -831,10 +877,9 @@ def _card_against_cpu(torch, dev, store) -> dict:
     cfg = MLPConfig(**{**LOOP_MLP, "n_steps": PARITY_STEPS})
     ds = load_all_datasets(store)
     arrays = [torch.as_tensor(a) for a in pad_rows(ds.X, ds.y)]
-    gen = torch.Generator()
-    gen.manual_seed(11)
-    net = init_mlp_params(gen, WIDTHS)
-    idx = draw_indices(gen, PARITY_STEPS, cfg.batch_size, arrays[0].shape[0])
+    k_init, k_train = fit_keys(11)
+    net = init_mlp_params(k_init, WIDTHS)
+    idx = draw_indices(k_train, PARITY_STEPS, cfg.batch_size, arrays[0].shape[0])
 
     def run(device):
         Xs, ys, _ = _scaled_splits(*(a.to(device) for a in arrays))
@@ -891,6 +936,7 @@ def _train_profile(torch, dev, store) -> dict:
         MLPConfig,
         _scaled_splits,
         draw_indices,
+        fit_keys,
         init_mlp_params,
         train_core,
     )
@@ -899,10 +945,9 @@ def _train_profile(torch, dev, store) -> dict:
     ds = load_all_datasets(store)
     Xp, yp, w = (torch.as_tensor(a, device=dev) for a in pad_rows(ds.X, ds.y))
     Xs, ys, _ = _scaled_splits(Xp, yp, w)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(12)
-    net = init_mlp_params(gen, WIDTHS, device=dev)
-    idx = draw_indices(gen, PROFILE_STEPS, cfg.batch_size, Xp.shape[0], device=dev)
+    k_init, k_train = fit_keys(12)
+    net = init_mlp_params(k_init, WIDTHS, device=dev)
+    idx = draw_indices(k_train, PROFILE_STEPS, cfg.batch_size, Xp.shape[0], device=dev)
 
     def window() -> float:
         t0 = time.perf_counter()
@@ -931,6 +976,308 @@ def _train_profile(torch, dev, store) -> dict:
         "top_kernels_ms_per_step": {
             r.key[:70]: float(r.self_device_time_total) / 1e3 / PROFILE_STEPS for r in top},
     }
+
+
+def phase_mlp_draws(torch, dev) -> dict:
+    """The seeded MLP fit's threefry draws on the card against the CPU:
+    the 2000-step minibatch index stream (batch 256) over the 7-day
+    loop's padded rows and over a row count that is not a power of two,
+    and the 1024-wide He init, all bit-equal; with the card's times (the
+    host walk of the key chain inside the index draw, timed alone too)."""
+    from bodywork_tpu_torch.data import prng
+    from bodywork_tpu_torch.models.mlp import draw_indices, fit_keys, init_mlp_params
+
+    k_init, k_train = fit_keys(0)
+    steps, batch = LOOP_MLP["n_steps"], LOOP_MLP["batch_size"]
+    cpu = torch.device("cpu")
+    equal = {}
+    for rows in DRAW_ROWS:
+        card = draw_indices(k_train, steps, batch, rows, device=dev).cpu()
+        host = draw_indices(k_train, steps, batch, rows, device=cpu)
+        equal[rows] = bool(torch.equal(card, host)) and card.shape == (steps, batch)
+    card_net = init_mlp_params(k_init, WIDTHS, device=dev)
+    host_net = init_mlp_params(k_init, WIDTHS, device=cpu)
+    init_equal = all(
+        torch.equal(a[k].cpu().view(torch.int32), b[k].view(torch.int32))
+        for a, b in zip(card_net["layers"], host_net["layers"]) for k in ("w", "b"))
+
+    def timed_ms(fn) -> float:
+        times = []
+        for _ in range(DRAW_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times)
+
+    out = {"steps": steps, "batch": batch, "rows": list(DRAW_ROWS),
+           "indices_bit_equal": equal, "init_widths": list(WIDTHS),
+           "init_bit_equal": init_equal, "reps": DRAW_REPS,
+           "draw_indices_ms": timed_ms(
+               lambda: draw_indices(k_train, steps, batch, DRAW_ROWS[0], device=dev)),
+           "key_chain_host_ms": timed_ms(lambda: prng.key_chain(k_train, steps)),
+           "init_ms": timed_ms(lambda: init_mlp_params(k_init, WIDTHS, device=dev))}
+    emit("mlp-draws", **out)
+    if not all(equal.values()) or not init_equal:
+        raise RuntimeError(f"the card's MLP draws differ from the CPU's: {out}")
+    return out
+
+
+def _linear_refit_gap(store, doc) -> dict:
+    """The trainstate's solution against an independent float64 refit
+    (``np.linalg.lstsq``) over the union of the covered days' train
+    splits (``bench.py:2548``, ``_linear_coefficient_check``)."""
+    import numpy as np
+
+    from bodywork_tpu_torch.data.io import load_dataset
+    from bodywork_tpu_torch.models.linear import solve_normal_eq
+    from bodywork_tpu_torch.store.schema import DATASETS_PREFIX
+    from bodywork_tpu_torch.train.incremental import day_split_indices
+
+    split = doc["split"]
+    Xs, ys = [], []
+    for key, d in store.history(DATASETS_PREFIX):
+        if str(d) not in doc["days"]:
+            continue
+        ds = load_dataset(store, key)
+        train_idx, _ = day_split_indices(len(ds), d, split["test_size"], split["seed"])
+        Xs.append(np.asarray(ds.X, np.float64)[train_idx])
+        ys.append(np.asarray(ds.y, np.float64)[train_idx])
+    X, y = np.concatenate(Xs), np.concatenate(ys)
+    theta = np.linalg.lstsq(np.concatenate([X, np.ones((len(y), 1))], axis=1), y,
+                            rcond=None)[0]
+    host = solve_normal_eq(doc["cum_g"], doc["cum_c"])
+    got = np.concatenate([np.asarray(host["w"], np.float64).ravel(), [float(host["b"])]])
+    return {"days": len(doc["days"]), "rows": int(len(y)), "coefficients": got.tolist(),
+            "refit": theta.tolist(), "max_abs_gap": float(np.max(np.abs(got - theta))),
+            "atol": REFIT_ATOL}
+
+
+def _incremental_linear(torch, dev, workdir: str) -> dict:
+    """(a) The linear loop on the card for INC_LINEAR_DAYS days in
+    ``mode="incremental"`` (day 1 builds the trainstate): the per-day
+    train seconds and their last-third over first-third ratio over days
+    2 on, the final coefficients against a float64 refit, and the
+    trainstate bytes against the same days folded on the CPU."""
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, trainstate_key
+    from bodywork_tpu_torch.train import train_on_history
+    from bodywork_tpu_torch.train.incremental import read_trainstate
+
+    loop = _run_loop(torch, dev, workdir, "linear", {"mode": "incremental"},
+                     n_days=INC_LINEAR_DAYS, line="incremental-day")
+    store = loop["runner"].store
+    train_s = [r.stage_seconds[TRAIN_STAGE] for r in loop["results"]]
+    # day 1 apart: it builds the trainstate and carries the process's
+    # first use of the card's solver and copies (PERF.md section 2)
+    steady = train_s[1:]
+    third = len(steady) // 3
+    doc, _token, reason = read_trainstate(store, "linear")
+    gap = _linear_refit_gap(store, doc)
+    # the same days folded one by one on the CPU, from the card's datasets
+    cpu_store = FilesystemStore(os.path.join(workdir, "linear-incremental-cpu"))
+    for key, d in store.history(DATASETS_PREFIX):
+        if str(d) in doc["days"]:
+            cpu_store.put_bytes(key, store.get_bytes(key))
+            train_on_history(cpu_store, "linear", mode="incremental", device="cpu")
+    key = trainstate_key("linear")
+    out = {"days": INC_LINEAR_DAYS, "train_seconds": train_s, "day1_train_s": train_s[0],
+           "last_third_over_first_third_days_2_on": (statistics.mean(steady[-third:])
+                                                     / statistics.mean(steady[:third])),
+           "median_train_s_days_2_on": statistics.median(steady),
+           "modes": [d["train_mode"] for d in loop["days"]],
+           "fallback_reasons": [d["fallback_reason"] for d in loop["days"]],
+           "rows_touched": [d["rows_touched"] for d in loop["days"]],
+           "gate_verdicts": [d["gate"]["promote"] for d in loop["days"]],
+           "trainstate_reason": reason, "coefficient_check": gap,
+           "trainstate_bytes": len(store.get_bytes(key)),
+           "trainstate_equal_to_cpu": store.get_bytes(key) == cpu_store.get_bytes(key),
+           "wall_clock_s": loop["summary"]["wall_clock_s"]}
+    emit("incremental-linear", **out)
+    if reason is not None or gap["max_abs_gap"] >= REFIT_ATOL:
+        raise RuntimeError(f"the incremental linear solution is off the refit: {gap}")
+    if not out["trainstate_equal_to_cpu"]:
+        raise RuntimeError("the card's trainstate differs from the CPU's for the same days")
+    if set(out["modes"]) != {"incremental"} or out["fallback_reasons"][1:] != \
+            [None] * (INC_LINEAR_DAYS - 1):
+        raise RuntimeError(f"the linear loop did not fold incrementally: {out}")
+    return out
+
+
+def _incremental_mlp(torch, dev, workdir: str) -> dict:
+    """(b) The 1024-wide MLP loop for LOOP_DAYS days in ``mode=
+    "incremental"``: day 1 a full refit (no donor yet), days 2-7
+    fine-tunes of production (a quarter of the steps), each gated with
+    shadow evaluation, production served through ``kernel``."""
+    loop = _run_loop(torch, dev, workdir, "mlp", {**LOOP_MLP, "mode": "incremental"},
+                     line="incremental-day")
+    days = loop["days"]
+    summary = {**loop["summary"],
+               "modes": [d["train_mode"] for d in days],
+               "fallback_reasons": [d["fallback_reason"] for d in days],
+               "train_seconds": [r.stage_seconds["stage-1-train-model"]
+                                 for r in loop["results"]]}
+    emit("incremental-mlp", **summary)
+    # day 1 has no donor; every later day fine-tunes, or refits in full
+    # after the gate rejected its fine-tune
+    later = list(zip(summary["modes"], summary["fallback_reasons"]))[1:]
+    if days[0]["fallback_reason"] != "no_donor" or any(
+            d not in (("incremental", None), ("full", "gate_rejected")) for d in later):
+        raise RuntimeError(f"the MLP loop did not train incrementally: {summary}")
+    bad = [d["day"] for d in days if d["engine"] != "kernel" or d["launches"] < 1]
+    if bad:
+        raise RuntimeError(f"the incremental MLP loop did not serve through the kernel on {bad}")
+    return {"summary": summary, "runner": loop["runner"]}
+
+
+def _incremental_rejection(torch, dev, store, workdir: str) -> dict:
+    """(c) On a copy of (b)'s store, day 8 with a fine-tune made to fail
+    (it trains on all-zero labels): the gate rejects the incremental
+    candidate, the runner refits in full the same day
+    (``fallback_reason="gate_rejected"``), gates the refit and serves it
+    through ``kernel`` (launches counted over the day)."""
+    from bodywork_tpu_torch.models.mlp import MLPRegressor
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE, TRAIN_STAGE
+    from bodywork_tpu_torch.registry.records import load_record
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    copy = FilesystemStore(shutil.copytree(store.root, os.path.join(workdir, "inc-rejection")))
+    spec = default_pipeline("mlp", "batch")
+    spec.stages[TRAIN_STAGE].args.update({**LOOP_MLP, "mode": "incremental"})
+    day = LOOP_START + timedelta(days=LOOP_DAYS)
+    real = MLPRegressor.fine_tune
+
+    def failing_fine_tune(self, X, y, n_steps, seed=None):
+        return real(self, X, torch.zeros(len(y)).numpy(), n_steps, seed=seed)
+
+    MLPRegressor.fine_tune = failing_fine_tune
+    try:
+        reset_launches()
+        r = LocalRunner(spec, copy, device=dev).run_day(day)
+        launches = dict(LAUNCHES)
+    finally:
+        MLPRegressor.fine_tune = real
+    line = _day_line("mlp", r, launches["kernel"])
+    final = r.stage_results[TRAIN_STAGE]
+    history = [e["event"] for e in load_record(copy, final.model_artefact_key)["history"]]
+    out = {**line, "record_events": history, "launches_all": launches}
+    emit("incremental-gate-rejection", **out)
+    served = r.stage_results[SERVE_STAGE].app.healthz_payload()
+    if (final.mode, final.fallback_reason) != ("full", "gate_rejected"):
+        raise RuntimeError(f"no same-day full refit after the rejection: {out}")
+    if "gate_decision" not in history[:-1] or history[-1] != "promoted":
+        raise RuntimeError(f"the refit was not re-gated and promoted: {history}")
+    if served["model_key"] != final.model_artefact_key or launches["kernel"] < 1:
+        raise RuntimeError(f"the refit was not served through the kernel: {out}")
+    return out
+
+
+def phase_incremental(torch, dev, workdir: str) -> dict:
+    linear = _incremental_linear(torch, dev, workdir)
+    mlp = _incremental_mlp(torch, dev, workdir)
+    rejection = _incremental_rejection(torch, dev, mlp["runner"].store, workdir)
+    return {"linear": linear, "mlp": mlp["summary"], "rejection": rejection,
+            "store": mlp["runner"].store}
+
+
+def _gate_spy():
+    """Record what the shadow quantization gate saw and decided (its
+    report, verdict and detail) while leaving its decision untouched."""
+    from bodywork_tpu_torch.registry import gates
+
+    seen, real = [], gates.evaluate_quantization
+
+    def spy(report, policy=None):
+        ok, detail = real(report, policy)
+        seen.append({"report": report, "admitted": ok, "detail": detail})
+        return ok, detail
+
+    gates.evaluate_quantization = spy
+    return seen, lambda: setattr(gates, "evaluate_quantization", real)
+
+
+def _serve_at_dtype(torch, dev, store, dtype: str, engine: str):
+    """The serve stage with ``BODYWORK_TPU_SERVE_DTYPE=dtype`` on the
+    store's production: a started handle and the gate's record."""
+    from bodywork_tpu_torch.pipeline.stages import StageContext, serve_stage
+
+    seen, restore = _gate_spy()
+    before = os.environ.get("BODYWORK_TPU_SERVE_DTYPE")
+    os.environ["BODYWORK_TPU_SERVE_DTYPE"] = dtype
+    try:
+        handle = serve_stage(StageContext(store=store, today=LOOP_START, device=dev),
+                             engine=engine)
+    finally:
+        restore()
+        if before is None:
+            os.environ.pop("BODYWORK_TPU_SERVE_DTYPE")
+        else:
+            os.environ["BODYWORK_TPU_SERVE_DTYPE"] = before
+    return handle, seen
+
+
+def phase_quantized(torch, dev, store) -> dict:
+    """The serve stage at each quantized dtype on (b)'s production: on
+    ``auto`` (the 1024-wide MLP resolves to ``kernel``) the gate must
+    admit ``kernel-bf16`` / ``kernel-int8``, whose answers over HTTP are
+    held against their plain versions (launches counted from 0 before the
+    stage to after its requests); then ``--engine torch`` at each dtype
+    (``torch-bf16`` / ``torch-int8``) on the card, held against the same
+    predictor on the CPU."""
+    from bodywork_tpu_torch.models.checkpoint import load_model
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import build_predictor
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    batches = [torch.rand(n, generator=gen, device=dev) * 100.0 for n in (300, 4096)]
+    singles = [50.0, 10.0, 90.0]
+    launches, out = {}, {}
+    for dtype, engine in (("bfloat16", "kernel-bf16"), ("int8", "kernel-int8")):
+        reset_launches()
+        handle, gate = _serve_at_dtype(torch, dev, store, dtype, "auto")
+        try:
+            health, checks = _check_served(torch, dev, handle, singles, batches)
+        finally:
+            handle.stop()
+        launches[engine] = LAUNCHES[engine]
+        out[engine] = {"dtype": dtype, "engine": health["engine"],
+                       "served_dtype": health["serving_dtype"],
+                       "model_key": health["model_key"], "gate": gate,
+                       "launches": dict(LAUNCHES), "bar": BARS[engine], **checks}
+        emit("quantized", **out[engine])
+        if health["engine"] != engine or health["serving_dtype"] != dtype:
+            raise RuntimeError(f"dtype={dtype} did not serve through {engine}: {out[engine]}")
+        if checks["worst_err_over_scale"] >= BARS[engine] or launches[engine] < 3:
+            raise RuntimeError(f"{engine} path failed: {out[engine]}")
+    cpu_model, _ = load_model(store, device="cpu")
+    X = batches[1]
+    for dtype, engine in (("bfloat16", "torch-bf16"), ("int8", "torch-int8")):
+        reset_launches()
+        handle, gate = _serve_at_dtype(torch, dev, store, dtype, "torch")
+        try:
+            health = get(handle.base_url + "/healthz")
+            got = torch.tensor(post(handle.url + "/batch", {"X": X.tolist()})["predictions"])
+        finally:
+            handle.stop()
+        want = torch.from_numpy(build_predictor(cpu_model, engine).predict(X.cpu().numpy()))
+        err, rel = rel_err(got, want)
+        out[engine] = {"dtype": dtype, "engine": health["engine"],
+                       "served_dtype": health["serving_dtype"], "device": health["device"],
+                       "gate": gate, "launches": dict(LAUNCHES), "rows": int(X.shape[0]),
+                       "max_abs_err_vs_cpu": err, "err_over_scale_vs_cpu": rel,
+                       "bar": CARD_CPU_BARS[engine]}
+        emit("quantized-torch", **out[engine])
+        if (health["engine"], health["serving_dtype"], health["device"]) != (engine, dtype, "cuda"):
+            raise RuntimeError(f"--engine torch at {dtype} did not serve {engine}: {out[engine]}")
+        if rel >= CARD_CPU_BARS[engine] or any(LAUNCHES.values()):
+            raise RuntimeError(f"{engine} on the card disagrees with the CPU: {out[engine]}")
+    torch.cuda.synchronize()
+    return {"launches": launches, "paths": out}
 
 
 def _median_ms(torch, fn, reps: int = TIMING_REPS) -> float:
@@ -1037,8 +1384,11 @@ def phase_timing(torch, dev, card: dict) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
-        "--phases", default="device,generator,build,kernels,slice,day-loop,timing",
-        help="comma-separated subset of the phases to run (default: all)",
+        "--phases",
+        default="device,generator,mlp-draws,build,kernels,slice,day-loop,incremental,"
+                "quantized,timing",
+        help="comma-separated subset of the phases to run (default: all; quantized "
+             "serves incremental's production, so it runs incremental too)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1064,29 +1414,40 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     if "generator" in phases:
         phase_generator(torch, dev)
+    if "mlp-draws" in phases:
+        phase_mlp_draws(torch, dev)
     if "build" in phases:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
-    launches, loop, timing = {}, {}, {}
-    for phase in ("slice", "day-loop"):
-        if phase not in phases:
+    launches, loop, incremental, quantized, timing = {}, {}, {}, {}, {}
+    for phase in ("slice", "day-loop", "incremental"):
+        if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
         try:
             if phase == "slice":
                 launches = phase_slice(torch, dev, workdir)
-            else:
+            elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
+            else:
+                incremental = phase_incremental(torch, dev, workdir)
+                if "quantized" in phases:
+                    quantized = phase_quantized(torch, dev, incremental["store"])
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
     if "timing" in phases:
         timing = phase_timing(torch, dev, card)
-    if phases >= {"kernels", "slice", "day-loop", "timing"}:
+    if phases >= {"kernels", "slice", "day-loop", "incremental", "quantized", "timing"}:
         kernels = []
         for engine in VARIANTS:
             t = timing[engine][4096]
             by_path = {"slice": launches[engine], "day-loop": loop["mlp"]["launches"][engine],
-                       "gate-rejection": loop["rejection"]["launches"][engine]}
+                       "gate-rejection": loop["rejection"]["launches"][engine],
+                       "incremental": incremental["mlp"]["launches"][engine],
+                       "incremental-gate-rejection":
+                           incremental["rejection"]["launches_all"][engine],
+                       "quantized": sum(p["launches"][engine]
+                                        for p in quantized["paths"].values())}
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

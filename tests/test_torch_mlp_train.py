@@ -1,7 +1,9 @@
 """MLP training: the port's Adam loop, fit + held-out eval, the bf16
-policy and ``fine_tune`` against the JAX package, fed the JAX loop's own
-initial weights and minibatch indices (the port draws its own from a
-``torch.Generator``; the JAX package from its key chain)."""
+policy and ``fine_tune`` against the JAX package. Most tests feed the JAX
+loop's own initial weights and minibatch indices to the port; the port
+draws the same indices itself, and the init within a few ulps
+(``tests/test_torch_mlp_draws.py``), so ``fine_tune`` runs on its own
+draws."""
 import io
 
 import jax
@@ -171,14 +173,14 @@ def test_fit_and_evaluate_matches_jax_on_the_same_draws(jax_draws_in_the_port):
                                    np.asarray(ref.params["scaler"][name]), rtol=2e-6)
 
 
-def test_fine_tune_keeps_the_donor_scaler_and_matches_jax(jax_draws_in_the_port):
+def test_fine_tune_keeps_the_donor_scaler_and_matches_jax():
+    """No draw is fed across: the port's ``fine_tune`` draws JAX's index
+    stream from the seed itself."""
     X, y = _data(3, 1500)
     X2, y2 = _data(4, 700)
-    jcfg, pcfg = _configs(hidden=(16, 16), n_steps=50, batch_size=64)
+    _, pcfg = _configs(hidden=(16, 16), n_steps=50, batch_size=64)
     donor = mlp.MLPRegressor(pcfg).fit(X, y, device="cpu")
     jax_donor = jax_ckpt.load_model_bytes(port_ckpt.save_model_bytes(donor))
-    jax_draws_in_the_port(9, jax_mlp.MLPConfig(hidden=(16, 16), n_steps=30, batch_size=64),
-                          split_init=False)
     tuned = donor.fine_tune(X2, y2, n_steps=30, seed=9)
     ref = jax_donor.fine_tune(X2, y2, n_steps=30, seed=9)
     for name, t in donor.scaler.items():

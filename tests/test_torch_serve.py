@@ -172,7 +172,7 @@ def test_engine_names_map_one_to_one_onto_the_jax_engines():
         "xla": "torch", "xla-bf16": "torch-bf16", "xla-int8": "torch-int8",
         "pallas": "kernel", "pallas-bf16": "kernel-bf16", "pallas-int8": "kernel-int8",
     }
-    assert set(cli.SERVE_ENGINES) == {"auto", "torch", "kernel", "kernel-bf16", "kernel-int8"}
+    assert set(cli.SERVE_ENGINES) == {"auto"} | set(ENGINE_NAMES.values())
 
 
 def _port_model(hidden, device="cpu"):
@@ -217,9 +217,29 @@ def test_kernel_engines_keep_the_pallas_bucket_policy(world, engine, dtype):
 
 
 @pytest.mark.parametrize("engine", ["torch-bf16", "torch-int8"])
-def test_unported_quantized_plain_engines_name_the_roadmap_item(engine):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        build_predictor(_port_model((16, 16)), engine)
+def test_unported_quantized_plain_engines_name_the_roadmap_item(world, engine):
+    """Ported since: ``torch-bf16`` / ``torch-int8`` serve the JAX-trained
+    MLP as the JAX ``xla-bf16`` / ``xla-int8`` predictors do (their dtype
+    and buckets; answers within 2e-2 of scale, the JAX bars), and refuse a
+    model that is not an MLP."""
+    from bodywork_tpu.models.checkpoint import save_model_bytes
+    from bodywork_tpu.serve.predictor import BF16MLPPredictor, Int8MLPPredictor
+    from bodywork_tpu_torch.models import LinearConfig, LinearRegressor
+    from bodywork_tpu_torch.models.checkpoint import load_model_bytes
+
+    port = load_model_bytes(save_model_bytes(world["model"]), device="cpu")
+    predictor = build_predictor(port, engine)
+    jax_predictor = {"torch-bf16": BF16MLPPredictor,
+                     "torch-int8": Int8MLPPredictor}[engine](world["model"])
+    assert predictor.engine == engine and predictor.dtype == jax_predictor.dtype
+    assert predictor.buckets == jax_predictor.buckets
+    X = np.linspace(0.0, 100.0, 37, dtype=np.float32)
+    want = jax_predictor.predict(X)
+    scale = max(1.0, float(np.max(np.abs(want))))
+    assert float(np.max(np.abs(predictor.predict(X) - want))) / scale < 2e-2
+    linear = LinearRegressor(LinearConfig(), {"w": torch.tensor([0.5]), "b": torch.tensor(1.0)})
+    with pytest.raises(ValueError, match="MLP"):
+        build_predictor(linear, engine)
 
 
 def test_padded_predictor_chunks_through_the_largest_bucket():
