@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test|train|run-day|run-sim|registry``.
+generate|serve|test|train|run-day|run-sim|compact|registry``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -18,11 +18,23 @@ generate|serve|test|train|run-day|run-sim|registry``.
   history, or the incremental fold (default from
   ``BODYWORK_TPU_TRAIN_MODE``), which prints its fallback reason when it
   ran as a full refit;
-- ``run-day --store S [--date D]`` runs one simulated day of the default
-  pipeline (train -> registry gate -> serve -> generate -> test)
-  in-process, and ``run-sim --store S --days N [--date D]
-  [--samples-per-day R]`` runs N; their train and serve stages read
-  ``BODYWORK_TPU_TRAIN_MODE`` and ``BODYWORK_TPU_SERVE_DTYPE``.
+- ``run-day --store S [--date D] [--no-resume]`` runs one simulated day
+  of the default pipeline (train -> registry gate -> serve -> generate ->
+  test) in-process, crash-resumable through the day's run journal, with
+  the JAX command's exit codes: 0 done, 1 a stage failed, 5 another
+  runner holds the day's lease, 6 the journal marks the day complete and
+  every artefact verified (nothing ran), 143 SIGTERM (the journal marks
+  the day interrupted; the next run resumes it). ``run-sim --store S
+  --days N [--date D] [--samples-per-day R] [--overlap-generate]`` runs
+  N days with the horizon prefetch, the lookahead train and the snapshot
+  compactor (exit 5 and 143 as ``run-day``); ``--overlap-generate`` runs
+  generate beside serve (``default_pipeline(overlap_generate=True)``).
+  Their train and serve stages read ``BODYWORK_TPU_TRAIN_MODE`` and
+  ``BODYWORK_TPU_SERVE_DTYPE``; both arm the kill switch of
+  ``BODYWORK_TPU_CRASH_SCHEDULE`` (``chaos.kill``).
+- ``compact --store S [--dry-run] [--keep N]`` consolidates the dataset
+  history into one ``snapshots/`` artefact (``--dry-run`` prints the
+  days, rows and bytes it would write, and writes nothing).
   Both take ``--model linear|mlp`` and ``--mode single|batch`` (the
   test stage's requests); ``train``, ``run-day`` and ``run-sim`` take
   ``--mlp-hidden 1024,1024,1024``, ``--mlp-steps`` and ``--mlp-lr`` to
@@ -142,20 +154,52 @@ def cmd_train(args) -> int:
 
 
 def _runner(args):
+    """The day loop's runner, over the store wrapped in the kill switch
+    that ``BODYWORK_TPU_CRASH_SCHEDULE`` arms (untouched when unset)."""
+    from bodywork_tpu_torch.chaos.kill import arm_from_env, wrap_store
     from bodywork_tpu_torch.data.drift_config import DriftConfig
     from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
     from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
     from bodywork_tpu_torch.store import open_store
 
-    spec = default_pipeline(args.model, args.mode)
+    arm_from_env()
+    spec = default_pipeline(args.model, args.mode,
+                            overlap_generate=getattr(args, "overlap_generate", False))
     spec.stages[TRAIN_STAGE].args.update(_mlp_kwargs(args))
     samples = getattr(args, "samples_per_day", None)
     drift = DriftConfig(n_samples=samples) if samples else None
-    return LocalRunner(spec, open_store(args.store), drift=drift, device=args.device)
+    return LocalRunner(spec, wrap_store(open_store(args.store)), drift=drift,
+                       device=args.device)
+
+
+def _day_loop(run, what: str) -> tuple[object, int | None]:
+    """Run ``run()`` under the graceful SIGTERM handler: ``(result,
+    None)``, or ``(None, exit code)`` when the run lost its lease (5).
+    On SIGTERM the journal is already durable and the process exits 143
+    at once, skipping interpreter teardown, which a daemon thread still
+    inside a CUDA call or a first-use kernel build can crash."""
+    from bodywork_tpu_torch.pipeline.journal import LEASE_LOST_EXIT, LeaseLost
+    from bodywork_tpu_torch.utils.logging import get_logger
+    from bodywork_tpu_torch.utils.shutdown import SIGTERM_EXIT, ShutdownRequested, graceful_sigterm
+
+    log = get_logger("cli")
+    try:
+        with graceful_sigterm():
+            return run(), None
+    except LeaseLost as exc:
+        log.error(f"{exc}; exiting {LEASE_LOST_EXIT} (lease lost)")
+        return None, LEASE_LOST_EXIT
+    except ShutdownRequested:
+        log.warning(f"{what} interrupted by SIGTERM; the journal marks the day "
+                    "'interrupted' and the next run resumes it")
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(SIGTERM_EXIT)
 
 
 def _print_day(r) -> None:
     from bodywork_tpu_torch.pipeline.runner import GATE_RESULT
+    from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE
 
     print(f"day {r.day}: {r.wall_clock_s:.3f}s")
     for name, secs in r.stage_seconds.items():
@@ -166,24 +210,87 @@ def _print_day(r) -> None:
                    else f"{'PROMOTED' if decision.promote else 'REJECTED'} "
                         f"{decision.model_key}")
         print(f"  {GATE_RESULT}: {r.gate_seconds:.3f}s ({verdict})")
+    app = getattr(r.stage_results.get(SERVE_STAGE), "app", None)
+    if app is not None:
+        from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
+
+        health = app.healthz_payload()
+        print(f"  served: {health['model_key']} ({health['model_source']}) on "
+              f"{health['engine']}, {health['launches'] or 0} kernel launches in this process")
+        print(f"  launches by kernel in this process: {json.dumps(LAUNCHES, sort_keys=True)}")
     sys.stdout.flush()
 
 
 def cmd_run_day(args) -> int:
+    from bodywork_tpu_torch.pipeline.journal import RESUMED_NOOP_EXIT
+
     runner = _runner(args)
     d = parse_date(args.date) if args.date else date.today()
-    runner.bootstrap(d)
-    _print_day(runner.run_day(d))
+
+    def run():
+        runner.bootstrap(d)
+        return runner.run_day(d, resume=not args.no_resume)
+
+    result, code = _day_loop(run, "run-day")
+    if code is not None:
+        return code
+    if result.noop:
+        print(f"day {d}: already complete (resumed as a no-op)")
+        return RESUMED_NOOP_EXIT
+    if result.skipped_stages:
+        print(f"day {d}: resumed — skipped {', '.join(result.skipped_stages)} "
+              "(journal-verified)")
+    _print_day(result)
     return 0
 
 
 def cmd_run_sim(args) -> int:
     runner = _runner(args)
     start = parse_date(args.date) if args.date else date.today()
-    results = runner.run_simulation(start, args.days, on_day=_print_day)
+    results, code = _day_loop(
+        lambda: runner.run_simulation(start, args.days, on_day=_print_day), "run-sim")
+    if code is not None:
+        return code
     total = sum(r.wall_clock_s for r in results)
     print(f"total {total:.3f}s over {args.days} day(s), "
           f"mean {total / max(args.days, 1):.3f}s/day")
+    return 0
+
+
+def cmd_compact(args) -> int:
+    """Consolidate the dataset history into one ``snapshots/`` artefact, so
+    a cold process loads it in O(1 + tail) reads; ``--dry-run`` prints
+    what it would consolidate and writes nothing."""
+    from bodywork_tpu_torch.data.snapshot import SNAPSHOT_KEEP, plan_compaction, write_snapshot
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    store = open_store(args.store)
+    plan = plan_compaction(store)
+    if plan["days"] == 0:
+        print("no datasets to consolidate")
+        return 0
+    if plan["days_without_tokens"]:
+        print(f"warning: {plan['days_without_tokens']} day(s) have no version token "
+              "(the backend cannot verify them) and will be skipped", file=sys.stderr)
+    if plan["would_write"] is None:
+        # exiting 0 here would let a scheduled job claim success forever
+        log.error("nothing consolidatable: the backend reports no version token "
+                  "for any dataset day")
+        return 1
+    print(f"{len(plan['covered_days'])} day(s) ({plan['covered_days'][0]} .. "
+          f"{plan['covered_days'][-1]}), {plan['rows']} rows, "
+          f"~{plan['estimated_bytes']} bytes; latest snapshot: "
+          f"{plan['latest_snapshot'] or 'none'}")
+    if args.dry_run:
+        print(f"dry-run: would write {plan['would_write']}")
+        return 0
+    key = write_snapshot(store, keep=args.keep or SNAPSHOT_KEEP)
+    if key is None:
+        log.error("compaction wrote nothing (the store changed mid-run?)")
+        return 1
+    print(key)
     return 0
 
 
@@ -441,6 +548,26 @@ def build_parser() -> argparse.ArgumentParser:
             p.add_argument("--days", type=_positive_int, required=True)
             p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
                            help="rows the generator draws a day (default 1440)")
+            p.add_argument("--overlap-generate", action="store_true",
+                           help="run generate beside serve (DAG s1 >> s2,s3 >> s4) instead "
+                                "of the reference's serial DAG; the artefacts are the same")
+        else:
+            p.add_argument("--no-resume", action="store_true",
+                           help="ignore the runs/ journal: no lease, no verified skipping, "
+                                "a full re-run. Default: resume, skipping completed stages "
+                                "whose recorded artefact digests verify (exit 5: another "
+                                "runner holds the lease; 6: the day was already complete)")
+
+    p = sub.add_parser("compact", help="consolidate dataset history into a snapshots/ "
+                                       "artefact")
+    p.set_defaults(fn=cmd_compact)
+    p.add_argument("--store", **store)
+    p.add_argument("--dry-run", action="store_true",
+                   help="print the days covered, rows and estimated bytes without "
+                        "writing anything")
+    p.add_argument("--keep", type=_positive_int, default=None, metavar="N",
+                   help="snapshots to keep after writing (default: "
+                        "data.snapshot.SNAPSHOT_KEEP, 2)")
 
     p = sub.add_parser("registry", help="model registry: gated promotion, shadow eval, "
                                         "rollback")

@@ -7,8 +7,9 @@ The schema is the reference's (``stage_3:46-61``): a CSV with header
 shortest decimal that reads back to the same float32 (what pandas writes
 for a float32 column), so a day round-trips bit-exact through either
 package. :func:`load_all_datasets` reads the whole history for the train
-stage: plain (list, parse, concatenate), without the JAX package's
-snapshot and parse caches (ROADMAP).
+stage through :func:`load_history_parts`'s three tiers (the per-day parse
+cache, the consolidated snapshot of ``data.snapshot``, a batched fetch)
+and a one-entry concatenation cache, as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -90,8 +91,12 @@ def persist_dataset(store: ArtefactStore, ds: Dataset) -> str:
     return key
 
 
+def _parse_dataset_csv(data: bytes, key: str) -> Dataset:
+    return Dataset.from_csv(data.decode("utf-8"), date_from_key(key))
+
+
 def load_dataset(store: ArtefactStore, key: str) -> Dataset:
-    return Dataset.from_csv(store.get_text(key), date_from_key(key))
+    return _parse_dataset_csv(store.get_bytes(key), key)
 
 
 def load_latest_dataset(store: ArtefactStore) -> Dataset:
@@ -100,16 +105,117 @@ def load_latest_dataset(store: ArtefactStore) -> Dataset:
     return load_dataset(store, key)
 
 
+def load_history_parts(store: ArtefactStore, hist: list, tokens: dict) -> dict[str, Dataset]:
+    """The parsed dataset of every ``hist`` entry, through three tiers,
+    cheapest first:
+
+    1. the per-day parse cache on the store, keyed by ``version_token``;
+    2. the latest valid consolidated snapshot (``data.snapshot``): a
+       covered day is trusted only while its recorded token equals the
+       store's current one, so an overwritten day degrades to tier 3
+       alone;
+    3. one ``store.get_many`` of the rest, parsed.
+
+    Snapshot slices fill the parse cache, so a cold process's first load
+    warms the cache a long-lived one builds day by day."""
+    from bodywork_tpu_torch.data import snapshot as snapshot_mod
+    from bodywork_tpu_torch.store.schema import SNAPSHOTS_PREFIX
+
+    cache: dict = store.mutable_cache("_parsed_dataset_cache")
+    dates = dict(hist)
+    parts: dict[str, Dataset] = {}
+    missing: list[str] = []
+    for key, _ in hist:
+        token = tokens.get(key)
+        hit = cache.get(key) if token is not None else None
+        if hit is not None and hit[0] == token:
+            parts[key] = hit[1]
+        else:
+            missing.append(key)
+    n_from_snapshot = 0
+    if missing:
+        snaps = store.history(SNAPSHOTS_PREFIX)
+        snap = None
+        # the listing's embedded date bounds what the snapshot covers:
+        # read its payload only when a missing day could be in it, or the
+        # warm daily loop (whose one missing day is the newly generated
+        # one) would re-read the ever-growing snapshot every day
+        if snaps and any(dates[key] <= snaps[-1][1] for key in missing):
+            snap = snapshot_mod.load_latest_snapshot(store, hist=snaps)
+        if snap is not None:
+            hist_keys = set(dates)
+            slices = snap.slices()
+            usable = {}
+            for entry in snap.entries:
+                key = entry["key"]
+                token = tokens.get(key)
+                if key in hist_keys and token is not None:
+                    if snapshot_mod.canon_token(token) == entry["token"]:
+                        usable[key] = token
+                    else:
+                        # a covered day was overwritten since the snapshot
+                        # (same date, new token), which refresh_due's date
+                        # check cannot see: flag it for the compactor
+                        store.mutable_cache("_snapshot_state")["repair_needed"] = True
+            still_missing = []
+            for key in missing:
+                token = usable.get(key)
+                if token is None:
+                    still_missing.append(key)
+                    continue
+                Xs, ys = slices[key]
+                ds = Dataset(Xs, ys, dates[key])
+                cache[key] = (token, ds)
+                parts[key] = ds
+                n_from_snapshot += 1
+            missing = still_missing
+    if missing:
+        blobs = store.get_many(missing)
+        for key in missing:
+            ds = _parse_dataset_csv(blobs[key], key)
+            token = tokens.get(key)
+            if token is not None:
+                cache[key] = (token, ds)
+            parts[key] = ds
+    log.info(
+        f"history parts: {len(hist)} day(s) — "
+        f"{len(hist) - n_from_snapshot - len(missing)} cached, "
+        f"{n_from_snapshot} from snapshot, {len(missing)} fetched+parsed"
+    )
+    return parts
+
+
 def load_all_datasets(store: ArtefactStore) -> Dataset:
     """All available history, oldest first, concatenated, dated by the
     most recent day (``stage_1:39-76``): the same ``Dataset`` as the JAX
-    package's ``load_all_datasets`` on the same store."""
+    package's ``load_all_datasets`` on the same store, whether the
+    snapshot is present, stale, corrupt or absent. A cold process reads
+    the latest snapshot and the tail days after it; a warm one re-parses
+    only days whose ``version_token`` changed; a reload whose exact
+    ``(key, token)`` list is unchanged skips the concatenation too."""
     hist = store.history(DATASETS_PREFIX)
     if not hist:
         raise ArtefactNotFound(f"no datasets under '{DATASETS_PREFIX}'")
-    parts = [load_dataset(store, key) for key, _ in hist]
-    X = np.concatenate([p.X for p in parts])
-    y = np.concatenate([p.y for p in parts])
+    keys = [key for key, _ in hist]
+    tokens = store.version_tokens(keys)
     most_recent = hist[-1][1]
+    concat_cache: dict = store.mutable_cache("_concat_history_cache")
+    concat_key = None
+    if len(tokens) == len(keys):  # every key verifiable
+        concat_key = tuple((k, repr(tokens[k])) for k in keys)
+        cached = concat_cache.get(concat_key)
+        if cached is not None:
+            X, y = cached
+            log.info(f"loaded {len(keys)} day(s) (concatenation cache hit), "
+                     f"{len(y)} rows, most recent {most_recent}")
+            return Dataset(X, y, most_recent)
+    parts = load_history_parts(store, hist, tokens)
+    X = np.concatenate([parts[k].X for k in keys])
+    y = np.concatenate([parts[k].y for k in keys])
+    if concat_key is not None:
+        # one entry: histories only grow, so yesterday's concatenation can
+        # never hit again, and keeping it would double the peak memory
+        concat_cache.clear()
+        concat_cache[concat_key] = (X, y)
     log.info(f"loaded {len(parts)} day(s), {len(y)} rows, most recent {most_recent}")
     return Dataset(X, y, most_recent)

@@ -69,10 +69,16 @@ _STAGES = "bodywork_tpu_torch.pipeline.stages"
 
 
 def default_pipeline(model_type: str = "linear", scoring_mode: str = "batch",
-                     port: int = 5000) -> PipelineSpec:
+                     port: int = 5000, overlap_generate: bool = False) -> PipelineSpec:
     """The canonical daily train -> serve -> generate -> test pipeline
     (``spec.py:261-353``, the reference's four stages), on the port's
-    stage callables: the same args, retries, deadlines and replicas."""
+    stage callables: the same args, retries, deadlines and replicas.
+
+    ``overlap_generate`` moves generate into serve's DAG step
+    (``s1 >> s2,s3 >> s4``): generation depends only on the date, not on
+    the trained model, so it runs beside the service's start-up and test
+    still runs after both. The reference's serial DAG
+    (``bodywork.yaml:5``) stays the default."""
     stages = {
         TRAIN_STAGE: StageSpec(
             name=TRAIN_STAGE, kind="batch",
@@ -100,5 +106,8 @@ def default_pipeline(model_type: str = "linear", scoring_mode: str = "batch",
             ),
         ),
     }
-    dag = [[TRAIN_STAGE], [SERVE_STAGE], [GENERATE_STAGE], [TEST_STAGE]]
+    if overlap_generate:
+        dag = [[TRAIN_STAGE], [SERVE_STAGE, GENERATE_STAGE], [TEST_STAGE]]
+    else:
+        dag = [[TRAIN_STAGE], [SERVE_STAGE], [GENERATE_STAGE], [TEST_STAGE]]
     return PipelineSpec(name="bodywork-tpu-pipeline", dag=dag, stages=stages)

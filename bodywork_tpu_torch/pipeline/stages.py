@@ -48,16 +48,69 @@ class StageContext:
     #: failures of stages run on concurrent-step threads, keyed by stage
     #: name (the step barrier re-raises the first one)
     failures: dict = dataclasses.field(default_factory=dict)
+    #: dataset prefetch boxes of the runner: target date -> {"ready":
+    #: Event, "X", "y"}, filled on a background worker (the generator is a
+    #: pure function of the date and the drift config); the generate stage
+    #: waits on ``ready`` and only persists
+    prefetched_datasets: dict = dataclasses.field(default_factory=dict)
+    #: the lookahead train of this day, started by the previous day once
+    #: its generate stage persisted this day's data: {"thread": Thread,
+    #: "result": TrainResult} or {"thread", "exc"}
+    prefetched_train: dict | None = None
+    #: True in a lookahead context: compute but write no artefact (the
+    #: collecting day's train stage persists them at its DAG position)
+    defer_artefacts: bool = False
+
+
+def stage_artefact_keys(stage_spec, result, ctx: StageContext) -> list[str]:
+    """The artefact keys a just-completed stage produced: what the run
+    journal records, with their digests, so a resumed run can verify and
+    skip the stage. Unknown stages give ``[]``, which the journal records
+    as complete with nothing verifiable: a resumed run re-runs them."""
+    executable = stage_spec.executable
+    if executable.endswith(":generate_stage"):
+        return [result] if isinstance(result, str) else []
+    if executable.endswith(":train_stage"):
+        keys = [
+            getattr(result, "model_artefact_key", None),
+            getattr(result, "metrics_artefact_key", None),
+            # an incremental train's trainstate document is journalled
+            # too: a mismatch on resume re-runs the stage, which rebuilds
+            # or re-folds it
+            getattr(result, "trainstate_artefact_key", None),
+        ]
+        return [k for k in keys if k]
+    if executable.endswith(":test_stage"):
+        # the test stage's metrics are keyed by the latest dataset day,
+        # the one generate just wrote
+        from bodywork_tpu_torch.store.base import ArtefactNotFound
+        from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, test_metrics_key
+
+        try:
+            _key, d = ctx.store.latest(DATASETS_PREFIX)
+        except ArtefactNotFound:
+            return []
+        return [test_metrics_key(d)]
+    return []
 
 
 def generate_stage(ctx: StageContext, offset_days: int = 1) -> str:
     """Generate the NEXT simulated day's drifting data (reference stage 3:
-    tomorrow's dataset appears today); returns its key."""
+    tomorrow's dataset appears today); returns its key. Where the runner
+    prefetched the date's draws, only the persist is left (at this
+    stage's DAG position either way, so the train stage never sees
+    tomorrow's file early); a failed prefetch generates inline."""
     from bodywork_tpu_torch.data.generator import generate_day
     from bodywork_tpu_torch.data.io import Dataset, persist_dataset
 
     target = ctx.today + timedelta(days=offset_days)
-    X, y = generate_day(target, ctx.drift, device=ctx.device)
+    box = ctx.prefetched_datasets.pop(target, None)
+    if box is not None:
+        box["ready"].wait()
+    if box is not None and "X" in box:
+        X, y = box["X"], box["y"]
+    else:
+        X, y = generate_day(target, ctx.drift, device=ctx.device)
     return persist_dataset(ctx.store, Dataset(X, y, target))
 
 
@@ -96,12 +149,28 @@ def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None 
     metrics (reference stage 1); returns the ``TrainResult``. ``mode``
     picks the full refit or the incremental path (None: the
     ``BODYWORK_TPU_TRAIN_MODE`` knob). The flat ``model_kwargs`` are the
-    model's config fields."""
+    model's config fields.
+
+    Where the runner already ran this day's train as a lookahead (the
+    day's training set is complete once the previous day's generate
+    stage persisted it), the stage collects that result and persists it
+    here; a failed lookahead trains inline."""
+    box = ctx.prefetched_train
+    if box is not None:
+        box["thread"].join()
+        if "result" in box:
+            result = box["result"]
+            if result.model_artefact_key is None:
+                from bodywork_tpu_torch.train.trainer import persist_train_result
+
+                result = persist_train_result(ctx.store, result)
+            return result
+        log.warning(f"lookahead train failed ({box.get('exc')!r}); retraining inline")
     from bodywork_tpu_torch.train import train_on_history
 
     return train_on_history(
         ctx.store, model_type, model_kwargs=model_kwargs or None,
-        mesh_data=mesh_data, mesh_model=mesh_model,
+        persist=not ctx.defer_artefacts, mesh_data=mesh_data, mesh_model=mesh_model,
         mode=mode if mode is not None else _train_env_mode(), device=ctx.device,
     )
 

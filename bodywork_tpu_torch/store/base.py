@@ -5,10 +5,12 @@ A flat byte store with ``/``-separated keys, versioned by a date embedded
 in each key (the reference's S3 protocol, ``stage_1_train_model.py:61-67``):
 ``history`` lists the date-keyed artefacts under a prefix oldest first and
 ``latest`` is the newest. ``put_bytes_if_match`` is the compare-and-swap
-write the model registry's documents ride, against a backend's
-``version_token``. :class:`DelegatingStore` is the base of the wrappers
-(the day loop's write fence, ``store.epoch``); metrics instrumentation
-waits for the slice that needs it.
+write the model registry's documents and the run journal ride, against a
+backend's ``version_token``; ``version_tokens`` and ``get_many`` are the
+batched reads of the history loader (``data.io``). :class:`DelegatingStore`
+is the base of the wrappers (the day loop's write fence, ``store.epoch``;
+the kill switch, ``chaos.kill``); metrics instrumentation waits for the
+slice that needs it.
 """
 from __future__ import annotations
 
@@ -56,11 +58,26 @@ class ArtefactStore(abc.ABC):
     def delete(self, key: str) -> None:
         raise NotImplementedError(f"{type(self).__name__} cannot delete artefacts")
 
+    def get_many(self, keys: list[str]) -> dict[str, bytes]:
+        """``{key: bytes}`` for many keys, in input order; raises
+        :class:`ArtefactNotFound` naming the first missing key (callers
+        batch keys they just listed, so a miss is a torn read)."""
+        return {key: self.get_bytes(key) for key in keys}
+
     def version_token(self, key: str):
         """Opaque token of the current content of ``key``, or None (absent,
         or no cheap validity check). Equal non-None tokens guarantee equal
         bytes."""
         return None
+
+    def version_tokens(self, keys: list[str]) -> dict[str, object]:
+        """Version tokens of many keys at once, None values omitted."""
+        out = {}
+        for key in keys:
+            token = self.version_token(key)
+            if token is not None:
+                out[key] = token
+        return out
 
     def put_bytes_if_match(self, key: str, data: bytes, expected_token=None):
         """Compare-and-swap write: persist ``data`` at ``key`` only if the
@@ -105,7 +122,10 @@ class ArtefactStore(abc.ABC):
 
 class DelegatingStore(ArtefactStore):
     """A store that forwards every operation to an inner store; wrappers
-    subclass it and override only what they change."""
+    subclass it and override only what they change. The batched reads and
+    ``mutable_cache`` are delegated too: the history loader's caches must
+    live on the one long-lived store, not on a per-attempt wrapper that
+    dies with the attempt."""
 
     def __init__(self, inner: ArtefactStore):
         self._inner = inner
@@ -125,8 +145,14 @@ class DelegatingStore(ArtefactStore):
     def delete(self, key: str) -> None:
         self._inner.delete(key)
 
+    def get_many(self, keys: list[str]) -> dict[str, bytes]:
+        return self._inner.get_many(keys)
+
     def version_token(self, key: str):
         return self._inner.version_token(key)
+
+    def version_tokens(self, keys: list[str]) -> dict[str, object]:
+        return self._inner.version_tokens(keys)
 
     def put_bytes_if_match(self, key: str, data: bytes, expected_token=None):
         # delegated, not inherited: the real backend's own CAS protocol

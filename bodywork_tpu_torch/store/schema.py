@@ -12,6 +12,10 @@ stores:
   (``bodywork_tpu_torch.registry``)
 - ``trainstate/<model_type>-suffstats.json`` — incremental training's
   sufficient statistics (``bodywork_tpu_torch.train.incremental``)
+- ``snapshots/history-snapshot-<date>.npz`` — consolidated dataset
+  history (``bodywork_tpu_torch.data.snapshot``)
+- ``runs/<date>/journal.json`` — one day's run journal and lease
+  (``bodywork_tpu_torch.pipeline.journal``)
 """
 from __future__ import annotations
 
@@ -24,6 +28,8 @@ TEST_METRICS_PREFIX = "test-metrics/"
 REGISTRY_RECORDS_PREFIX = "registry/records/"
 REGISTRY_ALIAS_KEY = "registry/aliases.json"
 TRAINSTATE_PREFIX = "trainstate/"
+SNAPSHOTS_PREFIX = "snapshots/"
+RUNS_PREFIX = "runs/"
 
 
 def dataset_key(d: date) -> str:
@@ -57,3 +63,16 @@ def trainstate_key(model_type: str) -> str:
     compare-and-swap mutated document, outside the ``history``/``latest``
     protocol."""
     return f"{TRAINSTATE_PREFIX}{model_type}-suffstats.json"
+
+
+def run_journal_key(d: date) -> str:
+    """The day-run journal document of simulated day ``d``: the embedded
+    date keeps journals visible to the date-key protocol."""
+    return f"{RUNS_PREFIX}{d}/journal.json"
+
+
+def snapshot_key(d: date) -> str:
+    """The consolidated-history snapshot covering every dataset day up to
+    ``d``, its most recent covered day (so ``history``/``latest`` version
+    snapshots too)."""
+    return f"{SNAPSHOTS_PREFIX}history-snapshot-{d}.npz"

@@ -248,11 +248,14 @@ def _bounds_from_days(days: dict) -> dict:
 
 
 def _load_parts(store: ArtefactStore, keys) -> dict:
-    """The parsed datasets of ``keys`` (O(tail) days; the parse cache and
-    snapshots are a later slice)."""
-    from bodywork_tpu_torch.data.io import load_dataset
+    """The parsed datasets of ``keys`` (O(tail) days) through the history
+    loader's three tiers (parse cache, snapshot slices, one batched
+    fetch), the ones the full refit reads O(history) days through."""
+    from bodywork_tpu_torch.data.io import load_history_parts
+    from bodywork_tpu_torch.utils.dates import date_from_key
 
-    return {key: load_dataset(store, key) for key in keys}
+    subset = [(key, date_from_key(key)) for key in keys]
+    return load_history_parts(store, subset, store.version_tokens(list(keys)))
 
 
 def _stale_detail(doc: dict, days: dict, parts, tail_keys, dates, feature_dim: int):

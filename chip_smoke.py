@@ -41,7 +41,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    which must answer 500 over HTTP without the value. Kernel launch counts
    are set to 0 just before each path and read just after it;
 5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
-   -> test loop (``run_simulation``) for 7 simulated days on the card: the
+   -> test loop (``run_simulation``, which journals every day, prefetches
+   the horizon's draws, trains each next day as a lookahead on a
+   background thread and refreshes the history snapshot; every loop of
+   the script fails unless every day used its prefetched draws and every
+   day but the first collected its lookahead) for 7 simulated days on the card: the
    MLP at hidden (1024, 1024, 1024) trained with Adam (lr 1e-3, batch 256,
    2000 steps), registered as a candidate, gated, and served from the
    registry's ``production`` alias by ``auto``, which must resolve to
@@ -52,7 +56,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    against its plain version; then a forced rejection on a copy of the
    store (``day-loop-gate-rejection``: a candidate whose metrics fail
    ``min_r2`` is rejected, and the serve stage serves the previous
-   production through ``kernel``, launches counted); then the linear
+   production through ``kernel``, launches counted); ``pipelined``: the
+   MLP loop's first 3 days against a serial loop of plain ``run_day``
+   calls with nothing prefetched or trained ahead, datasets, checkpoints,
+   metrics and registry records byte-identical, with each day's train
+   stage seconds (the wait for the lookahead), the lookahead's own train
+   seconds, the test stage's seconds and what the prefetch box and the
+   lookahead's result hold; then the linear
    model's loop (the ``torch`` engine, no kernel). One line per day (the
    engine, the launches, the gate's verdict and seconds, the served key
    and its source, the train and test metrics, the wall-clock and the
@@ -68,7 +78,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    and their last-third over first-third ratio (days 2-30; day 1 builds
    the trainstate and is reported apart), the final coefficients
    within 1e-4 of a float64 refit, and the trainstate bytes equal to the
-   same days folded on the CPU (``incremental-linear``); (b) the
+   same days folded on the CPU (``incremental-linear``), then
+   ``snapshot``: a fresh ``cli train`` process on that store must read
+   every covered day from the history snapshot, whose load is
+   byte-identical to a plain load without it (both cold loads timed, the
+   snapshot's bytes printed); (b) the
    1024-wide MLP loop for 7 days, day 1 a full refit, days 2-7 fine-tunes
    of production (500 steps), each gated with 3 shadow days and served
    through ``kernel`` (``incremental-day`` lines, ``incremental-mlp``);
@@ -83,7 +97,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    launches per kernel printed); and ``quantized-torch``: ``--engine
    torch`` at each dtype (``torch-bf16`` / ``torch-int8``) on the card
    against the same predictor on the CPU;
-7. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+7. ``resume`` — the 1024-wide MLP day through ``python -m
+   bodywork_tpu_torch.cli run-day`` subprocesses: killed by
+   ``BODYWORK_TPU_CRASH_SCHEDULE`` at the step boundary after train (exit
+   86), restarted (exit 0, train skipped on the journal's digests,
+   ``production`` served through ``kernel``), run again (exit 6, a no-op)
+   and run under a live foreign lease (exit 5); every artefact
+   byte-identical to an uncrashed twin day run in this process, with the
+   wall-clocks, the digest re-hash seconds and a day's journal writes;
+   then ``sigterm``: SIGTERM to a ``run-day`` mid-train exits 143 with the
+   journal ``interrupted``, and the next ``run-day`` resumes the day;
+8. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -142,6 +166,8 @@ TIMING_REPS = 30
 LOOP_DAYS = 7
 LOOP_START = date(2026, 7, 1)
 LOOP_MLP = {"hidden": HIDDEN, "learning_rate": 1e-3, "batch_size": 256, "n_steps": 2000}
+#: the serial loop the pipelined MLP loop is held to, over its first days
+SERIAL_DAYS = 3
 #: card against CPU: Adam steps, and the bars on the largest relative
 #: gaps of the first step's loss and gradients, computed from the same
 #: params on both sides: IEEE float32 differs there by summation order
@@ -690,6 +716,10 @@ def _day_line(model_type: str, r, launched: int) -> dict:
         "test_metrics": {k: test[k] for k in ("MAPE", "r_squared", "max_residual",
                                              "n_failures", "n_scored")},
         "wall_clock_s": r.wall_clock_s, "stage_seconds": r.stage_seconds,
+        # the overlap: whether generate persisted prefetched draws, and the
+        # lookahead train's own seconds on its thread (the train stage's
+        # seconds are then its wait for that thread)
+        "prefetched": r.prefetched, "lookahead_train_s": r.lookahead_train_s,
     }
     values = [*train.metrics.values(), test["MAPE"]]
     if not all(math.isfinite(v) for v in values) or test["n_failures"] != 0:
@@ -701,34 +731,79 @@ def _day_line(model_type: str, r, launched: int) -> dict:
     return line
 
 
+def _array_holds(a) -> dict:
+    """Type, device, dtype and bytes of one array a box or result holds."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return {"type": "torch.Tensor", "device": str(a.device), "dtype": str(a.dtype),
+                "bytes": a.numel() * a.element_size()}
+    return {"type": f"{type(a).__module__}.{type(a).__name__}", "device": "host",
+            "dtype": str(a.dtype), "bytes": int(a.nbytes)}
+
+
+def _prefetch_box(runner) -> dict:
+    """What the oldest prefetch box that no generate stage has popped yet
+    holds, read from the runner between two days (its draws made on the
+    worker thread). Fails unless X and y are host numpy arrays, as the
+    generator returns them: a box on the card would pin device memory
+    across days."""
+    import numpy as np
+
+    with runner._gen_lock:
+        pending = sorted(runner._dataset_boxes.items(), key=lambda kv: kv[0])
+    if not pending:
+        return {"pending_boxes": 0}
+    target, box = pending[0]
+    if not box["ready"].wait(120) or "X" not in box:
+        raise RuntimeError(f"the prefetch box for {target} was not filled")
+    held = {"target": str(target), "pending_boxes": len(pending),
+            "X": _array_holds(box["X"]), "y": _array_holds(box["y"])}
+    if not all(isinstance(box[k], np.ndarray) for k in ("X", "y")):
+        raise RuntimeError(f"the prefetch box does not hold host numpy arrays: {held}")
+    return held
+
+
 def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
-              n_days: int = LOOP_DAYS, line: str = "day-loop-day") -> dict:
+              n_days: int = LOOP_DAYS, line: str = "day-loop-day", on_day=None,
+              overlap_generate: bool = False) -> dict:
     """``n_days`` days of the default pipeline on the card, through
-    ``run_simulation``; the kernels' launch counts are set to 0 just
-    before it and read just after."""
+    ``run_simulation`` (the journal, the horizon prefetch, the lookahead
+    train and the compactor); the kernels' launch counts are set to 0 just
+    before it and read just after. Fails unless every day persisted
+    prefetched draws and every day but the first collected a lookahead: a
+    background step that fell back inline would hide a failure on the
+    card. ``on_day(r)`` runs after each day's line; after the first day's,
+    a pending prefetch box is read (``_prefetch_box``)."""
     from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
     from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
     from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
     from bodywork_tpu_torch.store import FilesystemStore
 
-    spec = default_pipeline(model_type, "batch")
+    spec = default_pipeline(model_type, "batch", overlap_generate=overlap_generate)
     spec.stages[TRAIN_STAGE].args.update(train_args)
     name = f"{model_type}-{train_args.get('mode', 'full')}"
     runner = LocalRunner(spec, FilesystemStore(os.path.join(root, name)), device=dev)
-    days, seen = [], {"kernel": 0}
+    days, seen, box = [], {"kernel": 0}, {}
 
-    def on_day(r):
+    def _on_day(r):
         launched = LAUNCHES["kernel"] - seen["kernel"]
         seen["kernel"] = LAUNCHES["kernel"]
         days.append(_day_line(model_type, r, launched))
         emit(line, **days[-1])
+        if not box:
+            box.update(_prefetch_box(runner))
+        if on_day is not None:
+            on_day(r)
 
     reset_launches()
-    results = runner.run_simulation(LOOP_START, n_days, on_day=on_day)
+    results = runner.run_simulation(LOOP_START, n_days, on_day=_on_day)
     launches = dict(LAUNCHES)
     walls = [r.wall_clock_s for r in results]
     stages = {name: statistics.median(r.stage_seconds[name] for r in results[1:])
               for name in results[0].stage_seconds}
+    prefetched = sum(r.prefetched for r in results)
+    collected = sum(r.lookahead_train_s is not None for r in results)
     summary = {"model": model_type, "days": n_days, "launches": launches,
                "engines": sorted({d["engine"] for d in days}),
                "gate_verdicts": [d["gate"]["promote"] for d in days],
@@ -738,8 +813,141 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
                    r.gate_seconds for r in results[1:]),
                "wall_clock_s": walls, "day1_s": walls[0],
                "median_days_2_7_s": statistics.median(walls[1:]),
-               "median_stage_seconds_days_2_7": stages}
+               "median_stage_seconds_days_2_7": stages,
+               "prefetched": prefetched, "lookaheads_collected": collected,
+               "lookahead_train_s": [r.lookahead_train_s for r in results],
+               "prefetch_box_after_day_1": box,
+               "runs_through": "run_simulation: journal, horizon prefetch, lookahead train and "
+                       "compactor; the train stage's seconds are its wait "
+                       "for the lookahead from day 2 on"}
+    if prefetched != n_days or collected != n_days - 1:
+        raise RuntimeError(f"{name}: {prefetched} prefetched of {n_days} days, "
+                           f"{collected} lookaheads collected of {n_days - 1}: a "
+                           "background step fell back inline")
     return {"summary": summary, "days": days, "runner": runner, "results": results}
+
+
+def _strip_column(data: bytes, column: str) -> bytes:
+    """A CSV without one column, textually (every other byte kept)."""
+    lines = data.decode().splitlines()
+    header = lines[0].split(",")
+    if column not in header:
+        return data
+    i = header.index(column)
+    return "\n".join(",".join(f for j, f in enumerate(line.split(",")) if j != i)
+                     for line in lines).encode()
+
+
+def _results_of(root: str) -> dict:
+    """The store's results by key: its journals and snapshots (operational
+    state) left out, the test metrics without their wall-clock response
+    time."""
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    store = FilesystemStore(root)
+    return {key: (_strip_column(store.get_bytes(key), "mean_response_time")
+                  if key.startswith("test-metrics/") else store.get_bytes(key))
+            for key in store.list_keys() if not key.startswith(("runs/", "snapshots/"))}
+
+
+def _compare_results(a: dict, b: dict) -> dict:
+    """Keys on one side only, and keys whose bytes differ."""
+    return {"compared": len(set(a) & set(b)),
+            "only_in_first": sorted(set(a) - set(b)),
+            "only_in_second": sorted(set(b) - set(a)),
+            "differ": sorted(k for k in set(a) & set(b) if a[k] != b[k])}
+
+
+def _params_bytes(params) -> tuple[int, list]:
+    """Bytes and devices of a model's parameter tensors."""
+    import torch
+
+    if isinstance(params, torch.Tensor):
+        return params.numel() * params.element_size(), [str(params.device)]
+    items = params.values() if isinstance(params, dict) else params
+    total, devices = 0, []
+    for p in items:
+        n, d = _params_bytes(p)
+        total += n
+        devices += d
+    return total, devices
+
+
+def _pipelined(torch, dev, workdir: str, mlp: dict) -> dict:
+    """The MLP loop's first SERIAL_DAYS days (``run_simulation``, its store
+    copied after day SERIAL_DAYS) against a serial loop of plain
+    ``run_day(..., lookahead_train=False)`` calls with no prefetch:
+    datasets, checkpoints, metrics and registry records byte-identical.
+    The per-day overlap readings and what the background steps hold."""
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import TEST_STAGE, TRAIN_STAGE
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    spec = default_pipeline("mlp", "batch")
+    spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
+    serial = LocalRunner(spec, FilesystemStore(os.path.join(workdir, "serial")), device=dev)
+    serial._enqueue_generate = lambda targets: None  # no prefetch: generate inline
+    serial.bootstrap(LOOP_START)
+    reset_launches()
+    serial_days = [serial.run_day(LOOP_START + timedelta(days=i), lookahead_train=False)
+                   for i in range(SERIAL_DAYS)]
+    serial_launches = dict(LAUNCHES)
+    gap = _compare_results(_results_of(mlp["copy"]), _results_of(serial.store.root))
+    results = mlp["results"]
+    model = results[1].stage_results[TRAIN_STAGE].model
+    param_bytes, param_devices = _params_bytes(model.params)
+    out = {
+        "days": len(results), "serial_days": SERIAL_DAYS,
+        "prefetched": sum(r.prefetched for r in results),
+        "lookaheads_collected": sum(r.lookahead_train_s is not None for r in results),
+        "per_day": [{"day": str(r.day), "train_stage_s": r.stage_seconds[TRAIN_STAGE],
+                     "lookahead_train_s": r.lookahead_train_s,
+                     "test_stage_s": r.stage_seconds[TEST_STAGE],
+                     "wall_clock_s": r.wall_clock_s} for r in results],
+        "serial_per_day": [{"day": str(r.day), "train_stage_s": r.stage_seconds[TRAIN_STAGE],
+                            "test_stage_s": r.stage_seconds[TEST_STAGE],
+                            "wall_clock_s": r.wall_clock_s} for r in serial_days],
+        "serial_launches": serial_launches,
+        "byte_identity": gap,
+        # what the background steps hold while the next day runs: a box
+        # read between days 1 and 2, and day 2's collected lookahead model
+        "prefetch_box": mlp["summary"]["prefetch_box_after_day_1"],
+        "lookahead_result": {"holds": f"TrainResult, {type(model).__name__} params",
+                             "bytes": param_bytes, "devices": sorted(set(param_devices))},
+    }
+    emit("pipelined", **out)
+    if out["prefetched"] != len(results) or out["lookaheads_collected"] != len(results) - 1:
+        raise RuntimeError(f"a pipelined background step fell back inline: {out}")
+    if gap["differ"] or gap["only_in_first"] or gap["only_in_second"] or not gap["compared"]:
+        raise RuntimeError(f"the pipelined loop's artefacts differ from the serial ones: {gap}")
+    if serial_launches["kernel"] < SERIAL_DAYS:
+        raise RuntimeError(f"the serial loop did not serve through the kernel: {serial_launches}")
+    overlap = _overlapped(torch, dev, workdir, serial.store.root)
+    return {"serial_launches": serial_launches, "overlap_launches": overlap["launches"], **out}
+
+
+def _overlapped(torch, dev, workdir: str, serial_root: str) -> dict:
+    """The overlapped DAG (``default_pipeline(overlap_generate=True)``:
+    generate beside serve, ``s1 >> s2,s3 >> s4``) through
+    ``run_simulation`` over the serial loop's days, with the same
+    no-fallback counts: byte-identical to the serial loop."""
+    from bodywork_tpu_torch.pipeline.spec import GENERATE_STAGE, SERVE_STAGE
+
+    loop = _run_loop(torch, dev, os.path.join(workdir, "overlap"), "mlp", LOOP_MLP,
+                     n_days=SERIAL_DAYS, line="pipelined-overlap-day", overlap_generate=True)
+    gap = _compare_results(_results_of(os.path.join(workdir, "overlap", "mlp-full")),
+                           _results_of(serial_root))
+    dag = loop["runner"].spec.dag
+    out = {**loop["summary"], "dag": dag, "byte_identity_vs_serial": gap}
+    emit("pipelined-overlap", **out)
+    if [SERVE_STAGE, GENERATE_STAGE] not in dag:
+        raise RuntimeError(f"the overlapped DAG does not run generate beside serve: {dag}")
+    if gap["differ"] or gap["only_in_first"] or gap["only_in_second"] or not gap["compared"]:
+        raise RuntimeError(f"the overlapped loop's artefacts differ from the serial ones: {gap}")
+    if any(d["engine"] != "kernel" or d["launches"] < 1 for d in loop["days"]):
+        raise RuntimeError(f"the overlapped loop did not serve through the kernel: {out}")
+    return out
 
 
 def phase_day_loop(torch, dev, workdir: str) -> dict:
@@ -753,11 +961,21 @@ def phase_day_loop(torch, dev, workdir: str) -> dict:
     from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply, mlp_stack_plain
 
     emit("day-loop-precision", **matmul_precision())
-    mlp = _run_loop(torch, dev, workdir, "mlp", LOOP_MLP)
+    copy = os.path.join(workdir, "mlp-after-serial-days")
+
+    def copy_after(r):
+        # the store as the serial loop will leave it: written by days 1-3
+        # (the lookahead of day 4 computes but writes nothing yet)
+        if r.day == LOOP_START + timedelta(days=SERIAL_DAYS - 1):
+            shutil.copytree(os.path.join(workdir, "mlp-full"), copy,
+                            ignore=shutil.ignore_patterns("snapshots", "runs"))
+
+    mlp = _run_loop(torch, dev, workdir, "mlp", LOOP_MLP, on_day=copy_after)
     bad = [d["day"] for d in mlp["days"] if d["engine"] != "kernel" or d["launches"] < 1]
     if bad:
         raise RuntimeError(f"the MLP loop did not serve through the kernel on {bad}")
     emit("day-loop", **mlp["summary"])
+    pipelined = _pipelined(torch, dev, workdir, {**mlp, "copy": copy})
 
     # the last day's checkpoint once more: through the kernel on the rows
     # its service was tested on, against its plain version and the plain
@@ -790,7 +1008,8 @@ def phase_day_loop(torch, dev, workdir: str) -> dict:
     parity = _card_against_cpu(torch, dev, mlp["runner"].store)
     emit("day-loop-train-profile", **_train_profile(torch, dev, mlp["runner"].store))
     return {"mlp": mlp["summary"], "linear": linear["summary"], "served_err": err,
-            "card_vs_cpu": parity["max_rel_gap"], "rejection": rejection}
+            "card_vs_cpu": parity["max_rel_gap"], "rejection": rejection,
+            "pipelined": pipelined}
 
 
 def _forced_rejection(torch, dev, store, workdir: str) -> dict:
@@ -1094,7 +1313,10 @@ def _incremental_linear(torch, dev, workdir: str) -> dict:
            "trainstate_reason": reason, "coefficient_check": gap,
            "trainstate_bytes": len(store.get_bytes(key)),
            "trainstate_equal_to_cpu": store.get_bytes(key) == cpu_store.get_bytes(key),
-           "wall_clock_s": loop["summary"]["wall_clock_s"]}
+           "wall_clock_s": loop["summary"]["wall_clock_s"],
+           "prefetched": loop["summary"]["prefetched"],
+           "lookaheads_collected": loop["summary"]["lookaheads_collected"],
+           "runs_through": loop["summary"]["runs_through"]}
     emit("incremental-linear", **out)
     if reason is not None or gap["max_abs_gap"] >= REFIT_ATOL:
         raise RuntimeError(f"the incremental linear solution is off the refit: {gap}")
@@ -1103,7 +1325,7 @@ def _incremental_linear(torch, dev, workdir: str) -> dict:
     if set(out["modes"]) != {"incremental"} or out["fallback_reasons"][1:] != \
             [None] * (INC_LINEAR_DAYS - 1):
         raise RuntimeError(f"the linear loop did not fold incrementally: {out}")
-    return out
+    return {**out, "store": store}
 
 
 def _incremental_mlp(torch, dev, workdir: str) -> dict:
@@ -1178,10 +1400,286 @@ def _incremental_rejection(torch, dev, store, workdir: str) -> dict:
 
 def phase_incremental(torch, dev, workdir: str) -> dict:
     linear = _incremental_linear(torch, dev, workdir)
+    snapshot = _cold_snapshot_train(torch, dev, linear.pop("store"), workdir)
     mlp = _incremental_mlp(torch, dev, workdir)
     rejection = _incremental_rejection(torch, dev, mlp["runner"].store, workdir)
     return {"linear": linear, "mlp": mlp["summary"], "rejection": rejection,
-            "store": mlp["runner"].store}
+            "snapshot": snapshot, "store": mlp["runner"].store}
+
+
+def _cli(args: list, env: dict | None = None, timeout: float = 300) -> dict:
+    """``python -m bodywork_tpu_torch.cli ARGS`` from the checkout: its
+    exit code, output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "bodywork_tpu_torch.cli", *args], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": ROOT, **(env or {})},
+        capture_output=True, text=True, timeout=timeout,
+    )
+    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
+            "seconds": time.perf_counter() - t0}
+
+
+def _mlp_day_args(store: str, day: date) -> list:
+    """``run-day`` of the 1024-wide MLP day (the loop's settings)."""
+    return ["run-day", "--store", store, "--date", str(day), "--model", "mlp",
+            "--mlp-hidden", ",".join(map(str, HIDDEN)),
+            "--mlp-steps", str(LOOP_MLP["n_steps"]), "--mlp-lr", str(LOOP_MLP["learning_rate"])]
+
+
+def _served(out: str) -> dict | None:
+    """The ``served:`` line of a ``run-day`` day: key, source, engine and
+    the served kernel's launches in that process, with the next line's
+    launches of every kernel in that process."""
+    import re
+
+    m = re.search(r"served: (\S+) \((\w+)\) on (\S+), (\d+) kernel launches", out)
+    by_kernel = re.search(r"launches by kernel in this process: (\{.*\})$", out, re.M)
+    if m is None or by_kernel is None:
+        return None
+    return {"model_key": m[1], "model_source": m[2], "engine": m[3],
+            "launches": int(m[4]), "launches_by_kernel": json.loads(by_kernel[1])}
+
+
+def _day_seconds(out: str, day: date) -> float | None:
+    import re
+
+    m = re.search(rf"^day {day}: ([0-9.]+)s$", out, re.M)
+    return None if m is None else float(m[1])
+
+
+def _rehash_seconds(store, day: date) -> tuple[float, int]:
+    """Seconds to re-hash every artefact the day's journal recorded (the
+    digest check a resume makes), and the bytes hashed."""
+    from bodywork_tpu_torch.pipeline.journal import artefact_digest
+    from bodywork_tpu_torch.store.schema import run_journal_key
+
+    doc = json.loads(store.get_bytes(run_journal_key(day)))
+    keys = [k for e in doc["stages"].values() for k in (e.get("artefacts") or {})]
+    t0 = time.perf_counter()
+    n = 0
+    for key in keys:
+        data = store.get_bytes(key)
+        n += len(data)
+        artefact_digest(data)
+    return time.perf_counter() - t0, n
+
+
+def _journal_day_seconds(store, day: date) -> float:
+    """Seconds of one fresh day's journal writes on this machine's disk:
+    acquire, the intent and complete marks of the default pipeline's four
+    steps (the service's step records no complete) and the closing write."""
+    from bodywork_tpu_torch.pipeline.journal import RunJournal, artefact_digest
+
+    t0 = time.perf_counter()
+    j = RunJournal(store, day, owner="timing", lease_ttl_s=60)
+    j.acquire()
+    for stage, done in (("train", True), ("serve", False), ("generate", True), ("test", True)):
+        j.record_intents([stage])
+        if done:
+            j.record_completes({stage: {"k": artefact_digest(b"x")}})
+    j.record_day_complete()
+    return time.perf_counter() - t0
+
+
+def phase_resume(torch, dev, workdir: str) -> dict:
+    """A killed MLP day (width 1024, full mode) resumed through the
+    command line: ``run-day`` killed by the kill switch at the step
+    boundary after train (so the gate ran and serve did not) exits
+    ``EXIT_KILLED``; the restart exits 0, skips train on the journal's
+    digests and serves ``production`` through ``kernel``; a third run is a
+    no-op (6); a live foreign lease exits 5. Every artefact is
+    byte-identical to an uncrashed twin day run in this process, the
+    checkpoint being the killed run's own, re-verified and not rewritten."""
+    from bodywork_tpu_torch.chaos.kill import ENV_SCHEDULE, EXIT_KILLED
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.journal import (
+        LEASE_LOST_EXIT,
+        RESUMED_NOOP_EXIT,
+        RunJournal,
+        artefact_digest,
+    )
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import model_key, run_journal_key
+
+    spec = default_pipeline("mlp", "batch")
+    spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
+    day = LOOP_START
+    twin = LocalRunner(spec, FilesystemStore(os.path.join(workdir, "twin")), device=dev)
+    twin.bootstrap(day)
+    reset_launches()
+    full = twin.run_day(day)
+    twin_launches = dict(LAUNCHES)
+    root = os.path.join(workdir, "resumed")
+    store = FilesystemStore(root)
+    LocalRunner(spec, store, device=dev).bootstrap(day)
+    args = _mlp_day_args(root, day)
+    ttl = {"BODYWORK_TPU_RUN_LEASE_TTL_S": "1"}
+    killed = _cli(args, {**ttl, ENV_SCHEDULE: '[{"kind": "stage_boundary", "n": 1}]'})
+    doc = json.loads(store.get_bytes(run_journal_key(day)))
+    ckpt = model_key(day)
+    killed_digest = artefact_digest(store.get_bytes(ckpt))
+    time.sleep(1.5)  # the killed runner's lease expires
+    resumed = _cli(args, ttl)
+    noop = _cli(args, ttl)
+    RunJournal(store, day + timedelta(days=1), owner="foreign:1:live",
+               lease_ttl_s=900).acquire()
+    leased = _cli(_mlp_day_args(root, day + timedelta(days=1)), ttl)
+    served = _served(resumed["out"])
+    twin_results, resumed_results = _results_of(twin.store.root), _results_of(root)
+    gap = _compare_results(twin_results, resumed_results)
+    rehash_s, rehash_bytes = _rehash_seconds(store, day)
+    out = {
+        "day": str(day), "twin_day_s": full.wall_clock_s, "twin_launches": twin_launches,
+        "killed": {"rc": killed["rc"], "want": EXIT_KILLED, "process_s": killed["seconds"],
+                   "journal_train_state": doc["stages"].get(TRAIN_STAGE, {}).get("state"),
+                   "journal_status": doc["status"]},
+        "resumed": {"rc": resumed["rc"], "process_s": resumed["seconds"],
+                    "day_s": _day_seconds(resumed["out"], day),
+                    "skipped_train": f"skipped {TRAIN_STAGE} (journal-verified)" in resumed["out"],
+                    "served": served},
+        "noop": {"rc": noop["rc"], "want": RESUMED_NOOP_EXIT, "process_s": noop["seconds"]},
+        "lease_lost": {"rc": leased["rc"], "want": LEASE_LOST_EXIT,
+                       "process_s": leased["seconds"]},
+        "checkpoint": {"key": ckpt, "killed_run_digest": killed_digest,
+                       "after_resume_digest": artefact_digest(store.get_bytes(ckpt)),
+                       "twin_digest": artefact_digest(twin.store.get_bytes(ckpt))},
+        "byte_identity_vs_twin": gap,
+        "digests_resumed_vs_twin": {
+            key: [artefact_digest(data)[7:23], artefact_digest(twin_results[key])[7:23]]
+            for key, data in resumed_results.items() if key in twin_results},
+        "resume_rehash_s": rehash_s, "resume_rehash_bytes": rehash_bytes,
+        "journal_writes_day_s": _journal_day_seconds(
+            FilesystemStore(os.path.join(workdir, "journal-timing")), day),
+    }
+    emit("resume", **out)
+    if (killed["rc"], resumed["rc"], noop["rc"], leased["rc"]) != (
+            EXIT_KILLED, 0, RESUMED_NOOP_EXIT, LEASE_LOST_EXIT):
+        raise RuntimeError(f"resume exit codes are off: {out}\n{resumed['err'][-3000:]}")
+    if out["killed"]["journal_train_state"] != "complete" or not out["resumed"]["skipped_train"]:
+        raise RuntimeError(f"the restart did not skip the journalled train stage: {out}")
+    if (served is None or served["engine"] != "kernel" or served["launches"] < 1
+            or served["model_source"] != "production" or served["model_key"] != ckpt):
+        raise RuntimeError(f"the resumed day did not serve production through kernel: {out}")
+    if out["checkpoint"]["after_resume_digest"] != killed_digest:
+        raise RuntimeError(f"the resume rewrote the killed run's checkpoint: {out}")
+    differ = [k for k in gap["differ"] if k != ckpt]
+    if differ or gap["only_in_first"] or gap["only_in_second"]:
+        raise RuntimeError(f"the resumed day's artefacts differ from the twin's: {gap}")
+    return {"launches": served["launches_by_kernel"], "twin_launches": twin_launches}
+
+
+def phase_sigterm(torch, dev, workdir: str) -> dict:
+    """SIGTERM to a 1024-wide MLP ``run-day`` while it trains: it exits
+    143 with the journal ``interrupted`` and the lease released, and the
+    next ``run-day`` resumes the day (exit 0)."""
+    import signal
+
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import run_journal_key
+    from bodywork_tpu_torch.utils.shutdown import SIGTERM_EXIT
+
+    spec = default_pipeline("mlp", "batch")
+    day = LOOP_START
+    root = os.path.join(workdir, "sigterm")
+    store = FilesystemStore(root)
+    LocalRunner(spec, store, device=dev).bootstrap(day)
+    key = run_journal_key(day)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "bodywork_tpu_torch.cli",
+                             *_mlp_day_args(root, day)], cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": ROOT},
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while time.perf_counter() - t0 < 240 and proc.poll() is None:
+            if store.exists(key) and json.loads(store.get_bytes(key))["stages"].get(
+                    TRAIN_STAGE, {}).get("state") == "intent":
+                break
+            time.sleep(0.05)
+        time.sleep(1.0)  # into the Adam loop
+        signalled_s = time.perf_counter() - t0
+        proc.send_signal(signal.SIGTERM)
+        out, err = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    doc = json.loads(store.get_bytes(key))
+    restart = _cli(_mlp_day_args(root, day))
+    after = json.loads(store.get_bytes(key))
+    line = {"rc": proc.returncode, "want": SIGTERM_EXIT, "signalled_after_s": signalled_s,
+            "process_s": time.perf_counter() - t0 - restart["seconds"],
+            "journal_status": doc["status"], "lease_owner": doc["lease"]["owner"],
+            "train_state": doc["stages"].get(TRAIN_STAGE, {}).get("state"),
+            "restart_rc": restart["rc"], "restart_process_s": restart["seconds"],
+            "restart_day_s": _day_seconds(restart["out"], day),
+            "restart_served": _served(restart["out"]), "final_status": after["status"]}
+    emit("sigterm", **line)
+    if (proc.returncode, doc["status"], doc["lease"]["owner"], line["train_state"]) != (
+            SIGTERM_EXIT, "interrupted", None, "intent"):
+        raise RuntimeError(f"SIGTERM mid-train was not a clean interruption: {line}\n"
+                           f"{err[-3000:]}")
+    served = line["restart_served"]
+    if restart["rc"] != 0 or after["status"] != "complete" or served is None \
+            or served["engine"] != "kernel" or served["launches"] < 1:
+        raise RuntimeError(f"the day did not resume after SIGTERM and serve through "
+                           f"kernel: {line}\n{restart['err'][-3000:]}")
+    return {"launches": served["launches_by_kernel"]}
+
+
+def _cold_snapshot_train(torch, dev, store, workdir: str) -> dict:
+    """After the 30-day incremental linear loop: a fresh ``cli train``
+    process must read the history from the snapshot (every covered day
+    "from snapshot", at most the tail fetched and parsed); the snapshot
+    load is byte-identical to a plain load with ``snapshots/`` deleted;
+    both cold loads timed in this process."""
+    import hashlib
+    import re
+
+    from bodywork_tpu_torch.data.io import load_all_datasets
+    from bodywork_tpu_torch.data.snapshot import load_latest_snapshot
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, SNAPSHOTS_PREFIX
+
+    snap = load_latest_snapshot(FilesystemStore(store.root))
+    covered = len(snap.entries)
+    days = len(store.history(DATASETS_PREFIX))
+    train = _cli(["train", "--store", str(store.root), "--model", "linear"])
+    m = re.search(r"history parts: (\d+) day\(s\) — (\d+) cached, (\d+) from snapshot, "
+                  r"(\d+) fetched\+parsed", train["err"])
+    parts = None if m is None else dict(zip(("days", "cached", "from_snapshot", "fetched"),
+                                            map(int, m.groups())))
+    plain_root = shutil.copytree(store.root, os.path.join(workdir, "no-snapshot"),
+                                 ignore=shutil.ignore_patterns("snapshots"))
+    t0 = time.perf_counter()
+    via_snapshot = load_all_datasets(FilesystemStore(store.root))
+    snapshot_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = load_all_datasets(FilesystemStore(plain_root))
+    plain_s = time.perf_counter() - t0
+
+    def digest(ds):
+        return hashlib.sha256(ds.X.tobytes() + ds.y.tobytes()).hexdigest()[:16]
+
+    out = {"days": days, "covered_by_snapshot": covered, "train_rc": train["rc"],
+           "train_process_s": train["seconds"], "train_history_parts": parts,
+           "rows": len(plain), "cold_load_snapshot_s": snapshot_s, "cold_load_plain_s": plain_s,
+           "snapshot_bytes": len(store.get_bytes(snap.key)), "snapshot_key": snap.key,
+           "snapshots_kept": len(store.list_keys(SNAPSHOTS_PREFIX)),
+           "history_sha256": digest(via_snapshot), "plain_sha256": digest(plain),
+           "identical": (via_snapshot.X.tobytes() == plain.X.tobytes()
+                         and via_snapshot.y.tobytes() == plain.y.tobytes()
+                         and via_snapshot.date == plain.date)}
+    emit("snapshot", **out)
+    if train["rc"] != 0 or parts is None or parts["from_snapshot"] != covered \
+            or parts["fetched"] > days - covered or not out["identical"]:
+        raise RuntimeError(f"the cold train did not read the history from the snapshot: "
+                           f"{out}\n{train['err'][-3000:]}")
+    return out
 
 
 def _gate_spy():
@@ -1386,7 +1884,7 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases",
         default="device,generator,mlp-draws,build,kernels,slice,day-loop,incremental,"
-                "quantized,timing",
+                "quantized,resume,sigterm,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -1419,8 +1917,8 @@ def main(argv=None) -> int:
     if "build" in phases:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
-    launches, loop, incremental, quantized, timing = {}, {}, {}, {}, {}
-    for phase in ("slice", "day-loop", "incremental"):
+    launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
+    for phase in ("slice", "day-loop", "incremental", "resume", "sigterm"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -1429,6 +1927,10 @@ def main(argv=None) -> int:
                 launches = phase_slice(torch, dev, workdir)
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
+            elif phase == "resume":
+                resume = phase_resume(torch, dev, workdir)
+            elif phase == "sigterm":
+                sigterm = phase_sigterm(torch, dev, workdir)
             else:
                 incremental = phase_incremental(torch, dev, workdir)
                 if "quantized" in phases:
@@ -1447,7 +1949,16 @@ def main(argv=None) -> int:
                        "incremental-gate-rejection":
                            incremental["rejection"]["launches_all"][engine],
                        "quantized": sum(p["launches"][engine]
-                                        for p in quantized["paths"].values())}
+                                        for p in quantized["paths"].values()),
+                       # the serial loop the pipelined one is held to
+                       "pipelined-serial": loop["pipelined"]["serial_launches"][engine],
+                       "pipelined-overlap": loop["pipelined"]["overlap_launches"][engine]}
+            # the uncrashed twin day, and the restarted days' own processes
+            # (each counted from its start, read from its output)
+            if resume:
+                by_path["resume"] = resume["twin_launches"][engine] + resume["launches"][engine]
+            if sigterm:
+                by_path["sigterm-restart"] = sigterm["launches"][engine]
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

@@ -24,6 +24,8 @@ import bodywork_tpu_torch.data.prng, bodywork_tpu_torch.monitor.analytics
 import bodywork_tpu_torch.utils.integrity
 import bodywork_tpu_torch.train.incremental, bodywork_tpu_torch.models.fused
 import bodywork_tpu_torch.serve.predictor, bodywork_tpu_torch.pipeline.stages
+import bodywork_tpu_torch.chaos.kill, bodywork_tpu_torch.pipeline.journal
+import bodywork_tpu_torch.data.snapshot, bodywork_tpu_torch.utils.shutdown
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
