@@ -4,12 +4,19 @@ generate|serve|test|train|run-day|run-sim|compact|registry``.
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
 - ``serve --store S [--engine E] [--dtype float32|bfloat16|int8]
-  [--device cuda|cpu] [--host H] [--port P]`` serves the registry's
-  ``production`` model (the newest checkpoint on a store without a
-  registry; engine ``auto``: the fused kernel for a wide MLP it can
-  launch, on the card); a quantized ``--dtype`` (default from
+  [--device cuda|cpu] [--host H] [--port P] [--buckets N,N...]
+  [--batch-window-ms MS] [--batch-max-rows N] [--server-engine
+  thread|aio] [--max-pending N] [--retry-after-max-s S]`` serves the
+  registry's ``production`` model (the newest checkpoint on a store
+  without a registry; engine ``auto``: the fused kernel for a wide MLP it
+  can launch, on the card); a quantized ``--dtype`` (default from
   ``BODYWORK_TPU_SERVE_DTYPE``) serves only if the shadow quality gate
-  admits it, and f32 serves otherwise;
+  admits it, and f32 serves otherwise. The coalescer, front-end and
+  admission flags are the JAX command's, with its environment defaults
+  (``BODYWORK_TPU_BATCH_WINDOW_MS``, ``_BATCH_MAX_ROWS``,
+  ``_SERVER_ENGINE``, ``_MAX_PENDING``, ``_RETRY_AFTER_MAX_S``); an
+  explicit ``--batch-window-ms 0`` turns coalescing off. SIGTERM closes
+  admission, flushes the coalescer and exits 143;
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
   and persists the test metrics;
@@ -98,14 +105,57 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def _env_number(name: str, cast, minimum):
+    """A number flag's default from the environment (None when unset); a
+    malformed or out-of-range value is ignored with a note on stderr."""
+    from bodywork_tpu_torch.utils.env import number_env
+
+    return number_env(name, cast, minimum,
+                      warn=lambda msg: print(f"warning: {msg}", file=sys.stderr))
+
+
+def _bucket_list(raw: str) -> tuple[int, ...]:
+    """``--buckets``: comma-separated positive ints."""
+    from bodywork_tpu_torch.utils.env import bucket_list
+
+    try:
+        return bucket_list(raw)
+    except ValueError as exc:
+        raise argparse.ArgumentTypeError(str(exc)) from None
+
+
 def cmd_serve(args) -> int:
     from bodywork_tpu_torch.serve import serve_latest_model
-
-    serve_latest_model(
-        args.store, host=args.host, port=args.port, block=True,
-        engine=args.engine, device=args.device, dtype=args.dtype,
+    from bodywork_tpu_torch.utils.logging import get_logger
+    from bodywork_tpu_torch.utils.shutdown import (
+        SIGTERM_EXIT,
+        ShutdownRequested,
+        graceful_sigterm,
     )
-    return 0
+
+    log = get_logger("cli")
+
+    # None = unset, 0 = coalescing off, > 0 = on; negative degrades to unset
+    batch_window = (args.batch_window_ms
+                    if args.batch_window_ms is not None and args.batch_window_ms >= 0
+                    else None)
+    if args.batch_max_rows and not batch_window:
+        log.warning("--batch-max-rows has no effect without --batch-window-ms; "
+                    "request coalescing stays OFF")
+    # serve_latest_model drains on a SIGTERM while serving (admission
+    # closed, coalescer flushed); one during start-up unwinds to here
+    with graceful_sigterm() as sigterm_fired:
+        try:
+            serve_latest_model(
+                args.store, host=args.host, port=args.port, block=True,
+                engine=args.engine, device=args.device, dtype=args.dtype,
+                buckets=args.buckets, batch_window_ms=batch_window,
+                batch_max_rows=args.batch_max_rows, server_engine=args.server_engine,
+                max_pending=args.max_pending, retry_after_max_s=args.retry_after_max_s,
+            )
+        except ShutdownRequested:
+            log.warning("SIGTERM during service startup; exiting")
+    return SIGTERM_EXIT if sigterm_fired.is_set() else 0
 
 
 def cmd_test(args) -> int:
@@ -503,6 +553,44 @@ def build_parser() -> argparse.ArgumentParser:
              "predictions of the same checkpoint; otherwise f32 serves",
     )
     p.add_argument("--device", **device)
+    p.add_argument(
+        "--buckets", default=None, metavar="N[,N...]", type=_bucket_list,
+        help="comma-separated request-size buckets to capture and warm (default: "
+             "each engine's own bucket set)",
+    )
+    p.add_argument(
+        "--batch-window-ms", type=float, metavar="MS",
+        default=_env_number("BODYWORK_TPU_BATCH_WINDOW_MS", float, 0.0),
+        help="coalesce concurrent single-row /score/v1 requests into shared padded "
+             "device calls, flushing each batch after at most this many milliseconds "
+             "(default off; env BODYWORK_TPU_BATCH_WINDOW_MS overrides; 0 forces it off)",
+    )
+    p.add_argument(
+        "--batch-max-rows", type=_positive_int, metavar="N",
+        default=_env_number("BODYWORK_TPU_BATCH_MAX_ROWS", int, 1),
+        help="flush a coalesced batch as soon as it reaches N rows (default 64, or env "
+             "BODYWORK_TPU_BATCH_MAX_ROWS)",
+    )
+    p.add_argument(
+        "--server-engine", choices=["thread", "aio"],
+        default=_env_choice("BODYWORK_TPU_SERVER_ENGINE", ("thread", "aio"), "thread"),
+        help="HTTP front end: 'thread' (one thread per connection, default; env "
+             "BODYWORK_TPU_SERVER_ENGINE overrides) or 'aio' (asyncio event loop, arms "
+             "admission control by default); responses are byte-identical",
+    )
+    p.add_argument(
+        "--max-pending", type=_positive_int, metavar="N",
+        default=_env_number("BODYWORK_TPU_MAX_PENDING", int, 1),
+        help="admission budget: at most N scoring requests admitted and unfinished; "
+             "beyond it requests answer 429 + Retry-After before any work (default off "
+             "for thread, 512 for aio; env BODYWORK_TPU_MAX_PENDING overrides)",
+    )
+    p.add_argument(
+        "--retry-after-max-s", type=float, metavar="S",
+        default=_env_number("BODYWORK_TPU_RETRY_AFTER_MAX_S", float, 1.0),
+        help="cap on the EWMA-derived Retry-After of shed 429s and no-model 503s "
+             "(default 30; env BODYWORK_TPU_RETRY_AFTER_MAX_S overrides)",
+    )
 
     p = sub.add_parser("test", help="black-box test the live scoring service")
     p.set_defaults(fn=cmd_test)

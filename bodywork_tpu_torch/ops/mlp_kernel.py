@@ -26,6 +26,7 @@ plain torch ops — that is how the CPU tests run, and what
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import threading
 from dataclasses import dataclass
@@ -62,6 +63,14 @@ def reset_launches() -> None:
     with _LAUNCH_LOCK:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
+
+
+def count_launch(engine: str) -> None:
+    """Add one launch of ``engine``'s kernel: an eager launch, or a replay
+    of a CUDA graph that holds the kernel (``serve.predictor``'s graph
+    cache). A capture launches nothing and counts nothing."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[engine] += 1
 
 
 def fold_scaler_into_net(params: dict) -> list[tuple[torch.Tensor, torch.Tensor]]:
@@ -430,18 +439,34 @@ class _ClusterLaunch:
         self.layers = layers
         self.engine = engine
         self.device = device
-        self.padded = pad_layers(layers, engine)
         k_pad, n_pad = padded_widths(self.widths, engine)
         n = len(layers)
         self._kp = (ctypes.c_int * n)(*k_pad)
         self._np = (ctypes.c_int * n)(*n_pad)
-        self._w = _ptrs(layer["w"] for layer in self.padded)
-        self._b = _ptrs(layer["b"] for layer in self.padded)
-        self._scale = (_ptrs(layer["scale"] for layer in self.padded)
-                       if engine == "kernel-int8" else None)
+        self._bind(pad_layers(layers, engine))
         self._fn = getattr(lib, entry)
         self._error_string = getattr(lib, f"{prefix}_error_string")
         self._plans: dict[int, LaunchPlan] = {}
+
+    def _bind(self, padded: list[dict]) -> None:
+        """Point the launch's argument arrays at ``padded`` weights."""
+        self.padded = padded
+        self._w = _ptrs(layer["w"] for layer in padded)
+        self._b = _ptrs(layer["b"] for layer in padded)
+        self._scale = (_ptrs(layer["scale"] for layer in padded)
+                       if self.engine == "kernel-int8" else None)
+
+    def rebound(self, padded: list[dict]) -> "_ClusterLaunch":
+        """The same launch over other padded weights of the same shapes
+        (a CUDA graph's static weight buffers): the plans, the card's
+        cluster occupancy and the entry point are shared, and the ctypes
+        argument arrays hold the new weights' pointers. A graph captured
+        from the result reads those buffers at every replay, whatever
+        predictor asks for it, so their owner must copy its own weights
+        in first (``serve.predictor``'s graph cache does)."""
+        launch = copy.copy(self)
+        launch._bind(padded)
+        return launch
 
     def plan(self, n_rows: int) -> LaunchPlan:
         """The launch for an ``n_rows`` batch (:func:`launch_plan` over
@@ -476,8 +501,9 @@ class _ClusterLaunch:
                 f"{self.engine} kernel launch failed: "
                 f"{self._error_string(rc).decode()} (cudaError {rc})"
             )
-        with _LAUNCH_LOCK:
-            LAUNCHES[self.engine] += 1
+        # under a CUDA-graph capture nothing runs: the graph's replays count
+        if not torch.cuda.is_current_stream_capturing():
+            count_launch(self.engine)
         return out
 
 

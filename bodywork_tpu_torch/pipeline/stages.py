@@ -143,6 +143,46 @@ def _serve_env_dtype() -> str:
     return _env_choice("BODYWORK_TPU_SERVE_DTYPE", SERVE_DTYPES, "float32")
 
 
+def _serve_env_knobs() -> tuple[str, int | None, float | None, str]:
+    """The deployed serving knobs ``(server_engine, max_pending,
+    retry_after_max_s, dtype)`` from the pod environment
+    (``BODYWORK_TPU_SERVER_ENGINE``, ``BODYWORK_TPU_MAX_PENDING``,
+    ``BODYWORK_TPU_RETRY_AFTER_MAX_S``, ``BODYWORK_TPU_SERVE_DTYPE``): the
+    JAX stage's, without its mesh knobs. A malformed value is ignored with
+    a warning and the default applies, never a crashed pod."""
+    from bodywork_tpu_torch.serve.server import SERVER_ENGINES
+    from bodywork_tpu_torch.utils.env import number_env
+
+    return (
+        _env_choice("BODYWORK_TPU_SERVER_ENGINE", SERVER_ENGINES, "thread"),
+        number_env("BODYWORK_TPU_MAX_PENDING", int, 1),
+        number_env("BODYWORK_TPU_RETRY_AFTER_MAX_S", float, 1.0),
+        _serve_env_dtype(),
+    )
+
+
+def _serve_tuned_env_knobs() -> tuple[float | None, int | None, tuple[int, ...] | None]:
+    """The deployed coalescer and bucket knobs ``(batch_window_ms,
+    batch_max_rows, buckets)`` (``BODYWORK_TPU_BATCH_WINDOW_MS``, ``0``
+    meaning coalescing off; ``BODYWORK_TPU_BATCH_MAX_ROWS``;
+    ``BODYWORK_TPU_BUCKETS``, comma-separated positive ints), with the
+    same malformed-is-ignored rule. The JAX stage's tuned-config
+    reference is a later slice."""
+    import os
+
+    from bodywork_tpu_torch.utils.env import bucket_list, number_env
+
+    buckets: tuple[int, ...] | None = None
+    raw = os.environ.get("BODYWORK_TPU_BUCKETS", "").strip()
+    if raw:
+        try:
+            buckets = bucket_list(raw)
+        except ValueError as exc:
+            log.warning(f"ignoring BODYWORK_TPU_BUCKETS: {exc}")
+    return (number_env("BODYWORK_TPU_BATCH_WINDOW_MS", float, 0.0),
+            number_env("BODYWORK_TPU_BATCH_MAX_ROWS", int, 1), buckets)
+
+
 def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None = None,
                 mesh_data: int | None = None, mesh_model: int = 1, **model_kwargs):
     """Train on the data to date and persist the checkpoint and its
@@ -183,22 +223,31 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     service on a background thread (reference stage 2); returns the
     handle. ``replicas > 1`` serves through N apps sharing one predictor
     behind a round-robin front; ``buckets`` narrows the warmed shapes to
-    the tester's request sizes. The serving precision comes from the
-    ``BODYWORK_TPU_SERVE_DTYPE`` knob: a quantized dtype serves only if
-    the shadow quality gate admits it. The checkpoint is read back from
-    the store, which stays the source of truth, rather than reused from
-    the train stage's memory."""
+    the tester's request sizes. The checkpoint is read back from the
+    store, which stays the source of truth, rather than reused from the
+    train stage's memory.
+
+    The front end, admission budget, serving precision, coalescer and
+    buckets come from the pod environment as the JAX stage's do
+    (:func:`_serve_env_knobs`, :func:`_serve_tuned_env_knobs`); an
+    explicit ``buckets`` wins. A quantized dtype serves only if the shadow
+    quality gate admits it."""
     from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
     from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
+    env_engine, env_max_pending, env_retry_max, env_dtype = _serve_env_knobs()
+    env_window, env_max_rows, env_buckets = _serve_tuned_env_knobs()
     served_key, served_source = resolve_serving_key(ctx.store)
     model, model_date = load_model(ctx.store, served_key, device=ctx.device)
+    buckets = buckets or env_buckets
     return serve_model(
         model, model_date, host=host, port=port, block=False, engine=engine,
         buckets=tuple(buckets) if buckets else None, replicas=replicas,
         model_key=served_key, model_source=served_source,
-        model_bounds=registry_bounds(ctx.store, served_key), dtype=_serve_env_dtype(),
+        model_bounds=registry_bounds(ctx.store, served_key), dtype=env_dtype,
         store=ctx.store,
+        batch_window_ms=env_window, batch_max_rows=env_max_rows, server_engine=env_engine,
+        max_pending=env_max_pending, retry_after_max_s=env_retry_max,
     )
 
 

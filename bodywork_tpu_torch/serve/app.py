@@ -1,17 +1,29 @@
 """The scoring application (the port of ``bodywork_tpu.serve.app``, cut to
-the serving slice): plain Python over the standard library, no WSGI.
+the serving core): plain Python over the standard library, no WSGI.
 
 Routes, in the JAX app's wire format (the same keys in the same order;
 for the same float predictions, the same bytes):
 
 - ``POST /score/v1``  ``{"X": 50}`` -> ``{"prediction", "model_info", "model_date"}``
 - ``POST /score/v1/batch`` ``{"X": [...]}`` -> ``{"predictions", "n", "model_info", "model_date"}``
-- ``GET /healthz`` -> status and the served model's identity, plus the
-  port's ``engine``, ``device`` and the serving kernel's ``launches``.
+- ``GET /healthz`` -> the JAX app's health document (identity, queue
+  depth, admission state, ``effective_config``), then the port's
+  ``engine``, ``device``, the serving kernel's ``launches`` and the graph
+  cache's counts;
+- ``GET /metrics`` -> this process's metrics registry in the Prometheus
+  text format.
 
 Malformed requests answer 400 with the JAX app's messages; unknown routes
 404 and wrong methods 405 with werkzeug's descriptions; an unhandled
-error 500 ``{"error": "internal server error"}``.
+error 500 ``{"error": "internal server error"}``. With an admission
+controller (``serve.admission``) a scoring request past the pending
+budget answers 429 + ``Retry-After`` before its body is parsed; an app
+with no model answers scoring requests 503 + ``Retry-After``. Scoring
+answers carry the ``X-Bodywork-Model-Key`` header.
+
+With a request coalescer (``serve.batcher``) concurrent single-row
+``/score/v1`` requests share padded device calls; a saturated coalescer
+degrades to a direct dispatch. Responses are byte-identical either way.
 
 Every scoring path runs the prediction-sanity firewall before it
 serialises a prediction (the production branch of the JAX app's,
@@ -19,17 +31,21 @@ serialises a prediction (the production branch of the JAX app's,
 raises :class:`PredictionSanityError` and the request answers 500, the
 value never written; a prediction outside the model's registry band
 (``prediction_bounds``, from its training labels) is logged and served,
-since the band is statistical. The canary, coalescer, admission control,
-tracing and ``/metrics`` wait for later slices.
+since the band is statistical. Canary routing and hot swaps, request
+tracing and the multi-process ``/metrics`` wait for later slices.
 """
 from __future__ import annotations
 
 import json
+import time
 
 import numpy as np
 
+from bodywork_tpu_torch.obs import get_registry
 from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
+from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
 from bodywork_tpu_torch.serve.wire import (
+    MODEL_KEY_HEADER,
     BatchResponseTemplate,
     SingleResponseTemplate,
     parse_features,
@@ -44,6 +60,20 @@ _NOT_FOUND = (
 )
 _METHOD_NOT_ALLOWED = "The method is not allowed for the requested URL."
 _JSON = {"Content-Type": "application/json"}
+#: the Prometheus text exposition's content type
+METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+#: parse/serialize are µs-scale host work (the JAX app's buckets)
+_FAST_PHASE_BUCKETS = (
+    0.00001, 0.00005, 0.0001, 0.0005, 0.001, 0.005, 0.025, 0.1,
+)
+
+#: routes whose successful requests count into the scoring-latency histogram
+_SCORING_ROUTES = ("/score/v1", "/score/v1/batch")
+
+#: Retry-After (seconds) on a no-model 503 from an app without admission
+#: control; with admission, every backpressure answer carries its EWMA
+RETRY_AFTER_S = 5
 
 
 class PredictionSanityError(RuntimeError):
@@ -84,8 +114,8 @@ def sanity_violation(predictions, bounds: tuple[float, float] | None) -> str | N
     return None
 
 
-def _json_response(payload: dict, status: int = 200):
-    return status, dict(_JSON), json.dumps(payload).encode()
+def _json_response(payload: dict, status: int = 200, headers=None):
+    return status, {**_JSON, **(headers or {})}, json.dumps(payload).encode()
 
 
 def _is_json(content_type: str | None) -> bool:
@@ -119,46 +149,133 @@ class _Served:
 
 class ScoringApp:
     """Scoring application over a shape-bucketed predictor. :meth:`handle`
-    maps one request to ``(status, headers, body)``; the HTTP server
-    (``serve.server``) only moves bytes."""
+    maps one request to ``(status, headers, body)``; the HTTP front ends
+    (``serve.server``'s thread engine, ``serve.aio``) only move bytes.
+
+    ``batcher`` (a started ``RequestCoalescer``) and ``admission`` (an
+    ``AdmissionController``) are optional; ``model=None`` boots an app
+    with nothing to serve, whose scoring requests answer 503."""
 
     def __init__(self, model, model_date=None, predictor=None,
                  model_key: str | None = None, model_source: str | None = None,
-                 model_bounds=None):
-        if predictor is None:
-            from bodywork_tpu_torch.serve.predictor import PaddedPredictor
+                 model_bounds=None, batcher=None, admission=None):
+        if model is None:
+            assert predictor is None, "a predictor needs a model"
+            self.served = None
+        else:
+            if predictor is None:
+                from bodywork_tpu_torch.serve.predictor import PaddedPredictor
 
-            predictor = PaddedPredictor(model)
-        self.served = _Served(
-            predictor, model.info, str(model_date) if model_date else None,
-            model_key=model_key, source=model_source, bounds=as_bounds(model_bounds),
+                predictor = PaddedPredictor(model)
+            self.served = _Served(
+                predictor, model.info, str(model_date) if model_date else None,
+                model_key=model_key, source=model_source, bounds=as_bounds(model_bounds),
+            )
+        self.batcher = batcher
+        self.admission = admission
+        reg = get_registry()
+        self._m_requests = reg.counter(
+            "bodywork_tpu_http_requests_total",
+            "HTTP requests served, by route and status",
         )
+        self._m_latency = reg.histogram(
+            "bodywork_tpu_scoring_latency_seconds",
+            "End-to-end handler time of successful scoring requests",
+        )
+        self._m_parse = reg.histogram(
+            "bodywork_tpu_request_parse_seconds",
+            "Request-parse phase: JSON body -> validated feature array",
+            buckets=_FAST_PHASE_BUCKETS,
+        )
+        self._m_dispatch = reg.histogram(
+            "bodywork_tpu_device_dispatch_seconds",
+            "Device-dispatch phase: one padded predictor call",
+        )
+        self._m_serialize = reg.histogram(
+            "bodywork_tpu_response_serialize_seconds",
+            "Serialization phase: prediction -> JSON response",
+            buckets=_FAST_PHASE_BUCKETS,
+        )
+        self._m_fallbacks = reg.counter(
+            "bodywork_tpu_coalescer_fallback_total",
+            "Requests degraded to a direct dispatch (coalescer saturated)",
+        )
+        self._m_sanity = reg.counter(
+            "bodywork_tpu_serve_sanity_violations_total",
+            "Predictions caught by the sanity firewall before "
+            "serialization, by model_key, stream, and reason "
+            "(non_finite|out_of_range)",
+        )
+        reg.gauge(
+            "bodywork_tpu_serve_degraded_state",
+            "Serving degradation: 0=healthy, 1=serving last-good model "
+            "after a failed reload, 2=no model loaded",
+            aggregate="max",
+        ).set(2.0 if self.served is None else 0.0)
+        served = self.served
+        if served is not None and served.model_key is not None:
+            reg.gauge(
+                "bodywork_tpu_serve_model_version_info",
+                "Served model version: 1 on the (model_key, source) sample "
+                "currently serving, 0 on superseded ones",
+                aggregate="max",
+            ).set(1.0, model_key=served.model_key, source=served.source or "unspecified")
         self._routes = {
             ("POST", "/score/v1"): self.score_data_instance,
             ("POST", "/score/v1/batch"): self.score_batch,
             ("GET", "/healthz"): self.healthz,
+            ("GET", "/metrics"): self.metrics_endpoint,
         }
 
     @property
     def predictor(self):
-        return self.served.predictor
+        served = self.served
+        return None if served is None else served.predictor
+
+    def known_path(self, path: str) -> bool:
+        return any(p == path for _m, p in self._routes)
 
     def handle(self, method: str, path: str, body: bytes = b"",
                content_type: str | None = None):
+        """One request -> ``(status, headers, body)``. Admission runs first
+        for a scoring POST, before anything that costs per-request work: a
+        shed leaves nothing behind but its counter."""
         path = path.split("?", 1)[0]
-        handler = self._routes.get((method, path))
-        if handler is None:
-            if any(p == path for _m, p in self._routes):
-                return _json_response({"error": _METHOD_NOT_ALLOWED}, 405)
-            return _json_response({"error": _NOT_FOUND}, 404)
+        t0 = time.perf_counter()
+        admission = self.admission
+        admitted = False
+        if admission is not None and method == "POST" and path in _SCORING_ROUTES:
+            if not admission.try_admit():
+                response = self.shed_response()
+                self._m_requests.inc(route=path, status=str(response[0]))
+                return response
+            admitted = True
         try:
-            return handler(body, content_type)
+            handler = self._routes.get((method, path))
+            if handler is None:
+                if self.known_path(path):
+                    response = _json_response({"error": _METHOD_NOT_ALLOWED}, 405)
+                else:
+                    response = _json_response({"error": _NOT_FOUND}, 404)
+            else:
+                response = handler(body, content_type)
         except Exception as exc:  # don't leak tracebacks to clients
             log.error(f"unhandled error serving {path}: {exc!r}")
-            return _json_response({"error": "internal server error"}, 500)
+            response = _json_response({"error": "internal server error"}, 500)
+        finally:
+            if admitted:
+                # admission -> response ready: the EWMA behind Retry-After
+                admission.release(time.perf_counter() - t0)
+        status = response[0]
+        self._m_requests.inc(route=path if self.known_path(path) else "unknown",
+                             status=str(status))
+        if path in _SCORING_ROUTES and status == 200:
+            self._m_latency.observe(time.perf_counter() - t0)
+        return response
 
-    @staticmethod
-    def _parse(body: bytes, content_type: str | None):
+    # -- parsing and backpressure ------------------------------------------
+    def _parse(self, body: bytes, content_type: str | None):
+        t0 = time.perf_counter()
         payload = None
         if _is_json(content_type):
             try:
@@ -166,21 +283,68 @@ class ScoringApp:
             except ValueError:
                 payload = None
         X, message = parse_features(payload)
+        self._m_parse.observe(time.perf_counter() - t0)
         if message is not None:
             return None, _json_response({"error": message}, 400)
         return X, None
 
+    def retry_after_s(self) -> int:
+        """The one Retry-After every backpressure answer of this app
+        carries: admission's clamped EWMA, else :data:`RETRY_AFTER_S`."""
+        if self.admission is not None:
+            return self.admission.retry_after_s()
+        return RETRY_AFTER_S
+
+    def shed_response(self):
+        """The admission-shed 429."""
+        return _json_response({"error": "server over capacity; request shed"}, 429,
+                              {"Retry-After": str(self.retry_after_s())})
+
+    def _no_model_response(self):
+        return _json_response({"error": "no model loaded yet; retry shortly"}, 503,
+                              {"Retry-After": str(self.retry_after_s())})
+
+    def _dispatch(self, served: _Served, X):
+        """One direct (uncoalesced) padded dispatch, timed."""
+        t0 = time.perf_counter()
+        try:
+            return served.predictor.predict(X)
+        finally:
+            self._m_dispatch.observe(time.perf_counter() - t0)
+
+    def _respond(self, served: _Served, payload: bytes):
+        headers = dict(_JSON)
+        if served.model_key:
+            headers[MODEL_KEY_HEADER] = served.model_key
+        return 200, headers, payload
+
+    # -- routes ------------------------------------------------------------
     def score_data_instance(self, body: bytes, content_type: str | None):
         """Single-instance scoring; reference-parity contract
         (``stage_2:73-80``)."""
         X, err = self._parse(body, content_type)
         if err is not None:
+            # a malformed request gets its 400 even from a model-less app
             return err
         served = self.served
+        if served is None:
+            return self._no_model_response()
         X = np.array(X, ndmin=2)  # scalar -> (1, 1), as the reference
-        prediction0 = float(np.asarray(served.predictor.predict(X)).ravel()[0])
+        prediction0 = None
+        if self.batcher is not None and X.shape[0] == 1:
+            try:
+                # the submission carries ITS served bundle: its batch is
+                # scored by one model only
+                prediction0 = self.batcher.submit(served, X[0])
+            except CoalescerSaturated:
+                self._m_fallbacks.inc()  # overload or shutdown: go direct
+        if prediction0 is None:
+            prediction0 = float(np.asarray(self._dispatch(served, X)).ravel()[0])
         self.firewall(served, prediction0)
-        return 200, dict(_JSON), served.single_template.render(prediction0)
+        t0 = time.perf_counter()
+        payload = served.single_template.render(prediction0)
+        self._m_serialize.observe(time.perf_counter() - t0)
+        return self._respond(served, payload)
 
     def score_batch(self, body: bytes, content_type: str | None):
         """Batched scoring: one padded device call per bucket-size chunk."""
@@ -188,43 +352,140 @@ class ScoringApp:
         if err is not None:
             return err
         served = self.served
+        if served is None:
+            return self._no_model_response()
         if X.ndim == 0:
             X = X[None]
-        predictions = served.predictor.predict(X)
+        predictions = self._dispatch(served, X)
         self.firewall(served, predictions)
-        return 200, dict(_JSON), served.batch_template.render(predictions)
+        t0 = time.perf_counter()
+        payload = served.batch_template.render(predictions)
+        self._m_serialize.observe(time.perf_counter() - t0)
+        return self._respond(served, payload)
 
-    @staticmethod
-    def firewall(served: _Served, predictions) -> None:
+    def firewall(self, served: _Served, predictions) -> None:
         """The prediction-sanity firewall, before serialisation: a
         non-finite prediction raises :class:`PredictionSanityError` (500);
-        one outside the model's band is logged and served."""
+        one outside the model's band is logged and served. Both count into
+        ``bodywork_tpu_serve_sanity_violations_total``."""
         reason = sanity_violation(predictions, served.bounds)
+        if reason is None:
+            return
+        self._m_sanity.inc(model_key=served.model_key or "unknown", stream="production",
+                           reason=reason)
         if reason == "non_finite":
             log.error(f"production prediction non-finite on {served.model_key}; "
                       "refusing to serialize")
             raise PredictionSanityError(reason)
-        if reason is not None:
-            log.warning(f"production prediction out of sanity band on "
-                        f"{served.model_key} (served anyway; band is statistical)")
+        log.warning(f"production prediction out of sanity band on "
+                    f"{served.model_key} (served anyway; band is statistical)")
 
-    def healthz_payload(self) -> dict:
+    def effective_config(self) -> dict:
+        """The knob values live in this process, read from the live
+        objects (coalescer, admission controller, predictor)."""
+        predictor = self.predictor
+        batcher = self.batcher
+        admission = self.admission
+        buckets = getattr(predictor, "buckets", None)
+        return {
+            "batch_window_ms": round(batcher.window_s * 1e3, 3) if batcher is not None else None,
+            "batch_max_rows": batcher.max_rows if batcher is not None else None,
+            "buckets": list(buckets) if buckets else None,
+            "max_pending": admission.max_pending if admission is not None else None,
+            "dtype": getattr(predictor, "dtype", "float32") if predictor is not None else None,
+            "tuned_config": None,
+        }
+
+    def healthz_response(self) -> tuple[dict, int, int | None]:
+        """``(payload, status, retry_after_s or None)``: the health document
+        both front ends serve. The keys are the JAX app's, in its order
+        (the parts of later slices null: mesh, canary, watchdog, tuning,
+        degraded reason), then the port's ``engine``, ``device``,
+        ``launches`` (of the serving kernel since the counts were last
+        reset; null for a plain engine) and ``graph_cache``."""
+        from bodywork_tpu_torch.serve.predictor import GRAPH_CACHE
+
         served = self.served
+        admission = self.admission
+        if admission is not None:
+            queue_depth = admission.queue_depth
+            admission_state = admission.state()
+        else:
+            queue_depth = self.batcher.pending_depth() if self.batcher is not None else 0
+            admission_state = None
+        common = {
+            "canary_key": None, "canary_fraction": None, "watchdog": None, "tuning": None,
+        }
+        if served is None:
+            return ({
+                "status": "no model loaded", "degraded": True,
+                "reason": "no model has been loaded yet",
+                "model_info": None, "model_date": None, "model_key": None,
+                "model_source": None, "serving_dtype": None, "mesh": None, **common,
+                "queue_depth": queue_depth, "admission": admission_state,
+                "effective_config": self.effective_config(),
+                "latency_exemplars": self._m_latency.exemplars() or None,
+            }, 503, self.retry_after_s())
         predictor = served.predictor
         engine = getattr(predictor, "engine", "torch")
-        return {
+        return ({
             "status": "ok",
             "model_info": served.model_info,
             "model_date": served.model_date,
             "model_key": served.model_key,
             "model_source": served.source,
             "serving_dtype": getattr(predictor, "dtype", "float32"),
+            "mesh": None, **common,
+            "degraded": False,
+            "queue_depth": queue_depth,
+            "admission": admission_state,
+            "effective_config": self.effective_config(),
+            "latency_exemplars": self._m_latency.exemplars() or None,
             "engine": engine,
             "device": predictor.device.type,
-            # launches of the serving kernel variant since the counts were
-            # last reset (null for the torch engine, which has no kernel)
             "launches": LAUNCHES.get(engine),
-        }
+            "graph_cache": GRAPH_CACHE.stats(),
+        }, 200, None)
+
+    def healthz_payload(self) -> dict:
+        return self.healthz_response()[0]
 
     def healthz(self, body: bytes, content_type: str | None):
-        return _json_response(self.healthz_payload())
+        payload, status, retry_after = self.healthz_response()
+        headers = {"Retry-After": str(retry_after)} if retry_after is not None else None
+        return _json_response(payload, status, headers)
+
+    def metrics_endpoint(self, body: bytes, content_type: str | None):
+        """This process's registry in the Prometheus text format."""
+        return (200, {"Content-Type": METRICS_CONTENT_TYPE},
+                get_registry().render().encode())
+
+    def close(self) -> None:
+        """Stop the coalescer's dispatcher after flushing what it holds.
+        Idempotent; the app still serves afterwards, uncoalesced."""
+        if self.batcher is not None:
+            self.batcher.stop()
+
+
+def create_app(model, model_date=None, predictor=None, warmup: bool = True,
+               batch_window_ms: float | None = None, batch_max_rows: int | None = None,
+               model_key: str | None = None, model_source: str | None = None,
+               admission=None, model_bounds=None) -> ScoringApp:
+    """A :class:`ScoringApp`, warmed. ``batch_window_ms`` > 0 opts into
+    cross-request micro-batching (``serve.batcher``), flushed when
+    ``batch_max_rows`` accumulate or the window elapses, whichever first.
+    ``admission`` (``serve.admission.AdmissionController``) opts into load
+    shedding; replica apps of one listener share one controller."""
+    batcher = None
+    if batch_window_ms and batch_window_ms > 0:
+        from bodywork_tpu_torch.serve.batcher import DEFAULT_MAX_ROWS, RequestCoalescer
+
+        batcher = RequestCoalescer(
+            window_ms=batch_window_ms, max_rows=batch_max_rows or DEFAULT_MAX_ROWS,
+        ).start()
+    app = ScoringApp(model, model_date, predictor=predictor, model_key=model_key,
+                     model_source=model_source, model_bounds=model_bounds,
+                     batcher=batcher, admission=admission)
+    if warmup and app.predictor is not None:
+        app.predictor.warmup()
+    return app

@@ -3,11 +3,19 @@
 :func:`serve_latest_model` loads the checkpoint to serve (the registry's
 ``production`` alias, or the newest checkpoint on a store without one)
 onto the card and hands it to :func:`serve_model`, which picks the engine,
-warms every bucket and serves over ``http.server.ThreadingHTTPServer``
-(the day loop's serve stage calls :func:`serve_model` itself); with
-``block=False`` they return a started :class:`ServiceHandle`. With
-``replicas > 1`` the requests alternate over N scoring apps that share
-one predictor (:class:`RoundRobinApp`).
+warms every bucket (capturing its CUDA graph, ``serve.predictor``) and
+serves over one of the :data:`SERVER_ENGINES`: ``thread``
+(``http.server.ThreadingHTTPServer``, one thread per connection) or
+``aio`` (the asyncio front end, ``serve.aio``). The day loop's serve
+stage calls :func:`serve_model` itself; with ``block=False`` they return
+a started handle. With ``replicas > 1`` the requests alternate over N
+scoring apps that share one predictor (:class:`RoundRobinApp`).
+
+``batch_window_ms`` > 0 puts a request coalescer (``serve.batcher``) in
+front of each app; ``max_pending`` arms admission control
+(``serve.admission``), which the ``aio`` engine arms by default. A
+blocking service that receives SIGTERM (``cli serve``) closes admission,
+then stops with its coalescers flushed.
 
 Engine names map one to one onto the JAX package's (:data:`ENGINE_NAMES`):
 ``xla*`` -> ``torch*`` (plain torch in f32, bf16 or from int8 weights),
@@ -31,11 +39,18 @@ import torch
 from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
 from bodywork_tpu_torch.models.mlp import MLPRegressor
-from bodywork_tpu_torch.serve.app import ScoringApp
+from bodywork_tpu_torch.obs import get_registry
+from bodywork_tpu_torch.serve.admission import build_admission
+from bodywork_tpu_torch.serve.app import create_app
 from bodywork_tpu_torch.store import open_store
 from bodywork_tpu_torch.utils.logging import get_logger
+from bodywork_tpu_torch.utils.shutdown import ShutdownRequested
 
 log = get_logger("serve.server")
+
+#: the HTTP front ends: ``thread`` (one thread per connection, default)
+#: and ``aio`` (the asyncio event loop, ``serve.aio``); the JAX package's
+SERVER_ENGINES = ("thread", "aio")
 
 #: JAX engine name -> the port's engine name
 ENGINE_NAMES = {
@@ -123,6 +138,22 @@ def build_predictor(model, engine: str = "auto",
     )
 
 
+def _count_quantization_gate(dtype: str, outcome: str) -> None:
+    reg = get_registry()
+    reg.counter(
+        "bodywork_tpu_serve_quantization_gate_total",
+        "Quantized-serving shadow-gate verdicts at boot/swap, by dtype "
+        "and outcome (served|rejected_quality|no_shadow_data|"
+        "unsupported_model|unsupported_mesh)",
+    ).inc(dtype=dtype, outcome=outcome)
+    reg.gauge(
+        "bodywork_tpu_serve_quantized_state",
+        "Quantized serving: 0=f32 default, 1=quantized dtype serving, "
+        "2=quantized requested but f32 kept (gate/unsupported)",
+        aggregate="max",
+    ).set(1.0 if outcome == "served" else 2.0)
+
+
 #: (base engine, serving dtype) -> the engine that implements it
 _QUANTIZED_VARIANTS = {
     ("torch", "bfloat16"): "torch-bf16",
@@ -189,6 +220,7 @@ def build_serving_predictor(store, model, engine: str = "auto",
         # e.g. a linear checkpoint under a fleet-wide --dtype int8: keep f32
         log.warning(f"dtype={dtype} unavailable for this checkpoint ({exc}); "
                     "keeping f32 serving (quantization gate outcome=unsupported_model)")
+        _count_quantization_gate(dtype, "unsupported_model")
         return f32_predictor, "float32"
     try:
         report = shadow_compare(store, quant_predictor.predict, f32_predictor.predict,
@@ -198,14 +230,17 @@ def build_serving_predictor(store, model, engine: str = "auto",
             raise
         log.warning(f"dtype={dtype}: no dataset history to shadow the quantized variant "
                     "over; keeping f32 serving (quantization gate outcome=no_shadow_data)")
+        _count_quantization_gate(dtype, "no_shadow_data")
         return f32_predictor, "float32"
     ok, detail = evaluate_quantization(report, policy)
     if not ok:
         log.warning(f"dtype={dtype} REJECTED by the shadow quality gate ({detail}); keeping "
                     "f32 serving (quantization gate outcome=rejected_quality)")
+        _count_quantization_gate(dtype, "rejected_quality")
         return f32_predictor, "float32"
     log.info(f"dtype={dtype} admitted by the shadow quality gate ({detail}) "
              f"(quantization gate outcome=served)")
+    _count_quantization_gate(dtype, "served")
     return quant_predictor, dtype
 
 
@@ -237,9 +272,21 @@ class RoundRobinApp:
         return app.handle(method, path, body, content_type)
 
 
+class _ThreadingServer(ThreadingHTTPServer):
+    # one daemon thread per connection; a listen backlog of werkzeug's
+    # 128 (the standard library's 5 resets a burst of connections)
+    daemon_threads = True
+    request_queue_size = 128
+
+
 def _handler_for(app):
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
+        # one segment per response, sent at once: unbuffered, the headers
+        # and the body leave as two writes, and on a keep-alive connection
+        # the second waits out the client's delayed ACK (~40 ms)
+        wbufsize = -1
+        disable_nagle_algorithm = True
 
         def _respond(self, method: str) -> None:
             length = int(self.headers.get("Content-Length") or 0)
@@ -267,17 +314,19 @@ def _handler_for(app):
 
 
 class ServiceHandle:
-    """A scoring service on a ``ThreadingHTTPServer`` (one thread per
-    connection). ``port=0`` lets the OS pick a free port."""
+    """A scoring service on a ``ThreadingHTTPServer`` (the ``thread``
+    engine: one thread per connection). ``port=0`` lets the OS pick a
+    free port. :meth:`stop` runs the registered cleanups (the apps'
+    coalescers flush and stop) before it closes the listener."""
 
     def __init__(self, app, host: str = "127.0.0.1", port: int = 5000):
         self.app = app
         #: the scoring apps behind the front (one unless replicated)
         self.replica_apps = list(getattr(app, "apps", [app]))
-        self._server = ThreadingHTTPServer((host, port), _handler_for(app))
-        self._server.daemon_threads = True
+        self._server = _ThreadingServer((host, port), _handler_for(app))
         self.host = host
         self.port = self._server.server_port
+        self._cleanups: list = []
         self._thread = threading.Thread(
             # poll_interval bounds how long shutdown() blocks
             target=lambda: self._server.serve_forever(poll_interval=0.005),
@@ -294,6 +343,10 @@ class ServiceHandle:
     def url(self) -> str:
         return f"{self.base_url}/score/v1"
 
+    def add_cleanup(self, fn) -> None:
+        """Run ``fn`` on :meth:`stop`."""
+        self._cleanups.append(fn)
+
     def start(self) -> "ServiceHandle":
         self._thread.start()
         log.info(f"scoring service listening on {self.url}")
@@ -308,6 +361,8 @@ class ServiceHandle:
             self._server.server_close()
 
     def stop(self) -> None:
+        for fn in self._cleanups:
+            fn()
         self._server.shutdown()
         self._server.server_close()
         if self._thread.ident is not None:
@@ -333,45 +388,89 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 block: bool = True, engine: str = "auto",
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
                 model_key: str | None = None, model_source: str | None = None,
-                model_bounds=None, dtype: str = "float32", store=None):
+                model_bounds=None, dtype: str = "float32", store=None,
+                batch_window_ms: float | None = None, batch_max_rows: int | None = None,
+                server_engine: str = "thread", max_pending: int | None = None,
+                retry_after_max_s: float | None = None):
     """Serve a loaded model from its device: build the predictor for the
     engine and dtype (:func:`build_serving_predictor`; a quantized dtype
-    shadows over ``store``'s datasets), warm every bucket (so a kernel that
-    fails to build or launch fails the start, not a request), and serve
-    through ``replicas`` scoring apps that share the predictor, each behind
-    the prediction-sanity firewall with ``model_bounds`` as its band. With
-    ``block=False`` returns a started :class:`ServiceHandle`."""
+    shadows over ``store``'s datasets), warm every bucket (a capture or a
+    launch that fails fails the start, not a request), and serve through
+    ``replicas`` scoring apps that share the predictor, each behind the
+    prediction-sanity firewall with ``model_bounds`` as its band.
+
+    ``server_engine`` picks the front end (:data:`SERVER_ENGINES`);
+    ``batch_window_ms`` > 0 gives each app a request coalescer flushing at
+    ``batch_max_rows``; ``max_pending`` arms admission control, one
+    controller shared by the apps (the ``aio`` engine arms it at
+    ``DEFAULT_MAX_PENDING`` by default); ``retry_after_max_s`` caps its
+    ``Retry-After``. With ``block=False`` returns a started handle; a
+    blocking service leaves on SIGTERM (``ShutdownRequested``) by closing
+    admission, then stopping with its coalescers flushed."""
+    if server_engine not in SERVER_ENGINES:
+        raise ValueError(f"unknown server engine {server_engine!r}; "
+                         f"expected one of {SERVER_ENGINES}")
     if dtype not in (None, "float32") and store is None:
         raise ValueError(f"dtype={dtype} needs the store whose datasets its shadow "
                          "gate scores")
     predictor, served_dtype = build_serving_predictor(store, model, engine,
                                                       buckets=buckets, dtype=dtype)
     log.info(f"serving {model.info} on {model.device} through engine "
-             f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} replica(s))")
+             f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} replica(s), "
+             f"{server_engine} front end)")
+    admission = build_admission(server_engine, max_pending, retry_after_max_s)
     apps = [
-        ScoringApp(model, model_date, predictor=predictor, model_key=model_key,
-                   model_source=model_source, model_bounds=model_bounds)
+        create_app(model, model_date, predictor=predictor, warmup=False,
+                   batch_window_ms=batch_window_ms, batch_max_rows=batch_max_rows,
+                   model_key=model_key, model_source=model_source, admission=admission,
+                   model_bounds=model_bounds)
         for _ in range(max(replicas, 1))
     ]
-    predictor.warmup()
-    handle = ServiceHandle(RoundRobinApp(apps) if len(apps) > 1 else apps[0], host, port)
-    if block:
+    try:
+        predictor.warmup()
+        if server_engine == "aio":
+            from bodywork_tpu_torch.serve.aio import AioServiceHandle
+
+            handle = AioServiceHandle(apps, host, port)
+        else:
+            handle = ServiceHandle(RoundRobinApp(apps) if len(apps) > 1 else apps[0],
+                                   host, port)
+    except BaseException:
+        for app in apps:
+            app.close()
+        raise
+    for app in apps:
+        handle.add_cleanup(app.close)
+    if not block:
+        return handle.start()
+    try:
         handle.serve_forever()
-        return None
-    return handle.start()
+    except ShutdownRequested:
+        # stop admitting first (new scoring requests shed with
+        # Retry-After), then stop: coalescers flushed, listener closed
+        log.warning("SIGTERM: draining scoring service "
+                    "(admission closed, in-flight work finishing)")
+        if admission is not None:
+            admission.begin_drain()
+        handle.stop()
+    return None
 
 
 def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        block: bool = True, engine: str = "auto", device=None,
-                       buckets: tuple[int, ...] | None = None, dtype: str = "float32"):
+                       buckets: tuple[int, ...] | None = None, dtype: str = "float32",
+                       batch_window_ms: float | None = None,
+                       batch_max_rows: int | None = None, server_engine: str = "thread",
+                       max_pending: int | None = None,
+                       retry_after_max_s: float | None = None):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
     unless asked for the CPU; no CUDA and no ``device="cpu"`` raises) and
-    serve it (:func:`serve_model`) with its record's sanity band, in
-    ``dtype`` if the shadow quality gate admits it. ``store`` is an
-    artefact store or a store directory. With ``block=False`` returns a
-    started :class:`ServiceHandle`."""
+    serve it (:func:`serve_model`, with its front-end, coalescer and
+    admission knobs) with its record's sanity band, in ``dtype`` if the
+    shadow quality gate admits it. ``store`` is an artefact store or a
+    store directory. With ``block=False`` returns a started handle."""
     dev = resolve_device(device)
     store = open_store(store)
     served_key, served_source = resolve_serving_key(store)
@@ -379,4 +478,6 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
     return serve_model(model, model_date, host, port, block=block, engine=engine,
                        buckets=buckets, model_key=served_key, model_source=served_source,
                        model_bounds=registry_bounds(store, served_key), dtype=dtype,
-                       store=store)
+                       store=store, batch_window_ms=batch_window_ms,
+                       batch_max_rows=batch_max_rows, server_engine=server_engine,
+                       max_pending=max_pending, retry_after_max_s=retry_after_max_s)

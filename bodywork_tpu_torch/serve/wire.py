@@ -14,12 +14,17 @@ import json
 import numpy as np
 
 __all__ = [
+    "MODEL_KEY_HEADER",
     "BatchResponseTemplate",
     "SingleResponseTemplate",
     "batch_score_payload",
     "parse_features",
     "single_score_payload",
 ]
+
+#: response header naming the checkpoint that answered a scoring request
+#: (headers are outside the frozen JSON body contract)
+MODEL_KEY_HEADER = "X-Bodywork-Model-Key"
 
 
 def parse_features(payload):

@@ -39,7 +39,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``auto``, which must resolve to the ``torch`` engine with no launch;
    ``slice-nan`` serves a model whose output is NaN through ``kernel``,
    which must answer 500 over HTTP without the value. Kernel launch counts
-   are set to 0 just before each path and read just after it;
+   are set to 0 just before each path and read just after it; then
+   ``serving``, the serving machinery on a checkpoint of the same model:
+   ``serve-graph`` serves it on ``auto`` (-> ``kernel``), ``kernel-bf16``
+   and ``kernel-int8``, each from a cold graph cache (``serve.predictor``):
+   the CUDA-graph captures must equal the buckets at warm-up and stay 0
+   over the requests, every bucket's replay must be bit-equal to the same
+   predictor's eager kernel launch, and the served answers, which fill
+   every bucket, within the engine's bar of the plain version, with the
+   host ms of a dispatch eager against replayed;
+   ``serve-graph-swap`` serves a second checkpoint of the same
+   architecture beside the first (no capture, one rebind; each service
+   answering with its own weights); ``serve-graph-overlap`` captures while
+   another thread runs 800 Adam steps of the 1024-wide MLP (the losses
+   bit-equal to an unshared run); ``serve-coalesce`` runs config 7's
+   shape (300 sequential single rows, then 16 clients x 25) on the
+   ``thread`` and ``aio`` front ends with the coalescer off and on (2 ms,
+   64 rows): p50/p99, rows per dispatch, every answer byte-identical to the
+   uncoalesced thread engine's; ``serve-admission`` bursts 64 simultaneous
+   rows at ``aio`` with ``max_pending`` 8: 429s with ``Retry-After``, every
+   200 the unshed answer, the ``/metrics`` shed count equal to the 429s;
 5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
    -> test loop (``run_simulation``, which journals every day, prefetches
    the horizon's draws, trains each next day as a lookahead on a
@@ -50,7 +69,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    2000 steps), registered as a candidate, gated, and served from the
    registry's ``production`` alias by ``auto``, which must resolve to
    ``kernel`` every day, with the kernel's launches counted over the loop
-   (counts set to 0 just before it, read just after); every day's gate
+   (counts set to 0 just before it, read just after) and the serving
+   graph cache cold before it (day 1 must capture its buckets, later days
+   none: a new day's checkpoint rebinds the captured graphs); every day's gate
    must have reached a decision and every day's served key must come from
    ``production``. Then the last day's checkpoint through the kernel held
    against its plain version; then a forced rejection on a copy of the
@@ -153,11 +174,16 @@ REPLACES = {
 }
 #: agreement with the plain version, as max|kernel - plain| / max(1, max|plain|):
 #: the f32 and int8 kernels keep the plain arithmetic up to summation
-#: order; bf16's tensor-core order may also flip the bf16 rounding of an
-#: activation (1.1e-3 of scale at 4096 rows on an H100). Each bar must also
-#: refuse the cheaper arithmetic of :func:`controls` (checked in ``kernels``),
-#: so that it tells the kernel's design from a shortcut
-BARS = {"kernel": 1e-4, "kernel-bf16": 2.5e-3, "kernel-int8": 1e-4}
+#: order. bf16 rounds every activation, so a change of summation order
+#: flips some roundings and moves the output: on an H100, over 4096
+#: uniform rows and 8 seeded inits (``tools/bf16_witness.py``), two IEEE
+#: f32 orders differ by up to 2.07e-3 of scale, and the kernel, bit-equal
+#: there to cuBLAS's bf16 tensor-core GEMM, by up to 2.74e-3 from the
+#: plain version. Its bar sits between that and the cheapest control it
+#: must refuse (f32 activations, 8.2e-3), near their geometric mean. Each
+#: bar must refuse the cheaper arithmetic of :func:`controls` (checked in
+#: ``kernels``), so that it tells the kernel's design from a shortcut
+BARS = {"kernel": 1e-4, "kernel-bf16": 4.5e-3, "kernel-int8": 1e-4}
 KERNEL_ROWS = (1, 8, 300, 4096)
 TIMING_ROWS = (256, 4096)
 TIMING_REPS = 30
@@ -199,6 +225,13 @@ REFIT_ATOL = 1e-4
 #: summation order alone; bf16 also where a bf16 rounding of an activation
 #: flips (the JAX package's bf16 bar)
 CARD_CPU_BARS = {"torch-int8": 1e-4, "torch-bf16": 2e-2}
+#: serve-graph-overlap: Adam steps on the training thread beside the capture
+OVERLAP_STEPS = 800
+#: serve-coalesce: the JAX benchmark's config 7 (``bench.py:646``)
+COALESCE = {"sequential": 300, "clients": 16, "per_client": 25, "windows": (0, 2.0),
+            "max_rows": 64}
+#: serve-admission: the aio budget and the burst past it
+ADMISSION = {"max_pending": 8, "burst": 64}
 
 
 def emit(phase: str, **fields) -> None:
@@ -256,6 +289,35 @@ def bound(rows: int, engine: str, card: dict) -> tuple[float, str]:
 def rel_err(got, want) -> tuple[float, float]:
     diff = float((got - want).abs().max())
     return diff, diff / max(1.0, float(want.abs().max()))
+
+
+def bf16_exact(torch, layers, X):
+    """The bf16 variant's function with exact sums: each layer's input
+    rounded to bf16 as the kernel rounds it, then float64 products and
+    sums rounded once to f32 (an order-free witness)."""
+    h = X.to(torch.float32)
+    for i, layer in enumerate(layers):
+        h = (h.to(torch.bfloat16).double() @ layer["w"].double()
+             + layer["b"].double()).to(torch.float32)
+        if i < len(layers) - 1:
+            h = torch.relu(h)
+    return h[:, 0]
+
+
+def bf16_library(torch, layers, X):
+    """The bf16 variant's function through cuBLAS's bf16 tensor-core GEMM
+    with f32 output (``torch.mm(..., out_dtype=torch.float32)``), or None
+    where this PyTorch lacks it. A witness only: the port never calls it."""
+    h = X.to(torch.float32)
+    try:
+        for i, layer in enumerate(layers):
+            h = torch.mm(h.to(torch.bfloat16), layer["w"].to(torch.bfloat16),
+                         out_dtype=torch.float32) + layer["b"]
+            if i < len(layers) - 1:
+                h = torch.relu(h)
+    except (RuntimeError, TypeError):
+        return None
+    return h[:, 0]
 
 
 def controls(torch, layers, X, dtype) -> dict:
@@ -440,8 +502,21 @@ def phase_kernels(torch, dev) -> dict:
         if passing:
             raise RuntimeError(f"{engine}: the bar {BARS[engine]} does not refuse "
                                f"{passing}: {control_errs}")
+        witnesses = {}
+        if dtype == "bfloat16":
+            # two more witnesses on the last batch: exact sums, held to the
+            # bar too, and cuBLAS's tensor cores (reported)
+            got = apply(X)
+            witnesses["exact_f64"] = rel_err(got, bf16_exact(torch, apply.layers, X))[1]
+            library = bf16_library(torch, apply.layers, X)
+            if library is not None:
+                witnesses["library_tc"] = rel_err(got, library)[1]
+                witnesses["bit_equal_to_library_tc"] = bool(torch.equal(got, library))
+            if witnesses["exact_f64"] >= BARS[engine]:
+                raise RuntimeError(f"{engine} disagrees with exact sums: {witnesses}")
         emit("kernels", engine=engine, bar=BARS[engine], rows=per_rows,
-             controls=control_errs, **_launch_shape(apply, KERNEL_ROWS))
+             controls=control_errs, witnesses=witnesses,
+             **_launch_shape(apply, KERNEL_ROWS))
         _check_ragged(torch, dev, engine, dtype)
     torch.cuda.synchronize()
     return errors
@@ -690,6 +765,476 @@ def _serve_nan_model(torch, dev, X_hist, y_hist) -> None:
         raise RuntimeError(f"a NaN prediction was not refused: {answers}")
 
 
+# -- the serving machinery: graph cache, coalescer, admission, aio ------------
+
+def _connect(base_url: str):
+    """A keep-alive HTTP/1.1 connection to a service (one per client)."""
+    import http.client
+    from urllib.parse import urlsplit
+
+    parts = urlsplit(base_url)
+    return http.client.HTTPConnection(parts.hostname, parts.port, timeout=60)
+
+
+def _score(conn, x: float) -> tuple[int, dict, bytes, float]:
+    """One single-row ``/score/v1`` on a keep-alive connection: status,
+    headers, body and seconds."""
+    body = json.dumps({"X": x})
+    t0 = time.perf_counter()
+    conn.request("POST", "/score/v1", body=body, headers={"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    payload = resp.read()
+    return resp.status, dict(resp.getheaders()), payload, time.perf_counter() - t0
+
+
+def _nearest_rank(values, q: float) -> float:
+    """Nearest-rank percentile (the JAX benchmark's ``_percentile``)."""
+    ordered = sorted(values)
+    return ordered[min(int(round(q / 100.0 * (len(ordered) - 1))), len(ordered) - 1)]
+
+
+def _serving_models(torch, dev, workdir: str):
+    """The served 1024-wide MLP (seed 0) checkpointed in a store of three
+    generated days, and a second checkpoint of the same architecture
+    (seed 1) in memory."""
+    import numpy as np
+
+    from bodywork_tpu_torch.data import Dataset, generate_day, persist_dataset
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor, save_model
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    store = FilesystemStore(os.path.join(workdir, "serving-store"))
+    Xs, ys = [], []
+    for d in (date(2026, 7, 1), date(2026, 7, 2), date(2026, 7, 3)):
+        X, y = generate_day(d, device=dev)
+        persist_dataset(store, Dataset(X, y, d))
+        Xs.append(X)
+        ys.append(y)
+    X_hist = torch.as_tensor(np.concatenate(Xs), device=dev)
+    y_hist = torch.as_tensor(np.concatenate(ys), device=dev)
+    first = MLPRegressor(MLPConfig(hidden=HIDDEN), make_params(torch, dev, X_hist, y_hist))
+    save_model(store, first, date(2026, 7, 3))
+    second = MLPRegressor(MLPConfig(hidden=HIDDEN),
+                          make_params(torch, dev, X_hist, y_hist, seed=1))
+    return store, second, (X_hist, y_hist)
+
+
+def _bucket_checks(torch, dev, predictor, engine: str, seed: int) -> dict:
+    """Per bucket of a warmed kernel predictor, on a full bucket of seeded
+    uniform rows: its graph replay against the same predictor's eager
+    kernel launch on the same input (bit-equal: the graph's contract) and
+    within the engine's bar of the plain version; then the host
+    milliseconds a request's dispatch takes at that bucket, eager (host
+    batch to the card, one launch, read back: the dispatch before the
+    graph cache) against the graph (staging, replay, read back), medians
+    of TIMING_REPS in turns."""
+    import numpy as np
+
+    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
+
+    dtype = {"float32": None}.get(predictor.dtype, predictor.dtype)
+    rng = np.random.default_rng(seed)
+    out = {}
+    for b in predictor.buckets:
+        Xp = rng.uniform(0, 100, (b, 1)).astype(np.float32)
+        replay = predictor._predict_padded(Xp)
+        X = torch.as_tensor(Xp, device=dev)
+        eager = predictor.kernel(X).cpu().numpy()
+        plain = mlp_stack_plain(predictor.kernel.layers, X, dtype)
+        rel = rel_err(torch.as_tensor(replay, device=dev), plain)[1]
+        times = {"eager": [], "graph": []}
+        for _ in range(TIMING_REPS):
+            for name, fn in (("eager", lambda: predictor.kernel(
+                                 torch.as_tensor(Xp, device=dev)).cpu().numpy()),
+                             ("graph", lambda: predictor._predict_padded(Xp))):
+                t0 = time.perf_counter()
+                fn()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+        out[b] = {"bit_equal_to_eager": bool(np.array_equal(replay, eager)),
+                  "err_over_scale_vs_plain": rel,
+                  "host_ms_eager": statistics.median(times["eager"]),
+                  "host_ms_graph": statistics.median(times["graph"])}
+        if not out[b]["bit_equal_to_eager"] or rel >= BARS[engine]:
+            raise RuntimeError(f"{engine} bucket {b}: the graph replay disagrees with the "
+                               f"eager kernel or the plain version (bar {BARS[engine]}): "
+                               f"{out[b]}")
+    return out
+
+
+def _serve_graph(torch, dev, store) -> dict:
+    """``serve-graph``: the checkpoint served on ``auto`` (-> ``kernel``),
+    then on ``kernel-bf16`` and ``kernel-int8``, each from a cold cache:
+    the captures equal the buckets at warm-up and stay 0 over the
+    requests; every bucket's replay bit-equal to the eager kernel and
+    within the engine's bar of the plain version."""
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import GRAPH_CACHE, serve_latest_model
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    # the singles pad to the 256-row bucket, the batches to 512 and 4096
+    batches = [torch.rand(n, generator=gen, device=dev) * 100.0 for n in (300, 4096)]
+    singles = [50.0, 10.0, 90.0]
+    out = {}
+    for requested, engine in (("auto", "kernel"), ("kernel-bf16", "kernel-bf16"),
+                              ("kernel-int8", "kernel-int8")):
+        GRAPH_CACHE.reset()
+        reset_launches()
+        handle = serve_latest_model(store, host="127.0.0.1", port=0, block=False,
+                                    engine=requested, device=dev)
+        try:
+            warm = GRAPH_CACHE.stats()
+            health, checks = _check_served(torch, dev, handle, singles, batches)
+            served = GRAPH_CACHE.stats()
+            launches = dict(LAUNCHES)
+            predictor = handle.app.predictor
+            buckets = _bucket_checks(torch, dev, predictor, engine, seed=len(out))
+        finally:
+            handle.stop()
+        line = {"requested": requested, "engine": health["engine"],
+                "buckets": list(predictor.buckets), "captures_at_warmup": warm["captures"],
+                "captures_over_requests": served["captures"] - warm["captures"],
+                "replays_over_requests": served["replays"] - warm["replays"],
+                "launches": launches, "per_bucket": buckets, "bar": BARS[engine], **checks}
+        emit("serve-graph", **line)
+        if health["engine"] != engine or warm["captures"] != len(predictor.buckets):
+            raise RuntimeError(f"{engine}: {warm['captures']} captures at warm-up for "
+                               f"{len(predictor.buckets)} buckets ({health['engine']})")
+        if line["captures_over_requests"] or checks["worst_err_over_scale"] >= BARS[engine]:
+            raise RuntimeError(f"{engine}: a request captured, or an answer is off: {line}")
+        if launches[engine] < line["replays_over_requests"] + warm["replays"]:
+            raise RuntimeError(f"{engine}: replays went uncounted: {line}")
+        out[engine] = line
+    return out
+
+
+def _serve_graph_swap(torch, dev, store, second) -> dict:
+    """``serve-graph-swap``: a second checkpoint of the same architecture
+    served in the same process while the first still serves: no capture,
+    one rebind; each service answers with its own weights (held against
+    its own eager kernel, bit-equal), and the first again after the second."""
+    import numpy as np
+
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import GRAPH_CACHE, serve_latest_model, serve_model
+
+    GRAPH_CACHE.reset()
+    reset_launches()
+    first = serve_latest_model(store, host="127.0.0.1", port=0, block=False, engine="auto",
+                               device=dev)
+    try:
+        before = GRAPH_CACHE.stats()
+        swap = serve_model(second, date(2026, 7, 4), host="127.0.0.1", port=0, block=False,
+                           engine="auto")
+        try:
+            after_warm = GRAPH_CACHE.stats()
+            xs = [float(x) for x in np.linspace(1, 99, 9)]
+            got_second = [post(swap.url, {"X": x})["prediction"] for x in xs]
+            got_first = [post(first.url, {"X": x})["prediction"] for x in xs]
+            end = GRAPH_CACHE.stats()
+            launches = dict(LAUNCHES)
+            # each single row pads to the 256-row bucket, whose launch plan
+            # fixes the kernel's summation order: the eager reference runs
+            # the rows in one batch of that bucket
+            bucket = first.app.predictor.buckets[0]
+            X = torch.zeros(bucket, 1, device=dev)
+            X[:len(xs), 0] = torch.tensor(xs, device=dev)
+            eager = {name: [float(v) for v in h.app.predictor.kernel(X)[:len(xs)].cpu()]
+                     for name, h in (("first", first), ("second", swap))}
+        finally:
+            swap.stop()
+    finally:
+        first.stop()
+    out = {"captures_at_swap": after_warm["captures"] - before["captures"],
+           "rebinds_at_swap": after_warm["rebinds"] - before["rebinds"],
+           "misses_at_swap": after_warm["misses"] - before["misses"],
+           "rebinds_serving_both_in_turn": end["rebinds"] - after_warm["rebinds"],
+           "captures_total": end["captures"],
+           "second_equals_its_eager": got_second == eager["second"],
+           "first_equals_its_eager": got_first == eager["first"],
+           "second_differs_from_first": all(a != b for a, b in zip(got_second, got_first)),
+           "launches": launches, "requests": 2 * len(xs)}
+    emit("serve-graph-swap", **out)
+    if out["captures_at_swap"] or out["misses_at_swap"] or out["rebinds_at_swap"] != 1:
+        raise RuntimeError(f"the same-architecture swap captured or did not rebind once: {out}")
+    if not (out["second_equals_its_eager"] and out["first_equals_its_eager"]
+            and out["second_differs_from_first"]):
+        raise RuntimeError(f"a service answered with another checkpoint's weights: {out}")
+    return out
+
+
+def _serve_graph_overlap(torch, dev, store, hist) -> dict:
+    """``serve-graph-overlap``: the kernel predictor's buckets captured on
+    this thread while another thread runs OVERLAP_STEPS Adam steps of the
+    1024-wide MLP on the card; both finish, the capture lies inside the
+    training, its replays equal the eager kernel, and the losses equal an
+    unshared run of the same steps bit for bit."""
+    import threading
+
+    import numpy as np
+
+    from bodywork_tpu_torch.models import MLPConfig
+    from bodywork_tpu_torch.models.base import pad_rows
+    from bodywork_tpu_torch.models.mlp import (
+        _scaled_splits,
+        draw_indices,
+        fit_keys,
+        init_mlp_params,
+        train_core,
+    )
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import GRAPH_CACHE, build_predictor
+
+    cfg = MLPConfig(**{**LOOP_MLP, "n_steps": OVERLAP_STEPS})
+    X_hist, y_hist = hist
+    Xp, yp, w = (torch.as_tensor(a, device=dev) for a in pad_rows(
+        X_hist.cpu().numpy()[:, None], y_hist.cpu().numpy()))
+    Xs, ys, _ = _scaled_splits(Xp, yp, w)
+    k_init, k_train = fit_keys(13)
+    idx = draw_indices(k_train, OVERLAP_STEPS, cfg.batch_size, Xp.shape[0], device=dev)
+
+    def train(started=None) -> tuple:
+        net = init_mlp_params(k_init, WIDTHS, device=dev)
+        torch.cuda.synchronize()
+        if started is not None:
+            started.set()
+        t0 = time.perf_counter()
+        _, losses = train_core(net, Xs, ys, w, idx, cfg)
+        torch.cuda.synchronize()
+        return losses.cpu(), t0, time.perf_counter()
+
+    alone = train()[0]
+    box, started = {}, threading.Event()
+
+    def worker():
+        box["losses"], box["t0"], box["t1"] = train(started)
+
+    from bodywork_tpu_torch.models.checkpoint import load_model
+
+    model, _ = load_model(store, device=dev)
+    predictor = build_predictor(model, "kernel")
+    GRAPH_CACHE.reset()
+    reset_launches()
+    thread = threading.Thread(target=worker, name="overlap-train")
+    thread.start()
+    started.wait()
+    time.sleep(0.02)  # the Adam loop is issuing its kernels
+    t0 = time.perf_counter()
+    predictor.warmup()
+    t1 = time.perf_counter()
+    thread.join()
+    stats, launches = GRAPH_CACHE.stats(), dict(LAUNCHES)
+    rng = np.random.default_rng(14)
+    Xq = rng.uniform(0, 100, (predictor.buckets[0], 1)).astype(np.float32)
+    replay_equal = bool(np.array_equal(
+        predictor._predict_padded(Xq),
+        predictor.kernel(torch.as_tensor(Xq, device=dev)).cpu().numpy()))
+    shared = box["losses"]
+    out = {"steps": OVERLAP_STEPS, "captures": stats["captures"],
+           "capture_s": t1 - t0, "train_s": box["t1"] - box["t0"],
+           "capture_inside_training": box["t0"] < t0 and t1 < box["t1"],
+           "losses_equal_unshared": bool(torch.equal(shared, alone)),
+           "max_abs_loss_gap": float((shared - alone).abs().max()),
+           "final_loss": float(shared[-1]), "replay_bit_equal_to_eager": replay_equal,
+           "launches": launches}
+    emit("serve-graph-overlap", **out)
+    if stats["captures"] != len(predictor.buckets) or not replay_equal:
+        raise RuntimeError(f"the capture beside training failed: {out}")
+    if not out["capture_inside_training"]:
+        raise RuntimeError(f"the capture did not run beside the training: {out}")
+    if not out["losses_equal_unshared"]:
+        raise RuntimeError(f"training beside a capture drifted from an unshared run: {out}")
+    return out
+
+
+def _serve_coalesce(torch, dev, store) -> dict:
+    """``serve-coalesce``: config 7's shape (``bench.py:646``) on both
+    front ends, coalescer off (window 0) and on (2 ms, 64 rows): 20
+    untimed requests, 300 sequential single rows on one keep-alive
+    connection, then 16 closed-loop clients x 25, each on its own
+    connection. p50/p99 (nearest rank) of both parts, realised rows per
+    dispatch (the part's requests, each client's untimed first one
+    included, over the kernel's launches in that part), and every answer
+    byte-identical across the four services."""
+    import threading
+
+    import numpy as np
+
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import serve_latest_model
+
+    rng = np.random.default_rng(7)
+    seq_x = [round(float(x), 3) for x in rng.uniform(0, 100, COALESCE["sequential"])]
+    client_x = [[round(float(x), 3) for x in rng.uniform(0, 100, COALESCE["per_client"])]
+                for _ in range(COALESCE["clients"])]
+    runs, bodies, launches_by_run = {}, {}, {}
+    for engine in ("thread", "aio"):
+        for window in COALESCE["windows"]:
+            name = f"{engine}-window-{window:g}ms"
+            reset_launches()
+            handle = serve_latest_model(store, host="127.0.0.1", port=0, block=False,
+                                        engine="auto", device=dev, server_engine=engine,
+                                        batch_window_ms=window,
+                                        batch_max_rows=COALESCE["max_rows"])
+            try:
+                conn = _connect(handle.base_url)
+                for _ in range(20):
+                    _score(conn, 50.0)
+                at_seq = LAUNCHES["kernel"]
+                seq = [_score(conn, x) for x in seq_x]
+                conn.close()
+                at_conc = LAUNCHES["kernel"]
+                conc = [[] for _ in client_x]
+                start = threading.Barrier(len(client_x))
+
+                def client(i):
+                    c = _connect(handle.base_url)
+                    _score(c, 50.0)
+                    start.wait()
+                    conc[i] = [_score(c, x) for x in client_x[i]]
+                    c.close()
+
+                threads = [threading.Thread(target=client, args=(i,))
+                           for i in range(len(client_x))]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join()
+                wall = time.perf_counter() - t0
+                end = LAUNCHES["kernel"]
+                batcher = handle.app.batcher
+                stats = batcher.stats() if batcher is not None else None
+                launches_by_run[name] = dict(LAUNCHES)
+            finally:
+                handle.stop()
+            answers = seq + [a for per in conc for a in per]
+            if any(status != 200 for status, _, _, _ in answers):
+                raise RuntimeError(f"{name}: a request failed")
+            bodies[name] = [body for _, _, body, _ in answers]
+            seq_s = [s for _, _, _, s in seq]
+            conc_s = [s for per in conc for _, _, _, s in per]
+            n_conc = len(conc_s)
+            runs[name] = {
+                "engine": engine, "window_ms": window, "max_rows": COALESCE["max_rows"],
+                "sequential": {"requests": len(seq_s), "p50_ms": 1e3 * _nearest_rank(seq_s, 50),
+                               "p99_ms": 1e3 * _nearest_rank(seq_s, 99),
+                               "rows_per_dispatch": len(seq_s) / max(1, at_conc - at_seq)},
+                "concurrent": {"clients": len(client_x), "requests": n_conc,
+                               "p50_ms": 1e3 * _nearest_rank(conc_s, 50),
+                               "p99_ms": 1e3 * _nearest_rank(conc_s, 99),
+                               "requests_per_s": n_conc / wall,
+                               # each client's untimed first request too
+                               "rows_per_dispatch": (n_conc + len(client_x))
+                               / max(1, end - at_conc)},
+                "coalescer": stats, "launches": launches_by_run[name],
+            }
+            emit("serve-coalesce", name=name, **runs[name])
+    reference = bodies["thread-window-0ms"]
+    identical = {name: b == reference for name, b in bodies.items()}
+    emit("serve-coalesce-identity", requests=len(reference), identical_to_uncoalesced=identical)
+    if not all(identical.values()):
+        raise RuntimeError(f"coalesced or aio answers differ from the uncoalesced "
+                           f"thread engine's: {identical}")
+    return {"runs": runs, "launches": launches_by_run}
+
+
+def _metrics_value(base_url: str, series: str) -> float:
+    with urllib.request.urlopen(base_url + "/metrics", timeout=60) as resp:
+        for line in resp.read().decode().splitlines():
+            if line.startswith(series + " "):
+                return float(line.rsplit(" ", 1)[1])
+    return 0.0
+
+
+def _serve_admission(torch, dev, store) -> dict:
+    """``serve-admission``: the aio front end with ``max_pending`` 8 and
+    the coalescer on, under a burst of 64 simultaneous single rows, each
+    on its own connection: the 429s carry ``Retry-After``, every 200 is
+    the answer the same row gets unshed, and the ``/metrics`` shed count
+    rises by exactly the 429s."""
+    import threading
+
+    import numpy as np
+
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import serve_latest_model
+
+    xs = [round(float(x), 3) for x in
+          np.random.default_rng(9).uniform(0, 100, ADMISSION["burst"])]
+    series = 'bodywork_tpu_serve_shed_total{reason="admission"}'
+    reset_launches()
+    handle = serve_latest_model(store, host="127.0.0.1", port=0, block=False, engine="auto",
+                                device=dev, server_engine="aio", batch_window_ms=2.0,
+                                max_pending=ADMISSION["max_pending"])
+    try:
+        conn = _connect(handle.base_url)
+        unshed = {x: _score(conn, x)[2] for x in xs}
+        conn.close()
+        shed_before = _metrics_value(handle.base_url, series)
+        conns = [_connect(handle.base_url) for _ in xs]
+        for c in conns:
+            c.connect()
+        results = [None] * len(xs)
+        start = threading.Barrier(len(xs))
+
+        def one(i):
+            start.wait()
+            results[i] = _score(conns[i], xs[i])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for c in conns:
+            c.close()
+        shed_after = _metrics_value(handle.base_url, series)
+        state = handle.app.admission.state()
+        high_water = handle.app.admission.max_observed_pending
+        launches = dict(LAUNCHES)
+    finally:
+        handle.stop()
+    statuses = [r[0] for r in results]
+    sheds = [r for r in results if r[0] == 429]
+    out = {"max_pending": ADMISSION["max_pending"], "burst": len(xs),
+           "ok": statuses.count(200), "shed_429": len(sheds),
+           "other": len(xs) - statuses.count(200) - len(sheds),
+           "retry_after_s": sorted({r[1].get("Retry-After") for r in sheds}),
+           "metrics_shed_delta": shed_after - shed_before,
+           "max_observed_pending": high_water,
+           "every_200_equals_unshed": all(r[2] == unshed[x] for x, r in zip(xs, results)
+                                          if r[0] == 200),
+           "admission_state": state, "launches": launches}
+    emit("serve-admission", **out)
+    if not sheds or out["other"] or None in out["retry_after_s"] \
+            or high_water > ADMISSION["max_pending"]:
+        raise RuntimeError(f"the burst was not shed with 429 + Retry-After: {out}")
+    if not out["every_200_equals_unshed"] or out["metrics_shed_delta"] != len(sheds):
+        raise RuntimeError(f"admission answers or counts are off: {out}")
+    return out
+
+
+def phase_serving(torch, dev, workdir: str) -> dict:
+    """The serving machinery on the card (see the module docstring)."""
+    store, second, hist = _serving_models(torch, dev, workdir)
+    graph = _serve_graph(torch, dev, store)
+    swap = _serve_graph_swap(torch, dev, store, second)
+    overlap = _serve_graph_overlap(torch, dev, store, hist)
+    coalesce = _serve_coalesce(torch, dev, store)
+    admission = _serve_admission(torch, dev, store)
+    torch.cuda.synchronize()
+    launches = {engine: graph[engine]["launches"][engine] for engine in graph}
+    return {"graph": graph, "swap": swap, "overlap": overlap, "coalesce": coalesce,
+            "admission": admission, "launches_by_path": {
+                "serve-graph": launches,
+                "serve-graph-swap": swap["launches"],
+                "serve-graph-overlap": overlap["launches"],
+                "serve-coalesce": {e: sum(r[e] for r in coalesce["launches"].values())
+                                   for e in VARIANTS},
+                "serve-admission": admission["launches"]}}
+
+
 def _day_line(model_type: str, r, launched: int) -> dict:
     """One simulated day's readings from its ``DayResult``."""
     from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE, TEST_STAGE, TRAIN_STAGE
@@ -777,25 +1322,32 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
     a pending prefetch box is read (``_prefetch_box``)."""
     from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
     from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
-    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.pipeline.spec import SERVE_STAGE, TRAIN_STAGE
+    from bodywork_tpu_torch.serve import GRAPH_CACHE
     from bodywork_tpu_torch.store import FilesystemStore
 
     spec = default_pipeline(model_type, "batch", overlap_generate=overlap_generate)
     spec.stages[TRAIN_STAGE].args.update(train_args)
     name = f"{model_type}-{train_args.get('mode', 'full')}"
     runner = LocalRunner(spec, FilesystemStore(os.path.join(root, name)), device=dev)
-    days, seen, box = [], {"kernel": 0}, {}
+    days, seen, box = [], {"kernel": 0, "captures": 0}, {}
 
     def _on_day(r):
         launched = LAUNCHES["kernel"] - seen["kernel"]
         seen["kernel"] = LAUNCHES["kernel"]
-        days.append(_day_line(model_type, r, launched))
+        captures = GRAPH_CACHE.stats()["captures"]
+        days.append({**_day_line(model_type, r, launched),
+                     "graph_captures": captures - seen["captures"],
+                     "buckets": r.stage_results[SERVE_STAGE].app.predictor.buckets})
+        seen["captures"] = captures
         emit(line, **days[-1])
         if not box:
             box.update(_prefetch_box(runner))
         if on_day is not None:
             on_day(r)
 
+    # a cold graph cache: day 1 captures its buckets, later days rebind
+    GRAPH_CACHE.reset()
     reset_launches()
     results = runner.run_simulation(LOOP_START, n_days, on_day=_on_day)
     launches = dict(LAUNCHES)
@@ -816,6 +1368,7 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
                "median_stage_seconds_days_2_7": stages,
                "prefetched": prefetched, "lookaheads_collected": collected,
                "lookahead_train_s": [r.lookahead_train_s for r in results],
+               "graph_captures_per_day": [d["graph_captures"] for d in days],
                "prefetch_box_after_day_1": box,
                "runs_through": "run_simulation: journal, horizon prefetch, lookahead train and "
                        "compactor; the train stage's seconds are its wait "
@@ -824,6 +1377,10 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
         raise RuntimeError(f"{name}: {prefetched} prefetched of {n_days} days, "
                            f"{collected} lookaheads collected of {n_days - 1}: a "
                            "background step fell back inline")
+    captures = summary["graph_captures_per_day"]
+    if captures[0] != len(days[0]["buckets"]) or any(captures[1:]):
+        raise RuntimeError(f"{name}: graph captures per day {captures}: day 1 must capture "
+                           f"its {len(days[0]['buckets'])} buckets and later days none")
     return {"summary": summary, "days": days, "runner": runner, "results": results}
 
 
@@ -1883,7 +2440,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="device,generator,mlp-draws,build,kernels,slice,day-loop,incremental,"
+        default="device,generator,mlp-draws,build,kernels,slice,serving,day-loop,incremental,"
                 "quantized,resume,sigterm,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
@@ -1918,13 +2475,16 @@ def main(argv=None) -> int:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
-    for phase in ("slice", "day-loop", "incremental", "resume", "sigterm"):
+    serving = {}
+    for phase in ("slice", "serving", "day-loop", "incremental", "resume", "sigterm"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
         try:
             if phase == "slice":
                 launches = phase_slice(torch, dev, workdir)
+            elif phase == "serving":
+                serving = phase_serving(torch, dev, workdir)
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
             elif phase == "resume":
@@ -1959,6 +2519,10 @@ def main(argv=None) -> int:
                 by_path["resume"] = resume["twin_launches"][engine] + resume["launches"][engine]
             if sigterm:
                 by_path["sigterm-restart"] = sigterm["launches"][engine]
+            # the serving machinery's paths: every launch a graph replay or
+            # a bucket's capture warm-up, read per path in this run
+            for path, counts in serving.get("launches_by_path", {}).items():
+                by_path[path] = counts.get(engine, 0)
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

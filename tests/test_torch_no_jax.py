@@ -26,6 +26,9 @@ import bodywork_tpu_torch.train.incremental, bodywork_tpu_torch.models.fused
 import bodywork_tpu_torch.serve.predictor, bodywork_tpu_torch.pipeline.stages
 import bodywork_tpu_torch.chaos.kill, bodywork_tpu_torch.pipeline.journal
 import bodywork_tpu_torch.data.snapshot, bodywork_tpu_torch.utils.shutdown
+import bodywork_tpu_torch.obs, bodywork_tpu_torch.obs.registry
+import bodywork_tpu_torch.serve.aio, bodywork_tpu_torch.serve.batcher
+import bodywork_tpu_torch.serve.admission, bodywork_tpu_torch.serve.app
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
