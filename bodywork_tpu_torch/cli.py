@@ -1,5 +1,5 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test|train|run-day|run-sim|compact|registry``.
+generate|serve|test|train|run-day|run-sim|compact|registry|trace``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -38,7 +38,13 @@ generate|serve|test|train|run-day|run-sim|compact|registry``.
   generate beside serve (``default_pipeline(overlap_generate=True)``).
   Their train and serve stages read ``BODYWORK_TPU_TRAIN_MODE`` and
   ``BODYWORK_TPU_SERVE_DTYPE``; both arm the kill switch of
-  ``BODYWORK_TPU_CRASH_SCHEDULE`` (``chaos.kill``).
+  ``BODYWORK_TPU_CRASH_SCHEDULE`` (``chaos.kill``). ``run-day
+  --trace-out T [--report-out R]`` writes the runner's spans as a Chrome
+  trace and the day report (``bodywork_tpu.day_report/1``; next to the
+  trace when no ``--report-out``), a literal ``{date}`` in either path
+  becoming the day (the newest 30 such files kept); ``run-sim
+  --trace-out T`` writes the whole simulation's spans and ``--profile-dir
+  D`` a ``torch.profiler`` trace of the loop (CUDA activity on the card).
 - ``compact --store S [--dry-run] [--keep N]`` consolidates the dataset
   history into one ``snapshots/`` artefact (``--dry-run`` prints the
   days, rows and bytes it would write, and writes nothing).
@@ -55,6 +61,11 @@ generate|serve|test|train|run-day|run-sim|compact|registry``.
   not move), ``gate [--model M] [--date D] [--dry-run] [--shadow-days K]
   [--device cuda|cpu]``. A registry error exits 1. (The canary verbs
   are a later slice.)
+
+- ``trace show ID|tail [-n N] [--traces N]|export --chrome OUT
+  [--trace-id ID] --store S`` reads the flight-recorder dumps under
+  ``obs/flightrec/`` (either package's): exit 9 when the trace (or, for
+  ``tail`` and ``export``, any dump) is absent, 1 on an error.
 
 ``--device`` defaults to ``cuda``: without a card the command refuses to
 run unless ``--device cpu`` is given.
@@ -271,6 +282,54 @@ def _print_day(r) -> None:
     sys.stdout.flush()
 
 
+def _derived_report_path(trace_out: str) -> str:
+    """``day.trace.json`` -> ``day.report.json`` (or ``<path>.report.json``
+    when the trace path has no ``.trace.json`` suffix)."""
+    if trace_out.endswith(".trace.json"):
+        return trace_out[: -len(".trace.json")] + ".report.json"
+    return trace_out + ".report.json"
+
+
+#: date-keyed trace and report files kept per ``{date}`` template
+TRACE_RETENTION = 30
+
+
+def _prune_templated(template: str, keep: int = TRACE_RETENTION) -> None:
+    """Drop all but the newest ``keep`` files matching a ``{date}``
+    template (ISO dates sort in time order); an explicit path is the
+    operator's to manage."""
+    import glob
+
+    # escape the path first: a '[' or '*' in it must stay literal
+    files = sorted(glob.glob(glob.escape(template).replace("{date}", "*")))
+    for old in files[:-keep]:
+        try:
+            os.remove(old)
+        except OSError:  # a concurrent pruner got it first
+            pass
+
+
+def _write_day_outputs(args, runner, result, d: date) -> None:
+    """``run-day --trace-out/--report-out``: the runner's whole timeline
+    (bootstrap included) as a Chrome trace, and the day's report."""
+    from bodywork_tpu_torch.obs.spans import day_report, write_chrome_trace, write_day_report
+
+    trace_out = args.trace_out.replace("{date}", str(d)) if args.trace_out else None
+    report_out = args.report_out.replace("{date}", str(d)) if args.report_out else None
+    if trace_out:
+        path = write_chrome_trace(trace_out, runner.recorder.spans(),
+                                  process_name=f"run-day {d}")
+        print(f"trace: {path}")
+    path = write_day_report(report_out or _derived_report_path(trace_out), day_report(result))
+    print(f"report: {path}")
+    if args.trace_out and "{date}" in args.trace_out:
+        _prune_templated(args.trace_out)
+        if not args.report_out:
+            _prune_templated(_derived_report_path(args.trace_out))
+    if args.report_out and "{date}" in args.report_out:
+        _prune_templated(args.report_out)
+
+
 def cmd_run_day(args) -> int:
     from bodywork_tpu_torch.pipeline.journal import RESUMED_NOOP_EXIT
 
@@ -291,6 +350,8 @@ def cmd_run_day(args) -> int:
         print(f"day {d}: resumed — skipped {', '.join(result.skipped_stages)} "
               "(journal-verified)")
     _print_day(result)
+    if args.trace_out or args.report_out:
+        _write_day_outputs(args, runner, result, d)
     return 0
 
 
@@ -298,12 +359,23 @@ def cmd_run_sim(args) -> int:
     runner = _runner(args)
     start = parse_date(args.date) if args.date else date.today()
     results, code = _day_loop(
-        lambda: runner.run_simulation(start, args.days, on_day=_print_day), "run-sim")
+        lambda: runner.run_simulation(start, args.days, on_day=_print_day,
+                                      profile_dir=args.profile_dir), "run-sim")
     if code is not None:
         return code
     total = sum(r.wall_clock_s for r in results)
     print(f"total {total:.3f}s over {args.days} day(s), "
           f"mean {total / max(args.days, 1):.3f}s/day")
+    if args.profile_dir:
+        from bodywork_tpu_torch.utils.profiling import trace_path
+
+        print(f"profile: {trace_path(args.profile_dir, f'{args.days}-day simulation')}")
+    if args.trace_out:
+        from bodywork_tpu_torch.obs.spans import write_chrome_trace
+
+        path = write_chrome_trace(args.trace_out, runner.recorder.spans(),
+                                  process_name=f"run-sim {args.days}d")
+        print(f"trace: {path}")
     return 0
 
 
@@ -496,6 +568,74 @@ def cmd_registry_gate(args) -> int:
     return 0
 
 
+#: ``trace`` exit when the requested trace (or any dump) is absent: apart
+#: from 1 (an error), so a script tells "not recorded" from "broken"
+TRACE_ABSENT_EXIT = 9
+
+
+def cmd_trace(args) -> int:
+    """Inspect stored flight-recorder dumps (``obs/flightrec/``): ``tail``
+    lists recent dumps and their traces, ``show`` prints one trace as
+    JSON by (a prefix of) its id, and ``export --chrome`` renders traces
+    through the Chrome trace-event emitter. The JAX command's output and
+    exit codes: :data:`TRACE_ABSENT_EXIT` when nothing matches, 1 when
+    the store or the output cannot be used."""
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    try:
+        return _trace(args)
+    except OSError as exc:
+        get_logger("cli").error(exc)
+        return 1
+
+
+def _trace(args) -> int:
+    from bodywork_tpu_torch.obs.tracing import find_trace, flight_trace_spans, iter_flight_records
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    store = open_store(args.store)
+    command = args.trace_command
+    if command == "show":
+        dump_key, trace_doc = find_trace(store, args.trace_id)
+        if trace_doc is None:
+            log.error(f"trace {args.trace_id!r} not found in any dump")
+            return TRACE_ABSENT_EXIT
+        print(json.dumps({"dump": dump_key, "trace": trace_doc}, indent=2, sort_keys=True))
+        return 0
+    records = list(iter_flight_records(store))
+    if not records:
+        log.error("no flight-recorder dumps stored (obs/flightrec/ empty "
+                  "— dumps are written at SLO-watchdog verdicts with "
+                  "tracing enabled)")
+        return TRACE_ABSENT_EXIT
+    if command == "tail":
+        for key, doc in records[-args.n:]:
+            print(f"{key}  verdict={doc['verdict']} reason={doc['reason']!r} "
+                  f"canary={doc.get('canary_key')} traces={doc['n_traces']}")
+            for t in doc["traces"][-args.traces:]:
+                meta = t.get("meta") or {}
+                print(f"  {t['trace_id']}  {t.get('route')} status={t.get('status')} "
+                      f"duration={t.get('duration_s')}s stream={meta.get('stream', '-')} "
+                      f"spans={len(t['spans'])}")
+        return 0
+    # export: one trace by id, or every trace of the newest dump
+    from bodywork_tpu_torch.obs.spans import write_chrome_trace
+
+    if args.trace_id:
+        dump_key, trace_doc = find_trace(store, args.trace_id)
+        if trace_doc is None:
+            log.error(f"trace {args.trace_id!r} not found in any dump")
+            return TRACE_ABSENT_EXIT
+        spans, source = flight_trace_spans(trace_doc), dump_key
+    else:
+        source, doc = records[-1]
+        spans = [span for t in doc["traces"] for span in flight_trace_spans(t)]
+    print(write_chrome_trace(args.chrome, spans, process_name=source))
+    return 0
+
+
 def _positive_int(raw: str) -> int:
     value = int(raw)
     if value < 1:
@@ -632,7 +772,14 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--date", default=None, help="(first) day, YYYY-MM-DD (default today)")
         p.add_argument("--mode", default="batch", choices=["single", "batch"],
                        help="the test stage's requests: one row or one batch each")
+        p.add_argument("--trace-out", default=None, metavar="PATH",
+                       help="write the runner's spans as a Chrome trace-event file "
+                            "(Perfetto, chrome://tracing); run-day also writes the "
+                            "day report next to it, and replaces {date} with the day")
         if name == "run-sim":
+            p.add_argument("--profile-dir", default=None, metavar="DIR",
+                           help="write a torch.profiler trace of the whole loop here "
+                                "(CUDA activity included on the card)")
             p.add_argument("--days", type=_positive_int, required=True)
             p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
                            help="rows the generator draws a day (default 1440)")
@@ -640,6 +787,10 @@ def build_parser() -> argparse.ArgumentParser:
                            help="run generate beside serve (DAG s1 >> s2,s3 >> s4) instead "
                                 "of the reference's serial DAG; the artefacts are the same")
         else:
+            p.add_argument("--report-out", default=None, metavar="PATH",
+                           help="write the day report (JSON: stage seconds + spans) "
+                                "here; default <trace-out stem>.report.json when "
+                                "--trace-out is given")
             p.add_argument("--no-resume", action="store_true",
                            help="ignore the runs/ journal: no lease, no verified skipping, "
                                 "a full re-run. Default: resume, skipping completed stages "
@@ -700,6 +851,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "last K dataset days (in-process, no live traffic; default off)")
     p.add_argument("--device", **{**device, "help": "where the shadow evaluation scores "
                                                      "(default cuda)"})
+
+    p = sub.add_parser("trace", help="inspect request traces in stored flight-recorder "
+                                     "dumps (obs/flightrec/)")
+    trace_sub = p.add_subparsers(dest="trace_command", required=True)
+    p = trace_sub.add_parser("show", help="print one stored trace (JSON) by trace id or "
+                                          "prefix")
+    p.set_defaults(fn=cmd_trace)
+    p.add_argument("--store", **store)
+    p.add_argument("trace_id", help="full 32-hex trace id, or any unambiguous prefix "
+                                    "(first match wins)")
+    p = trace_sub.add_parser("tail", help="list recent dumps and the traces they carry")
+    p.set_defaults(fn=cmd_trace)
+    p.add_argument("--store", **store)
+    p.add_argument("-n", type=_positive_int, default=5, metavar="N",
+                   help="dumps to show, newest last (default 5)")
+    p.add_argument("--traces", type=_positive_int, default=10, metavar="N",
+                   help="traces to list per dump (default 10)")
+    p = trace_sub.add_parser("export", help="render stored traces as a Chrome trace-event "
+                                            "file, one track per trace")
+    p.set_defaults(fn=cmd_trace)
+    p.add_argument("--store", **store)
+    p.add_argument("--chrome", required=True, metavar="OUT.json",
+                   help="output path for the Chrome trace-event JSON")
+    p.add_argument("--trace-id", default=None,
+                   help="export only this trace (id or prefix); default: every trace "
+                        "of the newest dump")
     return parser
 
 

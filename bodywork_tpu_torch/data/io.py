@@ -105,7 +105,8 @@ def load_latest_dataset(store: ArtefactStore) -> Dataset:
     return load_dataset(store, key)
 
 
-def load_history_parts(store: ArtefactStore, hist: list, tokens: dict) -> dict[str, Dataset]:
+def load_history_parts(store: ArtefactStore, hist: list, tokens: dict,
+                       record_outcome: bool = True) -> dict[str, Dataset]:
     """The parsed dataset of every ``hist`` entry, through three tiers,
     cheapest first:
 
@@ -117,7 +118,9 @@ def load_history_parts(store: ArtefactStore, hist: list, tokens: dict) -> dict[s
     3. one ``store.get_many`` of the rest, parsed.
 
     Snapshot slices fill the parse cache, so a cold process's first load
-    warms the cache a long-lived one builds day by day."""
+    warms the cache a long-lived one builds day by day.
+    ``record_outcome=False`` keeps a maintenance read (the compactor's)
+    out of ``bodywork_tpu_snapshot_loads_total``."""
     from bodywork_tpu_torch.data import snapshot as snapshot_mod
     from bodywork_tpu_torch.store.schema import SNAPSHOTS_PREFIX
 
@@ -136,12 +139,16 @@ def load_history_parts(store: ArtefactStore, hist: list, tokens: dict) -> dict[s
     if missing:
         snaps = store.history(SNAPSHOTS_PREFIX)
         snap = None
+        if not snaps:
+            if record_outcome:
+                snapshot_mod.record_load_outcome("miss")
         # the listing's embedded date bounds what the snapshot covers:
         # read its payload only when a missing day could be in it, or the
         # warm daily loop (whose one missing day is the newly generated
         # one) would re-read the ever-growing snapshot every day
-        if snaps and any(dates[key] <= snaps[-1][1] for key in missing):
-            snap = snapshot_mod.load_latest_snapshot(store, hist=snaps)
+        elif any(dates[key] <= snaps[-1][1] for key in missing):
+            snap = snapshot_mod.load_latest_snapshot(store, hist=snaps,
+                                                     record_outcome=record_outcome)
         if snap is not None:
             hist_keys = set(dates)
             slices = snap.slices()
@@ -168,6 +175,8 @@ def load_history_parts(store: ArtefactStore, hist: list, tokens: dict) -> dict[s
                 cache[key] = (token, ds)
                 parts[key] = ds
                 n_from_snapshot += 1
+            if record_outcome:
+                snapshot_mod.record_load_outcome("hit" if not still_missing else "stale")
             missing = still_missing
     if missing:
         blobs = store.get_many(missing)

@@ -22,8 +22,12 @@ Format: ``numpy.savez`` with arrays ``X``, ``y`` and a 0-d unicode
 snapshot (the filesystem tokens are the same ``(ino, size, mtime_ns)``
 in both). Snapshots are derived: deleting the prefix is always safe.
 The runner compacts on a background thread after each day; ``cli
-compact`` does it on demand. The JAX package's load-outcome and write
-counters wait for the port's metrics registry (ROADMAP Queue 1 item 9).
+compact`` does it on demand. Counters, the JAX package's:
+``bodywork_tpu_snapshot_loads_total{outcome}`` (the history loader's
+consultations: ``hit``, ``stale``, ``miss``, ``corrupt``; maintenance
+reads, the compactor's and ``compact --dry-run``'s, are not counted),
+``bodywork_tpu_snapshot_writes_total`` and the ``bodywork_tpu_snapshot_rows``
+gauge.
 """
 from __future__ import annotations
 
@@ -81,15 +85,33 @@ class Snapshot:
         return out
 
 
-def load_latest_snapshot(store: ArtefactStore, hist: list | None = None) -> Snapshot | None:
+def record_load_outcome(outcome: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_snapshot_loads_total",
+        "Snapshot consultations by the history loader, by outcome "
+        "(hit: covered everything; stale: used, but some days needed "
+        "per-day fetch; miss: no snapshot; corrupt: unreadable)",
+    ).inc(outcome=outcome)
+
+
+def load_latest_snapshot(store: ArtefactStore, hist: list | None = None,
+                         record_outcome: bool = True) -> Snapshot | None:
     """The newest parseable snapshot, or None (none kept, or none
     readable: the caller falls back to per-day loads either way). One
     listing and one ``get_bytes``; a corrupt newest snapshot falls back to
     the older kept one at one more read, and flags ``repair_needed`` so
     the compactor rewrites it. ``hist``, a prior
-    ``history(SNAPSHOTS_PREFIX)``, saves the listing."""
+    ``history(SNAPSHOTS_PREFIX)``, saves the listing;
+    ``record_outcome=False`` keeps a maintenance read out of the
+    load-outcome counter."""
     if hist is None:
         hist = store.history(SNAPSHOTS_PREFIX)
+    if not hist:
+        if record_outcome:
+            record_load_outcome("miss")
+        return None
     corrupt_seen = False
     found = None
     for key, _ in reversed(hist):
@@ -112,12 +134,16 @@ def load_latest_snapshot(store: ArtefactStore, hist: list | None = None) -> Snap
             # to the older kept snapshot, then to the per-day path; it
             # never crashes training or yields a wrong dataset
             log.warning(f"snapshot {key} unreadable ({exc!r}); ignoring it")
+            if record_outcome:
+                record_load_outcome("corrupt")
             corrupt_seen = True
             continue
         found = Snapshot(key=key, X=X, y=y, entries=entries)
         break
     if corrupt_seen:
         store.mutable_cache("_snapshot_state")["repair_needed"] = True
+    if found is None and not corrupt_seen and record_outcome:
+        record_load_outcome("miss")  # every kept snapshot was pruned away
     return found
 
 
@@ -144,7 +170,9 @@ def write_snapshot(store: ArtefactStore, keep: int = SNAPSHOT_KEEP) -> str | Non
             consolidatable.append((key, d))
     if not consolidatable:
         return None
-    parts = load_history_parts(store, consolidatable, tokens)
+    # a maintenance read: the compactor finding yesterday's snapshot stale
+    # is the expected case, not a loader outcome to count
+    parts = load_history_parts(store, consolidatable, tokens, record_outcome=False)
     covered = [{"key": key, "rows": len(parts[key]), "token": canon_token(tokens[key])}
                for key, _ in consolidatable]
     X = np.concatenate([parts[e["key"]].X for e in covered])
@@ -163,6 +191,16 @@ def write_snapshot(store: ArtefactStore, keep: int = SNAPSHOT_KEEP) -> str | Non
     _prune_snapshots(store, keep)
     # the snapshot just written matches the current tokens by construction
     store.mutable_cache("_snapshot_state")["repair_needed"] = False
+    from bodywork_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.counter(
+        "bodywork_tpu_snapshot_writes_total", "Snapshot compactions written"
+    ).inc()
+    reg.gauge(
+        "bodywork_tpu_snapshot_rows",
+        "Rows covered by the most recently written snapshot",
+    ).set(X.shape[0])
     log.info(f"wrote snapshot {key}: {len(covered)} day(s), {X.shape[0]} rows "
              f"in {time.perf_counter() - t0:.3f}s")
     return key
@@ -218,7 +256,7 @@ def plan_compaction(store: ArtefactStore) -> dict:
         return plan
     from bodywork_tpu_torch.data.io import load_history_parts
 
-    parts = load_history_parts(store, consolidatable, tokens)
+    parts = load_history_parts(store, consolidatable, tokens, record_outcome=False)
     rows = sum(len(parts[k]) for k, _ in consolidatable)
     n_features = next(iter(parts.values())).X.shape[1]
     plan.update(

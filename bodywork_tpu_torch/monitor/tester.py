@@ -16,10 +16,18 @@ numeric ``Retry-After`` as a floor under the backoff — the JAX client's
 budget. :class:`InProcessScoringClient` sends the same requests straight
 to a scoring app object, with the same status retries: the day loop's
 test stage without sockets.
+
+Metrics, the JAX package's: ``bodywork_tpu_scoring_client_retries_total
+{reason}`` (``status`` or ``connection``) for each retry of either
+client, and after each test the ``bodywork_tpu_live_*`` family (runs,
+rows scored, failed rows, and the latest MAPE, score/label correlation
+and mean round-trip, the gauges left unset on a day with nothing
+scored).
 """
 from __future__ import annotations
 
 import json
+import math
 import urllib.error
 import urllib.request
 from datetime import date
@@ -74,6 +82,15 @@ def _retry_after_seconds(headers) -> float | None:
         return None
 
 
+def _record_client_retry(exc, attempt, sleep_s) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_scoring_client_retries_total",
+        "Scoring-client request retries by reason",
+    ).inc(reason="status" if isinstance(exc, _RetryableStatus) else "connection")
+
+
 def scoring_endpoint(base_url: str, mode: str = "single") -> str:
     """Normalise a scoring-service URL (a bare base, or one already
     carrying ``/score/v1[/batch]``) to the endpoint for ``mode``."""
@@ -116,6 +133,7 @@ class HttpScoringClient:
             status, body = call_with_retry(
                 lambda: self._post(payload), RETRY_POLICY,
                 is_retryable=lambda e: isinstance(e, _RetryableStatus) or is_transient(e),
+                on_retry=_record_client_retry,
             )
         except _RetryableStatus as exc:
             log.error(f"scoring request failed after retries: HTTP {exc.status_code}")
@@ -160,6 +178,7 @@ class InProcessScoringClient:
             status, body = call_with_retry(
                 lambda: self._post(payload), self.POLICY,
                 is_retryable=lambda e: isinstance(e, _RetryableStatus),
+                on_retry=_record_client_retry,
             )
         except _RetryableStatus as exc:
             log.error(f"scoring request failed after retries: HTTP {exc.status_code}")
@@ -267,6 +286,39 @@ def persist_test_metrics(store: ArtefactStore, metrics: dict, results_date: date
     return key
 
 
+def _record_live_metrics(metrics: dict) -> None:
+    """Export a day's live-test record through the shared obs registry:
+    the numbers persisted to the date-keyed CSV as scrapeable counters and
+    gauges."""
+    from bodywork_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.counter(
+        "bodywork_tpu_live_test_runs_total", "Completed live-service tests"
+    ).inc()
+    reg.counter(
+        "bodywork_tpu_live_test_rows_total",
+        "Rows successfully scored by live-service tests",
+    ).inc(float(metrics["n_scored"]))
+    reg.counter(
+        "bodywork_tpu_live_test_failures_total",
+        "Rows whose live scoring request failed",
+    ).inc(float(metrics["n_failures"]))
+    gauges = (
+        ("bodywork_tpu_live_mape_ratio",
+         "Live MAPE of the latest service test", metrics["MAPE"]),
+        ("bodywork_tpu_live_score_label_corr_ratio",
+         "Live score/label correlation of the latest service test",
+         metrics["r_squared"]),
+        ("bodywork_tpu_live_response_mean_seconds",
+         "Mean scoring-request round-trip of the latest service test",
+         metrics["mean_response_time"]),
+    )
+    for name, help_, value in gauges:
+        if not math.isnan(value):  # an all-failures day has no quality signal
+            reg.gauge(name, help_).set(float(value))
+
+
 def run_service_test(store: ArtefactStore, client, mode: str = "single",
                      max_rows: int | None = None,
                      batch_size: int = DEFAULT_BATCH_SIZE) -> dict:
@@ -282,6 +334,7 @@ def run_service_test(store: ArtefactStore, client, mode: str = "single",
     results = score_dataset(client, ds, mode=mode, batch_size=batch_size)
     metrics = compute_test_metrics(results, ds.date)
     persist_test_metrics(store, metrics, ds.date)
+    _record_live_metrics(metrics)
     log.info(
         f"live test on {len(results['ok'])} rows ({ds.date}): "
         f"MAPE={metrics['MAPE']:.4f} corr={metrics['r_squared']:.4f} "

@@ -32,10 +32,14 @@ a bounded number of times; a document still unreadable past the budget
 keeps its version token, and the next acquire CAS-overwrites it with a
 fresh journal.
 
-The JAX package's journal counters (corrupt reads, resume outcomes,
-lease events) wait for the port's metrics registry (ROADMAP Queue 1
-item 9); its ``tenant`` field waits for tenancy (item 14): the port
-writes the root namespace's documents, which omit it.
+Counters, the JAX package's: ``bodywork_tpu_runner_journal_corrupt_total``
+(reads still invalid past the budget), ``bodywork_tpu_runner_resumes_total
+{outcome}`` (how each journalled ``run_day`` started, counted by the
+runner: ``fresh``, ``resumed``, ``noop``, ``rerun_mismatch``,
+``rerun_corrupt``) and ``bodywork_tpu_runner_lease_events_total{event}``
+(``acquired``, ``takeover``, ``lost``). The JAX journal's ``tenant``
+field waits for tenancy (ROADMAP Queue 1 item 14): the port writes the
+root namespace's documents, which omit it.
 """
 from __future__ import annotations
 
@@ -114,6 +118,40 @@ def artefact_digest(data: bytes) -> str:
     what resume verification re-hashes (``"sha256:<hex>"``, the registry's
     lineage format)."""
     return sha256_digest(data)
+
+
+def _count_corrupt() -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_runner_journal_corrupt_total",
+        "Run-journal reads that stayed invalid past the retry budget "
+        "(each one degrades that day to a safe full re-run)",
+    ).inc()
+
+
+def count_resume(outcome: str) -> None:
+    """``bodywork_tpu_runner_resumes_total{outcome}``: how each
+    journal-aware ``run_day`` started — ``fresh`` (no prior journal),
+    ``resumed`` (some stages skipped), ``noop`` (day already complete,
+    nothing re-run), ``rerun_mismatch`` (a recorded digest no longer
+    matched the store), ``rerun_corrupt`` (journal unreadable past the
+    budget — full re-run)."""
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_runner_resumes_total",
+        "run_day journal outcomes by kind",
+    ).inc(outcome=outcome)
+
+
+def _count_lease(event: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_runner_lease_events_total",
+        "Run-lease protocol events (acquired/takeover/lost)",
+    ).inc(event=event)
 
 
 def lease_ttl_from_env(default: float = DEFAULT_LEASE_TTL_S) -> float:
@@ -240,6 +278,7 @@ class RunJournal:
             doc, token, corrupt = self._load()
             if corrupt:
                 self.was_corrupt = True
+                _count_corrupt()
                 log.error(
                     f"run journal for {self.day} unreadable past the retry "
                     "budget; repairing with a fresh journal (full re-run)"
@@ -248,6 +287,7 @@ class RunJournal:
             if doc is not None:
                 foreign = self._foreign_live_lease(doc)
                 if foreign is not None:
+                    _count_lease("lost")
                     raise LeaseLost(
                         f"run lease for {self.day} is held by "
                         f"{foreign['owner']!r} until ~{foreign['expires_at']:.0f}"
@@ -280,6 +320,7 @@ class RunJournal:
                 for name, entry in ((prior or {}).get("stages") or {}).items()
                 if entry.get("state") == "complete"
             }
+            _count_lease("takeover" if takeover else "acquired")
             if takeover:
                 log.warning(
                     f"took over the {self.day} run lease from expired "
@@ -287,6 +328,7 @@ class RunJournal:
                     f"(fence {new_doc['lease']['fence']})"
                 )
             return prior
+        _count_lease("lost")
         raise LeaseLost(
             f"could not acquire the {self.day} run lease in "
             f"{_CAS_ATTEMPTS} attempts (persistent CAS contention)"
@@ -326,6 +368,7 @@ class RunJournal:
                 if corrupt or fresh is None or (
                     (fresh.get("lease") or {}).get("owner") != self.owner
                 ):
+                    _count_lease("lost")
                     raise LeaseLost(
                         f"run lease for {self.day} was taken over "
                         "mid-run; stopping"

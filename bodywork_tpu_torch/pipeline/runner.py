@@ -45,9 +45,23 @@ after each day. The background work runs on the runner's device, on the
 thread's current (default) CUDA stream, so the card orders it with the
 day's own work.
 
-Not ported yet (ROADMAP): compile prewarm (XLA machinery, not to port),
-spans and the day report, the journal's and snapshot's counters, and
-profiling (Queue 1 item 9).
+Spans (``obs.spans``, the JAX runner's names and categories): one
+:class:`~bodywork_tpu_torch.obs.spans.SpanRecorder` a runner
+(``self.recorder``) times each stage (``stage``, from the same reading as
+``stage_seconds``, with zero-length ``skipped`` spans for the stages the
+journal verified), ``registry-gate`` and ``full-refit-fallback-<stage>``
+(``gate``), ``run-day-<date>`` (``day``), ``bootstrap-<date>``
+(``setup``), and the background work: ``prefetch-dataset-<date>``
+(``prefetch``), ``lookahead-train-<date>`` (``overlap``) and
+``snapshot-refresh`` (``compact``). Each ``DayResult`` carries the spans
+recorded in its window, the input of ``obs.spans.day_report``.
+``run_simulation(profile_dir=...)`` profiles the loop with
+``torch.profiler`` (``utils.profiling.maybe_trace``), each stage a named
+range in it. A span around device work ends where the host waited for it:
+a stage returns once its results are in the store or on the host.
+
+Not ported: the JAX runner's compile prewarm and its ``prewarm-enqueue``
+and ``prewarm-drain`` spans (XLA machinery; ROADMAP's "not to port").
 """
 from __future__ import annotations
 
@@ -66,6 +80,7 @@ import torch
 
 from bodywork_tpu_torch.data.drift_config import DriftConfig
 from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.obs.spans import Span, SpanRecorder
 from bodywork_tpu_torch.pipeline.spec import PipelineSpec, StageSpec
 from bodywork_tpu_torch.pipeline.stages import StageContext, stage_artefact_keys
 from bodywork_tpu_torch.store.base import ArtefactStore
@@ -129,6 +144,10 @@ class DayResult:
     #: seconds the lookahead train this day's train stage collected took
     #: on its own thread (None when the stage collected none)
     lookahead_train_s: float | None = None
+    #: spans recorded in this day's run_day window (the stages, the gate,
+    #: the day, and background work that ended inside it): the input of
+    #: ``obs.spans.day_report`` / ``chrome_trace``
+    spans: list[Span] = dataclasses.field(default_factory=list)
 
 #: ``stage_results`` key of the registry gate's decision
 GATE_RESULT = "registry-gate"
@@ -174,6 +193,9 @@ class LocalRunner:
         self._gen_queue: list[tuple[date, dict]] = []
         self._gen_worker: threading.Thread | None = None
         self._gen_lock = threading.Lock()
+        #: one span timeline for the runner's lifetime: the stages and the
+        #: background work overlapping them land on it
+        self.recorder = SpanRecorder(label=spec.name)
         configure_logger(spec.log_level)
 
     def _device_scope(self):
@@ -305,16 +327,23 @@ class LocalRunner:
                          concurrent: bool = False) -> None:
         """Run one stage, recording its seconds and result. With
         ``concurrent=True`` (a step thread) a failure is parked in
-        ``ctx.failures`` for the step barrier to raise."""
+        ``ctx.failures`` for the step barrier to raise. The stage's span
+        is its ``stage_seconds`` reading: one measurement, two views."""
+        from bodywork_tpu_torch.utils.profiling import annotate
+
         stage = self.spec.stages[name]
+        start_rel = self.recorder.now()
         t0 = time.perf_counter()
         try:
-            if stage.kind == "service":
-                result = self._run_service_stage(stage, ctx)
-            else:
-                result = self._run_batch_stage(stage, ctx)
+            with annotate(name):  # a named range in an active profile
+                if stage.kind == "service":
+                    result = self._run_service_stage(stage, ctx)
+                else:
+                    result = self._run_batch_stage(stage, ctx)
         except BaseException as exc:
             stage_seconds[name] = time.perf_counter() - t0
+            self.recorder.add(name, "stage", start_rel, stage_seconds[name],
+                              day=str(ctx.today), failed=True)
             if not concurrent:
                 raise
             if not isinstance(exc, StageFailure) and not _is_simulated_crash(exc):
@@ -322,6 +351,24 @@ class LocalRunner:
             ctx.failures[name] = exc
             return
         stage_seconds[name] = time.perf_counter() - t0
+        extra = {}
+        if stage.kind == "batch" and getattr(result, "mode", None) is not None \
+                and getattr(result, "rows_touched", None) is not None:
+            # a TrainResult: how the model was produced, and what it read
+            extra["train_mode"] = result.mode
+            extra["rows_touched"] = result.rows_touched
+            if getattr(result, "fallback_reason", None):
+                extra["fallback_reason"] = result.fallback_reason
+        if stage.kind == "service":
+            # what went live, and under whose authority
+            apps = getattr(result, "replica_apps", None)
+            app = apps[0] if apps else getattr(result, "app", None)
+            served_key = getattr(app, "model_key", None)
+            if served_key is not None:
+                extra["served_key"] = served_key
+                extra["model_source"] = getattr(app, "model_source", None)
+        self.recorder.add(name, "stage", start_rel, stage_seconds[name],
+                          day=str(ctx.today), **extra)
         ctx.stage_results[name] = result
         log.info(f"[{ctx.today}] {name} done in {stage_seconds[name]:.3f}s")
 
@@ -335,14 +382,18 @@ class LocalRunner:
         candidate on a digest change), and its result records
         ``fallback_reason="gate_rejected"``. The journal's train digests
         are recorded again, so a resume verifies the refit's bytes."""
+        from bodywork_tpu_torch.train.incremental import count_fallback
+
         # a lookahead result was the incremental candidate just rejected
         ctx.prefetched_train = None
         for name in stage_names:
+            count_fallback("gate_rejected")
             log.warning(f"[{today}] incremental candidate rejected by the gate; "
                         f"re-running {name} as a full refit")
             stage = self.spec.stages[name]
             fn = resolve_executable(stage.executable)
-            with self._device_scope():
+            with self.recorder.span(f"full-refit-fallback-{name}", "gate", day=str(today)), \
+                    self._device_scope():
                 result = fn(ctx, **{**stage.args, "mode": "full"})
             ctx.stage_results[name] = dataclasses.replace(result, fallback_reason="gate_rejected")
             if journal is not None:
@@ -380,8 +431,12 @@ class LocalRunner:
         standard policy. No retries; a gate that FAILS (as opposed to
         rejecting) is logged and the day goes on, serving the current
         production (or the latest checkpoint on a store never promoted).
-        Returns the seconds it took."""
+        Returns the seconds it took, which its ``registry-gate`` span
+        (``gate``) records with the verdict."""
+        start_rel = self.recorder.now()
         t0 = time.perf_counter()
+        failed = fallback = False
+        verdict = None
         try:
             from bodywork_tpu_torch.registry import GatePolicy, ModelRegistry
             from bodywork_tpu_torch.train.incremental import INCREMENTAL_SHADOW_DAYS
@@ -395,15 +450,24 @@ class LocalRunner:
                 rejected = [n for n in incremental
                             if self._produced(results[n], decision.model_key)]
                 if rejected:
+                    fallback = True
                     self._full_refit_fallback(today, ctx, journal, rejected)
                     decision = ModelRegistry(self.store, device=self.device).gate(day=today)
             ctx.stage_results[GATE_RESULT] = decision
             if decision is not None:
-                verdict = "PROMOTED" if decision.promote else "REJECTED"
-                log.info(f"[{today}] registry gate: {verdict} {decision.model_key}")
+                verdict = "promoted" if decision.promote else "rejected"
+                log.info(f"[{today}] registry gate: {verdict.upper()} {decision.model_key}")
         except Exception as exc:  # noqa: BLE001 - a failed gate is not fatal
+            failed = True
             log.error(f"registry gate failed (non-fatal): {exc!r}")
-        return time.perf_counter() - t0
+        seconds = time.perf_counter() - t0
+        extra = {"verdict": verdict} if verdict else {}
+        if fallback:
+            extra["full_refit_fallback"] = True
+        if failed:
+            extra["failed"] = True
+        self.recorder.add(GATE_RESULT, "gate", start_rel, seconds, day=str(today), **extra)
+        return seconds
 
     def _train_stages(self) -> set[str]:
         """The spec's train stages, which the gate waits for; warns when
@@ -458,7 +522,8 @@ class LocalRunner:
                     return
                 target, box = self._gen_queue.pop(0)
             try:
-                box["X"], box["y"] = generate_day(target, self.drift, device=self.device)
+                with self.recorder.span(f"prefetch-dataset-{target}", "prefetch"):
+                    box["X"], box["y"] = generate_day(target, self.drift, device=self.device)
             except Exception as exc:  # noqa: BLE001 - the stage generates inline
                 log.warning(f"dataset prefetch failed (non-fatal): {exc!r}")
             finally:
@@ -473,7 +538,8 @@ class LocalRunner:
         def _work():
             try:
                 if refresh_due(self.store):
-                    write_snapshot(self.store)
+                    with self.recorder.span("snapshot-refresh", "compact"):
+                        write_snapshot(self.store)
             except Exception as exc:  # noqa: BLE001 - readers keep the old snapshot
                 log.warning(f"snapshot refresh failed (non-fatal): {exc!r}")
 
@@ -515,7 +581,8 @@ class LocalRunner:
         def _work():
             t0 = time.perf_counter()
             try:
-                box["result"] = fn(ctx_next, **train_spec.args)
+                with self.recorder.span(f"lookahead-train-{tomorrow}", "overlap"):
+                    box["result"] = fn(ctx_next, **train_spec.args)
             except BaseException as exc:  # noqa: BLE001 - tomorrow trains inline
                 box["exc"] = exc
             box["seconds"] = time.perf_counter() - t0
@@ -544,7 +611,13 @@ class LocalRunner:
 
     def _noop_day_result(self, today: date, skip: dict) -> DayResult:
         """The day was journalled complete and every artefact verified:
-        report it without running anything (no stage, service or gate)."""
+        report it without running anything (no stage, service or gate),
+        in the shapes a run records: zero-length stage and day spans."""
+        span_mark = self.recorder.mark()
+        start_rel = self.recorder.now()
+        for name in self.spec.stages:
+            self.recorder.add(name, "stage", start_rel, 0.0, day=str(today), skipped=True)
+        self.recorder.add(f"run-day-{today}", "day", start_rel, 0.0, resumed_noop=True)
         log.info(f"[{today}] run journal marks the day complete and every "
                  "artefact verified; resumed as a no-op")
         return DayResult(
@@ -553,6 +626,7 @@ class LocalRunner:
             stage_results={name: skip.get(name, {"state": "complete"})
                            for name in self.spec.stages},
             skipped_stages=tuple(self.spec.stages), noop=True,
+            spans=self.recorder.since(span_mark),
         )
 
     def _journal_artefacts(self, names: list[str], ctx: StageContext) -> dict[str, dict]:
@@ -608,15 +682,17 @@ class LocalRunner:
         journal = None
         skip: dict[str, dict] = {}
         if resume:
-            from bodywork_tpu_torch.pipeline.journal import RunJournal
+            from bodywork_tpu_torch.pipeline.journal import RunJournal, count_resume
 
             journal = RunJournal(self.store, today)
             journal.acquire()  # LeaseLost propagates: the caller exits
             skip, outcome = self._resume_state(journal)
             batch = [n for n, s in self.spec.stages.items() if s.kind == "batch"]
             if journal.prior_status == "complete" and all(n in skip for n in batch):
+                count_resume("noop")
                 journal.release()  # nothing to do: free the day at once
                 return self._noop_day_result(today, skip)
+            count_resume(outcome)
             log.info(f"[{today}] run journal: {outcome}")
         ctx = StageContext(store=self.store, today=today, device=self.device,
                            drift=self.drift, scoring_url=scoring_url)
@@ -633,6 +709,8 @@ class LocalRunner:
         stage_seconds: dict[str, float] = {}
         train_stages = self._train_stages()
         gate_seconds = None
+        span_mark = self.recorder.mark()
+        day_start_rel = self.recorder.now()
         day_start = time.perf_counter()
         try:
             for step in self.spec.dag:
@@ -641,8 +719,11 @@ class LocalRunner:
                 to_run = [n for n in step if n not in skip]
                 for name in step:
                     if name in skip:
+                        # the shapes a run records: seconds, result, span
                         stage_seconds[name] = 0.0
                         ctx.stage_results[name] = skip[name]
+                        self.recorder.add(name, "stage", self.recorder.now(), 0.0,
+                                          day=str(today), skipped=True)
                         log.info(f"[{today}] {name} skipped (journal-verified complete)")
                 if journal is not None and to_run:
                     # write-ahead: a crash from here on finds these stages
@@ -681,6 +762,7 @@ class LocalRunner:
             for handle in ctx.services.values():
                 handle.stop()
         wall_clock_s = time.perf_counter() - day_start
+        self.recorder.add(f"run-day-{today}", "day", day_start_rel, wall_clock_s)
         # consolidate history after the clock stops
         self._refresh_snapshot_async()
         collected = (lookahead_box is not None and "result" in lookahead_box
@@ -694,6 +776,7 @@ class LocalRunner:
             prefetched=sum("X" in box and t not in self._dataset_boxes
                            for t, box in gen_boxes.items()),
             lookahead_train_s=lookahead_box["seconds"] if collected else None,
+            spans=self.recorder.since(span_mark),
         )
 
     # -- multi-day simulation ----------------------------------------------
@@ -705,12 +788,13 @@ class LocalRunner:
         from bodywork_tpu_torch.data.generator import generate_day
         from bodywork_tpu_torch.data.io import Dataset, persist_dataset
 
-        X, y = generate_day(start, self.drift, device=self.device)
-        persist_dataset(self.store, Dataset(X, y, start))
+        with self.recorder.span(f"bootstrap-{start}", "setup"):
+            X, y = generate_day(start, self.drift, device=self.device)
+            persist_dataset(self.store, Dataset(X, y, start))
         log.info(f"bootstrapped day-0 dataset for {start}")
 
     def run_simulation(self, start: date, days: int, on_day=None,
-                       resume: bool = True) -> list[DayResult]:
+                       resume: bool = True, profile_dir: str | None = None) -> list[DayResult]:
         """The daily loop over ``days`` simulated days from ``start``: each
         day trains on history to date, serves, generates the next
         (drifted) day and tests the live service against it. The horizon's
@@ -718,19 +802,25 @@ class LocalRunner:
         next day's lookahead train, and the compactor is drained (and the
         final snapshot topped up) before returning. ``on_day``, if given,
         is called with each day's :class:`DayResult` as soon as the day
-        ends."""
+        ends. ``profile_dir`` profiles the loop with ``torch.profiler``
+        (CUDA activity included on the card) and writes its Chrome trace
+        there (``utils.profiling.maybe_trace``)."""
+        from bodywork_tpu_torch.utils.profiling import maybe_trace
+
         self.bootstrap(start)
         self._enqueue_generate([start + timedelta(days=i + o)
                                 for i in range(days) for o in self._generate_offsets()])
         results = []
         try:
-            for i in range(days):
-                today = start + timedelta(days=i)
-                results.append(self.run_day(today, lookahead_train=i < days - 1,
-                                            resume=resume))
-                log.info(f"simulated day {today}: {results[-1].wall_clock_s:.2f}s wall-clock")
-                if on_day is not None:
-                    on_day(results[-1])
+            with maybe_trace(profile_dir, label=f"{days}-day simulation", device=self.device):
+                for i in range(days):
+                    today = start + timedelta(days=i)
+                    results.append(self.run_day(today, lookahead_train=i < days - 1,
+                                                resume=resume))
+                    log.info(f"simulated day {today}: "
+                             f"{results[-1].wall_clock_s:.2f}s wall-clock")
+                    if on_day is not None:
+                        on_day(results[-1])
         except BaseException:
             # no daemon compactor mid-write may race the next reader
             self._drain_compactor()
@@ -741,7 +831,8 @@ class LocalRunner:
             from bodywork_tpu_torch.data.snapshot import refresh_due, write_snapshot
 
             if refresh_due(self.store):
-                write_snapshot(self.store)
+                with self.recorder.span("snapshot-refresh", "compact"):
+                    write_snapshot(self.store)
         except Exception as exc:  # noqa: BLE001 - readers keep the old snapshot
             log.warning(f"final snapshot refresh failed (non-fatal): {exc!r}")
         return results

@@ -12,9 +12,12 @@ Records are updated after the alias CAS lands: the alias is the truth
 and the records its audit trail, so a crash between the two leaves
 serving right and the ledger repairable, never the reverse.
 
-Not ported yet: the canary lifecycle (``canary_*``, ROADMAP Queue 1 item
-13; a canary slot the JAX package wrote is kept across promotions) and
-the operation counters (item 9, the metrics registry).
+Counters, the JAX package's: ``bodywork_tpu_registry_promotions_total
+{outcome}`` (promoted, rejected, conflict), ``..._rollbacks_total`` and
+``..._rollback_refusals_total{reason}``. Not ported yet: the canary
+lifecycle (``canary_*`` and its ``registry_canary_events_total``, ROADMAP
+Queue 1 item 13; a canary slot the JAX package wrote is kept across
+promotions).
 """
 from __future__ import annotations
 
@@ -46,6 +49,34 @@ class RollbackBlocked(RegistryError):
     target's record carries a ``rollback_refused`` event."""
 
 
+def _count_promotion(outcome: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_registry_promotions_total",
+        "Registry promotion gate outcomes",
+    ).inc(outcome=outcome)
+
+
+def _count_rollback() -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_registry_rollbacks_total",
+        "Registry rollbacks (production alias flipped back to previous)",
+    ).inc()
+
+
+def _count_rollback_refused(reason: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_registry_rollback_refusals_total",
+        "Rollbacks refused because the restore target failed "
+        "pre-verification, by reason",
+    ).inc(reason=reason)
+
+
 def _day(day: date | None) -> str | None:
     return str(day) if day else None
 
@@ -72,7 +103,7 @@ class ModelRegistry:
         ``archived`` one: older candidates are stale history the gate
         never picks, so the daily gate reads one or two records."""
         for key, _d in reversed(self.store.history(REGISTRY_RECORDS_PREFIX)):
-            record = rec._validated_read(self.store, key, rec.RECORD_SCHEMA)
+            record = rec._validated_read(self.store, key, rec.RECORD_SCHEMA, "record")
             if record is None:
                 continue
             status = record.get("status")
@@ -130,6 +161,7 @@ class ModelRegistry:
         try:
             rec.write_aliases(self.store, new_doc, token)
         except CasConflict as exc:
+            _count_promotion("conflict")
             raise PromotionConflict(
                 f"promotion of {model_key!r} lost the alias race: {exc}"
             ) from exc
@@ -145,6 +177,7 @@ class ModelRegistry:
                 {"event": "superseded", "day": _day(day), "by": model_key},
                 status="archived",
             )
+        _count_promotion("promoted")
         log.info(f"promoted {model_key} to production (previous: {old_production or 'none'})")
         return new_doc
 
@@ -170,6 +203,7 @@ class ModelRegistry:
                           f"digest {expected[:15]}… (at-rest corruption?)")
         if reason is None:
             return
+        _count_rollback_refused(reason)
         # best effort: with the record unreadable there is nowhere to write it
         rec.append_event(
             self.store, model_key,
@@ -214,6 +248,7 @@ class ModelRegistry:
                 {"event": "rolled_back", "day": _day(day), "reason": reason},
                 status="rejected",
             )
+        _count_rollback()
         log.info(f"rolled back production {current} -> {previous}")
         return new_doc
 
@@ -272,6 +307,7 @@ class ModelRegistry:
                     "recorded (record unreadable); the checkpoint stays a fallback "
                     "candidate until its record is repaired"
                 )
+            _count_promotion("rejected")
             log.warning(f"gate REJECTED {candidate['model_key']}: "
                         f"{'; '.join(decision.reasons) or 'policy'}")
         return decision

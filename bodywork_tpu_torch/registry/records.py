@@ -68,10 +68,20 @@ class RegistryCorrupt(RuntimeError):
     checkpoint here would put an ungated model live."""
 
 
-def _validated_read(store: ArtefactStore, key: str, schema: str) -> dict | None:
+def _count_corrupt(kind: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_registry_corrupt_records_total",
+        "Registry reads that failed JSON/schema validation, by kind",
+    ).inc(kind=kind)
+
+
+def _validated_read(store: ArtefactStore, key: str, schema: str, kind: str) -> dict | None:
     """Read and validate a registry JSON document: None when the key is
     absent, or when it stays corrupt past the retry budget (which flags
-    the store's registry state for repair)."""
+    the store's registry state for repair). Every corrupt attempt counts
+    into ``bodywork_tpu_registry_corrupt_records_total{kind}``."""
     corrupt = False
     for _attempt in range(1 + CORRUPT_READ_RETRIES):
         try:
@@ -87,6 +97,7 @@ def _validated_read(store: ArtefactStore, key: str, schema: str) -> dict | None:
         except (UnicodeDecodeError, ValueError):
             pass
         corrupt = True
+        _count_corrupt(kind)
         log.warning(f"corrupt registry document at {key!r}; re-reading")
     if corrupt:
         store.mutable_cache("_registry_state")["repair_needed"] = True
@@ -110,7 +121,7 @@ def load_record(store: ArtefactStore, model_key: str, with_token: bool = False):
     is corrupt, and a CAS against the token repairs it."""
     key = registry_record_key(model_key)
     token = store.version_token(key) if with_token else None
-    doc = _validated_read(store, key, RECORD_SCHEMA)
+    doc = _validated_read(store, key, RECORD_SCHEMA, "record")
     return (doc, token) if with_token else doc
 
 
@@ -145,7 +156,7 @@ def list_records(store: ArtefactStore) -> list[dict]:
     """All readable records, oldest first (date-key order)."""
     out = []
     for key, _d in store.history(REGISTRY_RECORDS_PREFIX):
-        doc = _validated_read(store, key, RECORD_SCHEMA)
+        doc = _validated_read(store, key, RECORD_SCHEMA, "record")
         if doc is not None:
             out.append(doc)
     return out
@@ -258,7 +269,7 @@ def read_aliases(store: ArtefactStore, with_token: bool = False):
     token = store.version_token(REGISTRY_ALIAS_KEY)
     if token is None and not store.exists(REGISTRY_ALIAS_KEY):
         return (None, None) if with_token else None
-    doc = _validated_read(store, REGISTRY_ALIAS_KEY, ALIAS_SCHEMA)
+    doc = _validated_read(store, REGISTRY_ALIAS_KEY, ALIAS_SCHEMA, "alias")
     if doc is None:
         if store.exists(REGISTRY_ALIAS_KEY):
             raise RegistryCorrupt(

@@ -23,8 +23,10 @@ serves every connection from one event loop:
 
 :class:`AioServiceHandle` has the thread engine's handle interface
 (``start``, ``stop``, ``wait``, ``serve_forever``, ``add_cleanup``,
-``url``, ``base_url``). Fault-plan composition, the row-queue front ends,
-the multi-process ``/metrics`` and trace headers are later slices.
+``url``, ``base_url``). Request tracing is the thread engine's (the same
+ids, spans and ``X-Bodywork-Trace-Id`` header; ``serve.app``). Fault-plan
+composition, the row-queue front ends and the multi-process ``/metrics``
+are later slices.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from bodywork_tpu_torch.obs import get_registry
+from bodywork_tpu_torch.obs.tracing import TRACE_ID_HEADER, TRACEPARENT_HEADER, parse_traceparent
 from bodywork_tpu_torch.serve.app import (
     _METHOD_NOT_ALLOWED,
     _NOT_FOUND,
@@ -223,7 +226,12 @@ class AioScoringServer:
     # -- dispatch ----------------------------------------------------------
     async def _dispatch(self, method: str, path: str, headers: dict, body: bytes):
         """Route one request: ``(status, body, content_type, extra
-        headers)``, with the thread engine's request and latency metrics."""
+        headers)``, with the thread engine's request and latency metrics
+        and its request tracing (the same ids, spans and header: one
+        request traces the same way on either front end). Before
+        admission only an ingress ``traceparent`` creates a trace; an
+        admitted request without one mints its id in
+        :meth:`_score_common` and publishes it through ``trace_box``."""
         app = self._next_app()
         t0 = time.perf_counter()
         routes = {
@@ -233,30 +241,53 @@ class AioScoringServer:
             ("GET", "/metrics"): self._metrics,
         }
         known_path = any(p == path for _m, p in routes)
+        tracer = app.tracer
+        traced = method == "POST" and path in _SCORING_ROUTES and tracer.enabled
+        trace_box: list = [None]
+        if traced:
+            traceparent = headers.get(TRACEPARENT_HEADER)
+            if traceparent is not None and parse_traceparent(traceparent) is not None:
+                trace_box[0] = tracer.begin(traceparent, b"")
         try:
             handler = routes.get((method, path))
             if handler is None:
                 result = (_error(405, _METHOD_NOT_ALLOWED) if known_path
                           else _error(404, _NOT_FOUND))
             else:
-                result = await handler(app, body)
+                result = await handler(app, body, trace_box if traced else None)
         except Exception as exc:  # don't leak tracebacks to clients
             log.error(f"unhandled error serving {path}: {exc!r}")
             result = _error(500, "internal server error")
         status = result[0]
-        app._m_requests.inc(route=path if known_path else "unknown", status=str(status))
+        route = path if known_path else "unknown"
+        app._m_requests.inc(route=route, status=str(status))
+        trace = trace_box[0]
         if path in _SCORING_ROUTES and status == 200:
-            app._m_latency.observe(time.perf_counter() - t0)
+            app._m_latency.observe(
+                time.perf_counter() - t0,
+                exemplar=trace.trace_id if trace is not None and trace.sampled else None,
+            )
+        if trace is not None:
+            tracer.finish(trace, route, status)
+            result = (*result[:3], (*result[3], (TRACE_ID_HEADER, trace.trace_id)))
         return result
 
-    async def _score_common(self, app, body: bytes, score):
-        """The scoring shell: admission, parse, the no-model 503, then the
-        route's ``score`` coroutine."""
+    async def _score_common(self, app, body: bytes, score, trace_box=None):
+        """The scoring shell: admission, the trace id minted from the body
+        once admitted, parse, the no-model 503, then the route's ``score``
+        coroutine with the request's trace."""
+        trace = trace_box[0] if trace_box is not None else None
         admission = self.admission
         if admission is not None and not admission.try_admit():
             # shed BEFORE parsing: one counter and a small answer
+            if trace is not None and trace.sampled:
+                now = time.perf_counter()
+                trace.add("admission-shed", now, now, queue_depth=admission.queue_depth)
             return _error(429, "server over capacity; request shed",
                           (("Retry-After", str(admission.retry_after_s())),))
+        if trace_box is not None and trace is None:
+            trace = trace_box[0] = app.tracer.begin(None, body)
+        sampled = trace is not None and trace.sampled
         t_admit = time.perf_counter()
         try:
             t0 = time.perf_counter()
@@ -265,39 +296,41 @@ class AioScoringServer:
             except ValueError:
                 payload = None
             X, message = parse_features(payload)
-            app._m_parse.observe(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            app._m_parse.observe(t1 - t0)
+            if sampled:
+                trace.add("parse", t0, t1)
             if message is not None:
                 return _error(400, message)
             served = app.served
             if served is None:
                 return _error(503, "no model loaded yet; retry shortly",
                               (("Retry-After", str(app.retry_after_s())),))
-            return await score(app, served, X)
+            return await score(app, served, X, trace if sampled else None)
         finally:
             if admission is not None:
                 admission.release(time.perf_counter() - t_admit)
 
-    async def _predict(self, app, served, X):
-        """One direct padded dispatch on the executor, timed."""
+    async def _predict(self, app, served, X, trace):
+        """One direct padded dispatch on the executor: the app's
+        ``_traced_dispatch``, which sets the sampled request's dispatch
+        span active on the executor's thread (a contextvar does not cross
+        ``run_in_executor``)."""
         loop = asyncio.get_running_loop()
-        t0 = time.perf_counter()
-        try:
-            return await loop.run_in_executor(self._executor, served.predictor.predict, X)
-        finally:
-            app._m_dispatch.observe(time.perf_counter() - t0)
+        return await loop.run_in_executor(self._executor, app._traced_dispatch, served, X,
+                                          trace)
 
     @staticmethod
-    def _render(app, served, render, predictions):
-        app.firewall(served, predictions)
-        t0 = time.perf_counter()
-        payload = render(predictions)
-        app._m_serialize.observe(time.perf_counter() - t0)
+    def _render(app, served, render, predictions, trace):
+        status, headers, payload = app.render(served, render, predictions, trace)
         extra = ((MODEL_KEY_HEADER, served.model_key),) if served.model_key else ()
-        return 200, payload, "application/json", extra
+        return status, payload, headers["Content-Type"], extra
 
-    async def _score_single(self, app, body: bytes):
-        async def score(app, served, X):
+    async def _score_single(self, app, body: bytes, trace_box=None):
+        async def score(app, served, X, trace):
             X = np.array(X, ndmin=2)  # scalar -> (1, 1), as the reference
+            if trace is not None:
+                trace.annotate(stream="production", routed_model_key=served.model_key)
             loop = asyncio.get_running_loop()
             prediction0 = None
             if app.batcher is not None and X.shape[0] == 1:
@@ -319,7 +352,7 @@ class AioScoringServer:
                         pass
 
                 try:
-                    app.batcher.submit_nowait(served, X[0], on_done=_resolve)
+                    app.batcher.submit_nowait(served, X[0], on_done=_resolve, trace=trace)
                 except CoalescerSaturated:
                     app._m_fallbacks.inc()
                 else:
@@ -328,27 +361,32 @@ class AioScoringServer:
                     except asyncio.TimeoutError:
                         return _error(500, "internal server error")
             if prediction0 is None:
-                predictions = await self._predict(app, served, X)
+                predictions = await self._predict(app, served, X, trace)
                 prediction0 = float(predictions[0])
-            return self._render(app, served, served.single_template.render, prediction0)
+            return self._render(app, served, served.single_template.render, prediction0,
+                                trace)
 
-        return await self._score_common(app, body, score)
+        return await self._score_common(app, body, score, trace_box)
 
-    async def _score_batch(self, app, body: bytes):
-        async def score(app, served, X):
+    async def _score_batch(self, app, body: bytes, trace_box=None):
+        async def score(app, served, X, trace):
+            if trace is not None:
+                trace.annotate(stream="production", routed_model_key=served.model_key,
+                               rows=int(np.atleast_1d(X).shape[0]))
             if X.ndim == 0:
                 X = X[None]
-            predictions = await self._predict(app, served, X)
-            return self._render(app, served, served.batch_template.render, predictions)
+            predictions = await self._predict(app, served, X, trace)
+            return self._render(app, served, served.batch_template.render, predictions,
+                                trace)
 
-        return await self._score_common(app, body, score)
+        return await self._score_common(app, body, score, trace_box)
 
-    async def _healthz(self, app, body: bytes):
+    async def _healthz(self, app, body: bytes, trace_box=None):
         payload, status, retry_after = app.healthz_response()
         extra = (("Retry-After", str(retry_after)),) if retry_after is not None else ()
         return status, json.dumps(payload).encode(), "application/json", extra
 
-    async def _metrics(self, app, body: bytes):
+    async def _metrics(self, app, body: bytes, trace_box=None):
         loop = asyncio.get_running_loop()
         text = await loop.run_in_executor(self._executor, get_registry().render)
         return 200, text.encode(), METRICS_CONTENT_TYPE, ()

@@ -21,6 +21,17 @@ budget answers 429 + ``Retry-After`` before its body is parsed; an app
 with no model answers scoring requests 503 + ``Retry-After``. Scoring
 answers carry the ``X-Bodywork-Model-Key`` header.
 
+Request tracing (``obs.tracing``, the app's :attr:`ScoringApp.tracer`): a
+scoring POST gets a trace id, its ingress ``traceparent``'s (read before
+admission, so a shed request answers with it and records its shed span)
+or one minted from the body after admission, and answers it in the
+``X-Bodywork-Trace-Id`` header, never in a body. A head-sampled request
+records ``parse``, ``device-dispatch`` (with the graph cache's
+``aot_cache`` and ``bucket``, or ``queue-wait`` and the batch's shared
+dispatch span when coalesced) and ``serialize`` spans into the flight
+recorder, and leaves its id as the latency histogram's exemplar. At
+sample fraction 0 nothing is minted, sent or recorded.
+
 With a request coalescer (``serve.batcher``) concurrent single-row
 ``/score/v1`` requests share padded device calls; a saturated coalescer
 degrades to a direct dispatch. Responses are byte-identical either way.
@@ -31,8 +42,10 @@ serialises a prediction (the production branch of the JAX app's,
 raises :class:`PredictionSanityError` and the request answers 500, the
 value never written; a prediction outside the model's registry band
 (``prediction_bounds``, from its training labels) is logged and served,
-since the band is statistical. Canary routing and hot swaps, request
-tracing and the multi-process ``/metrics`` wait for later slices.
+since the band is statistical. Canary routing and hot swaps (and with
+them the firewall's fallback to production, whose re-predict span the
+JAX app records) and the multi-process ``/metrics`` wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -42,6 +55,13 @@ import time
 import numpy as np
 
 from bodywork_tpu_torch.obs import get_registry
+from bodywork_tpu_torch.obs.tracing import (
+    TRACE_ID_HEADER,
+    get_tracer,
+    parse_traceparent,
+    reset_active_span,
+    set_active_span,
+)
 from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
 from bodywork_tpu_torch.serve.wire import (
@@ -118,6 +138,13 @@ def _json_response(payload: dict, status: int = 200, headers=None):
     return status, {**_JSON, **(headers or {})}, json.dumps(payload).encode()
 
 
+def _with_trace_id(response, trace):
+    """``response`` with the trace id header: the only place an id leaves
+    the service (never a body, so bodies stay byte-identical)."""
+    status, headers, body = response
+    return status, {**headers, TRACE_ID_HEADER: trace.trace_id}, body
+
+
 def _is_json(content_type: str | None) -> bool:
     mimetype = (content_type or "").split(";", 1)[0].strip().lower()
     return mimetype == "application/json" or (
@@ -173,6 +200,9 @@ class ScoringApp:
             )
         self.batcher = batcher
         self.admission = admission
+        #: the process-wide request tracer (``obs.tracing``); fraction 0
+        #: turns tracing off, with no per-request work
+        self.tracer = get_tracer()
         reg = get_registry()
         self._m_requests = reg.counter(
             "bodywork_tpu_http_requests_total",
@@ -232,24 +262,51 @@ class ScoringApp:
         served = self.served
         return None if served is None else served.predictor
 
+    @property
+    def model_key(self) -> str | None:
+        served = self.served
+        return None if served is None else served.model_key
+
+    @property
+    def model_source(self) -> str | None:
+        served = self.served
+        return None if served is None else served.source
+
     def known_path(self, path: str) -> bool:
         return any(p == path for _m, p in self._routes)
 
     def handle(self, method: str, path: str, body: bytes = b"",
-               content_type: str | None = None):
+               content_type: str | None = None, traceparent: str | None = None):
         """One request -> ``(status, headers, body)``. Admission runs first
         for a scoring POST, before anything that costs per-request work: a
-        shed leaves nothing behind but its counter."""
+        shed leaves nothing behind but its counter (and, for a request
+        that arrived with a valid ``traceparent``, its trace). A scoring
+        POST's trace id is minted from the body only once admitted."""
         path = path.split("?", 1)[0]
         t0 = time.perf_counter()
+        scoring_post = method == "POST" and path in _SCORING_ROUTES
+        tracer = self.tracer
+        traced = scoring_post and tracer.enabled
+        trace = None
+        if traced and traceparent is not None and parse_traceparent(traceparent) is not None:
+            trace = tracer.begin(traceparent, b"")
         admission = self.admission
         admitted = False
-        if admission is not None and method == "POST" and path in _SCORING_ROUTES:
+        if admission is not None and scoring_post:
             if not admission.try_admit():
                 response = self.shed_response()
+                if trace is not None:
+                    if trace.sampled:
+                        now = time.perf_counter()
+                        trace.add("admission-shed", now, now,
+                                  queue_depth=admission.queue_depth)
+                    tracer.finish(trace, path, response[0])
+                    response = _with_trace_id(response, trace)
                 self._m_requests.inc(route=path, status=str(response[0]))
                 return response
             admitted = True
+        if traced and trace is None:
+            trace = tracer.begin(None, body)
         try:
             handler = self._routes.get((method, path))
             if handler is None:
@@ -258,7 +315,7 @@ class ScoringApp:
                 else:
                     response = _json_response({"error": _NOT_FOUND}, 404)
             else:
-                response = handler(body, content_type)
+                response = handler(body, content_type, trace)
         except Exception as exc:  # don't leak tracebacks to clients
             log.error(f"unhandled error serving {path}: {exc!r}")
             response = _json_response({"error": "internal server error"}, 500)
@@ -267,14 +324,21 @@ class ScoringApp:
                 # admission -> response ready: the EWMA behind Retry-After
                 admission.release(time.perf_counter() - t0)
         status = response[0]
-        self._m_requests.inc(route=path if self.known_path(path) else "unknown",
-                             status=str(status))
+        route = path if self.known_path(path) else "unknown"
+        self._m_requests.inc(route=route, status=str(status))
         if path in _SCORING_ROUTES and status == 200:
-            self._m_latency.observe(time.perf_counter() - t0)
+            # a sampled request leaves its trace id as the bucket's exemplar
+            self._m_latency.observe(
+                time.perf_counter() - t0,
+                exemplar=trace.trace_id if trace is not None and trace.sampled else None,
+            )
+        if trace is not None:
+            tracer.finish(trace, route, status)
+            response = _with_trace_id(response, trace)
         return response
 
     # -- parsing and backpressure ------------------------------------------
-    def _parse(self, body: bytes, content_type: str | None):
+    def _parse(self, body: bytes, content_type: str | None, trace=None):
         t0 = time.perf_counter()
         payload = None
         if _is_json(content_type):
@@ -283,7 +347,10 @@ class ScoringApp:
             except ValueError:
                 payload = None
         X, message = parse_features(payload)
-        self._m_parse.observe(time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        self._m_parse.observe(t1 - t0)
+        if trace is not None and trace.sampled:
+            trace.add("parse", t0, t1)
         if message is not None:
             return None, _json_response({"error": message}, 400)
         return X, None
@@ -304,13 +371,25 @@ class ScoringApp:
         return _json_response({"error": "no model loaded yet; retry shortly"}, 503,
                               {"Retry-After": str(self.retry_after_s())})
 
-    def _dispatch(self, served: _Served, X):
-        """One direct (uncoalesced) padded dispatch, timed."""
+    def _traced_dispatch(self, served: _Served, X, trace=None):
+        """One direct (uncoalesced) padded dispatch, timed. For a sampled
+        ``trace`` its ``device-dispatch`` span is the ACTIVE span on the
+        calling thread (the one that dispatches, on either front end),
+        so the graph cache's seam can annotate it. The span ends when
+        ``predict`` returns, after the copy of the results to the host,
+        which waits for the card; a replay alone returns at once."""
+        span = token = None
+        if trace is not None:
+            span = trace.start_span("device-dispatch", coalesced=False)
+            token = set_active_span(span)
         t0 = time.perf_counter()
         try:
             return served.predictor.predict(X)
         finally:
             self._m_dispatch.observe(time.perf_counter() - t0)
+            if span is not None:
+                reset_active_span(token)
+                trace.end_span(span)
 
     def _respond(self, served: _Served, payload: bytes):
         headers = dict(_JSON)
@@ -319,48 +398,63 @@ class ScoringApp:
         return 200, headers, payload
 
     # -- routes ------------------------------------------------------------
-    def score_data_instance(self, body: bytes, content_type: str | None):
+    def score_data_instance(self, body: bytes, content_type: str | None, trace=None):
         """Single-instance scoring; reference-parity contract
         (``stage_2:73-80``)."""
-        X, err = self._parse(body, content_type)
+        X, err = self._parse(body, content_type, trace)
         if err is not None:
             # a malformed request gets its 400 even from a model-less app
             return err
         served = self.served
         if served is None:
             return self._no_model_response()
+        sampled = trace is not None and trace.sampled
+        if sampled:
+            trace.annotate(stream="production", routed_model_key=served.model_key)
         X = np.array(X, ndmin=2)  # scalar -> (1, 1), as the reference
         prediction0 = None
         if self.batcher is not None and X.shape[0] == 1:
             try:
                 # the submission carries ITS served bundle: its batch is
-                # scored by one model only
-                prediction0 = self.batcher.submit(served, X[0])
+                # scored by one model only; the coalescer records the
+                # queue-wait and device-dispatch spans
+                prediction0 = self.batcher.submit(served, X[0],
+                                                  trace=trace if sampled else None)
             except CoalescerSaturated:
                 self._m_fallbacks.inc()  # overload or shutdown: go direct
         if prediction0 is None:
-            prediction0 = float(np.asarray(self._dispatch(served, X)).ravel()[0])
-        self.firewall(served, prediction0)
-        t0 = time.perf_counter()
-        payload = served.single_template.render(prediction0)
-        self._m_serialize.observe(time.perf_counter() - t0)
-        return self._respond(served, payload)
+            predictions = self._traced_dispatch(served, X, trace if sampled else None)
+            prediction0 = float(np.asarray(predictions).ravel()[0])
+        return self.render(served, served.single_template.render, prediction0, trace)
 
-    def score_batch(self, body: bytes, content_type: str | None):
+    def score_batch(self, body: bytes, content_type: str | None, trace=None):
         """Batched scoring: one padded device call per bucket-size chunk."""
-        X, err = self._parse(body, content_type)
+        X, err = self._parse(body, content_type, trace)
         if err is not None:
             return err
         served = self.served
         if served is None:
             return self._no_model_response()
+        sampled = trace is not None and trace.sampled
+        if sampled:
+            trace.annotate(stream="production", routed_model_key=served.model_key,
+                           rows=int(np.atleast_1d(X).shape[0]))
         if X.ndim == 0:
             X = X[None]
-        predictions = self._dispatch(served, X)
+        predictions = self._traced_dispatch(served, X, trace if sampled else None)
+        return self.render(served, served.batch_template.render, predictions, trace)
+
+    def render(self, served: _Served, template, predictions, trace=None):
+        """The firewall, then the response from ``template`` (a
+        ``serve.wire`` renderer), timed, with its ``serialize`` span for a
+        sampled ``trace``."""
         self.firewall(served, predictions)
         t0 = time.perf_counter()
-        payload = served.batch_template.render(predictions)
-        self._m_serialize.observe(time.perf_counter() - t0)
+        payload = template(predictions)
+        t1 = time.perf_counter()
+        self._m_serialize.observe(t1 - t0)
+        if trace is not None and trace.sampled:
+            trace.add("serialize", t0, t1)
         return self._respond(served, payload)
 
     def firewall(self, served: _Served, predictions) -> None:
@@ -450,12 +544,12 @@ class ScoringApp:
     def healthz_payload(self) -> dict:
         return self.healthz_response()[0]
 
-    def healthz(self, body: bytes, content_type: str | None):
+    def healthz(self, body: bytes, content_type: str | None, trace=None):
         payload, status, retry_after = self.healthz_response()
         headers = {"Retry-After": str(retry_after)} if retry_after is not None else None
         return _json_response(payload, status, headers)
 
-    def metrics_endpoint(self, body: bytes, content_type: str | None):
+    def metrics_endpoint(self, body: bytes, content_type: str | None, trace=None):
         """This process's registry in the Prometheus text format."""
         return (200, {"Content-Type": METRICS_CONTENT_TYPE},
                 get_registry().render().encode())

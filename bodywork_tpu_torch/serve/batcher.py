@@ -1,6 +1,6 @@
 """Cross-request micro-batching for the scoring service (the port of
-``bodywork_tpu.serve.batcher``; request tracing and the per-source flush
-accounting of the disaggregated front ends are later slices).
+``bodywork_tpu.serve.batcher``; the per-source flush accounting of the
+disaggregated front ends is a later slice).
 
 Without it, every concurrent ``/score/v1`` request executes its OWN
 bucket-padded device call: N threads of single-row traffic become N
@@ -77,11 +77,16 @@ class _Submission:
     the OPTIONAL push-style completion channel (fired on the dispatcher
     thread right after ``event`` is set): the asyncio front-end sets it
     to hand the result back to its event loop without parking a thread
-    on ``event.wait`` — the threaded engine keeps the blocking wait."""
+    on ``event.wait`` — the threaded engine keeps the blocking wait.
+    ``trace`` is the submitting request's SAMPLED span context (None for
+    unsampled or untraced requests): the dispatcher records the
+    queue-wait and the shared device-dispatch span into each sampled
+    member's trace, linked across the batch."""
 
-    __slots__ = ("row", "served", "event", "result", "error", "enqueued_at", "on_done")
+    __slots__ = ("row", "served", "event", "result", "error", "enqueued_at", "on_done",
+                 "trace", "enqueued_perf")
 
-    def __init__(self, row: np.ndarray, served, on_done=None):
+    def __init__(self, row: np.ndarray, served, on_done=None, trace=None):
         self.row = row
         self.served = served
         self.event = threading.Event()
@@ -89,6 +94,10 @@ class _Submission:
         self.error: BaseException | None = None
         self.enqueued_at = time.monotonic()
         self.on_done = on_done
+        self.trace = trace
+        # perf_counter twin of enqueued_at: spans live on the perf_counter
+        # timeline (obs.tracing); taken only when traced
+        self.enqueued_perf = time.perf_counter() if trace is not None else 0.0
 
 
 class RequestCoalescer:
@@ -228,14 +237,16 @@ class RequestCoalescer:
             self._thread.join(timeout=10)
 
     # -- request path ------------------------------------------------------
-    def submit_nowait(self, served, row: np.ndarray, on_done=None) -> _Submission:
+    def submit_nowait(self, served, row: np.ndarray, on_done=None,
+                      trace=None) -> _Submission:
         """Enqueue one row WITHOUT waiting: returns the submission whose
         ``event`` (pull) or ``on_done`` callback (push — must be set
         HERE, before the enqueue, or the dispatcher can complete the
         batch first and the callback never fires) signals completion.
         The asyncio front-end's bridge into the coalescer; raises
-        :class:`CoalescerSaturated` exactly as :meth:`submit` does."""
-        sub = _Submission(np.asarray(row, dtype=np.float32), served, on_done)
+        :class:`CoalescerSaturated` exactly as :meth:`submit` does.
+        ``trace``: the request's sampled span context, or None."""
+        sub = _Submission(np.asarray(row, dtype=np.float32), served, on_done, trace)
         with self._cond:
             if self._stopped or not self._started:
                 self._m_saturated.inc()
@@ -257,13 +268,14 @@ class RequestCoalescer:
         with self._cond:
             return len(self._pending) + len(self._inflight)
 
-    def submit(self, served, row: np.ndarray, timeout_s: float = 60.0) -> float:
+    def submit(self, served, row: np.ndarray, timeout_s: float = 60.0,
+               trace=None) -> float:
         """Enqueue one ``(1, n_features)``-shaped row against ``served``
         (the app's immutable served-model bundle) and block until its
         prediction returns. Raises :class:`CoalescerSaturated` when the
         queue is full/stopped, or the batch's own error if the device
         call failed."""
-        sub = self.submit_nowait(served, row)
+        sub = self.submit_nowait(served, row, trace=trace)
         if not sub.event.wait(timeout_s):
             raise TimeoutError(
                 f"coalesced prediction not ready within {timeout_s:.0f}s"
@@ -357,16 +369,29 @@ class RequestCoalescer:
                  reason: str = "window") -> None:
         served = batch[0].served
         now = time.monotonic()
+        t_exec = time.perf_counter()
         for sub in batch:
             self._m_queue_wait.observe(now - sub.enqueued_at)
         self._m_batch_rows.observe(len(batch))
         self._m_occupancy.observe(len(batch) / self.max_rows)
         self._m_flush_reason.inc(reason=reason)
+        # trace fan-in: each SAMPLED member gets its queue-wait span and
+        # the batch's shared device-dispatch span, which carries every
+        # member's request span id as links (obs.tracing). The dispatch
+        # span ends when predict returns, after the predictor's copy of
+        # the results to the host, which waits for the card.
+        traced = [sub for sub in batch if sub.trace is not None]
+        links = [sub.trace.root_span_id for sub in traced]
         try:
             X = np.vstack([sub.row for sub in batch])
             t0 = time.perf_counter()
             predictions = served.predictor.predict(X)
-            self._m_dispatch.observe(time.perf_counter() - t0)
+            t1 = time.perf_counter()
+            self._m_dispatch.observe(t1 - t0)
+            for sub in traced:
+                sub.trace.add("queue-wait", sub.enqueued_perf, t_exec)
+                sub.trace.add("device-dispatch", t0, t1, coalesced=True,
+                              batch_rows=len(batch), links=links)
             for i, sub in enumerate(batch):
                 sub.result = float(predictions[i])
         except BaseException as exc:  # scatter, don't kill the dispatcher

@@ -63,6 +63,7 @@ import torch
 
 from bodywork_tpu_torch.device import require_ieee_f32_matmul
 from bodywork_tpu_torch.models.mlp import MLPRegressor, mlp_apply
+from bodywork_tpu_torch.obs.tracing import annotate_active
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve.predictor")
@@ -371,8 +372,16 @@ class PaddedPredictor:
         return None
 
     def _graph_for(self, bucket: int, n_features: int) -> _BucketGraph:
+        """The bucket's program. The ``annotate_active`` calls are the
+        tracing seam (``obs.tracing``), a contextvar read unless a sampled
+        request's dispatch span is active, which records ``aot_cache``
+        under the JAX package's values: ``warm`` (this instance already
+        holds the bucket's graph), ``hit`` (the process-wide cache served
+        it without a build) or ``miss`` (a build, on the card a capture,
+        landed on the request path). A rebind is not a build."""
         entry = self._graphs.get((bucket, n_features))
         if entry is not None:
+            annotate_active(aot_cache="warm", bucket=bucket)
             return entry
         weights = self._graph_weights()
         arch = (type(self).__name__, type(self.model).__qualname__, self.dtype,
@@ -387,9 +396,12 @@ class PaddedPredictor:
                 return _BucketGraph(slot, self._graph_runner(slot.weights), bucket,
                                     n_features, self.device, self._launch_engine())
 
+        misses_before = GRAPH_CACHE.misses
         with slot.lock:
             entry = GRAPH_CACHE.get(key, build)
         self._graphs[(bucket, n_features)] = entry
+        annotate_active(aot_cache="miss" if GRAPH_CACHE.misses > misses_before else "hit",
+                        bucket=bucket)
         return entry
 
     def _predict_padded(self, Xp: np.ndarray) -> np.ndarray:

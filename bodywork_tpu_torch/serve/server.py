@@ -40,6 +40,7 @@ from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
 from bodywork_tpu_torch.models.mlp import MLPRegressor
 from bodywork_tpu_torch.obs import get_registry
+from bodywork_tpu_torch.obs.tracing import TRACEPARENT_HEADER
 from bodywork_tpu_torch.serve.admission import build_admission
 from bodywork_tpu_torch.serve.app import create_app
 from bodywork_tpu_torch.store import open_store
@@ -266,10 +267,12 @@ class RoundRobinApp:
         return self.apps[0].healthz_payload()
 
     def handle(self, method: str, path: str, body: bytes = b"",
-               content_type: str | None = None):
+               content_type: str | None = None, **request):
+        """``ScoringApp.handle`` on the next replica; the request's other
+        fields (``traceparent``) pass through unchanged."""
         with self._lock:
             app = self.apps[next(self._counter) % len(self.apps)]
-        return app.handle(method, path, body, content_type)
+        return app.handle(method, path, body, content_type, **request)
 
 
 class _ThreadingServer(ThreadingHTTPServer):
@@ -293,6 +296,7 @@ def _handler_for(app):
             body = self.rfile.read(length) if length else b""
             status, headers, payload = app.handle(
                 method, self.path, body, self.headers.get("Content-Type"),
+                traceparent=self.headers.get(TRACEPARENT_HEADER),
             )
             self.send_response(status)
             for name, value in headers.items():

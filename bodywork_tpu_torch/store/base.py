@@ -9,12 +9,19 @@ write the model registry's documents and the run journal ride, against a
 backend's ``version_token``; ``version_tokens`` and ``get_many`` are the
 batched reads of the history loader (``data.io``). :class:`DelegatingStore`
 is the base of the wrappers (the day loop's write fence, ``store.epoch``;
-the kill switch, ``chaos.kill``); metrics instrumentation waits for the
-slice that needs it.
+the kill switch, ``chaos.kill``).
+
+A backend that declares a ``backend_label`` (``"filesystem"``) gets its
+primitive operations counted and timed through the shared obs registry,
+as in the JAX package: ``bodywork_tpu_store_ops_total{backend,op}`` and
+``bodywork_tpu_store_op_seconds{backend,op}``. Wrappers declare none, so
+a call through any stack of them is counted once, at the backend.
 """
 from __future__ import annotations
 
 import abc
+import functools
+import time
 from datetime import date
 
 from bodywork_tpu_torch.utils.dates import date_from_key
@@ -31,8 +38,71 @@ class CasConflict(RuntimeError):
     the losing write; the caller re-reads and decides whether to retry."""
 
 
+#: the operations timed when a backend declares ``backend_label``
+_INSTRUMENTED_OPS = (
+    "put_bytes",
+    "put_bytes_if_match",
+    "get_bytes",
+    "list_keys",
+    "delete",
+    "exists",
+    "version_token",
+    "version_tokens",
+    "get_many",
+)
+
+#: store-op latency ladder: local-filesystem stats (~µs) up through remote
+#: round-trips and retries (the JAX package's buckets)
+_STORE_OP_BUCKETS = (
+    0.0001, 0.0005, 0.001, 0.005, 0.01, 0.025, 0.05,
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+)
+
+
+def _observe_store_op(backend: str, op: str, seconds: float) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.counter(
+        "bodywork_tpu_store_ops_total",
+        "Artefact-store operations by backend and op",
+    ).inc(backend=backend, op=op)
+    reg.histogram(
+        "bodywork_tpu_store_op_seconds",
+        "Artefact-store operation latency by backend and op",
+        buckets=_STORE_OP_BUCKETS,
+    ).observe(seconds, backend=backend, op=op)
+
+
+def _timed_op(impl, backend: str, op: str):
+    @functools.wraps(impl)
+    def wrapper(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return impl(self, *args, **kwargs)
+        finally:
+            _observe_store_op(backend, op, time.perf_counter() - t0)
+
+    wrapper.__wrapped_store_op__ = op
+    return wrapper
+
+
 class ArtefactStore(abc.ABC):
     """Flat byte store with ``/``-separated keys and date-key versioning."""
+
+    #: set by real backends to have their primitive operations counted and
+    #: timed; wrappers leave it unset
+    backend_label: str | None = None
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        label = cls.__dict__.get("backend_label")
+        if not label:
+            return
+        for op in _INSTRUMENTED_OPS:
+            impl = cls.__dict__.get(op)
+            if impl is not None and not hasattr(impl, "__wrapped_store_op__"):
+                setattr(cls, op, _timed_op(impl, label, op))
 
     @staticmethod
     def validate_key(key: str) -> str:

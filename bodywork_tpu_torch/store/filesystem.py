@@ -53,6 +53,9 @@ def _check_token(key: str, current, expected) -> None:
 
 
 class FilesystemStore(ArtefactStore):
+    #: its operations count under ``bodywork_tpu_store_ops_total{backend=...}``
+    backend_label = "filesystem"
+
     #: how long a CAS writer waits on a contended sidecar lock before it
     #: gives up with a conflict
     CAS_LOCK_TIMEOUT_S = 5.0

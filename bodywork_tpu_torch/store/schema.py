@@ -16,6 +16,10 @@ stores:
   history (``bodywork_tpu_torch.data.snapshot``)
 - ``runs/<date>/journal.json`` — one day's run journal and lease
   (``bodywork_tpu_torch.pipeline.journal``)
+- ``obs/flightrec/flight-<seq>-<verdict>-<digest>.json`` — flight-recorder
+  dumps of sampled request traces (``bodywork_tpu_torch.obs.tracing``):
+  diagnostic evidence nothing else reads, so deleting the prefix only
+  loses the record of past verdicts
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ REGISTRY_ALIAS_KEY = "registry/aliases.json"
 TRAINSTATE_PREFIX = "trainstate/"
 SNAPSHOTS_PREFIX = "snapshots/"
 RUNS_PREFIX = "runs/"
+FLIGHTREC_PREFIX = "obs/flightrec/"
 
 
 def dataset_key(d: date) -> str:
@@ -76,3 +81,11 @@ def snapshot_key(d: date) -> str:
     ``d``, its most recent covered day (so ``history``/``latest`` version
     snapshots too)."""
     return f"{SNAPSHOTS_PREFIX}history-snapshot-{d}.npz"
+
+
+def flight_record_key(seq: int, verdict: str, doc_digest: str) -> str:
+    """Where one flight-recorder dump lands: ``seq`` (the count of dumps
+    already stored, no wall clock) leads, so a listing is write order; the
+    content digest's fragment keeps distinct concurrent dumps apart."""
+    fragment = doc_digest.removeprefix("sha256:")[:16]
+    return f"{FLIGHTREC_PREFIX}flight-{seq:06d}-{verdict}-{fragment}.json"

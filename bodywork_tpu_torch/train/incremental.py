@@ -33,22 +33,27 @@ history in the same call). The runner adds ``gate_rejected``.
 The document is a pure function of the dataset bytes and the split
 parameters (sorted compact JSON, an embedded content digest), written
 only through ``put_bytes_if_match``, so either package reads, folds onto
-and rewrites the other's. The JAX package's counters of fallbacks,
-corrupt reads and rows touched wait for the port's metrics registry.
+and rewrites the other's. Counters, the JAX package's:
+``bodywork_tpu_train_fallbacks_total{reason}`` (:func:`count_fallback`,
+which the runner's same-day refit calls too),
+``bodywork_tpu_train_trainstate_corrupt_total`` (each invalid read), and
+the ``bodywork_tpu_train_*`` family of every fit
+(``trainer._record_train_metrics``, mode ``incremental``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+from time import perf_counter
 
 import numpy as np
 import torch
 
-from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
+from bodywork_tpu_torch.device import fence, require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore, CasConflict
 from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, trainstate_key
-from bodywork_tpu_torch.train.trainer import TrainResult, make_model
+from bodywork_tpu_torch.train.trainer import TrainResult, _record_train_metrics, make_model
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train.incremental")
@@ -70,6 +75,24 @@ MIN_FINE_TUNE_STEPS = 100
 #: trainstate reads: 1 + this many attempts before a document that stays
 #: invalid counts as corrupt
 CORRUPT_READ_RETRIES = 2
+
+
+def count_fallback(reason: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_train_fallbacks_total",
+        "Incremental-train degradations to a full refit, by reason",
+    ).inc(reason=reason)
+
+
+def _count_corrupt() -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_train_trainstate_corrupt_total",
+        "Trainstate reads that failed JSON/schema/digest validation",
+    ).inc()
 
 
 class IncrementalUnavailable(RuntimeError):
@@ -167,6 +190,7 @@ def read_trainstate(store: ArtefactStore, model_type: str):
                 return doc, token, None
         except (UnicodeDecodeError, ValueError, KeyError, TypeError):
             pass
+        _count_corrupt()
         log.warning(f"corrupt trainstate document at {key!r}; re-reading")
     return None, token, "trainstate_corrupt"
 
@@ -299,6 +323,7 @@ def incremental_train_linear(store: ArtefactStore, model_kwargs: dict | None = N
     hist_keys = [k for k, _d in hist]
     split = {"test_size": test_size, "seed": split_seed}
 
+    t0 = perf_counter()
     doc, _token, reason = read_trainstate(store, "linear")
     days: dict = {}
     cum_g = cum_c = None
@@ -322,6 +347,7 @@ def incremental_train_linear(store: ArtefactStore, model_kwargs: dict | None = N
         new_keys = hist_keys
         parts = _load_parts(store, dict.fromkeys(new_keys + tail_keys))
     if reason is not None:
+        count_fallback(reason)
         log.warning(f"linear trainstate {reason}: rebuilding the statistics from all "
                     f"{len(new_keys)} day(s) (a full-refit-cost day; the next is O(tail))")
     if new_keys:
@@ -338,6 +364,9 @@ def incremental_train_linear(store: ArtefactStore, model_kwargs: dict | None = N
                                                    split_seed))
     n_rows = sum(e["n_rows"] for e in days.values())
     rows_touched = sum(len(p) for p in parts.values())
+    fence(fitted.params)
+    _record_train_metrics(fitted, metrics, perf_counter() - t0, n_rows,
+                          mode="incremental", rows_touched=rows_touched)
     log.info(f"incremental linear fold: {len(new_keys)} new day(s) into {len(days)} "
              f"covered, {rows_touched} rows touched of {n_rows} on {dev}: "
              f"MAPE={metrics['MAPE']:.4f} r2={metrics['r_squared']:.4f}")
@@ -389,6 +418,7 @@ def incremental_train_mlp(store: ArtefactStore, model_kwargs: dict | None = None
     dates = dict(hist)
     data_date = hist[-1][1]
 
+    t0 = perf_counter()
     donor = _load_donor(store, dev)
     if donor.model_type != "mlp":
         raise IncrementalUnavailable(
@@ -419,6 +449,9 @@ def incremental_train_mlp(store: ArtefactStore, model_kwargs: dict | None = None
     metrics = tuned.evaluate(*_window_eval_arrays(parts, window_keys, dates, test_size,
                                                   split_seed))
     rows_touched = sum(len(parts[k]) for k in window_keys)
+    fence(tuned.params)
+    _record_train_metrics(tuned, metrics, perf_counter() - t0, rows_touched,
+                          mode="incremental", rows_touched=rows_touched)
     log.info(f"incremental mlp fine-tune: {ft_steps} step(s) from donor {donor.info} on "
              f"a {len(window_keys)}-day replay ({rows_touched} rows) on {dev}: "
              f"MAPE={metrics['MAPE']:.4f} r2={metrics['r_squared']:.4f}")
@@ -459,6 +492,7 @@ def train_incremental(store: ArtefactStore, model_type: str = "linear",
         raise IncrementalUnavailable("unsupported_model",
                                      f"no incremental path for {model_type!r}")
     except IncrementalUnavailable as exc:
+        count_fallback(exc.reason)
         log.warning(f"incremental {model_type} train unavailable ({exc.reason}: {exc}); "
                     "falling back to a full refit")
         from bodywork_tpu_torch.train.trainer import train_on_history

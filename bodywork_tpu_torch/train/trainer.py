@@ -11,6 +11,10 @@ gate then adjudicates.
 ``mode="incremental"`` retrains from persisted sufficient statistics
 (linear) or by a warm-started fine-tune (MLP), degrading to this full
 refit where it cannot run (:mod:`bodywork_tpu_torch.train.incremental`).
+Each fit exports the JAX package's ``bodywork_tpu_train_*`` metrics
+(:func:`_record_train_metrics`), its seconds read after a fence on the
+fitted parameters (kernels launch asynchronously: without the fence the
+clock would stop at the last launch, not at the end of the fit).
 Not ported yet (ROADMAP): the device mesh (``mesh_data`` /
 ``mesh_model``) raises; there is no compile prewarm, which is XLA
 machinery.
@@ -19,11 +23,12 @@ from __future__ import annotations
 
 import dataclasses
 from datetime import date
+from time import perf_counter
 
 import numpy as np
 
 from bodywork_tpu_torch.data.io import csv_record, load_all_datasets
-from bodywork_tpu_torch.device import resolve_device
+from bodywork_tpu_torch.device import fence, resolve_device
 from bodywork_tpu_torch.models import (
     LinearConfig,
     LinearRegressor,
@@ -83,6 +88,54 @@ def _prediction_bounds(y) -> dict:
     span = max(hi - lo, 1e-6)  # degenerate label sets still get a band
     margin = 0.5 * span
     return {"lo": lo - margin, "hi": hi + margin}
+
+
+def _record_train_metrics(fitted, metrics: dict[str, float], fit_s: float, n_rows: int,
+                          mode: str = "full", rows_touched: int | None = None) -> None:
+    """Export one fit's telemetry through the shared obs registry, under
+    the JAX package's names: runs, rows touched by mode (default: all of
+    history, the full refit's footprint), fit seconds, the history's rows,
+    the held-out MAPE and r², the final loss and the seconds a step.
+    ``fit_s`` must be read after a fence on the fitted parameters."""
+    from bodywork_tpu_torch.obs import get_registry
+
+    reg = get_registry()
+    reg.counter(
+        "bodywork_tpu_train_runs_total", "Completed training runs"
+    ).inc()
+    reg.counter(
+        "bodywork_tpu_train_rows_touched_total",
+        "Dataset rows read to produce each training run's model, by "
+        "train mode (full = O(history) per run, incremental = O(tail))",
+    ).inc(n_rows if rows_touched is None else rows_touched, mode=mode)
+    reg.histogram(
+        "bodywork_tpu_train_fit_seconds",
+        "Fit + held-out eval wall-clock per training run",
+    ).observe(fit_s)
+    reg.gauge(
+        "bodywork_tpu_train_rows", "Rows in the latest training history"
+    ).set(n_rows)
+    reg.gauge(
+        "bodywork_tpu_train_mape_ratio", "Held-out MAPE of the latest fit"
+    ).set(metrics["MAPE"])
+    reg.gauge(
+        "bodywork_tpu_train_r2_ratio", "Held-out r_squared of the latest fit"
+    ).set(metrics["r_squared"])
+    final_loss = getattr(fitted, "final_loss", None)
+    if final_loss is not None:
+        reg.gauge(
+            "bodywork_tpu_train_final_loss",
+            "Training loss at the last optimisation step",
+        ).set(final_loss)
+    n_steps = getattr(getattr(fitted, "config", None), "n_steps", None)
+    if n_steps:
+        # the timed window is the whole fit + eval, so this is an UPPER
+        # bound on the time a step takes
+        reg.gauge(
+            "bodywork_tpu_train_step_seconds",
+            "Fit+eval wall-clock / optimisation steps of the latest fit "
+            "(upper bound on per-step time)",
+        ).set(fit_s / n_steps)
 
 
 def make_model(model_type: str, **kwargs) -> Regressor:
@@ -188,10 +241,13 @@ def train_on_history(
     ds = load_all_datasets(store)
     split = train_test_split(ds.X, ds.y, test_size=test_size, seed=split_seed)
     model = make_model(model_type, **(model_kwargs or {}))
+    fit_t0 = perf_counter()
     fitted, metrics = model.fit_and_evaluate(
         split.X_train, split.y_train, split.X_test, split.y_test,
         seed=fit_seed, device=dev,
     )
+    fence(fitted.params)
+    _record_train_metrics(fitted, metrics, perf_counter() - fit_t0, len(ds))
     log.info(
         f"trained {fitted.info} on {len(ds)} rows to {ds.date} on {dev}: "
         f"MAPE={metrics['MAPE']:.4f} r2={metrics['r_squared']:.4f} "

@@ -55,11 +55,13 @@ def full_jitter_delay(attempt: int, base_s: float, max_s: float) -> float:
 
 
 def call_with_retry(fn, policy: RetryPolicy = RetryPolicy(), *,
-                    is_retryable=is_transient):
+                    is_retryable=is_transient, on_retry=None):
     """Run ``fn()`` under ``policy``, retrying failures ``is_retryable``
     accepts until the attempt or deadline budget runs out (then the last
     error propagates). A ``retry_after_s`` attribute on the error floors
-    the jittered sleep, up to ``policy.max_delay_s``."""
+    the jittered sleep, up to ``policy.max_delay_s``. ``on_retry(exc,
+    attempt, sleep_s)`` fires before each backoff sleep: the hook through
+    which a caller counts its retries (this module stays metric-free)."""
     start = time.monotonic()
     for attempt in range(policy.attempts):
         try:
@@ -76,4 +78,7 @@ def call_with_retry(fn, policy: RetryPolicy = RetryPolicy(), *,
             floor = getattr(exc, "retry_after_s", None)
             if floor:
                 delay = max(delay, min(float(floor), policy.max_delay_s))
-            time.sleep(min(delay, remaining))
+            delay = min(delay, remaining)
+            if on_retry is not None:
+                on_retry(exc, attempt + 1, delay)
+            time.sleep(delay)

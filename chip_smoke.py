@@ -59,6 +59,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
    uncoalesced thread engine's; ``serve-admission`` bursts 64 simultaneous
    rows at ``aio`` with ``max_pending`` 8: 429s with ``Retry-After``, every
    200 the unshed answer, the ``/metrics`` shed count equal to the 429s;
+   then ``trace``: request tracing on that model, served on ``auto``
+   (-> ``kernel``) on both front ends, coalescer off and on, at trace
+   fraction 1.0: single rows, one with an ingress ``traceparent`` (whose
+   id must be kept), one 4096-row batch, then 16 clients x 25: every
+   response's 32-hex ``X-Bodywork-Trace-Id`` in a header and in no body,
+   every trace with the JAX package's spans (``parse``, ``device-dispatch``
+   with ``aot_cache`` and ``bucket``, ``serialize``, and ``queue-wait``
+   when coalesced, every coalesced member linked to the one shared
+   dispatch span), ``/healthz`` exemplars that resolve to recorded traces,
+   and the median span breakdown of the 16 clients' requests;
+   ``trace-overhead``: config 7 on ``thread`` (coalescer off) at fractions
+   0, 0.1, 1.0, 1.0, 0.1, 0;
 5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
    -> test loop (``run_simulation``, which journals every day, prefetches
    the horizon's draws, trains each next day as a lookahead on a
@@ -128,6 +140,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
    wall-clocks, the digest re-hash seconds and a day's journal writes;
    then ``sigterm``: SIGTERM to a ``run-day`` mid-train exits 143 with the
    journal ``interrupted``, and the next ``run-day`` resumes the day;
+   the killed, restarted and no-op processes must count
+   ``runner_resumes_total`` ``fresh``, ``resumed`` and ``noop``; then
+   ``day-report``: a ``run-day`` of that day on a fresh store with
+   ``--trace-out``/``--report-out``: the report's schema, every stage
+   span's trace duration equal to its ``stage_seconds``, the gate and day
+   spans, the gate's seconds and the day's seconds outside its stage and
+   gate spans; then ``profile``: ``run-sim --profile-dir`` for 2 days of
+   the MLP with its fits cut to 200 steps, between two unprofiled runs:
+   the trace's CUDA device events, the f32 kernel by name (one event per
+   counted launch) or inside graph launches, the trace's bytes and the
+   run's seconds with the profiler on and off;
 8. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
@@ -139,7 +162,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernel can take at 256, 512 and 4096 rows; then one ``kernels`` line
    summing every kernel up.
 
-The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+A ``total`` line gives the script's seconds. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
 """
@@ -232,6 +256,14 @@ COALESCE = {"sequential": 300, "clients": 16, "per_client": 25, "windows": (0, 2
             "max_rows": 64}
 #: serve-admission: the aio budget and the burst past it
 ADMISSION = {"max_pending": 8, "burst": 64}
+#: trace: single rows sent one after another, the batch's rows, the
+#: ingress traceparent, and the trace fractions config 7 is served at, in
+#: turns (each fraction twice, mirrored: the spread between calls is wide)
+TRACE = {"singles": 20, "batch_rows": 4096, "ingress": f"00-{'4b' * 16}-{'9c' * 8}-01",
+         "fractions": (0.0, 0.1, 1.0, 1.0, 0.1, 0.0)}
+#: profile: the 2-day MLP simulation's Adam steps a fit, cut from the
+#: loop's 2000 so the profile holds ~25k kernel events a day, not ~125k
+PROFILE_SIM = {"days": 2, "n_steps": 200}
 
 
 def emit(phase: str, **fields) -> None:
@@ -779,12 +811,20 @@ def _connect(base_url: str):
 def _score(conn, x: float) -> tuple[int, dict, bytes, float]:
     """One single-row ``/score/v1`` on a keep-alive connection: status,
     headers, body and seconds."""
-    body = json.dumps({"X": x})
+    status, headers, _sent, payload, seconds = _post_json(conn, "/score/v1", {"X": x})
+    return status, headers, payload, seconds
+
+
+def _post_json(conn, path: str, payload, headers=None) -> tuple[int, dict, bytes, bytes, float]:
+    """One POST of ``payload`` as JSON on a keep-alive connection: status,
+    headers, the request body sent, the response body, and seconds."""
+    body = json.dumps(payload).encode()
     t0 = time.perf_counter()
-    conn.request("POST", "/score/v1", body=body, headers={"Content-Type": "application/json"})
+    conn.request("POST", path, body=body,
+                 headers={"Content-Type": "application/json", **(headers or {})})
     resp = conn.getresponse()
     payload = resp.read()
-    return resp.status, dict(resp.getheaders()), payload, time.perf_counter() - t0
+    return resp.status, dict(resp.getheaders()), body, payload, time.perf_counter() - t0
 
 
 def _nearest_rank(values, q: float) -> float:
@@ -1047,6 +1087,61 @@ def _serve_graph_overlap(torch, dev, store, hist) -> dict:
     return out
 
 
+def _config7(handle, seq_x, client_x) -> dict:
+    """Config 7's load on a started service: 20 untimed requests, then
+    ``seq_x`` as sequential single rows on one keep-alive connection, then
+    one closed-loop client per list of ``client_x``, each on its own
+    connection after one untimed request. p50/p99 (nearest rank) of both
+    parts, the concurrent part's requests/s, and the realised rows per
+    dispatch (the part's requests, each client's untimed first one
+    included, over the ``kernel`` launches in that part); ``answers`` holds
+    every timed ``(status, headers, body, seconds)``, sequential first."""
+    import threading
+
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
+
+    conn = _connect(handle.base_url)
+    for _ in range(20):
+        _score(conn, 50.0)
+    at_seq = LAUNCHES["kernel"]
+    seq = [_score(conn, x) for x in seq_x]
+    conn.close()
+    at_conc = LAUNCHES["kernel"]
+    conc = [[] for _ in client_x]
+    start = threading.Barrier(len(client_x))
+
+    def client(i):
+        c = _connect(handle.base_url)
+        _score(c, 50.0)
+        start.wait()
+        conc[i] = [_score(c, x) for x in client_x[i]]
+        c.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(client_x))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    end = LAUNCHES["kernel"]
+    seq_s = [s for _, _, _, s in seq]
+    conc_s = [s for per in conc for _, _, _, s in per]
+    return {
+        "answers": seq + [a for per in conc for a in per],
+        "sequential": {"requests": len(seq_s), "p50_ms": 1e3 * _nearest_rank(seq_s, 50),
+                       "p99_ms": 1e3 * _nearest_rank(seq_s, 99),
+                       "rows_per_dispatch": len(seq_s) / max(1, at_conc - at_seq)}
+        if seq_s else None,
+        "concurrent": {"clients": len(client_x), "requests": len(conc_s),
+                       "p50_ms": 1e3 * _nearest_rank(conc_s, 50),
+                       "p99_ms": 1e3 * _nearest_rank(conc_s, 99),
+                       "requests_per_s": len(conc_s) / wall,
+                       "rows_per_dispatch": (len(conc_s) + len(client_x))
+                       / max(1, end - at_conc)},
+    }
+
+
 def _serve_coalesce(torch, dev, store) -> dict:
     """``serve-coalesce``: config 7's shape (``bench.py:646``) on both
     front ends, coalescer off (window 0) and on (2 ms, 64 rows): 20
@@ -1056,8 +1151,6 @@ def _serve_coalesce(torch, dev, store) -> dict:
     dispatch (the part's requests, each client's untimed first one
     included, over the kernel's launches in that part), and every answer
     byte-identical across the four services."""
-    import threading
-
     import numpy as np
 
     from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
@@ -1077,56 +1170,18 @@ def _serve_coalesce(torch, dev, store) -> dict:
                                         batch_window_ms=window,
                                         batch_max_rows=COALESCE["max_rows"])
             try:
-                conn = _connect(handle.base_url)
-                for _ in range(20):
-                    _score(conn, 50.0)
-                at_seq = LAUNCHES["kernel"]
-                seq = [_score(conn, x) for x in seq_x]
-                conn.close()
-                at_conc = LAUNCHES["kernel"]
-                conc = [[] for _ in client_x]
-                start = threading.Barrier(len(client_x))
-
-                def client(i):
-                    c = _connect(handle.base_url)
-                    _score(c, 50.0)
-                    start.wait()
-                    conc[i] = [_score(c, x) for x in client_x[i]]
-                    c.close()
-
-                threads = [threading.Thread(target=client, args=(i,))
-                           for i in range(len(client_x))]
-                t0 = time.perf_counter()
-                for t in threads:
-                    t.start()
-                for t in threads:
-                    t.join()
-                wall = time.perf_counter() - t0
-                end = LAUNCHES["kernel"]
+                load = _config7(handle, seq_x, client_x)
                 batcher = handle.app.batcher
                 stats = batcher.stats() if batcher is not None else None
                 launches_by_run[name] = dict(LAUNCHES)
             finally:
                 handle.stop()
-            answers = seq + [a for per in conc for a in per]
-            if any(status != 200 for status, _, _, _ in answers):
+            if any(status != 200 for status, _, _, _ in load["answers"]):
                 raise RuntimeError(f"{name}: a request failed")
-            bodies[name] = [body for _, _, body, _ in answers]
-            seq_s = [s for _, _, _, s in seq]
-            conc_s = [s for per in conc for _, _, _, s in per]
-            n_conc = len(conc_s)
+            bodies[name] = [body for _, _, body, _ in load["answers"]]
             runs[name] = {
                 "engine": engine, "window_ms": window, "max_rows": COALESCE["max_rows"],
-                "sequential": {"requests": len(seq_s), "p50_ms": 1e3 * _nearest_rank(seq_s, 50),
-                               "p99_ms": 1e3 * _nearest_rank(seq_s, 99),
-                               "rows_per_dispatch": len(seq_s) / max(1, at_conc - at_seq)},
-                "concurrent": {"clients": len(client_x), "requests": n_conc,
-                               "p50_ms": 1e3 * _nearest_rank(conc_s, 50),
-                               "p99_ms": 1e3 * _nearest_rank(conc_s, 99),
-                               "requests_per_s": n_conc / wall,
-                               # each client's untimed first request too
-                               "rows_per_dispatch": (n_conc + len(client_x))
-                               / max(1, end - at_conc)},
+                "sequential": load["sequential"], "concurrent": load["concurrent"],
                 "coalescer": stats, "launches": launches_by_run[name],
             }
             emit("serve-coalesce", name=name, **runs[name])
@@ -1233,6 +1288,182 @@ def phase_serving(torch, dev, workdir: str) -> dict:
                 "serve-coalesce": {e: sum(r[e] for r in coalesce["launches"].values())
                                    for e in VARIANTS},
                 "serve-admission": admission["launches"]}}
+
+
+def _check_traces(name: str, traces: list, coalesced_singles: bool) -> dict:
+    """Hold one service's recorded traces to the tracing contract: the
+    JAX package's spans in its order (``queue-wait`` on a coalesced single
+    row), every coalesced member linked to one shared dispatch span, and
+    the graph cache's ``aot_cache``/``bucket`` on every direct dispatch."""
+    # identical bodies mint identical ids (the determinism contract), so a
+    # root span id may name several requests
+    by_root: dict = {}
+    for t in traces:
+        by_root.setdefault(t["root_span_id"], []).append(
+            [s for s in t["spans"] if s["name"] == "device-dispatch"])
+    shared = 0
+    for t in traces:
+        names = [s["name"] for s in t["spans"]]
+        single = t["route"] == "/score/v1"
+        want = (["parse", "queue-wait", "device-dispatch", "serialize"]
+                if single and coalesced_singles else ["parse", "device-dispatch", "serialize"])
+        if names != want or t["status"] != 200:
+            raise RuntimeError(f"{name}: trace {t['trace_id']} spans {names} != {want}")
+        dispatch = t["spans"][names.index("device-dispatch")]
+        meta = dispatch["meta"]
+        if meta.get("coalesced"):
+            if t["root_span_id"] not in meta["links"] or len(meta["links"]) != meta["batch_rows"]:
+                raise RuntimeError(f"{name}: a coalesced member's links are off: {meta}")
+            for root in meta["links"]:
+                if not any(o and o[0]["meta"] == meta
+                           and o[0]["duration_s"] == dispatch["duration_s"]
+                           for o in by_root.get(root, ())):
+                    raise RuntimeError(f"{name}: linked member {root} does not hold the "
+                                       f"shared dispatch span")
+            shared += len(meta["links"]) > 1
+        elif meta.get("aot_cache") not in ("warm", "hit", "miss") or "bucket" not in meta:
+            raise RuntimeError(f"{name}: a direct dispatch span lacks aot_cache/bucket: {meta}")
+    return {"traces": len(traces), "dispatches_shared_by_several": shared,
+            "aot_cache": sorted({s["meta"].get("aot_cache", "-") for t in traces
+                                 for s in t["spans"] if s["name"] == "device-dispatch"})}
+
+
+def _span_breakdown(traces: list) -> dict:
+    """Median ms of each span of single-row traces, and of the remainder
+    (the trace's duration outside its spans: routing, the firewall, the
+    coalescer's hand-off back)."""
+    per: dict = {"parse": [], "queue-wait": [], "device-dispatch": [], "serialize": [],
+                 "remainder": [], "trace": []}
+    for t in traces:
+        spans = {s["name"]: s["duration_s"] for s in t["spans"]}
+        for key in ("parse", "queue-wait", "device-dispatch", "serialize"):
+            if key in spans:
+                per[key].append(spans[key])
+        per["remainder"].append(t["duration_s"] - sum(spans.values()))
+        per["trace"].append(t["duration_s"])
+    return {k: 1e3 * statistics.median(v) for k, v in per.items() if v}
+
+
+def phase_trace(torch, dev, workdir: str) -> dict:
+    """``trace``: the 1024-wide MLP served on ``auto`` (-> ``kernel``) on
+    the ``thread`` and ``aio`` front ends, coalescer off and on (2 ms, 64
+    rows), at trace fraction 1.0: single rows one after another, one with
+    an ingress ``traceparent``, one 4096-row batch, then 16 clients x 25
+    single rows. Every response carries its 32-hex id in a header and in
+    no body, the ingress id is kept, every trace holds the JAX package's
+    spans (:func:`_check_traces`), the ``/healthz`` exemplars resolve to
+    recorded traces, and the span breakdown of the 16 clients' requests
+    is printed. Then ``trace-overhead``: config 7 on the ``thread`` front
+    end, coalescer off, at fractions 0, 0.1, 1.0, 1.0, 0.1, 0."""
+    import numpy as np
+
+    from bodywork_tpu_torch.obs import registry, tracing
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.serve import serve_latest_model
+
+    store = _serving_models(torch, dev, workdir)[0]
+    process_registry = registry.get_registry()
+    rng = np.random.default_rng(13)
+    singles = [round(float(x), 3) for x in rng.uniform(0, 100, TRACE["singles"])]
+    batch = [round(float(x), 3) for x in rng.uniform(0, 100, TRACE["batch_rows"])]
+    client_x = [[round(float(x), 3) for x in rng.uniform(0, 100, COALESCE["per_client"])]
+                for _ in range(COALESCE["clients"])]
+    tracer = tracing.get_tracer()
+    previous = (tracer.sample_fraction, tracer.seed)
+
+    def serve(engine, window):
+        return serve_latest_model(store, host="127.0.0.1", port=0, block=False,
+                                  engine="auto", device=dev, server_engine=engine,
+                                  batch_window_ms=window, batch_max_rows=COALESCE["max_rows"])
+
+    runs = {}
+    reset_launches()
+    try:
+        # room for every trace of a run: the exemplars must resolve
+        tracing.configure_tracing(1.0, seed=0, recorder_capacity=4096)
+        for engine in ("thread", "aio"):
+            for window in COALESCE["windows"]:
+                name = f"{engine}-window-{window:g}ms"
+                tracer.recorder.clear()
+                # a metrics registry of the service's own: the process's
+                # latency histogram holds earlier phases' exemplars
+                registry._DEFAULT = registry.Registry()
+                handle = serve(engine, window)
+                try:
+                    conn = _connect(handle.base_url)
+                    answers = [_post_json(conn, "/score/v1", {"X": x}) for x in singles]
+                    ingress = _post_json(conn, "/score/v1", {"X": 50.0},
+                                         {"traceparent": TRACE["ingress"]})
+                    answers.append(_post_json(conn, "/score/v1/batch", {"X": batch}))
+                    conn.close()
+                    n_before = len(tracer.recorder)
+                    load = _config7(handle, [], client_x)
+                    health = get(handle.base_url + "/healthz")
+                finally:
+                    handle.stop()
+                traces = tracer.recorder.snapshot()
+                header = "X-Bodywork-Trace-Id"
+                for status, headers, sent, body, _s in answers:
+                    trace_id = headers.get(header, "")
+                    if (status != 200 or trace_id != tracing.mint_trace_id(0, sent)
+                            or trace_id.encode() in body):
+                        raise RuntimeError(f"{name}: a response's trace id is off: "
+                                           f"{status} {trace_id!r}")
+                load_ids = [h.get(header) for _st, h, _b, _s in load["answers"]]
+                if not all(i and len(i) == 32 for i in load_ids):
+                    raise RuntimeError(f"{name}: a concurrent response lacks its trace id")
+                by_id = {t["trace_id"]: t for t in traces}
+                kept = ingress[1].get(header) == TRACE["ingress"][3:35]
+                ingress_doc = by_id.get(TRACE["ingress"][3:35], {})
+                exemplars = health["latency_exemplars"] or {}
+                checks = _check_traces(name, traces, coalesced_singles=window > 0)
+                runs[name] = {
+                    "engine": engine, "window_ms": window, "requests": len(answers) + 1
+                    + len(load["answers"]) + len(client_x) + 20, **checks,
+                    "ingress_id_kept": kept,
+                    "ingress_parent_span_id": ingress_doc.get("parent_span_id"),
+                    "exemplars": len(exemplars),
+                    "exemplars_resolve": bool(exemplars) and set(exemplars.values()) <= set(by_id),
+                    "client_ms_16_clients": {"p50": load["concurrent"]["p50_ms"],
+                                             "p99": load["concurrent"]["p99_ms"]},
+                    "span_ms_16_clients_median": _span_breakdown(
+                        [t for t in traces[n_before:] if t["route"] == "/score/v1"]),
+                }
+                emit("trace", name=name, **runs[name])
+                if (checks["traces"] != runs[name]["requests"] or not kept
+                        or ingress_doc.get("parent_span_id") != TRACE["ingress"][36:52]
+                        or not runs[name]["exemplars_resolve"]
+                        or (window > 0 and not checks["dispatches_shared_by_several"])):
+                    raise RuntimeError(f"{name}: the traces break the contract: {runs[name]}")
+        registry._DEFAULT = process_registry
+        launches = dict(LAUNCHES)
+        if launches["kernel"] < 1:
+            raise RuntimeError(f"the traced services launched no kernel: {launches}")
+        overhead = {}
+        seq_x = [round(float(x), 3) for x in rng.uniform(0, 100, COALESCE["sequential"])]
+        for i, fraction in enumerate(TRACE["fractions"]):
+            tracing.configure_tracing(fraction, seed=0, recorder_capacity=4096)
+            handle = serve("thread", 0)
+            try:
+                load = _config7(handle, seq_x, client_x)
+            finally:
+                handle.stop()
+            if any(a[0] != 200 for a in load["answers"]):
+                raise RuntimeError(f"trace-overhead: a request failed at {fraction}")
+            overhead[f"{i}:{fraction:g}"] = row = {
+                "fraction": fraction, "window_ms": 0, "turn": i,
+                "sequential_p50_ms": load["sequential"]["p50_ms"],
+                "sequential_p99_ms": load["sequential"]["p99_ms"],
+                "requests_per_s_16_clients": load["concurrent"]["requests_per_s"],
+                "p99_ms_16_clients": load["concurrent"]["p99_ms"],
+                "traces_recorded": len(tracer.recorder),
+            }
+            emit("trace-overhead", engine="thread", **row)
+    finally:
+        registry._DEFAULT = process_registry
+        tracing.configure_tracing(*previous, recorder_capacity=tracing.DEFAULT_RECORDER_CAPACITY)
+    return {"runs": runs, "overhead": overhead, "launches": launches,
+            "launches_all": dict(LAUNCHES)}
 
 
 def _day_line(model_type: str, r, launched: int) -> dict:
@@ -1964,17 +2195,47 @@ def phase_incremental(torch, dev, workdir: str) -> dict:
             "snapshot": snapshot, "store": mlp["runner"].store}
 
 
-def _cli(args: list, env: dict | None = None, timeout: float = 300) -> dict:
+#: ``python -c`` driver of the cli that prints the process's
+#: ``bodywork_tpu_runner_resumes_total`` series to stderr each time the
+#: runner counts one, so a process the kill switch ends still reports it
+_RESUME_PROBE = """
+import sys
+from bodywork_tpu_torch.obs import get_registry
+from bodywork_tpu_torch.pipeline import journal
+real = journal.count_resume
+def count_resume(outcome):
+    real(outcome)
+    for line in get_registry().render().splitlines():
+        if line.startswith("bodywork_tpu_runner_resumes_total{"):
+            print("RESUMES " + line, file=sys.stderr, flush=True)
+journal.count_resume = count_resume
+from bodywork_tpu_torch import cli
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def _cli(args: list, env: dict | None = None, timeout: float = 300,
+         count_resumes: bool = False) -> dict:
     """``python -m bodywork_tpu_torch.cli ARGS`` from the checkout: its
-    exit code, output and seconds."""
+    exit code, output and seconds; with ``count_resumes``, also the
+    ``runner_resumes_total`` samples the process counted (``resumes``:
+    outcome -> value at its last count)."""
+    import re
+
     t0 = time.perf_counter()
+    cmd = ["-c", _RESUME_PROBE] if count_resumes else ["-m", "bodywork_tpu_torch.cli"]
     proc = subprocess.run(
-        [sys.executable, "-m", "bodywork_tpu_torch.cli", *args], cwd=ROOT,
+        [sys.executable, *cmd, *args], cwd=ROOT,
         env={**os.environ, "PYTHONPATH": ROOT, **(env or {})},
         capture_output=True, text=True, timeout=timeout,
     )
-    return {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
-            "seconds": time.perf_counter() - t0}
+    out = {"rc": proc.returncode, "out": proc.stdout, "err": proc.stderr,
+           "seconds": time.perf_counter() - t0}
+    if count_resumes:
+        out["resumes"] = {m[1]: float(m[2]) for m in re.finditer(
+            r'^RESUMES bodywork_tpu_runner_resumes_total\{outcome="(\w+)"\} (\S+)$',
+            proc.stderr, re.M)}
+    return out
 
 
 def _mlp_day_args(store: str, day: date) -> list:
@@ -2074,13 +2335,14 @@ def phase_resume(torch, dev, workdir: str) -> dict:
     LocalRunner(spec, store, device=dev).bootstrap(day)
     args = _mlp_day_args(root, day)
     ttl = {"BODYWORK_TPU_RUN_LEASE_TTL_S": "1"}
-    killed = _cli(args, {**ttl, ENV_SCHEDULE: '[{"kind": "stage_boundary", "n": 1}]'})
+    killed = _cli(args, {**ttl, ENV_SCHEDULE: '[{"kind": "stage_boundary", "n": 1}]'},
+                  count_resumes=True)
     doc = json.loads(store.get_bytes(run_journal_key(day)))
     ckpt = model_key(day)
     killed_digest = artefact_digest(store.get_bytes(ckpt))
     time.sleep(1.5)  # the killed runner's lease expires
-    resumed = _cli(args, ttl)
-    noop = _cli(args, ttl)
+    resumed = _cli(args, ttl, count_resumes=True)
+    noop = _cli(args, ttl, count_resumes=True)
     RunJournal(store, day + timedelta(days=1), owner="foreign:1:live",
                lease_ttl_s=900).acquire()
     leased = _cli(_mlp_day_args(root, day + timedelta(days=1)), ttl)
@@ -2088,8 +2350,10 @@ def phase_resume(torch, dev, workdir: str) -> dict:
     twin_results, resumed_results = _results_of(twin.store.root), _results_of(root)
     gap = _compare_results(twin_results, resumed_results)
     rehash_s, rehash_bytes = _rehash_seconds(store, day)
+    counted = [killed["resumes"], resumed["resumes"], noop["resumes"]]
     out = {
         "day": str(day), "twin_day_s": full.wall_clock_s, "twin_launches": twin_launches,
+        "runner_resumes_total": counted,
         "killed": {"rc": killed["rc"], "want": EXIT_KILLED, "process_s": killed["seconds"],
                    "journal_train_state": doc["stages"].get(TRAIN_STAGE, {}).get("state"),
                    "journal_status": doc["status"]},
@@ -2115,6 +2379,9 @@ def phase_resume(torch, dev, workdir: str) -> dict:
     if (killed["rc"], resumed["rc"], noop["rc"], leased["rc"]) != (
             EXIT_KILLED, 0, RESUMED_NOOP_EXIT, LEASE_LOST_EXIT):
         raise RuntimeError(f"resume exit codes are off: {out}\n{resumed['err'][-3000:]}")
+    if counted != [{"fresh": 1.0}, {"resumed": 1.0}, {"noop": 1.0}]:
+        raise RuntimeError(f"runner_resumes_total over the killed, restarted and no-op "
+                           f"days is not fresh, resumed, noop: {counted}")
     if out["killed"]["journal_train_state"] != "complete" or not out["resumed"]["skipped_train"]:
         raise RuntimeError(f"the restart did not skip the journalled train stage: {out}")
     if (served is None or served["engine"] != "kernel" or served["launches"] < 1
@@ -2186,6 +2453,126 @@ def phase_sigterm(torch, dev, workdir: str) -> dict:
         raise RuntimeError(f"the day did not resume after SIGTERM and serve through "
                            f"kernel: {line}\n{restart['err'][-3000:]}")
     return {"launches": served["launches_by_kernel"]}
+
+
+def phase_day_report(torch, dev, workdir: str) -> dict:
+    """``day-report``: one ``cli run-day`` of the 1024-wide MLP on a fresh
+    store with ``--trace-out`` and ``--report-out`` (``{date}`` in both),
+    served by ``kernel``: the report's schema, every stage span's Chrome
+    trace duration equal to the report's ``stage_seconds`` (to the
+    report's 1e-6 s rounding), the ``registry-gate`` and ``run-day-<date>``
+    spans present; the gate's seconds and the day's seconds outside every
+    stage and gate span (the journal's writes and the artefact digests
+    recorded for them, the kill points, the services' stop) printed."""
+    day = LOOP_START
+    root = os.path.join(workdir, "day-report")
+    out_dir = os.path.join(workdir, "day-report-out")
+    res = _cli(_mlp_day_args(root, day) + [
+        "--trace-out", os.path.join(out_dir, "{date}.trace.json"),
+        "--report-out", os.path.join(out_dir, "{date}.report.json")])
+    if res["rc"] != 0:
+        raise RuntimeError(f"run-day with --trace-out failed: {res['err'][-3000:]}")
+    with open(os.path.join(out_dir, f"{day}.report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(out_dir, f"{day}.trace.json")) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    dur = {e["name"]: e["dur"] for e in events}
+    day_span = f"run-day-{day}"
+    stage_us = {name: dur.get(name) for name in report["stage_seconds"]}
+    gap_us = {name: None if us is None else abs(us - 1e6 * report["stage_seconds"][name])
+              for name, us in stage_us.items()}
+    served = _served(res["out"])
+    outside_s = (dur.get(day_span, 0.0) - sum(v or 0.0 for v in stage_us.values())
+                 - dur.get("registry-gate", 0.0)) / 1e6
+    out = {"day": str(day), "rc": res["rc"], "process_s": res["seconds"],
+           "schema": report["schema"], "stage_seconds": report["stage_seconds"],
+           "trace_stage_us": stage_us, "max_gap_us": max(
+               (g for g in gap_us.values() if g is not None), default=None),
+           "spans": [(e["name"], e["cat"]) for e in events],
+           "gate_s": dur.get("registry-gate", 0.0) / 1e6,
+           "day_s": dur.get(day_span, 0.0) / 1e6,
+           "bootstrap_s": dur.get(f"bootstrap-{day}", 0.0) / 1e6,
+           "outside_stage_and_gate_spans_s": outside_s,
+           "served": served}
+    emit("day-report", **out)
+    if report["schema"] != "bodywork_tpu.day_report/1" or None in gap_us.values() \
+            or max(gap_us.values()) > 0.5 + 1e-3:
+        raise RuntimeError(f"the day report and its trace disagree: {out}")
+    if "registry-gate" not in dur or day_span not in dur:
+        raise RuntimeError(f"the gate or the day span is missing: {out}")
+    if served is None or served["engine"] != "kernel" or served["launches"] < 1:
+        raise RuntimeError(f"the reported day did not serve through kernel: {out}")
+    return {"launches": served["launches_by_kernel"]}
+
+
+def _kernel_events(path: str) -> dict:
+    """What a torch.profiler Chrome trace holds: device events by
+    category, the f32 kernel's events by name, and the graph launches."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
+    device = [e for e in events if e.get("cat") in device_cats]
+    return {
+        "events": len(events),
+        "device_events": {c: sum(e.get("cat") == c for e in device) for c in device_cats},
+        "f32_kernel_named": sum("mlp_f32_kernel" in e.get("name", "") for e in device),
+        "graph_launches": sum(e.get("name") == "cudaGraphLaunch" for e in events),
+    }
+
+
+def phase_profile(torch, dev, workdir: str) -> dict:
+    """``profile``: ``cli run-sim --profile-dir`` of the 1024-wide MLP for
+    2 days, its fits cut to PROFILE_SIM's steps, between two unprofiled
+    runs of the same command (the first captures the serving graphs, so
+    the three serve alike): the trace holds CUDA device events, and the
+    f32 kernel appears either by its symbol (then one event per launch
+    the wrapper counted over the same window) or only inside graph
+    launches (then at least one graph launch per counted launch); the
+    trace's bytes and the run's seconds with the profiler on and off."""
+    import contextlib
+    import io
+    import re
+
+    from bodywork_tpu_torch import cli
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.utils.profiling import trace_path
+
+    prof_dir = os.path.join(workdir, "profile")
+    runs = {}
+    for name, extra in (("off-first", []), ("on", ["--profile-dir", prof_dir]), ("off", [])):
+        argv = ["--log-level", "WARNING", "run-sim", "--store", os.path.join(workdir, name),
+                "--days", str(PROFILE_SIM["days"]), "--date", str(LOOP_START),
+                "--model", "mlp", "--mlp-hidden", ",".join(map(str, HIDDEN)),
+                "--mlp-steps", str(PROFILE_SIM["n_steps"]),
+                "--mlp-lr", str(LOOP_MLP["learning_rate"]), "--device", "cuda", *extra]
+        reset_launches()
+        printed = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            rc = cli.main(argv)
+        runs[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                      "day_s": [float(m) for m in re.findall(r"^day \S+: ([0-9.]+)s$",
+                                                             printed.getvalue(), re.M)],
+                      "launches": dict(LAUNCHES)}
+        if rc != 0:
+            raise RuntimeError(f"run-sim {name} exited {rc}: {printed.getvalue()[-2000:]}")
+    path = str(trace_path(prof_dir, f"{PROFILE_SIM['days']}-day simulation"))
+    seen = _kernel_events(path)
+    launched = runs["on"]["launches"]["kernel"]
+    mode = "named kernel" if seen["f32_kernel_named"] else "graph launch only"
+    out = {"days": PROFILE_SIM["days"], "n_steps": PROFILE_SIM["n_steps"],
+           "n_steps_cut_from": LOOP_MLP["n_steps"], "trace_bytes": os.path.getsize(path),
+           "f32_kernel_appears_as": mode, "launch_counter_kernel": launched, **seen,
+           "seconds_profiled": runs["on"]["seconds"], "seconds_unprofiled": runs["off"]["seconds"],
+           "runs": runs}
+    emit("profile", **out)
+    if not sum(seen["device_events"].values()) or launched < 1:
+        raise RuntimeError(f"the profile holds no device events or no f32 launch: {out}")
+    if seen["f32_kernel_named"] and seen["f32_kernel_named"] != launched:
+        raise RuntimeError(f"the profile's f32 kernels differ from the launch counter: {out}")
+    if not seen["f32_kernel_named"] and seen["graph_launches"] < launched:
+        raise RuntimeError(f"the f32 kernel shows neither by name nor in graph launches: {out}")
+    return {"launches": {e: sum(r["launches"][e] for r in runs.values()) for e in VARIANTS}}
 
 
 def _cold_snapshot_train(torch, dev, store, workdir: str) -> dict:
@@ -2440,13 +2827,14 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="device,generator,mlp-draws,build,kernels,slice,serving,day-loop,incremental,"
-                "quantized,resume,sigterm,timing",
+        default="device,generator,mlp-draws,build,kernels,slice,serving,trace,day-loop,"
+                "incremental,quantized,resume,sigterm,day-report,profile,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
     args = parser.parse_args(argv)
     phases = set(args.phases.split(","))
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2475,8 +2863,9 @@ def main(argv=None) -> int:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
-    serving = {}
-    for phase in ("slice", "serving", "day-loop", "incremental", "resume", "sigterm"):
+    serving, traced, reported, profiled = {}, {}, {}, {}
+    for phase in ("slice", "serving", "trace", "day-loop", "incremental", "resume", "sigterm",
+                  "day-report", "profile"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -2485,6 +2874,12 @@ def main(argv=None) -> int:
                 launches = phase_slice(torch, dev, workdir)
             elif phase == "serving":
                 serving = phase_serving(torch, dev, workdir)
+            elif phase == "trace":
+                traced = phase_trace(torch, dev, workdir)
+            elif phase == "day-report":
+                reported = phase_day_report(torch, dev, workdir)
+            elif phase == "profile":
+                profiled = phase_profile(torch, dev, workdir)
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
             elif phase == "resume":
@@ -2499,6 +2894,7 @@ def main(argv=None) -> int:
             shutil.rmtree(workdir, ignore_errors=True)
     if "timing" in phases:
         timing = phase_timing(torch, dev, card)
+    emit("total", seconds=time.perf_counter() - t_start, phases=sorted(phases))
     if phases >= {"kernels", "slice", "day-loop", "incremental", "quantized", "timing"}:
         kernels = []
         for engine in VARIANTS:
@@ -2523,6 +2919,13 @@ def main(argv=None) -> int:
             # a bucket's capture warm-up, read per path in this run
             for path, counts in serving.get("launches_by_path", {}).items():
                 by_path[path] = counts.get(engine, 0)
+            # the traced services and their overhead runs; the reported
+            # day's own process; the profiled simulation and its two twins
+            for path, result, key in (("trace", traced, "launches_all"),
+                                      ("day-report", reported, "launches"),
+                                      ("profile", profiled, "launches")):
+                if result:
+                    by_path[path] = result[key][engine]
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

@@ -35,9 +35,8 @@ from bodywork_tpu_torch.serve import (
 torch.set_num_threads(1)
 
 DAY = date(2026, 7, 1)
-#: werkzeug's own headers, and the trace id of the JAX package's request
-#: tracing (a later slice of the port)
-JAX_ONLY_HEADERS = {"server", "date", "x-bodywork-trace-id"}
+#: werkzeug's own headers
+JAX_ONLY_HEADERS = {"server", "date"}
 
 
 class _Shared:
@@ -66,6 +65,14 @@ def _http(base, path, body=None, method=None, content_type="application/json"):
             return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as exc:
         return exc.code, dict(exc.headers), exc.read()
+
+
+def _exemplar_ids(exemplars) -> list:
+    """The trace ids of a ``latency_exemplars`` value (null, or bucket ->
+    32-hex trace id), checked for shape."""
+    ids = list((exemplars or {}).values())
+    assert all(isinstance(i, str) and len(i) == 32 and int(i, 16) >= 0 for i in ids), ids
+    return ids
 
 
 @pytest.fixture(scope="module")
@@ -116,7 +123,8 @@ def test_every_engine_answers_the_same_bytes(services, path, body, method, statu
     # connections each their own way)
     (_, aio_h, _), (_, jax_aio_h, _) = answers["aio"], answers["jax-aio"]
     assert aio_h == {k: v for k, v in jax_aio_h.items() if k.lower() not in JAX_ONLY_HEADERS}
-    app_headers = ("Content-Type", "Content-Length", "Retry-After", "X-Bodywork-Model-Key")
+    app_headers = ("Content-Type", "Content-Length", "Retry-After", "X-Bodywork-Model-Key",
+                   "X-Bodywork-Trace-Id")
     (_, thread_h, _), (_, jax_thread_h, _) = answers["thread"], answers["jax-thread"]
     assert ({k: thread_h.get(k) for k in app_headers}
             == {k: jax_thread_h.get(k) for k in app_headers})
@@ -152,10 +160,10 @@ def test_healthz_bytes_equal_across_engines_and_jaxs_keys_and_values(services):
     assert answers["jax-thread"][2] == answers["jax-aio"][2]
     port, ref = json.loads(answers["aio"][2]), json.loads(answers["jax-aio"][2])
     assert list(port)[:len(ref)] == list(ref)
-    # latency exemplars are the trace ids of the JAX package's request
-    # tracing, a later slice here: the port reports none
-    assert port.pop("latency_exemplars") is None
-    ref.pop("latency_exemplars")
+    # latency exemplars are sampled requests' trace ids, per bucket of a
+    # process-wide histogram: their buckets follow each process's timings
+    _exemplar_ids(port.pop("latency_exemplars"))
+    _exemplar_ids(ref.pop("latency_exemplars"))
     assert {k: port[k] for k in ref} == ref
     assert port["engine"] == "torch" and port["device"] == "cpu"
     assert port["effective_config"] == {"batch_window_ms": 2.0, "batch_max_rows": 64,
@@ -192,8 +200,8 @@ def test_the_no_model_503_is_jaxs(engine):
         want = _http(ref.url.replace("/score/v1", ""), "/healthz")
         assert got[0] == want[0] == 503 and got[1]["Retry-After"] == want[1]["Retry-After"]
         got, want = json.loads(got[2]), json.loads(want[2])
-        assert got.pop("latency_exemplars") is None  # tracing: a later slice
-        want.pop("latency_exemplars")
+        _exemplar_ids(got.pop("latency_exemplars"))  # the process-wide histogram's
+        _exemplar_ids(want.pop("latency_exemplars"))
         assert got == want
     finally:
         port.stop()

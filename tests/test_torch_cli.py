@@ -170,3 +170,98 @@ def test_sigterm_drains_a_live_service_and_exits_143(tmp_path, engine):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+# -- cli trace, against dumps the JAX package wrote ------------------------------
+
+def _jax_dumps(root) -> list[dict]:
+    """Two flight-record dumps written by the JAX package: the traces of
+    sampled requests through its app (the second dump holds them all)."""
+    from bodywork_tpu.models import LinearRegressor as JaxLinearRegressor
+    from bodywork_tpu.obs import tracing as jax_tracing
+    from bodywork_tpu.serve import create_app as jax_create_app
+    from bodywork_tpu.store import FilesystemStore as JaxStore
+
+    X = np.linspace(0, 100, 50, dtype=np.float32)
+    app = jax_create_app(JaxLinearRegressor().fit(X, 2 * X), date(2026, 7, 1),
+                         buckets=(1, 8), model_key="models/m.npz")
+    with jax_tracing.configured_tracing(1.0, seed=4) as tracer:
+        client = app.test_client()
+        for i in range(3):
+            client.post("/score/v1", json={"X": i})
+        client.post("/score/v1/batch", json={"X": [1.0, 2.0]})
+        traces = tracer.recorder.snapshot()
+    store = JaxStore(root)
+    for n, verdict in ((2, "abort"), (4, "promote")):
+        jax_tracing.write_flight_record(store, jax_tracing.flight_record_doc(
+            traces[:n], verdict, "slo", canary_key="models/c.npz"))
+    return traces
+
+
+def _both_clis(argv, capsys) -> tuple:
+    """``argv`` through the port's cli and the JAX package's: (code, stdout)
+    of each."""
+    from bodywork_tpu.cli import main as jax_main
+
+    code = cli.main(argv)
+    out = capsys.readouterr().out
+    jax_code = jax_main(argv)
+    return (code, out), (jax_code, capsys.readouterr().out)
+
+
+def test_cli_trace_show_and_tail_read_jax_dumps_as_jax_does(tmp_path, capsys):
+    traces = _jax_dumps(tmp_path / "s")
+    store = str(tmp_path / "s")
+    for argv in (["trace", "show", "--store", store, traces[3]["trace_id"][:10]],
+                 ["trace", "show", "--store", store, traces[0]["trace_id"]],
+                 ["trace", "tail", "--store", store],
+                 ["trace", "tail", "--store", store, "-n", "1", "--traces", "2"]):
+        port, ref = _both_clis(argv, capsys)
+        assert port == ref and port[0] == 0, argv
+    shown = json.loads(_both_clis(["trace", "show", "--store", store,
+                                   traces[1]["trace_id"]], capsys)[0][1])
+    assert shown["trace"] == traces[1] and shown["dump"].startswith("obs/flightrec/flight-")
+
+
+def test_cli_trace_export_renders_jax_dumps_as_jax_does(tmp_path, capsys):
+    traces = _jax_dumps(tmp_path / "s")
+    store = str(tmp_path / "s")
+    for extra in ([], ["--trace-id", traces[2]["trace_id"][:8]]):
+        out = {}
+        for name in ("port", "jax"):
+            path = tmp_path / f"{name}{len(extra)}.json"
+            argv = ["trace", "export", "--store", store, "--chrome", str(path), *extra]
+            if name == "port":
+                assert cli.main(argv) == 0
+            else:
+                from bodywork_tpu.cli import main as jax_main
+
+                assert jax_main(argv) == 0
+            out[name] = path.read_bytes()
+            assert capsys.readouterr().out.strip() == str(path)
+        assert out["port"] == out["jax"]
+        events = json.loads(out["port"])["traceEvents"]
+        assert {"parse", "device-dispatch", "serialize"} <= {e["name"] for e in events}
+
+
+@pytest.mark.parametrize("argv_tail,want", [
+    (["show", "f" * 32], 9), (["tail"], 9), (["export", "--chrome", "OUT"], 9),
+])
+def test_cli_trace_exit_codes_are_jaxs(tmp_path, capsys, argv_tail, want):
+    empty = str(tmp_path / "empty")
+    argv = ["trace", *[a.replace("OUT", str(tmp_path / "o.json")) for a in argv_tail],
+            "--store", empty]
+    port, ref = _both_clis(argv, capsys)
+    assert port[0] == ref[0] == want
+    # a store path that is a file is an error (1), not an absent trace
+    blocker = tmp_path / "file"
+    blocker.write_text("x")
+    argv = ["trace", *[a.replace("OUT", str(tmp_path / "o.json")) for a in argv_tail],
+            "--store", str(blocker)]
+    assert _both_clis(argv, capsys)[0][0] == 1
+    if argv_tail[0] == "export":  # and a dump missing the asked-for trace is absent
+        _jax_dumps(tmp_path / "s")
+        argv = ["trace", "export", "--chrome", str(tmp_path / "o.json"), "--trace-id",
+                "f" * 32, "--store", str(tmp_path / "s")]
+        port, ref = _both_clis(argv, capsys)
+        assert port[0] == ref[0] == 9

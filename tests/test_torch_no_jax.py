@@ -29,6 +29,8 @@ import bodywork_tpu_torch.data.snapshot, bodywork_tpu_torch.utils.shutdown
 import bodywork_tpu_torch.obs, bodywork_tpu_torch.obs.registry
 import bodywork_tpu_torch.serve.aio, bodywork_tpu_torch.serve.batcher
 import bodywork_tpu_torch.serve.admission, bodywork_tpu_torch.serve.app
+import bodywork_tpu_torch.obs.tracing, bodywork_tpu_torch.obs.spans
+import bodywork_tpu_torch.utils.profiling
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
