@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test|train|run-day|run-sim|compact|registry|trace``.
+generate|serve|test|train|run-day|run-sim|run-ab|compact|registry|trace|
+traffic|chaos``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -15,8 +16,12 @@ generate|serve|test|train|run-day|run-sim|compact|registry|trace``.
   admission flags are the JAX command's, with its environment defaults
   (``BODYWORK_TPU_BATCH_WINDOW_MS``, ``_BATCH_MAX_ROWS``,
   ``_SERVER_ENGINE``, ``_MAX_PENDING``, ``_RETRY_AFTER_MAX_S``); an
-  explicit ``--batch-window-ms 0`` turns coalescing off. SIGTERM closes
-  admission, flushes the coalescer and exits 143;
+  explicit ``--batch-window-ms 0`` turns coalescing off.
+  ``--reload-interval S`` (default 30, 0 off) polls the store and
+  hot-swaps the checkpoint serving should run, the SLO watchdog judging
+  a live canary on each poll; with it a store with no checkpoint yet
+  boots a service answering 503. SIGTERM closes admission, stops the
+  watcher, flushes the coalescer and exits 143;
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
   and persists the test metrics;
@@ -59,8 +64,21 @@ generate|serve|test|train|run-day|run-sim|compact|registry|trace``.
   ``aliases``), ``promote --model M [--date D]``, ``rollback [--date D]``
   (exit 8 when the restore target fails pre-verification: the alias did
   not move), ``gate [--model M] [--date D] [--dry-run] [--shadow-days K]
-  [--device cuda|cpu]``. A registry error exits 1. (The canary verbs
-  are a later slice.)
+  [--device cuda|cpu]``, ``canary start [--model M] [--fraction F]
+  [--seed N]|stop|promote|status``. A registry error exits 1.
+
+- ``traffic run [--url U] [--rate RPS] [--duration S] [--arrival
+  poisson|mmpp] [--transport json|binary] [--shards N] [--log-out F]
+  [--log-in F] [--results-out F] ...`` generates or replays a seeded
+  request log and drives it open-loop, printing the load report (JSON);
+  exit 1 on a bad log or nothing to do.
+- ``run-ab --store S --days N [--models linear,mlp] [--device cuda|cpu]``
+  runs the variants' simulations concurrently on the card and prints
+  their drift reports side by side (exit 1 when a variant failed).
+- ``chaos canary --store S [--scenario nan|latency|healthy] [--seed N]
+  [--requests N] [--fraction F] [--device cuda|cpu]`` runs the canary
+  release-safety acceptance and prints its summary (exit 0 PASS, 1
+  FAIL).
 
 - ``trace show ID|tail [-n N] [--traces N]|export --chrome OUT
   [--trace-id ID] --store S`` reads the flight-recorder dumps under
@@ -163,6 +181,7 @@ def cmd_serve(args) -> int:
                 buckets=args.buckets, batch_window_ms=batch_window,
                 batch_max_rows=args.batch_max_rows, server_engine=args.server_engine,
                 max_pending=args.max_pending, retry_after_max_s=args.retry_after_max_s,
+                watch_interval_s=args.reload_interval or None,
             )
         except ShutdownRequested:
             log.warning("SIGTERM during service startup; exiting")
@@ -568,6 +587,143 @@ def cmd_registry_gate(args) -> int:
     return 0
 
 
+@_registry_errors
+def cmd_registry_canary(args) -> int:
+    """The canary lifecycle: every action one alias CAS through
+    :class:`ModelRegistry` (the actions are ``registry.CANARY_ACTIONS``)."""
+    from bodywork_tpu_torch.registry import ModelRegistry
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    registry = ModelRegistry(open_store(args.store))
+    action = args.canary_command
+    if action == "start":
+        key = _registry_model_key(args.model) if args.model else None
+        if key is None:
+            candidate = registry.newest_candidate()
+            if candidate is None:
+                log.error("no candidate record to canary; train or pass --model")
+                return 1
+            key = candidate["model_key"]
+        doc = registry.canary_start(key, fraction=args.fraction, seed=args.seed,
+                                    day=_date(args))
+        print(f"canary -> {doc['canary']} at fraction {doc['canary_fraction']} "
+              f"(seed {doc['canary_seed']}, production {doc['production']})")
+        return 0
+    if action == "stop":
+        doc = registry.canary_abort(day=_date(args), reason="cli: operator stop")
+        if doc is None:
+            log.error("no live canary to stop")
+            return 1
+        print(f"canary stopped (production stays {doc['production']})")
+        return 0
+    if action == "promote":
+        doc = registry.canary_promote(day=_date(args), reason="cli: operator promote")
+        print(f"production -> {doc['production']} (previous: {doc['previous']})")
+        return 0
+    print(json.dumps(registry.canary_status(), indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_traffic_run(args) -> int:
+    """Open-loop load: generate (or replay) a seeded request log and drive
+    it at its scheduled arrival times against a live scoring service.
+    stdout carries one JSON document, the load report; exit 1 on a bad
+    log, an unreachable target or nothing to do."""
+    from bodywork_tpu_torch.traffic import (
+        TrafficConfig,
+        generate_request_log,
+        read_request_log,
+        run_open_loop,
+        write_request_log,
+    )
+    from bodywork_tpu_torch.traffic.runner import format_report
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    try:
+        if args.log_in:
+            config, requests = read_request_log(args.log_in)
+            log.info(f"replaying {len(requests)} requests from {args.log_in} "
+                     f"(seed {config.seed}, {config.arrival})")
+        else:
+            config = TrafficConfig(
+                rate_rps=args.rate, duration_s=args.duration, arrival=args.arrival,
+                batch_fraction=args.batch_fraction, batch_rows=args.batch_rows,
+                seed=args.seed, burst_multiplier=args.burst_multiplier,
+            )
+            requests = generate_request_log(config)
+        if args.log_out:
+            write_request_log(args.log_out, config, requests)
+        if args.url is None:
+            if not args.log_out:
+                log.error("nothing to do: need --url (drive) or --log-out (generate only)")
+                return 1
+            return 0
+        report = run_open_loop(args.url, requests, timeout_s=args.timeout,
+                               results_log=args.results_out, transport_kind=args.transport,
+                               shards=args.shards)
+        print(format_report(report))
+        return 0
+    except (OSError, ValueError) as exc:
+        log.error(f"traffic run failed: {exc}")
+        return 1
+
+
+def cmd_run_ab(args) -> int:
+    """N model variants as concurrent isolated pipelines sharing the card
+    (BASELINE.json config 5), then their drift reports side by side;
+    exit 1 when a variant failed."""
+    from bodywork_tpu_torch.device import resolve_device
+    from bodywork_tpu_torch.pipeline import (
+        compare_report,
+        format_compare_report,
+        run_ab_simulation,
+        variants_from_model_types,
+    )
+
+    variants = variants_from_model_types(args.models.split(","))
+    results = run_ab_simulation(variants, args.store, _date(args), args.days,
+                                devices=[resolve_device(args.device)])
+    failed = [v for v in results.values() if v.error is not None]
+    table = format_compare_report(compare_report(results))
+    if table:
+        print(table)
+    for v in failed:
+        print(f"variant {v.name} FAILED: {v.error!r}")
+    return 1 if failed else 0
+
+
+def cmd_chaos_canary(args) -> int:
+    """Canary release-safety acceptance: one seeded sabotage scenario on a
+    fresh store; stdout carries the summary (JSON). Exit 0 on a verified
+    PASS, 1 otherwise."""
+    from bodywork_tpu_torch.chaos import run_canary_chaos
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    if "://" in args.store:
+        log.error("chaos canary needs a fresh local store for the twin comparison; "
+                  "point --store at a directory")
+        return 1
+    try:
+        summary = run_canary_chaos(
+            open_store(args.store), scenario=args.scenario, seed=args.seed,
+            n_requests=args.requests, fraction=args.fraction,
+            samples_per_day=args.samples_per_day or 96, device=args.device,
+        )
+    except ValueError as exc:
+        log.error(exc)
+        return 1
+    print(json.dumps(summary, indent=2, sort_keys=True))
+    if summary["ok"]:
+        return 0
+    log.error(f"canary chaos scenario {args.scenario!r} FAILED")
+    return 1
+
+
 #: ``trace`` exit when the requested trace (or any dump) is absent: apart
 #: from 1 (an error), so a script tells "not recorded" from "broken"
 TRACE_ABSENT_EXIT = 9
@@ -640,6 +796,17 @@ def _positive_int(raw: str) -> int:
     value = int(raw)
     if value < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {raw}")
+    return value
+
+
+def _fraction(raw: str) -> float:
+    """``--fraction``: a probability in (0, 1]."""
+    try:
+        value = float(raw)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"must be a number, got {raw!r}")
+    if not 0.0 < value <= 1.0:
+        raise argparse.ArgumentTypeError(f"must be in (0, 1], got {raw}")
     return value
 
 
@@ -730,6 +897,13 @@ def build_parser() -> argparse.ArgumentParser:
         default=_env_number("BODYWORK_TPU_RETRY_AFTER_MAX_S", float, 1.0),
         help="cap on the EWMA-derived Retry-After of shed 429s and no-model 503s "
              "(default 30; env BODYWORK_TPU_RETRY_AFTER_MAX_S overrides)",
+    )
+    p.add_argument(
+        "--reload-interval", type=float, default=30.0, metavar="S",
+        help="poll the store every S seconds and hot-swap the checkpoint serving "
+             "should run into the running service, with the SLO watchdog judging a "
+             "live canary on each poll (0 disables; the service then serves its "
+             "boot-time model until restart)",
     )
 
     p = sub.add_parser("test", help="black-box test the live scoring service")
@@ -851,6 +1025,113 @@ def build_parser() -> argparse.ArgumentParser:
                         "last K dataset days (in-process, no live traffic; default off)")
     p.add_argument("--device", **{**device, "help": "where the shadow evaluation scores "
                                                      "(default cuda)"})
+
+    p = registry_sub.add_parser(
+        "canary", help="live canary lifecycle: route a seeded traffic fraction to a "
+                       "candidate, watched by the SLO watchdog of a service with "
+                       "--reload-interval")
+    canary_sub = p.add_subparsers(dest="canary_command", required=True)
+    p = canary_sub.add_parser("start", help="point the canary slot at a candidate (one "
+                                            "CAS); serving routes --fraction of /score "
+                                            "traffic to it on its next poll")
+    p.set_defaults(fn=cmd_registry_canary)
+    p.add_argument("--store", **store)
+    p.add_argument("--model", default=None,
+                   help="model key or date to canary (default: newest record in "
+                        "candidate status)")
+    p.add_argument("--fraction", type=_fraction, default=0.1, metavar="F",
+                   help="fraction of scoring traffic routed to the canary, in (0, 1] "
+                        "(default 0.1)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="routing-hash seed: (seed, request bytes) pick the stream")
+    p.add_argument("--date", default=None,
+                   help="day to stamp the canary events with (YYYY-MM-DD)")
+    p = canary_sub.add_parser("stop", help="abort the live canary (one CAS; record -> "
+                                           "rejected)")
+    p.set_defaults(fn=cmd_registry_canary)
+    p.add_argument("--store", **store)
+    p.add_argument("--date", default=None, help="day to stamp the abort events with")
+    p = canary_sub.add_parser("promote", help="graduate the live canary to production "
+                                              "(one CAS)")
+    p.set_defaults(fn=cmd_registry_canary)
+    p.add_argument("--store", **store)
+    p.add_argument("--date", default=None, help="day to stamp the promotion events with")
+    p = canary_sub.add_parser("status", help="the canary slot, serveability, and record "
+                                             "status")
+    p.set_defaults(fn=cmd_registry_canary)
+    p.add_argument("--store", **store)
+
+    p = sub.add_parser("traffic", help="open-loop load harness: seeded arrival-rate "
+                                       "traffic against a live scoring service")
+    traffic_sub = p.add_subparsers(dest="traffic_command", required=True)
+    p = traffic_sub.add_parser("run", help="generate (or replay) a seeded request log and "
+                                           "drive it open-loop at its scheduled arrival "
+                                           "times")
+    p.set_defaults(fn=cmd_traffic_run)
+    p.add_argument("--url", default=None,
+                   help="base URL of the service under load (e.g. http://127.0.0.1:5000); "
+                        "omit with --log-out to only generate the log")
+    p.add_argument("--rate", type=float, default=100.0, metavar="RPS",
+                   help="mean offered load, requests/second (default 100)")
+    p.add_argument("--duration", type=float, default=5.0, metavar="S",
+                   help="log span in seconds (default 5)")
+    p.add_argument("--transport", default="json", choices=["json", "binary"],
+                   help="wire encoding of the same log: the JSON body or the f32 row "
+                        "framing (application/x-bodywork-rows)")
+    p.add_argument("--shards", type=_positive_int, default=1, metavar="N",
+                   help="drive through N worker processes (spawned), the log split "
+                        "round-robin, one merged report (default 1)")
+    p.add_argument("--arrival", default="poisson", choices=["poisson", "mmpp"],
+                   help="arrival process: memoryless 'poisson' or bursty 'mmpp' "
+                        "(2-state Markov-modulated, the same mean rate)")
+    p.add_argument("--batch-fraction", type=float, default=0.0, metavar="P",
+                   help="probability an arrival is a /score/v1/batch request (default 0)")
+    p.add_argument("--batch-rows", type=_positive_int, default=64, metavar="N",
+                   help="rows per batch request (default 64)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="request-log seed: the same (seed, knobs) gives the same log")
+    p.add_argument("--burst-multiplier", type=float, default=4.0, metavar="M",
+                   help="mmpp: burst-state rate as a multiple of calm (default 4)")
+    p.add_argument("--timeout", type=float, default=30.0, metavar="S",
+                   help="per-request response timeout (default 30)")
+    p.add_argument("--log-out", default=None, metavar="FILE",
+                   help="write the request log (JSONL) here for later replay")
+    p.add_argument("--log-in", default=None, metavar="FILE",
+                   help="replay this request log instead of generating one")
+    p.add_argument("--results-out", default=None, metavar="FILE",
+                   help="write one JSONL record per request (status, latency, answering "
+                        "model key, trace id)")
+
+    p = sub.add_parser("run-ab", help="concurrent A/B model pipelines on one device pool")
+    p.set_defaults(fn=cmd_run_ab)
+    p.add_argument("--store", **store)
+    p.add_argument("--days", type=int, required=True)
+    p.add_argument("--date", default=None, help="start date (YYYY-MM-DD)")
+    p.add_argument("--models", default="linear,mlp",
+                   help="comma-separated model types, one pipeline each")
+    p.add_argument("--device", **device)
+
+    p = sub.add_parser("chaos", help="chaos harness")
+    chaos_sub = p.add_subparsers(dest="chaos_command", required=True)
+    p = chaos_sub.add_parser(
+        "canary", help="canary release-safety acceptance: a sabotaged canary (NaN weights "
+                       "/ injected latency) must auto-abort via one CAS with production "
+                       "byte-identical to a canary-free twin; a healthy one must "
+                       "auto-promote")
+    p.set_defaults(fn=cmd_chaos_canary)
+    p.add_argument("--store", required=True, help="fresh local directory")
+    p.add_argument("--scenario", default="nan", choices=["nan", "latency", "healthy"],
+                   help="'nan' (NaN-weight canary checkpoint), 'latency' (chaos latency "
+                        "on the canary stream) or 'healthy' (must auto-promote)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="drives the request stream, the routing hash and the fault plan")
+    p.add_argument("--requests", type=_positive_int, default=240, metavar="N",
+                   help="seeded single-row scoring requests to drive (default 240)")
+    p.add_argument("--fraction", type=_fraction, default=0.35, metavar="F",
+                   help="canary traffic fraction in (0, 1] (default 0.35)")
+    p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
+                   help="rows a day for the two seeded training days (default 96)")
+    p.add_argument("--device", **device)
 
     p = sub.add_parser("trace", help="inspect request traces in stored flight-recorder "
                                      "dumps (obs/flightrec/)")

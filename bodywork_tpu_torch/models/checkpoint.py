@@ -144,6 +144,21 @@ def resolve_serving_key(store: ArtefactStore) -> tuple[str, str]:
     )
 
 
+def resolve_serving_state(store: ArtefactStore):
+    """:func:`resolve_serving_key` and the canary slot from one alias
+    read: ``(production_key, source, canary_state, canary_dangling)``
+    (``registry.records.resolve_canary``'s pair; the JAX package's
+    ``resolve_serving_state``)."""
+    from bodywork_tpu_torch.registry.records import read_aliases, resolve_canary
+
+    doc = read_aliases(store)  # RegistryCorrupt propagates, as resolve_alias
+    if doc is None or not doc.get("production"):
+        key, source = resolve_serving_key(store)
+        return key, source, None, None
+    canary_state, dangling = resolve_canary(store, doc)
+    return doc["production"], "production", canary_state, dangling
+
+
 def load_model(store: ArtefactStore, key: str | None = None, device=None):
     """Load a model by key (default: :func:`resolve_serving_key`).
     Returns (model, artefact_date)."""

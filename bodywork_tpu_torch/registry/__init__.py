@@ -1,5 +1,5 @@
 """The model registry: gated promotion, shadow evaluation, one-CAS
-rollback (the port of ``bodywork_tpu.registry``, without the canary).
+rollback, the canary lifecycle (the port of ``bodywork_tpu.registry``).
 
 Training registers candidates, the gate promotes or rejects them,
 serving resolves the ``production`` alias, and rollback flips it back to
@@ -9,6 +9,8 @@ other's registry.
 """
 from bodywork_tpu_torch.registry.gates import GateDecision, GatePolicy, evaluate_candidate
 from bodywork_tpu_torch.registry.manager import (
+    CANARY_ACTION_METHODS,
+    CANARY_ACTIONS,
     ModelRegistry,
     PromotionConflict,
     RegistryError,
@@ -19,10 +21,13 @@ from bodywork_tpu_torch.registry.records import (
     read_aliases,
     register_candidate,
     resolve_alias,
+    resolve_canary,
 )
 from bodywork_tpu_torch.registry.shadow import shadow_evaluate
 
 __all__ = [
+    "CANARY_ACTIONS",
+    "CANARY_ACTION_METHODS",
     "GateDecision",
     "GatePolicy",
     "ModelRegistry",
@@ -34,5 +39,6 @@ __all__ = [
     "read_aliases",
     "register_candidate",
     "resolve_alias",
+    "resolve_canary",
     "shadow_evaluate",
 ]

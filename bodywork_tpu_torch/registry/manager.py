@@ -12,12 +12,16 @@ Records are updated after the alias CAS lands: the alias is the truth
 and the records its audit trail, so a crash between the two leaves
 serving right and the ledger repairable, never the reverse.
 
+The canary lifecycle (``canary_start``, ``canary_abort``,
+``canary_repair``, ``canary_promote``) is one alias CAS per transition
+too: a breaching canary is gone after exactly one write, and of two
+concurrent watchdogs the loser finds the slot already cleared. An
+ordinary promotion or rollback keeps a live canary's slot.
+
 Counters, the JAX package's: ``bodywork_tpu_registry_promotions_total
-{outcome}`` (promoted, rejected, conflict), ``..._rollbacks_total`` and
-``..._rollback_refusals_total{reason}``. Not ported yet: the canary
-lifecycle (``canary_*`` and its ``registry_canary_events_total``, ROADMAP
-Queue 1 item 13; a canary slot the JAX package wrote is kept across
-promotions).
+{outcome}`` (promoted, rejected, conflict), ``..._rollbacks_total``,
+``..._rollback_refusals_total{reason}`` and
+``..._canary_events_total{event}`` (start, abort, promote, repair).
 """
 from __future__ import annotations
 
@@ -75,6 +79,26 @@ def _count_rollback_refused(reason: str) -> None:
         "Rollbacks refused because the restore target failed "
         "pre-verification, by reason",
     ).inc(reason=reason)
+
+
+def _count_canary_event(event: str) -> None:
+    from bodywork_tpu_torch.obs import get_registry
+
+    get_registry().counter(
+        "bodywork_tpu_registry_canary_events_total",
+        "Canary lifecycle transitions (start/abort/promote/repair)",
+    ).inc(event=event)
+
+
+#: the canary lifecycle verbs: the ``cli registry canary`` actions and the
+#: :class:`ModelRegistry` methods they call (the JAX package's list)
+CANARY_ACTIONS = ("start", "stop", "promote", "status")
+CANARY_ACTION_METHODS = {
+    "start": "canary_start",
+    "stop": "canary_abort",
+    "promote": "canary_promote",
+    "status": "canary_status",
+}
 
 
 def _day(day: date | None) -> str | None:
@@ -266,6 +290,189 @@ class ModelRegistry:
         if record is None:
             raise RegistryError(f"no registry record for {model_key!r}")
         return record
+
+    # -- the canary lifecycle: one alias CAS per transition ------------------
+
+    def canary_state(self, doc: dict | None = None) -> dict | None:
+        """What the canary slot says (``{"key", "fraction", "seed",
+        "day"}``), or None; unlike :func:`records.resolve_canary` it does
+        not check that the canary can serve."""
+        if doc is None:
+            doc = rec.read_aliases(self.store)
+        if not doc or not doc.get("canary"):
+            return None
+        return {
+            "key": doc.get("canary"),
+            "fraction": doc.get("canary_fraction"),
+            "seed": doc.get("canary_seed"),
+            "day": doc.get("canary_day"),
+        }
+
+    def canary_start(self, model_key: str, fraction: float = 0.1, seed: int = 0,
+                     day: date | None = None) -> dict:
+        """Point the ``canary`` slot at a registered candidate, so serving
+        routes ``fraction`` of the scoring traffic to it by seeded request
+        hash. Refused without a production baseline, for production
+        itself, for a gate-rejected record and while another canary is
+        live. One alias CAS."""
+        if not 0.0 < fraction <= 1.0:
+            raise RegistryError(f"canary fraction must be in (0, 1], got {fraction!r}")
+        record = rec.load_record(self.store, model_key)
+        if record is None:
+            raise RegistryError(
+                f"cannot canary unregistered model {model_key!r}; register it first"
+            )
+        if record.get("status") == "rejected":
+            raise RegistryError(
+                f"{model_key!r} is gate-rejected; a rejected checkpoint "
+                "must not take live traffic"
+            )
+        doc, token = rec.read_aliases(self.store, with_token=True)
+        if doc is None or not doc.get("production"):
+            raise RegistryError(
+                "no production model; a canary needs a baseline to "
+                "fall back to — promote one first"
+            )
+        if doc.get("production") == model_key:
+            raise RegistryError(f"{model_key!r} already is production")
+        if doc.get("canary"):
+            raise RegistryError(
+                f"a canary is already live ({doc['canary']!r}); stop it "
+                "before starting another"
+            )
+        new_doc = {
+            **{k: v for k, v in doc.items() if k not in rec.CANARY_DOC_KEYS},
+            "rev": doc.get("rev", 0) + 1,
+            "updated_day": _day(day),
+            "last_op": "canary_start",
+            "canary": model_key,
+            "canary_fraction": float(fraction),
+            "canary_seed": int(seed),
+            "canary_day": _day(day),
+        }
+        try:
+            rec.write_aliases(self.store, new_doc, token)
+        except CasConflict as exc:
+            raise PromotionConflict(
+                f"canary start of {model_key!r} lost the alias race: {exc}"
+            ) from exc
+        rec.append_event(
+            self.store, model_key,
+            {"event": "canary_started", "day": _day(day),
+             "fraction": float(fraction), "seed": int(seed)},
+        )
+        _count_canary_event("start")
+        log.info(f"canary started: {model_key} at fraction {fraction} (seed {seed})")
+        return new_doc
+
+    def _canary_clear(self, last_op: str, event: str, day: date | None, reason: str,
+                      record_status: str | None, count_as: str) -> dict | None:
+        """Clear the slot in one alias write, then record the lineage
+        event. None when no canary was live (another watchdog may have
+        cleared it first)."""
+        doc, token = rec.read_aliases(self.store, with_token=True)
+        if doc is None or not doc.get("canary"):
+            return None
+        canary_key = doc["canary"]
+        new_doc = {
+            **{k: v for k, v in doc.items() if k not in rec.CANARY_DOC_KEYS},
+            "rev": doc.get("rev", 0) + 1,
+            "updated_day": _day(day),
+            "last_op": last_op,
+        }
+        try:
+            rec.write_aliases(self.store, new_doc, token)
+        except CasConflict as exc:
+            raise PromotionConflict(
+                f"{last_op} of {canary_key!r} lost the alias race: {exc}"
+            ) from exc
+        rec.append_event(
+            self.store, canary_key,
+            {"event": event, "day": _day(day), "reason": reason},
+            status=record_status,
+        )
+        _count_canary_event(count_as)
+        return new_doc
+
+    def canary_abort(self, day: date | None = None,
+                     reason: str = "canary aborted") -> dict | None:
+        """Retire the live canary in one CAS (the SLO watchdog's breach
+        action, and ``cli registry canary stop``): production never moved,
+        the slot clears and the canary's record becomes ``rejected``.
+        None when no canary was live."""
+        doc = self._canary_clear("canary_abort", "canary_aborted", day, reason,
+                                 record_status="rejected", count_as="abort")
+        if doc is not None:
+            log.warning(f"canary ABORTED: {reason}")
+        return doc
+
+    def canary_repair(self, day: date | None = None,
+                      reason: str = "dangling canary slot") -> dict | None:
+        """Clear a dangling canary slot (its checkpoint deleted or record
+        rejected) in one CAS; the record keeps its status."""
+        doc = self._canary_clear("canary_repair", "canary_repaired", day, reason,
+                                 record_status=None, count_as="repair")
+        if doc is not None:
+            log.warning(f"dangling canary slot repaired: {reason}")
+        return doc
+
+    def canary_promote(self, day: date | None = None,
+                       reason: str = "canary: survived SLO window healthy") -> dict:
+        """Graduate the live canary in one CAS: ``production`` becomes the
+        canary, the old production ``previous``, the slot clears."""
+        doc, token = rec.read_aliases(self.store, with_token=True)
+        if doc is None or not doc.get("canary"):
+            raise RegistryError("no live canary to promote")
+        canary_key = doc["canary"]
+        old_production = doc.get("production")
+        new_doc = {
+            **{k: v for k, v in doc.items() if k not in rec.CANARY_DOC_KEYS},
+            "production": canary_key,
+            "previous": old_production,
+            "rev": doc.get("rev", 0) + 1,
+            "updated_day": _day(day),
+            "last_op": "canary_promote",
+        }
+        try:
+            rec.write_aliases(self.store, new_doc, token)
+        except CasConflict as exc:
+            _count_promotion("conflict")
+            raise PromotionConflict(
+                f"canary promotion of {canary_key!r} lost the alias race: {exc}"
+            ) from exc
+        rec.append_event(
+            self.store, canary_key,
+            {"event": "promoted", "day": _day(day), "reason": reason,
+             "replaced": old_production},
+            status="production",
+        )
+        if old_production and old_production != canary_key:
+            rec.append_event(
+                self.store, old_production,
+                {"event": "superseded", "day": _day(day), "by": canary_key},
+                status="archived",
+            )
+        _count_promotion("promoted")
+        _count_canary_event("promote")
+        log.info(f"canary promoted to production: {canary_key} "
+                 f"(previous: {old_production or 'none'})")
+        return new_doc
+
+    def canary_status(self) -> dict:
+        """The operator's canary snapshot (``cli registry canary
+        status``): the slot, whether it can serve, and its record's
+        status."""
+        doc = rec.read_aliases(self.store)
+        state, dangling = rec.resolve_canary(self.store, doc)
+        slot = self.canary_state(doc)
+        record = rec.load_record(self.store, slot["key"]) if slot else None
+        return {
+            "canary": slot,
+            "live": state is not None,
+            "dangling_reason": dangling,
+            "record_status": record.get("status") if record else None,
+            "production": (doc or {}).get("production"),
+        }
 
     # -- the gate ----------------------------------------------------------
 

@@ -16,8 +16,8 @@ other's registry:
   ``production`` / ``previous`` to model keys. It is written only by the
   store's compare-and-swap (``put_bytes_if_match``), so of two
   concurrent promoters exactly one wins and the document never tears.
-  Slots the JAX package's canary writes (``canary*``) are read and kept;
-  the port writes none yet.
+  A live canary takes the ``canary*`` slots (:func:`resolve_canary`
+  reads them; ``manager.ModelRegistry.canary_*`` writes them).
 
 Records hold no wall clock (events carry the simulated day, lineage is a
 content digest), so the same inputs give the same bytes in both packages.
@@ -54,8 +54,9 @@ ALIAS_SCHEMA = "bodywork_tpu.registry_aliases/1"
 #: the states a record moves through
 STATUSES = ("candidate", "production", "rejected", "archived")
 
-#: alias-document keys that together describe a live canary (written by
-#: the JAX package's canary lifecycle; kept across promotions)
+#: alias-document keys that together describe a live canary; cleared as a
+#: unit by every canary-ending CAS (abort, promote, repair) and kept across
+#: an ordinary promotion
 CANARY_DOC_KEYS = ("canary", "canary_fraction", "canary_seed", "canary_day")
 
 #: a validating read makes 1 + CORRUPT_READ_RETRIES attempts
@@ -297,3 +298,44 @@ def resolve_alias(store: ArtefactStore, alias: str = "production") -> str | None
     if doc is None:
         return None
     return doc.get(alias)
+
+
+def resolve_canary(store: ArtefactStore, doc: dict | None = None):
+    """The live canary's serving state from the alias document:
+    ``(state, dangling_reason)``. ``state`` is ``{"key", "fraction",
+    "seed", "day", "bounds"}`` for a serveable canary, else None;
+    ``dangling_reason`` says why a set slot must be ignored (the canary is
+    production already, its checkpoint is gone, its record rejected, or
+    its fraction or seed malformed): serving then runs production only,
+    and the reload watcher repairs the slot. ``doc`` spares a caller that
+    already read the alias document a second read."""
+    if doc is None:
+        doc = read_aliases(store)
+    if not doc:
+        return None, None
+    key = doc.get("canary")
+    if not key:
+        return None, None
+    if key == doc.get("production"):
+        return None, f"canary {key!r} already IS production"
+    if not store.exists(key):
+        return None, f"canary checkpoint {key!r} missing from the store"
+    record = load_record(store, key)
+    if record is not None and record.get("status") == "rejected":
+        return None, f"canary {key!r} record is rejected"
+    bounds = (record or {}).get("prediction_bounds")
+    try:
+        fraction = float(doc.get("canary_fraction", 0.1))
+        seed = int(doc.get("canary_seed", 0))
+    except (TypeError, ValueError):
+        return None, f"canary {key!r} has malformed fraction/seed"
+    if not 0.0 < fraction <= 1.0:
+        return None, f"canary {key!r} fraction {fraction!r} outside (0, 1]"
+    state = {
+        "key": key,
+        "fraction": fraction,
+        "seed": seed,
+        "day": doc.get("canary_day"),
+        "bounds": bounds,
+    }
+    return state, None

@@ -16,17 +16,22 @@ serves every connection from one event loop:
   resolves an asyncio future through ``call_soon_threadsafe``, so the
   loop never blocks on a batch. Batch requests and the uncoalesced
   fallback run the padded dispatch on a small thread pool.
-- **Byte-identical responses**: bodies come from the same parse and
-  response templates as the thread engine's (``serve.app``), and the
-  404 and 405 bodies carry werkzeug's descriptions as the JAX engine's
-  do, without werkzeug.
+- **Byte-identical responses**: bodies come from the same parse (JSON or
+  the binary row framing) and response templates as the thread engine's
+  (``serve.app``), requests route to a live canary by the same seeded
+  hash, and the 404 and 405 bodies carry werkzeug's descriptions as the
+  JAX engine's do, without werkzeug.
+- **Dispatch timing as the JAX engine's**: an executor dispatch's
+  ``bodywork_tpu_device_dispatch_seconds`` observation and
+  ``device-dispatch`` span run around the ``await``, so they include the
+  wait for an executor thread.
 
 :class:`AioServiceHandle` has the thread engine's handle interface
 (``start``, ``stop``, ``wait``, ``serve_forever``, ``add_cleanup``,
 ``url``, ``base_url``). Request tracing is the thread engine's (the same
-ids, spans and ``X-Bodywork-Trace-Id`` header; ``serve.app``). Fault-plan
-composition, the row-queue front ends and the multi-process ``/metrics``
-are later slices.
+ids, spans and ``X-Bodywork-Trace-Id`` header; ``serve.app``). The
+fault plan's HTTP composition, the row-queue front ends and the
+multi-process ``/metrics`` are later slices.
 """
 from __future__ import annotations
 
@@ -40,14 +45,21 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from bodywork_tpu_torch.obs import get_registry
-from bodywork_tpu_torch.obs.tracing import TRACE_ID_HEADER, TRACEPARENT_HEADER, parse_traceparent
+from bodywork_tpu_torch.obs.tracing import (
+    TRACE_ID_HEADER,
+    TRACEPARENT_HEADER,
+    parse_traceparent,
+    reset_active_span,
+    set_active_span,
+)
 from bodywork_tpu_torch.serve.app import (
     _METHOD_NOT_ALLOWED,
     _NOT_FOUND,
     METRICS_CONTENT_TYPE,
+    sanity_violation,
 )
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
-from bodywork_tpu_torch.serve.wire import MODEL_KEY_HEADER, parse_features
+from bodywork_tpu_torch.serve.wire import MODEL_KEY_HEADER
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve.aio")
@@ -80,6 +92,18 @@ _SCORING_ROUTES = ("/score/v1", "/score/v1/batch")
 
 def _error(status: int, message: str, extra=()):
     return status, json.dumps({"error": message}).encode(), "application/json", tuple(extra)
+
+
+def _predict_under(predictor, X, span):
+    """``predictor.predict(X)`` with ``span`` (or nothing) as the calling
+    thread's active span."""
+    if span is None:
+        return predictor.predict(X)
+    token = set_active_span(span)
+    try:
+        return predictor.predict(X)
+    finally:
+        reset_active_span(token)
 
 
 class _BadRequest(Exception):
@@ -254,7 +278,8 @@ class AioScoringServer:
                 result = (_error(405, _METHOD_NOT_ALLOWED) if known_path
                           else _error(404, _NOT_FOUND))
             else:
-                result = await handler(app, body, trace_box if traced else None)
+                result = await handler(app, body, trace_box if traced else None,
+                                       headers.get("content-type", ""))
         except Exception as exc:  # don't leak tracebacks to clients
             log.error(f"unhandled error serving {path}: {exc!r}")
             result = _error(500, "internal server error")
@@ -272,9 +297,12 @@ class AioScoringServer:
             result = (*result[:3], (*result[3], (TRACE_ID_HEADER, trace.trace_id)))
         return result
 
-    async def _score_common(self, app, body: bytes, score, trace_box=None):
+    async def _score_common(self, app, body: bytes, score, trace_box=None,
+                            content_type: str = ""):
         """The scoring shell: admission, the trace id minted from the body
-        once admitted, parse, the no-model 503, then the route's ``score``
+        once admitted, parse (JSON or the binary row framing), the
+        no-model 503, the canary route and its stream metrics, the fault
+        plan's canary latency (awaited), then the route's ``score``
         coroutine with the request's trace."""
         trace = trace_box[0] if trace_box is not None else None
         admission = self.admission
@@ -291,46 +319,70 @@ class AioScoringServer:
         t_admit = time.perf_counter()
         try:
             t0 = time.perf_counter()
-            try:
-                payload = json.loads(body) if body else None
-            except ValueError:
-                payload = None
-            X, message = parse_features(payload)
+            # the JAX engine's rule: the binary framing by its content
+            # type, any other body read as JSON
+            X, message = app.parse_rows(body, content_type, json_by_default=True)
             t1 = time.perf_counter()
             app._m_parse.observe(t1 - t0)
             if sampled:
                 trace.add("parse", t0, t1)
             if message is not None:
                 return _error(400, message)
-            served = app.served
+            # the thread engine's seeded route: one request, one stream
+            served, stream = app.route_stream(X)
             if served is None:
                 return _error(503, "no model loaded yet; retry shortly",
                               (("Retry-After", str(app.retry_after_s())),))
-            return await score(app, served, X, trace if sampled else None)
+            if sampled:
+                trace.annotate(stream=stream, routed_model_key=served.model_key)
+            with app.stream_accounting(served, stream, trace if sampled else None):
+                delay = app.canary_chaos_delay(stream)
+                if delay is not None:
+                    await asyncio.sleep(delay)
+                return await score(app, served, stream, X, trace if sampled else None)
         finally:
             if admission is not None:
                 admission.release(time.perf_counter() - t_admit)
 
     async def _predict(self, app, served, X, trace):
-        """One direct padded dispatch on the executor: the app's
-        ``_traced_dispatch``, which sets the sampled request's dispatch
-        span active on the executor's thread (a contextvar does not cross
-        ``run_in_executor``)."""
+        """One direct padded dispatch on the executor, timed around the
+        ``await`` as the JAX engine times it: the histogram observation
+        and the ``device-dispatch`` span include the wait for an executor
+        thread. The span is the active span on the executor's thread
+        while it dispatches (a contextvar does not cross
+        ``run_in_executor``), so the graph cache annotates it with
+        ``aot_cache`` and ``bucket``."""
         loop = asyncio.get_running_loop()
-        return await loop.run_in_executor(self._executor, app._traced_dispatch, served, X,
-                                          trace)
+        span = trace.start_span("device-dispatch", coalesced=False) if trace is not None else None
+        t0 = time.perf_counter()
+        try:
+            return await loop.run_in_executor(self._executor, _predict_under, served.predictor,
+                                              X, span)
+        finally:
+            app._m_dispatch.observe(time.perf_counter() - t0)
+            if span is not None:
+                trace.end_span(span)
+
+    async def _checked(self, app, served, stream, X, predictions, trace):
+        """The firewall's cheap check inline; a violation's handling (for
+        a canary, a re-predict from production) runs on the executor so
+        the loop never blocks on a device call."""
+        reason = sanity_violation(predictions, served.bounds)
+        if reason is None:
+            return served, predictions
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self._executor, app.firewall, served, stream, X,
+                                          predictions, reason, trace)
 
     @staticmethod
-    def _render(app, served, render, predictions, trace):
-        status, headers, payload = app.render(served, render, predictions, trace)
+    def _render(app, served, kind, predictions, trace):
+        status, headers, payload = app.render(served, kind, predictions, trace)
         extra = ((MODEL_KEY_HEADER, served.model_key),) if served.model_key else ()
         return status, payload, headers["Content-Type"], extra
 
-    async def _score_single(self, app, body: bytes, trace_box=None):
-        async def score(app, served, X, trace):
+    async def _score_single(self, app, body: bytes, trace_box=None, content_type: str = ""):
+        async def score(app, served, stream, X, trace):
             X = np.array(X, ndmin=2)  # scalar -> (1, 1), as the reference
-            if trace is not None:
-                trace.annotate(stream="production", routed_model_key=served.model_key)
             loop = asyncio.get_running_loop()
             prediction0 = None
             if app.batcher is not None and X.shape[0] == 1:
@@ -363,30 +415,31 @@ class AioScoringServer:
             if prediction0 is None:
                 predictions = await self._predict(app, served, X, trace)
                 prediction0 = float(predictions[0])
-            return self._render(app, served, served.single_template.render, prediction0,
-                                trace)
+            served, checked = await self._checked(app, served, stream, X, prediction0, trace)
+            prediction0 = float(np.asarray(checked).ravel()[0])
+            return self._render(app, served, "single", prediction0, trace)
 
-        return await self._score_common(app, body, score, trace_box)
+        return await self._score_common(app, body, score, trace_box, content_type)
 
-    async def _score_batch(self, app, body: bytes, trace_box=None):
-        async def score(app, served, X, trace):
+    async def _score_batch(self, app, body: bytes, trace_box=None, content_type: str = ""):
+        async def score(app, served, stream, X, trace):
             if trace is not None:
-                trace.annotate(stream="production", routed_model_key=served.model_key,
-                               rows=int(np.atleast_1d(X).shape[0]))
+                trace.annotate(rows=int(np.atleast_1d(X).shape[0]))
             if X.ndim == 0:
                 X = X[None]
             predictions = await self._predict(app, served, X, trace)
-            return self._render(app, served, served.batch_template.render, predictions,
-                                trace)
+            served, predictions = await self._checked(app, served, stream, X, predictions,
+                                                      trace)
+            return self._render(app, served, "batch", predictions, trace)
 
-        return await self._score_common(app, body, score, trace_box)
+        return await self._score_common(app, body, score, trace_box, content_type)
 
-    async def _healthz(self, app, body: bytes, trace_box=None):
+    async def _healthz(self, app, body: bytes, trace_box=None, content_type: str = ""):
         payload, status, retry_after = app.healthz_response()
         extra = (("Retry-After", str(retry_after)),) if retry_after is not None else ()
         return status, json.dumps(payload).encode(), "application/json", extra
 
-    async def _metrics(self, app, body: bytes, trace_box=None):
+    async def _metrics(self, app, body: bytes, trace_box=None, content_type: str = ""):
         loop = asyncio.get_running_loop()
         text = await loop.run_in_executor(self._executor, get_registry().render)
         return 200, text.encode(), METRICS_CONTENT_TYPE, ()
@@ -407,6 +460,8 @@ class AioServiceHandle:
         self.host = host
         self.port = port
         self._cleanups: list = []
+        #: the checkpoint watcher (``serve.reload``) of a watched service
+        self.watcher = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._stop_event: asyncio.Event | None = None
         self._ready = threading.Event()

@@ -36,19 +36,31 @@ With a request coalescer (``serve.batcher``) concurrent single-row
 ``/score/v1`` requests share padded device calls; a saturated coalescer
 degrades to a direct dispatch. Responses are byte-identical either way.
 
+Scoring bodies are JSON, or the binary row framing
+(``application/x-bodywork-rows``, ``serve.wire``), which parses to the
+same array.
+
+Hot reload and canary routing (the JAX app's, ``bodywork_tpu/serve/
+app.py:118-134,443-743``): :meth:`ScoringApp.swap_model` replaces the
+served bundle in one pointer write, warm before it publishes, then
+drains the coalescer; a live canary (:meth:`ScoringApp.set_canary`)
+takes the requests :func:`routes_to_canary` picks by a seeded hash of
+the request's float32 bytes, measured under per-stream request, error
+and latency metrics while it is live.
+
 Every scoring path runs the prediction-sanity firewall before it
-serialises a prediction (the production branch of the JAX app's,
-``bodywork_tpu/serve/app.py:137-170,697-717``): a non-finite prediction
-raises :class:`PredictionSanityError` and the request answers 500, the
-value never written; a prediction outside the model's registry band
-(``prediction_bounds``, from its training labels) is logged and served,
-since the band is statistical. Canary routing and hot swaps (and with
-them the firewall's fallback to production, whose re-predict span the
-JAX app records) and the multi-process ``/metrics`` wait for later
-slices.
+serialises a prediction: a canary's violation is answered from
+production (its ``firewall-fallback`` span recorded); a production
+non-finite prediction raises :class:`PredictionSanityError` and the
+request answers 500, the value never written; a production prediction
+outside the model's registry band (``prediction_bounds``, from its
+training labels) is logged and served, since the band is statistical.
+The multi-process ``/metrics`` waits for a later slice.
 """
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import time
 
@@ -65,9 +77,11 @@ from bodywork_tpu_torch.obs.tracing import (
 from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
 from bodywork_tpu_torch.serve.wire import (
+    BINARY_CONTENT_TYPE,
     MODEL_KEY_HEADER,
     BatchResponseTemplate,
     SingleResponseTemplate,
+    parse_binary_rows,
     parse_features,
 )
 from bodywork_tpu_torch.utils.logging import get_logger
@@ -100,6 +114,24 @@ class PredictionSanityError(RuntimeError):
     """A production prediction failed the sanity firewall (non-finite).
     There is no healthier model to answer from, so the request fails
     (500) rather than serialise garbage to the client."""
+
+
+def routes_to_canary(seed: int, fraction: float, X) -> bool:
+    """Whether a request routes to the canary: a pure function of the
+    seed and the request's float32 feature bytes (no RNG, no clock), so
+    one request picks the same stream on every replica, engine and
+    replay, and in both packages. The sha256's top 64 bits are held
+    against ``fraction`` of 2^64."""
+    if fraction >= 1.0:
+        return True
+    if fraction <= 0.0:
+        return False
+    digest = hashlib.sha256(
+        str(int(seed)).encode("ascii")
+        + b"|"
+        + np.ascontiguousarray(np.asarray(X, dtype=np.float32)).tobytes()
+    ).digest()
+    return int.from_bytes(digest[:8], "big") < int(fraction * 2.0**64)
 
 
 def as_bounds(bounds) -> tuple[float, float] | None:
@@ -153,7 +185,9 @@ def _is_json(content_type: str | None) -> bool:
 
 
 class _Served:
-    """One served model: predictor + identity, read once per request."""
+    """One served model: predictor + identity, swapped as a unit and read
+    once per request, so no answer pairs one model's prediction with
+    another's identity."""
 
     __slots__ = (
         "predictor", "model_info", "model_date", "model_key", "source",
@@ -179,9 +213,12 @@ class ScoringApp:
     maps one request to ``(status, headers, body)``; the HTTP front ends
     (``serve.server``'s thread engine, ``serve.aio``) only move bytes.
 
-    ``batcher`` (a started ``RequestCoalescer``) and ``admission`` (an
-    ``AdmissionController``) are optional; ``model=None`` boots an app
-    with nothing to serve, whose scoring requests answer 503."""
+    The served model is one bundle behind one attribute (``served``), so
+    :meth:`swap_model` is a pointer write: a request in flight finishes
+    on the model it started with. ``batcher`` (a started
+    ``RequestCoalescer``) and ``admission`` (an ``AdmissionController``)
+    are optional; ``model=None`` boots an app with nothing to serve,
+    whose scoring requests answer 503 until the first swap."""
 
     def __init__(self, model, model_date=None, predictor=None,
                  model_key: str | None = None, model_source: str | None = None,
@@ -198,6 +235,18 @@ class ScoringApp:
                 predictor, model.info, str(model_date) if model_date else None,
                 model_key=model_key, source=model_source, bounds=as_bounds(model_bounds),
             )
+        #: why the service is degraded (serving its last-good model after a
+        #: failed reload), or None; /healthz carries it
+        self._degraded_reason: str | None = None
+        #: the live canary bundle and its routing knobs (``serve.reload``
+        #: syncs them from the alias document); one attribute each, read
+        #: once per request
+        self._canary: _Served | None = None
+        self._canary_fraction = 0.0
+        self._canary_seed = 0
+        #: the SLO watchdog's latest evaluation (``ops.slo`` publishes it)
+        self.slo_state: dict | None = None
+        self._plan_getter = None  # the chaos plan's resolver, looked up once
         self.batcher = batcher
         self.admission = admission
         #: the process-wide request tracer (``obs.tracing``); fraction 0
@@ -226,9 +275,30 @@ class ScoringApp:
             "Serialization phase: prediction -> JSON response",
             buckets=_FAST_PHASE_BUCKETS,
         )
+        self._m_swaps = reg.counter(
+            "bodywork_tpu_model_hot_swaps_total",
+            "Served-model hot swaps (serve.reload checkpoint watcher)",
+        )
         self._m_fallbacks = reg.counter(
             "bodywork_tpu_coalescer_fallback_total",
             "Requests degraded to a direct dispatch (coalescer saturated)",
+        )
+        # per-stream accounting, written only while a canary is live: the
+        # SLO watchdog reads it
+        self._m_stream_requests = reg.counter(
+            "bodywork_tpu_serve_model_requests_total",
+            "Scoring requests routed per served model while a canary is "
+            "live, by model_key and stream (production|canary)",
+        )
+        self._m_stream_errors = reg.counter(
+            "bodywork_tpu_serve_model_errors_total",
+            "Scoring requests that errored per served model while a "
+            "canary is live, by model_key and stream",
+        )
+        self._m_stream_latency = reg.histogram(
+            "bodywork_tpu_serve_model_latency_seconds",
+            "Scoring latency per served model while a canary is live, "
+            "by model_key and stream — the SLO watchdog's p99 source",
         )
         self._m_sanity = reg.counter(
             "bodywork_tpu_serve_sanity_violations_total",
@@ -236,26 +306,40 @@ class ScoringApp:
             "serialization, by model_key, stream, and reason "
             "(non_finite|out_of_range)",
         )
-        reg.gauge(
+        self._g_degraded = reg.gauge(
             "bodywork_tpu_serve_degraded_state",
             "Serving degradation: 0=healthy, 1=serving last-good model "
             "after a failed reload, 2=no model loaded",
             aggregate="max",
-        ).set(2.0 if self.served is None else 0.0)
-        served = self.served
-        if served is not None and served.model_key is not None:
-            reg.gauge(
-                "bodywork_tpu_serve_model_version_info",
-                "Served model version: 1 on the (model_key, source) sample "
-                "currently serving, 0 on superseded ones",
-                aggregate="max",
-            ).set(1.0, model_key=served.model_key, source=served.source or "unspecified")
+        )
+        self._g_degraded.set(2.0 if self.served is None else 0.0)
+        self._g_model_version = reg.gauge(
+            "bodywork_tpu_serve_model_version_info",
+            "Served model version: 1 on the (model_key, source) sample "
+            "currently serving, 0 on superseded ones",
+            aggregate="max",
+        )
+        self._model_version_labels: dict | None = None
+        self._record_model_version()
         self._routes = {
             ("POST", "/score/v1"): self.score_data_instance,
             ("POST", "/score/v1/batch"): self.score_batch,
             ("GET", "/healthz"): self.healthz,
             ("GET", "/metrics"): self.metrics_endpoint,
         }
+
+    def _record_model_version(self) -> None:
+        """The info gauge: 1 on the served (model_key, source), 0 on the
+        sample it replaced."""
+        served = self.served
+        if served is None or served.model_key is None:
+            return
+        labels = {"model_key": served.model_key, "source": served.source or "unspecified"}
+        old = self._model_version_labels
+        if old is not None and old != labels:
+            self._g_model_version.set(0.0, **old)
+        self._g_model_version.set(1.0, **labels)
+        self._model_version_labels = labels
 
     @property
     def predictor(self):
@@ -275,6 +359,175 @@ class ScoringApp:
     def known_path(self, path: str) -> bool:
         return any(p == path for _m, p in self._routes)
 
+    # -- hot swaps and the degraded channel (serve.reload drives them) -----
+    def set_degraded(self, reason: str) -> None:
+        """Flag the service as serving its last-good model (a reload
+        failed). It keeps answering; /healthz and the gauge say so."""
+        self._degraded_reason = reason
+        if self.served is not None:
+            self._g_degraded.set(1.0)
+
+    def clear_degraded(self) -> None:
+        self._degraded_reason = None
+        self._g_degraded.set(0.0 if self.served is not None else 2.0)
+
+    def _warm_predictor_for(self, model):
+        """A warmed predictor for ``model`` on the served predictor's
+        engine and buckets (a same-architecture checkpoint rebinds the
+        captured graphs and captures nothing)."""
+        from bodywork_tpu_torch.serve.predictor import PaddedPredictor
+        from bodywork_tpu_torch.serve.server import build_predictor
+
+        old = self.served
+        if old is None or not hasattr(old.predictor, "engine"):
+            predictor = PaddedPredictor(model)
+        else:
+            predictor = build_predictor(model, old.predictor.engine,
+                                        buckets=old.predictor.buckets)
+        predictor.warmup()
+        return predictor
+
+    def swap_model(self, model, model_date=None, predictor=None,
+                   model_key: str | None = None, model_source: str | None = None,
+                   model_bounds=None) -> None:
+        """Replace the served model (hot reload). ``predictor`` is warmed
+        by the caller off the request path (``serve.reload`` does); a
+        predictor built here is warmed before the pointer publishes. The
+        coalescer is drained after the swap, the swap counted, and the
+        degraded flag cleared (a model-less app goes live)."""
+        if predictor is None:
+            predictor = self._warm_predictor_for(model)
+        self.served = _Served(
+            predictor, model.info, str(model_date) if model_date else None,
+            model_key=model_key, source=model_source, bounds=as_bounds(model_bounds),
+        )
+        self._record_model_version()
+        if self.batcher is not None and not self.batcher.drain():
+            # queued rows still score on their own bundle; the prompt
+            # flush did not hold, which a wedged dispatcher would hide
+            log.warning("hot-swap proceeded before the request coalescer "
+                        "fully drained; old-model rows may still be in flight")
+        self._m_swaps.inc()
+        self.clear_degraded()
+        log.info(f"hot-swapped served model -> {model.info} ({model_date})")
+
+    # -- canary routing -----------------------------------------------------
+    @property
+    def canary_key(self) -> str | None:
+        canary = self._canary
+        return None if canary is None else canary.model_key
+
+    @property
+    def canary_fraction(self) -> float:
+        return self._canary_fraction if self._canary is not None else 0.0
+
+    def set_canary(self, model, model_date=None, predictor=None,
+                   model_key: str | None = None, fraction: float = 0.1,
+                   seed: int = 0, bounds=None) -> None:
+        """Install (or replace) the canary bundle: ``fraction`` of the
+        scoring traffic routes to it by :func:`routes_to_canary`. Its
+        predictor is warm before it publishes, as for a swap."""
+        if predictor is None:
+            predictor = self._warm_predictor_for(model)
+        old = self._canary
+        self._canary_fraction = float(fraction)
+        self._canary_seed = int(seed)
+        self._canary = _Served(
+            predictor, model.info, str(model_date) if model_date else None,
+            model_key=model_key, source="canary", bounds=as_bounds(bounds),
+        )
+        if old is not None and old.model_key and old.model_key != model_key:
+            self._g_model_version.set(0.0, model_key=old.model_key, source="canary")
+        if model_key:
+            self._g_model_version.set(1.0, model_key=model_key, source="canary")
+        log.info(f"canary live: {model.info} ({model_key}) at fraction {fraction} "
+                 f"(seed {seed})")
+
+    def clear_canary(self) -> None:
+        """Stop routing to the canary; a request that already read its
+        bundle finishes on it."""
+        old = self._canary
+        self._canary = None
+        self._canary_fraction = 0.0
+        if old is not None:
+            if old.model_key:
+                self._g_model_version.set(0.0, model_key=old.model_key, source="canary")
+            log.info(f"canary cleared: {old.model_key}")
+
+    def promote_canary_bundle(self) -> None:
+        """The warm canary bundle becomes production in-process (the
+        watchdog's healthy-window action, after its alias CAS)."""
+        bundle = self._canary
+        if bundle is None:
+            return
+        self.clear_canary()
+        self.served = _Served(
+            bundle.predictor, bundle.model_info, bundle.model_date,
+            model_key=bundle.model_key, source="production", bounds=bundle.bounds,
+        )
+        self._record_model_version()
+        if self.batcher is not None and not self.batcher.drain():
+            log.warning("canary promotion proceeded before the request coalescer "
+                        "fully drained; old-model rows may still be in flight")
+        self._m_swaps.inc()
+        self.clear_degraded()
+        log.info(f"canary promoted in-process -> {bundle.model_info} ({bundle.model_key})")
+
+    def route_stream(self, X):
+        """The ``(bundle, "production"|"canary")`` a request's features
+        route to, from one read of each pointer."""
+        served = self.served
+        canary = self._canary
+        if canary is None or served is None:
+            return served, "production"
+        if routes_to_canary(self._canary_seed, self._canary_fraction, X):
+            return canary, "canary"
+        return served, "production"
+
+    @contextlib.contextmanager
+    def stream_accounting(self, served, stream: str, trace=None):
+        """The per-stream accounting of one scoring request routed to
+        ``served`` on ``stream``, kept only while a canary is live: the
+        request counted on entry, an error on an exception, the latency
+        (with a sampled ``trace``'s id as exemplar) on a clean exit. Both
+        front ends score inside it."""
+        if self._canary is None:
+            yield
+            return
+        labels = {"model_key": served.model_key or "unknown", "stream": stream}
+        t0 = time.perf_counter()
+        self._m_stream_requests.inc(**labels)
+        try:
+            yield
+        except Exception:
+            self._m_stream_errors.inc(**labels)
+            raise
+        self._m_stream_latency.observe(time.perf_counter() - t0,
+                                       exemplar=trace.trace_id if trace is not None else None,
+                                       **labels)
+
+    def canary_chaos_delay(self, stream: str) -> float | None:
+        """The active fault plan's latency for the canary stream
+        (``FaultPlan.canary_latency_delay``), or None; production
+        requests never consult the plan."""
+        if stream != "canary":
+            return None
+        if self._plan_getter is None:
+            from bodywork_tpu_torch.chaos.plan import get_active_plan
+
+            self._plan_getter = get_active_plan
+        plan = self._plan_getter()
+        if plan is None:
+            return None
+        canary = self._canary
+        return plan.canary_latency_delay(canary.model_key if canary is not None else "unknown")
+
+    def apply_canary_chaos(self, stream: str) -> None:
+        delay = self.canary_chaos_delay(stream)
+        if delay is not None:
+            time.sleep(delay)
+
+    # -- the request path -----------------------------------------------
     def handle(self, method: str, path: str, body: bytes = b"",
                content_type: str | None = None, traceparent: str | None = None):
         """One request -> ``(status, headers, body)``. Admission runs first
@@ -338,15 +591,25 @@ class ScoringApp:
         return response
 
     # -- parsing and backpressure ------------------------------------------
-    def _parse(self, body: bytes, content_type: str | None, trace=None):
-        t0 = time.perf_counter()
+    def parse_rows(self, body: bytes, content_type: str | None,
+                   json_by_default: bool = False):
+        """A scoring body as ``(X, None)`` or ``(None, message)``: the
+        binary row framing by its content type, else JSON — only under a
+        JSON content type, or under any with ``json_by_default`` (the
+        ``aio`` engine's rule, as the JAX package's)."""
+        if (content_type or "").split(";", 1)[0].strip().lower() == BINARY_CONTENT_TYPE:
+            return parse_binary_rows(body)
         payload = None
-        if _is_json(content_type):
+        if json_by_default or _is_json(content_type):
             try:
                 payload = json.loads(body)
             except ValueError:
                 payload = None
-        X, message = parse_features(payload)
+        return parse_features(payload)
+
+    def _parse(self, body: bytes, content_type: str | None, trace=None):
+        t0 = time.perf_counter()
+        X, message = self.parse_rows(body, content_type)
         t1 = time.perf_counter()
         self._m_parse.observe(t1 - t0)
         if trace is not None and trace.sampled:
@@ -372,12 +635,12 @@ class ScoringApp:
                               {"Retry-After": str(self.retry_after_s())})
 
     def _traced_dispatch(self, served: _Served, X, trace=None):
-        """One direct (uncoalesced) padded dispatch, timed. For a sampled
-        ``trace`` its ``device-dispatch`` span is the ACTIVE span on the
-        calling thread (the one that dispatches, on either front end),
-        so the graph cache's seam can annotate it. The span ends when
-        ``predict`` returns, after the copy of the results to the host,
-        which waits for the card; a replay alone returns at once."""
+        """One direct (uncoalesced) padded dispatch on the calling thread
+        (the ``thread`` engine's), timed. For a sampled ``trace`` its
+        ``device-dispatch`` span is the active span on that thread, so the
+        graph cache's seam can annotate it. The span ends when ``predict``
+        returns, after the copy of the results to the host, which waits
+        for the card; a replay alone returns at once."""
         span = token = None
         if trace is not None:
             span = trace.start_span("device-dispatch", coalesced=False)
@@ -391,12 +654,6 @@ class ScoringApp:
                 reset_active_span(token)
                 trace.end_span(span)
 
-    def _respond(self, served: _Served, payload: bytes):
-        headers = dict(_JSON)
-        if served.model_key:
-            headers[MODEL_KEY_HEADER] = served.model_key
-        return 200, headers, payload
-
     # -- routes ------------------------------------------------------------
     def score_data_instance(self, body: bytes, content_type: str | None, trace=None):
         """Single-instance scoring; reference-parity contract
@@ -405,74 +662,113 @@ class ScoringApp:
         if err is not None:
             # a malformed request gets its 400 even from a model-less app
             return err
-        served = self.served
+        served, stream = self.route_stream(X)
         if served is None:
             return self._no_model_response()
         sampled = trace is not None and trace.sampled
         if sampled:
-            trace.annotate(stream="production", routed_model_key=served.model_key)
+            trace.annotate(stream=stream, routed_model_key=served.model_key)
         X = np.array(X, ndmin=2)  # scalar -> (1, 1), as the reference
-        prediction0 = None
-        if self.batcher is not None and X.shape[0] == 1:
-            try:
-                # the submission carries ITS served bundle: its batch is
-                # scored by one model only; the coalescer records the
-                # queue-wait and device-dispatch spans
-                prediction0 = self.batcher.submit(served, X[0],
-                                                  trace=trace if sampled else None)
-            except CoalescerSaturated:
-                self._m_fallbacks.inc()  # overload or shutdown: go direct
-        if prediction0 is None:
-            predictions = self._traced_dispatch(served, X, trace if sampled else None)
-            prediction0 = float(np.asarray(predictions).ravel()[0])
-        return self.render(served, served.single_template.render, prediction0, trace)
+        # the stream metrics stay with the routed bundle: a fallen-back
+        # canary request still cost its caller the canary
+        with self.stream_accounting(served, stream, trace if sampled else None):
+            self.apply_canary_chaos(stream)
+            prediction0 = None
+            if self.batcher is not None and X.shape[0] == 1:
+                try:
+                    # the submission carries ITS bundle: its batch is scored
+                    # by one model only; the coalescer records the
+                    # queue-wait and device-dispatch spans
+                    prediction0 = self.batcher.submit(served, X[0],
+                                                      trace=trace if sampled else None)
+                except CoalescerSaturated:
+                    self._m_fallbacks.inc()  # overload or shutdown: go direct
+            if prediction0 is None:
+                predictions = self._traced_dispatch(served, X, trace if sampled else None)
+                prediction0 = float(np.asarray(predictions).ravel()[0])
+            reason = sanity_violation(prediction0, served.bounds)
+            if reason is not None:
+                served, fallback = self.firewall(served, stream, X, prediction0, reason,
+                                                 trace=trace)
+                prediction0 = float(np.asarray(fallback).ravel()[0])
+            return self.render(served, "single", prediction0, trace)
 
     def score_batch(self, body: bytes, content_type: str | None, trace=None):
         """Batched scoring: one padded device call per bucket-size chunk."""
         X, err = self._parse(body, content_type, trace)
         if err is not None:
             return err
-        served = self.served
+        served, stream = self.route_stream(X)  # the whole batch, one stream
         if served is None:
             return self._no_model_response()
         sampled = trace is not None and trace.sampled
         if sampled:
-            trace.annotate(stream="production", routed_model_key=served.model_key,
+            trace.annotate(stream=stream, routed_model_key=served.model_key,
                            rows=int(np.atleast_1d(X).shape[0]))
         if X.ndim == 0:
             X = X[None]
-        predictions = self._traced_dispatch(served, X, trace if sampled else None)
-        return self.render(served, served.batch_template.render, predictions, trace)
+        with self.stream_accounting(served, stream, trace if sampled else None):
+            self.apply_canary_chaos(stream)
+            predictions = self._traced_dispatch(served, X, trace if sampled else None)
+            reason = sanity_violation(predictions, served.bounds)
+            if reason is not None:
+                served, predictions = self.firewall(served, stream, X, predictions, reason,
+                                                    trace=trace)
+            return self.render(served, "batch", predictions, trace)
 
-    def render(self, served: _Served, template, predictions, trace=None):
-        """The firewall, then the response from ``template`` (a
-        ``serve.wire`` renderer), timed, with its ``serialize`` span for a
-        sampled ``trace``."""
-        self.firewall(served, predictions)
+    def render(self, served: _Served, kind: str, predictions, trace=None):
+        """The 200 response from ``served``'s ``kind`` (``single`` or
+        ``batch``) template, timed, with its ``serialize`` span for a
+        sampled ``trace``, and the answering model's key header."""
+        template = served.single_template if kind == "single" else served.batch_template
         t0 = time.perf_counter()
-        payload = template(predictions)
+        payload = template.render(predictions)
         t1 = time.perf_counter()
         self._m_serialize.observe(t1 - t0)
         if trace is not None and trace.sampled:
             trace.add("serialize", t0, t1)
-        return self._respond(served, payload)
+        headers = dict(_JSON)
+        if served.model_key:
+            headers[MODEL_KEY_HEADER] = served.model_key
+        return 200, headers, payload
 
-    def firewall(self, served: _Served, predictions) -> None:
-        """The prediction-sanity firewall, before serialisation: a
+    def firewall(self, served: _Served, stream: str, X, predictions, reason: str,
+                 trace=None):
+        """The prediction-sanity firewall after a violation: a canary's
+        is answered from production (re-predicted under a
+        ``firewall-fallback`` span for a sampled ``trace``); a production
         non-finite prediction raises :class:`PredictionSanityError` (500);
-        one outside the model's band is logged and served. Both count into
-        ``bodywork_tpu_serve_sanity_violations_total``."""
-        reason = sanity_violation(predictions, served.bounds)
-        if reason is None:
-            return
-        self._m_sanity.inc(model_key=served.model_key or "unknown", stream="production",
+        a production prediction outside the band is logged and served.
+        Every violation counts into
+        ``bodywork_tpu_serve_sanity_violations_total``. Returns the
+        answering ``(bundle, predictions)``."""
+        self._m_sanity.inc(model_key=served.model_key or "unknown", stream=stream,
                            reason=reason)
+        if stream == "canary":
+            production = self.served
+            log.warning(f"canary prediction sanity violation ({reason}) on "
+                        f"{served.model_key}; answering from production")
+            t0 = time.perf_counter()
+            fallback = production.predictor.predict(X)
+            t1 = time.perf_counter()
+            self._m_dispatch.observe(t1 - t0)
+            if trace is not None and trace.sampled:
+                trace.add("firewall-fallback", t0, t1, reason=reason,
+                          violating_model_key=served.model_key,
+                          answered_by=production.model_key)
+            if sanity_violation(fallback, None) is not None:
+                # production's own answer is non-finite: nothing sane to send
+                self._m_sanity.inc(model_key=production.model_key or "unknown",
+                                   stream="production", reason="non_finite")
+                raise PredictionSanityError("non_finite")
+            return production, fallback
         if reason == "non_finite":
             log.error(f"production prediction non-finite on {served.model_key}; "
                       "refusing to serialize")
             raise PredictionSanityError(reason)
         log.warning(f"production prediction out of sanity band on "
                     f"{served.model_key} (served anyway; band is statistical)")
+        return served, predictions
 
     def effective_config(self) -> dict:
         """The knob values live in this process, read from the live
@@ -493,10 +789,10 @@ class ScoringApp:
     def healthz_response(self) -> tuple[dict, int, int | None]:
         """``(payload, status, retry_after_s or None)``: the health document
         both front ends serve. The keys are the JAX app's, in its order
-        (the parts of later slices null: mesh, canary, watchdog, tuning,
-        degraded reason), then the port's ``engine``, ``device``,
-        ``launches`` (of the serving kernel since the counts were last
-        reset; null for a plain engine) and ``graph_cache``."""
+        (``mesh`` and ``tuning`` null: later slices), then the port's
+        ``engine``, ``device``, ``launches`` (of the serving kernel since
+        the counts were last reset; null for a plain engine) and
+        ``graph_cache``."""
         from bodywork_tpu_torch.serve.predictor import GRAPH_CACHE
 
         served = self.served
@@ -507,8 +803,11 @@ class ScoringApp:
         else:
             queue_depth = self.batcher.pending_depth() if self.batcher is not None else 0
             admission_state = None
+        canary = self._canary
         common = {
-            "canary_key": None, "canary_fraction": None, "watchdog": None, "tuning": None,
+            "canary_key": canary.model_key if canary is not None else None,
+            "canary_fraction": self._canary_fraction if canary is not None else None,
+            "watchdog": self.slo_state, "tuning": None,
         }
         if served is None:
             return ({
@@ -522,7 +821,8 @@ class ScoringApp:
             }, 503, self.retry_after_s())
         predictor = served.predictor
         engine = getattr(predictor, "engine", "torch")
-        return ({
+        reason = self._degraded_reason
+        payload = {
             "status": "ok",
             "model_info": served.model_info,
             "model_date": served.model_date,
@@ -530,16 +830,21 @@ class ScoringApp:
             "model_source": served.source,
             "serving_dtype": getattr(predictor, "dtype", "float32"),
             "mesh": None, **common,
-            "degraded": False,
+            "degraded": reason is not None,
             "queue_depth": queue_depth,
             "admission": admission_state,
             "effective_config": self.effective_config(),
             "latency_exemplars": self._m_latency.exemplars() or None,
+        }
+        if reason is not None:
+            payload["reason"] = reason
+        payload.update({
             "engine": engine,
             "device": predictor.device.type,
             "launches": LAUNCHES.get(engine),
             "graph_cache": GRAPH_CACHE.stats(),
-        }, 200, None)
+        })
+        return payload, 200, None
 
     def healthz_payload(self) -> dict:
         return self.healthz_response()[0]

@@ -188,8 +188,9 @@ class _BucketGraph:
         try:
             with torch.no_grad():
                 if slot.owner != owner:
-                    for dst, src in zip(_leaves(slot.weights), _leaves(weights)):
-                        dst.copy_(src)
+                    # every leaf in one call (a fused copy on the card), not
+                    # one copy launch per leaf on the request path
+                    torch._foreach_copy_(list(_leaves(slot.weights)), list(_leaves(weights)))
                     slot.owner = owner
                     cache.count_rebind()
                 if self.graph is None:

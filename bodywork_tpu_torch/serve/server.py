@@ -13,9 +13,12 @@ scoring apps that share one predictor (:class:`RoundRobinApp`).
 
 ``batch_window_ms`` > 0 puts a request coalescer (``serve.batcher``) in
 front of each app; ``max_pending`` arms admission control
-(``serve.admission``), which the ``aio`` engine arms by default. A
-blocking service that receives SIGTERM (``cli serve``) closes admission,
-then stops with its coalescers flushed.
+(``serve.admission``), which the ``aio`` engine arms by default;
+``watch_interval_s`` hot-swaps newer checkpoints into the running
+service (``serve.reload``), with the SLO watchdog judging a live canary
+on its polls. A blocking service that receives SIGTERM (``cli serve``)
+closes admission, then stops: the watcher joined, the coalescers
+flushed.
 
 Engine names map one to one onto the JAX package's (:data:`ENGINE_NAMES`):
 ``xla*`` -> ``torch*`` (plain torch in f32, bf16 or from int8 weights),
@@ -331,6 +334,8 @@ class ServiceHandle:
         self.host = host
         self.port = self._server.server_port
         self._cleanups: list = []
+        #: the checkpoint watcher (``serve.reload``) of a watched service
+        self.watcher = None
         self._thread = threading.Thread(
             # poll_interval bounds how long shutdown() blocks
             target=lambda: self._server.serve_forever(poll_interval=0.005),
@@ -395,7 +400,8 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 model_bounds=None, dtype: str = "float32", store=None,
                 batch_window_ms: float | None = None, batch_max_rows: int | None = None,
                 server_engine: str = "thread", max_pending: int | None = None,
-                retry_after_max_s: float | None = None):
+                retry_after_max_s: float | None = None,
+                watch_interval_s: float | None = None, device=None):
     """Serve a loaded model from its device: build the predictor for the
     engine and dtype (:func:`build_serving_predictor`; a quantized dtype
     shadows over ``store``'s datasets), warm every bucket (a capture or a
@@ -408,20 +414,32 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
     ``batch_max_rows``; ``max_pending`` arms admission control, one
     controller shared by the apps (the ``aio`` engine arms it at
     ``DEFAULT_MAX_PENDING`` by default); ``retry_after_max_s`` caps its
-    ``Retry-After``. With ``block=False`` returns a started handle; a
-    blocking service leaves on SIGTERM (``ShutdownRequested``) by closing
-    admission, then stopping with its coalescers flushed."""
+    ``Retry-After``. ``watch_interval_s`` starts a checkpoint watcher on
+    ``store`` (``serve.reload``, with the SLO watchdog on its polls) that
+    hot-swaps the checkpoint serving should run; with it, ``model=None``
+    boots a service that answers 503 until the first checkpoint lands
+    (loaded onto ``device``). With ``block=False`` returns a started
+    handle (``handle.watcher`` is the watcher or None); a blocking
+    service leaves on SIGTERM (``ShutdownRequested``) by closing
+    admission, then stopping: the watcher joined, the coalescers
+    flushed."""
     if server_engine not in SERVER_ENGINES:
         raise ValueError(f"unknown server engine {server_engine!r}; "
                          f"expected one of {SERVER_ENGINES}")
     if dtype not in (None, "float32") and store is None:
         raise ValueError(f"dtype={dtype} needs the store whose datasets its shadow "
                          "gate scores")
-    predictor, served_dtype = build_serving_predictor(store, model, engine,
-                                                      buckets=buckets, dtype=dtype)
-    log.info(f"serving {model.info} on {model.device} through engine "
-             f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} replica(s), "
-             f"{server_engine} front end)")
+    if watch_interval_s and store is None:
+        raise ValueError("a checkpoint watcher needs the store it polls")
+    if model is None and not watch_interval_s:
+        raise ValueError("nothing to serve: no model and no checkpoint watcher")
+    predictor = None
+    if model is not None:
+        predictor, served_dtype = build_serving_predictor(store, model, engine,
+                                                          buckets=buckets, dtype=dtype)
+        log.info(f"serving {model.info} on {model.device} through engine "
+                 f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} "
+                 f"replica(s), {server_engine} front end)")
     admission = build_admission(server_engine, max_pending, retry_after_max_s)
     apps = [
         create_app(model, model_date, predictor=predictor, warmup=False,
@@ -430,8 +448,10 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                    model_bounds=model_bounds)
         for _ in range(max(replicas, 1))
     ]
+    watcher = None
     try:
-        predictor.warmup()
+        if predictor is not None:
+            predictor.warmup()
         if server_engine == "aio":
             from bodywork_tpu_torch.serve.aio import AioServiceHandle
 
@@ -439,10 +459,27 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
         else:
             handle = ServiceHandle(RoundRobinApp(apps) if len(apps) > 1 else apps[0],
                                    host, port)
+        if watch_interval_s:
+            from bodywork_tpu_torch.ops.slo import SloWatchdog, policy_from_env
+            from bodywork_tpu_torch.serve.reload import NOTHING_SERVED, CheckpointWatcher
+
+            # the SLO watchdog rides the watcher's polls: canary routing,
+            # breach detection and the one-CAS abort or promote
+            watcher = CheckpointWatcher(
+                apps, store, poll_interval_s=watch_interval_s, engine=engine,
+                served_key=model_key if model is not None else NOTHING_SERVED,
+                buckets=buckets, slo_watchdog=SloWatchdog(store, apps, policy=policy_from_env()),
+                dtype=dtype, device=model.device if model is not None else resolve_device(device),
+            )
     except BaseException:
         for app in apps:
             app.close()
         raise
+    handle.watcher = watcher
+    if watcher is not None:
+        # first on stop: no swap lands on a stopped coalescer
+        handle.add_cleanup(watcher.stop)
+        watcher.start()
     for app in apps:
         handle.add_cleanup(app.close)
     if not block:
@@ -451,7 +488,8 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
         handle.serve_forever()
     except ShutdownRequested:
         # stop admitting first (new scoring requests shed with
-        # Retry-After), then stop: coalescers flushed, listener closed
+        # Retry-After), then stop: watcher joined, coalescers flushed,
+        # listener closed
         log.warning("SIGTERM: draining scoring service "
                     "(admission closed, in-flight work finishing)")
         if admission is not None:
@@ -466,22 +504,39 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        batch_window_ms: float | None = None,
                        batch_max_rows: int | None = None, server_engine: str = "thread",
                        max_pending: int | None = None,
-                       retry_after_max_s: float | None = None):
+                       retry_after_max_s: float | None = None,
+                       watch_interval_s: float | None = None):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
     unless asked for the CPU; no CUDA and no ``device="cpu"`` raises) and
     serve it (:func:`serve_model`, with its front-end, coalescer and
     admission knobs) with its record's sanity band, in ``dtype`` if the
-    shadow quality gate admits it. ``store`` is an artefact store or a
-    store directory. With ``block=False`` returns a started handle."""
+    shadow quality gate admits it. ``watch_interval_s`` hot-swaps the
+    checkpoint serving should run from then on (``serve.reload``); with
+    it, a store with no serviceable checkpoint yet (or an unreadable
+    alias document) boots a service answering 503 + ``Retry-After``
+    until one lands, where without it the error raises. ``store`` is an
+    artefact store or a store directory. With ``block=False`` returns a
+    started handle."""
+    from bodywork_tpu_torch.registry.records import RegistryCorrupt
+    from bodywork_tpu_torch.store.base import ArtefactNotFound
+
     dev = resolve_device(device)
     store = open_store(store)
-    served_key, served_source = resolve_serving_key(store)
-    model, model_date = load_model(store, served_key, device=dev)
+    try:
+        served_key, served_source = resolve_serving_key(store)
+        model, model_date = load_model(store, served_key, device=dev)
+    except (ArtefactNotFound, RegistryCorrupt) as exc:
+        if not watch_interval_s:
+            raise
+        log.warning(f"no serviceable checkpoint at boot ({exc!r}); serving 503s "
+                    "until the checkpoint watcher resolves one")
+        served_key = served_source = model = model_date = None
     return serve_model(model, model_date, host, port, block=block, engine=engine,
                        buckets=buckets, model_key=served_key, model_source=served_source,
                        model_bounds=registry_bounds(store, served_key), dtype=dtype,
                        store=store, batch_window_ms=batch_window_ms,
                        batch_max_rows=batch_max_rows, server_engine=server_engine,
-                       max_pending=max_pending, retry_after_max_s=retry_after_max_s)
+                       max_pending=max_pending, retry_after_max_s=retry_after_max_s,
+                       watch_interval_s=watch_interval_s, device=dev)

@@ -35,6 +35,33 @@ TRAINSTATE_PREFIX = "trainstate/"
 SNAPSHOTS_PREFIX = "snapshots/"
 RUNS_PREFIX = "runs/"
 FLIGHTREC_PREFIX = "obs/flightrec/"
+#: the JAX schema's prefixes of modules not ported yet, named here so
+#: :data:`ALL_PREFIXES` is the JAX package's tuple
+REGISTRY_PREFIX = "registry/"
+TUNING_PREFIX = "tuning/"
+AUDIT_PREFIX = "audit/"
+QUARANTINE_PREFIX = "quarantine/"
+SERVE_PREFIX = "serve/"
+TENANTS_PREFIX = "tenants/"
+
+#: every prefix of the store schema, in the JAX package's order (the
+#: default scope of the fault plan's at-rest bit-rot decisions)
+ALL_PREFIXES = (
+    DATASETS_PREFIX,
+    MODELS_PREFIX,
+    MODEL_METRICS_PREFIX,
+    TEST_METRICS_PREFIX,
+    SNAPSHOTS_PREFIX,
+    TRAINSTATE_PREFIX,
+    RUNS_PREFIX,
+    REGISTRY_PREFIX,
+    TUNING_PREFIX,
+    AUDIT_PREFIX,
+    QUARANTINE_PREFIX,
+    FLIGHTREC_PREFIX,
+    SERVE_PREFIX,
+    TENANTS_PREFIX,
+)
 
 
 def dataset_key(d: date) -> str:

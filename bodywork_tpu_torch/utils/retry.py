@@ -1,5 +1,5 @@
-"""Retry policy for the scoring client: the part of
-``bodywork_tpu.utils.retry`` the live-service test stage uses.
+"""Retry policy: the part of ``bodywork_tpu.utils.retry`` the live-service
+test stage and the fault plan use.
 
 Exponential backoff with FULL jitter (sleep ~ U(0, min(base·2ᵏ, max))),
 an attempt budget and a deadline budget, and a ``retry_after_s`` floor
@@ -12,7 +12,8 @@ import dataclasses
 import random
 import time
 
-__all__ = ["RetryPolicy", "call_with_retry", "full_jitter_delay", "is_transient"]
+__all__ = ["RetryPolicy", "TransientError", "call_with_retry", "full_jitter_delay",
+           "is_transient"]
 
 #: exception type names treated as transient (connection-level failures);
 #: an ALLOWLIST: unknown errors are not retried
@@ -23,7 +24,16 @@ TRANSIENT_ERROR_NAMES = frozenset({
     "BrokenPipeError",
     "TimeoutError",
     "URLError",
+    "TransientError",
 })
+
+
+class TransientError(Exception):
+    """A failure expected to clear on retry (the chaos plan's injected
+    faults subclass it). ``retry_after_s``, where the failing side names
+    one, floors the jittered sleep of :func:`call_with_retry`."""
+
+    retry_after_s: float | None = None
 
 
 def is_transient(exc: BaseException) -> bool:

@@ -70,7 +70,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
    dispatch span), ``/healthz`` exemplars that resolve to recorded traces,
    and the median span breakdown of the 16 clients' requests;
    ``trace-overhead``: config 7 on ``thread`` (coalescer off) at fractions
-   0, 0.1, 1.0, 1.0, 0.1, 0;
+   0, 0.1, 1.0, 1.0, 0.1, 0; then ``traffic``: config 9's open-loop ramp
+   on ``aio`` (coalescer 2 ms, 64 rows): a closed-loop capacity probe,
+   one seeded Poisson log at 0.5x, 1x and 2x of it (capped at 2000
+   requests/s, 5 s each), an MMPP log at 1x, and the 1x log replayed
+   from its file in the binary row framing, whose answers must be
+   byte-identical to the JSON ones; every 200 held against the plain
+   version; offered and goodput rps, p50/p99 from the scheduled arrival
+   and the shed fraction printed; ``reload``: config 11's live swap, an
+   open-loop drive at 0.5x capacity across a ``CheckpointWatcher`` swap
+   to a second checkpoint of the same architecture (no capture, at least
+   one rebind, every answer's model key and value its own checkpoint's,
+   p99 per answering checkpoint), then ``cli registry rollback`` must
+   reach the running service within two polls; ``canary``: the canary
+   chaos acceptance (``nan``, ``latency``, ``healthy``) on 1024-wide
+   MLPs: abort, abort, promote, production byte-identical to its
+   canary-free twin, each flight record opened by ``cli trace show``,
+   rebinds per 1000 requests printed; ``ab``: ``run_ab_simulation`` of
+   ``["linear", "mlp"]`` for 3 days, the pair concurrently then each
+   variant solo, each variant's artefacts byte-identical to its solo
+   run, the pair's wall-clock against the sum of the solos;
 5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
    -> test loop (``run_simulation``, which journals every day, prefetches
    the horizon's draws, trains each next day as a lookahead on a
@@ -264,6 +283,19 @@ TRACE = {"singles": 20, "batch_rows": 4096, "ingress": f"00-{'4b' * 16}-{'9c' * 
 #: profile: the 2-day MLP simulation's Adam steps a fit, cut from the
 #: loop's 2000 so the profile holds ~25k kernel events a day, not ~125k
 PROFILE_SIM = {"days": 2, "n_steps": 200}
+#: traffic: config 9's load factors and rate cap (``bench.py:1550-1554``),
+#: its coalescer and closed-loop probe, seconds a point, the log's seed,
+#: the sharded driver's processes (bench.py's ``driver_shards``)
+TRAFFIC = {"factors": (0.5, 1.0, 2.0), "cap_rps": 2000.0, "duration_s": 5.0,
+           "window_ms": 2.0, "max_rows": 64, "probe_clients": 16, "probe_s": 3.0, "seed": 9,
+           "shards": 4}
+#: reload: config 11's swap (``bench.py:1983``) at 0.5x capacity, the
+#: promotion this far into the drive, the watcher's poll
+RELOAD = {"factor": 0.5, "duration_s": 6.0, "swap_at_s": 2.0, "poll_s": 0.5}
+#: canary: the chaos acceptance's requests and canary fraction (its defaults)
+CANARY = {"requests": 240, "fraction": 0.35}
+#: ab: the A/B simulation's days
+AB = {"days": 3}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1464,6 +1496,585 @@ def phase_trace(torch, dev, workdir: str) -> dict:
         tracing.configure_tracing(*previous, recorder_capacity=tracing.DEFAULT_RECORDER_CAPACITY)
     return {"runs": runs, "overhead": overhead, "launches": launches,
             "launches_all": dict(LAUNCHES)}
+
+
+# -- open-loop traffic, hot reload, the canary loop, A/B pipelines ------------
+
+def _body_transport(base_url: str, kind: str, sink: dict, n_requests: int):
+    """An open-loop transport (``traffic.runner``'s pool and framing) that
+    keeps each answer: ``sink[(t_s, route, x)] = (status, model key,
+    body)``, and closes its pool on the loop when the last of
+    ``n_requests`` ends."""
+    from urllib.parse import urlsplit
+
+    from bodywork_tpu_torch.serve.wire import BINARY_CONTENT_TYPE
+    from bodywork_tpu_torch.traffic.runner import _ConnectionPool
+
+    parts = urlsplit(base_url)
+    pool = _ConnectionPool(parts.hostname, parts.port)
+    ctype = BINARY_CONTENT_TYPE if kind == "binary" else "application/json"
+    ended = [0]
+
+    async def transport(req):
+        body = req.payload_binary() if kind == "binary" else req.payload()
+        head = (f"POST {req.route} HTTP/1.1\r\nHost: {pool.host}:{pool.port}\r\n"
+                f"Content-Type: {ctype}\r\nContent-Length: {len(body)}\r\n\r\n"
+                ).encode("latin-1")
+        reader, writer, _reused = await pool.acquire()
+        reusable = False
+        try:
+            writer.write(head + body)
+            await writer.drain()
+            status = int((await reader.readline()).split(b" ", 2)[1])
+            headers = {}
+            while True:
+                line = await reader.readline()
+                if line in (b"\r\n", b"\n", b""):
+                    break
+                name, _sep, value = line.decode("latin-1").partition(":")
+                headers[name.strip().lower()] = value.strip()
+            payload = await reader.readexactly(int(headers.get("content-length", 0)))
+            key = headers.get("x-bodywork-model-key")
+            sink[(req.t_s, req.route, req.x)] = (status, key, payload)
+            reusable = headers.get("connection", "").lower() != "close"
+            retry = headers.get("retry-after")
+            return status, float(retry) if retry else None, key, headers.get(
+                "x-bodywork-trace-id")
+        finally:
+            pool.release(reader, writer, reusable)
+            ended[0] += 1
+            if ended[0] == n_requests:
+                pool.close()
+
+    return transport
+
+
+def _drive(base_url: str, log: list, kind: str = "json") -> tuple:
+    """A correctness drive: ``run_open_loop`` of ``log`` through
+    :func:`_body_transport`, ``(report dict, answers)``. One event loop
+    sends it, so its latencies are bound by the driver; the load points'
+    numbers come from :func:`_measure`."""
+    from bodywork_tpu_torch.traffic import run_open_loop
+
+    answers: dict = {}
+    transport = _body_transport(base_url, kind, answers, len(log))
+    report = run_open_loop(base_url, log, timeout_s=30.0, transport=transport)
+    return report.to_dict(), answers
+
+
+def _measure(base_url: str, log: list, kind: str = "json") -> dict:
+    """A load point's numbers: ``run_open_loop`` of ``log`` through the
+    runner's own transport, sharded over ``TRAFFIC["shards"]`` spawned
+    driver processes (one event loop cannot send ~2000 requests/s on
+    time)."""
+    from bodywork_tpu_torch.traffic import run_open_loop
+
+    return run_open_loop(base_url, log, timeout_s=30.0, transport_kind=kind,
+                         shards=TRAFFIC["shards"]).to_dict()
+
+
+def _plain_check(torch, dev, layers: list, answers: dict) -> dict:
+    """Every 200 single-row answer held against the kernel's plain version
+    of ``layers`` on the card at the ``kernel`` bar."""
+    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
+
+    ok = [(k[2][0], json.loads(v[2])["prediction"]) for k, v in answers.items()
+          if v[0] == 200]
+    if not ok:
+        raise RuntimeError("no request was answered 200")
+    X = torch.tensor([[x] for x, _ in ok], dtype=torch.float32, device=dev)
+    got = torch.tensor([p for _, p in ok], dtype=torch.float32, device=dev)
+    err, rel = rel_err(got, mlp_stack_plain(layers, X, None))
+    return {"answers_checked": len(ok), "max_abs_err": err, "err_over_scale": rel,
+            "bar": BARS["kernel"]}
+
+
+def _own_checkpoint_checks(torch, dev, layers: dict, answers: dict) -> tuple:
+    """Each answer grouped by the checkpoint its ``X-Bodywork-Model-Key``
+    names: ``(groups, checks, crossed)``, each group's 200s held against
+    its own checkpoint's plain version (``checks``) and against every
+    other checkpoint's in ``layers`` (``crossed``, the ``err_over_scale``
+    that must miss the bar)."""
+    groups = {}
+    for k, v in answers.items():
+        groups.setdefault(v[1], {})[k] = v
+    checks = {key: _plain_check(torch, dev, layers[key], got)
+              for key, got in groups.items() if key in layers}
+    crossed = {f"{key} vs {other}": _plain_check(torch, dev, layers[other], got)[
+                   "err_over_scale"]
+               for key, got in groups.items() for other in layers
+               if key in layers and other != key}
+    return groups, checks, crossed
+
+
+def _own_checkpoint_failed(checks: dict, crossed: dict) -> bool:
+    """Whether an answer group missed its own checkpoint's plain version
+    or came within the bar of another's (a NaN misses both)."""
+    return (any(not c["err_over_scale"] < BARS["kernel"] for c in checks.values())
+            or any(e < BARS["kernel"] for e in crossed.values()))
+
+
+def _capacity(base_url: str, clients: int, seconds: float) -> float:
+    """Closed-loop capacity: ``clients`` keep-alive clients sending single
+    rows back to back for ``seconds``; 200s a second."""
+    import threading
+
+    import numpy as np
+
+    counts = [0] * clients
+    for x in np.linspace(1, 99, 20):  # untimed
+        post(base_url + "/score/v1", {"X": float(x)})
+    stop = time.perf_counter() + seconds
+
+    def client(i):
+        conn = _connect(base_url)
+        rng = np.random.default_rng(100 + i)
+        while time.perf_counter() < stop:
+            counts[i] += _score(conn, round(float(rng.uniform(0, 100)), 3))[0] == 200
+        conn.close()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return sum(counts) / (time.perf_counter() - t0)
+
+
+def _load_line(report: dict) -> dict:
+    return {"offered_rps": report["offered_rps"], "goodput_rps": report["goodput_rps"],
+            "goodput_in_window_rps": report["goodput_in_window_rps"],
+            "p50_ms": None if report["latency"]["p50_s"] is None
+            else 1e3 * report["latency"]["p50_s"],
+            "p99_ms": None if report["latency"]["p99_s"] is None
+            else 1e3 * report["latency"]["p99_s"],
+            "shed_fraction": report["shed_fraction"], "requests": report["requests"],
+            "ok": report["ok"], "send_lag_p99_ms": 1e3 * (report["send_lag_p99_s"] or 0.0),
+            "max_in_flight": report["max_in_flight"], "driver_shards": report["shards"]}
+
+
+class _ServeProcess:
+    """``cli serve`` of a store in a process of its own (config 9's
+    isolated target: the driver here shares no interpreter lock with the
+    service) on ``aio`` with the coalescer at 2 ms / 64 rows. ``stop``
+    sends SIGTERM and requires exit 143 without an abort; the service's
+    kernel launches and graph-cache counts come from its ``/healthz``
+    (counted from the process's start)."""
+
+    def __init__(self, store_root: str, reload_interval: float = 0.0):
+        import queue
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "bodywork_tpu_torch.cli", "serve", "--store", store_root,
+             "--host", "127.0.0.1", "--port", "0", "--server-engine", "aio",
+             "--batch-window-ms", str(TRAFFIC["window_ms"]),
+             "--batch-max-rows", str(TRAFFIC["max_rows"]),
+             "--reload-interval", str(reload_interval)],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self.lines: list = []
+        self._queue: queue.Queue = queue.Queue()
+        threading.Thread(target=lambda: [self._queue.put(line) for line in self.proc.stdout],
+                         daemon=True).start()
+        self.base_url = None
+        deadline = time.monotonic() + 300
+        while self.base_url is None and time.monotonic() < deadline and self.proc.poll() is None:
+            try:
+                line = self._queue.get(timeout=1)
+            except queue.Empty:
+                continue
+            self.lines.append(line)
+            if "listening on http://" in line:
+                self.base_url = line.rsplit("listening on ", 1)[1].strip().replace(
+                    "/score/v1", "")
+        if self.base_url is None:
+            self.proc.kill()
+            raise RuntimeError("cli serve did not start: " + "".join(self.lines)[-3000:])
+
+    def health(self) -> dict:
+        return get(self.base_url + "/healthz")
+
+    def stop(self) -> dict:
+        """SIGTERM: exit 143 within 60 s, no abort in the output."""
+        import signal
+
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.proc.wait(timeout=60)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+        time.sleep(0.2)  # the reader thread drains the pipe
+        while not self._queue.empty():
+            self.lines.append(self._queue.get())
+        out = "".join(self.lines)
+        result = {"rc": self.proc.returncode, "seconds": time.perf_counter() - t0,
+                  "aborted": "Aborted" in out or "terminate called" in out}
+        if result["rc"] != 143 or result["aborted"]:
+            raise RuntimeError(f"cli serve did not leave on SIGTERM with 143: {result} "
+                               + out[-3000:])
+        return result
+
+
+def phase_traffic(torch, dev, workdir: str) -> dict:
+    """``traffic``: config 9's open-loop ramp (``bench.py:1771``) against
+    ``cli serve`` in its own process on ``aio`` with the coalescer at 2 ms
+    / 64 rows, the 1024-wide MLP on ``auto`` (-> ``kernel``): a closed-loop
+    probe for capacity, then one seeded Poisson log at 0.5x, 1x and 2x of
+    it (capped at 2000 requests/s), 5 s each, one MMPP log at 1x, and the
+    1x log again, read back from its file, in the binary row framing.
+    Each point is driven twice: once by the sharded driver
+    (:func:`_measure`, the printed numbers), once keeping every answer
+    (:func:`_drive`), whose 200s are held against the plain version at
+    the ``kernel`` bar, and whose binary answers must be byte-identical
+    to the JSON ones; the log read back must be the same requests. The
+    service's launches are read from its ``/healthz``; SIGTERM ends it
+    with 143."""
+    from bodywork_tpu_torch.models import load_model
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply
+    from bodywork_tpu_torch.traffic import (
+        TrafficConfig,
+        generate_request_log,
+        read_request_log,
+        write_request_log,
+    )
+
+    store = _serving_models(torch, dev, workdir)[0]
+    model = load_model(store, device=dev)[0]
+    layers = make_kernel_mlp_apply(model.params, dev).layers
+    service = _ServeProcess(str(store.root))
+    points = {}
+    try:
+        health = service.health()
+        if health["engine"] != "kernel":
+            raise RuntimeError(f"auto served the 1024-wide MLP through {health['engine']!r}")
+        capacity = _capacity(service.base_url, TRAFFIC["probe_clients"], TRAFFIC["probe_s"])
+        logs = {}
+        for factor in TRAFFIC["factors"]:
+            rate = min(capacity * factor, TRAFFIC["cap_rps"])
+            logs[f"poisson-{factor:g}x"] = TrafficConfig(
+                rate_rps=rate, duration_s=TRAFFIC["duration_s"], seed=TRAFFIC["seed"])
+        logs["mmpp-1x"] = TrafficConfig(rate_rps=min(capacity, TRAFFIC["cap_rps"]),
+                                        duration_s=TRAFFIC["duration_s"], arrival="mmpp",
+                                        seed=TRAFFIC["seed"])
+        answers = {}
+        for name, config in logs.items():
+            log = generate_request_log(config)
+            report = _measure(service.base_url, log)
+            checked, answers[name] = _drive(service.base_url, log)
+            points[name] = {"factor": config.rate_rps / capacity, **_load_line(report),
+                            "checked_drive_ok": checked["ok"],
+                            **_plain_check(torch, dev, layers, answers[name])}
+            emit("traffic", name=name, transport="json", arrival=config.arrival,
+                 capacity_rps=capacity, **points[name])
+        # the 1x log: through a file and back, then in the binary framing
+        path = os.path.join(workdir, "poisson-1x.jsonl")
+        config = logs["poisson-1x"]
+        log = generate_request_log(config)
+        write_request_log(path, config, log)
+        back_config, replay = read_request_log(path)
+        report = _measure(service.base_url, replay, kind="binary")
+        checked, binary = _drive(service.base_url, replay, kind="binary")
+        points["poisson-1x-binary"] = {"factor": config.rate_rps / capacity,
+                                       **_load_line(report), "checked_drive_ok": checked["ok"],
+                                       **_plain_check(torch, dev, layers, binary)}
+        both = set(binary) & set(answers["poisson-1x"])
+        same = [k for k in both if binary[k][0] == answers["poisson-1x"][k][0] == 200]
+        differ = [k for k in same if binary[k][2] != answers["poisson-1x"][k][2]]
+        replay_equal = back_config == config and replay == log
+        emit("traffic", name="poisson-1x-binary", transport="binary",
+             replay_equals_log=replay_equal, compared_with_json=len(same),
+             differ_from_json=len(differ), **points["poisson-1x-binary"])
+        health = service.health()
+    finally:
+        stopped = service.stop()
+    # the service serves the f32 kernel alone: its /healthz counts that kernel's launches
+    launches = {**dict.fromkeys(VARIANTS, 0), "kernel": health["launches"]}
+    failed = [n for n, p in points.items() if p["err_over_scale"] >= BARS["kernel"]]
+    if failed or differ or not replay_equal or not same or launches["kernel"] < 1:
+        raise RuntimeError(f"traffic: plain-version misses {failed}, json/binary differ "
+                           f"{len(differ)} of {len(same)}, replay equal {replay_equal}, "
+                           f"launches {launches}")
+    return {"capacity_rps": capacity, "points": points, "launches": launches,
+            "graph_cache": health["graph_cache"], "sigterm": stopped}
+
+
+def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
+    """``reload``: config 11's swap (``bench.py:1983``): ``cli serve
+    --reload-interval`` in its own process (``aio``, coalescer 2 ms / 64
+    rows) serving the registry's ``production``, the 1024-wide MLP, under
+    an open-loop Poisson drive at 0.5x capacity while the registry
+    promotes a second checkpoint of the same architecture: no graph
+    capture or build across the drive, at least one rebind (the service's
+    ``/healthz`` ``graph_cache``), every answer's model key and value its
+    own checkpoint's (held against each checkpoint's plain version at the
+    ``kernel`` bar, and missing the other's), the p99 of each answering
+    checkpoint printed. Then ``cli registry rollback`` on the store must
+    reach the running service within two polls (``/healthz``
+    ``model_key``), and SIGTERM ends it with 143."""
+    import threading
+
+    from bodywork_tpu_torch.models import save_model
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply
+    from bodywork_tpu_torch.registry import ModelRegistry, register_candidate
+    from bodywork_tpu_torch.traffic import TrafficConfig, generate_request_log
+
+    store, second, _hist = _serving_models(torch, dev, workdir)
+    first_key = store.history("models/")[-1][0]
+    register_candidate(store, first_key, day=date(2026, 7, 3))
+    ModelRegistry(store).promote(first_key, day=date(2026, 7, 3))
+    second_key = save_model(store, second, date(2026, 7, 4))
+    register_candidate(store, second_key, day=date(2026, 7, 4))
+    from bodywork_tpu_torch.models import load_model
+
+    layers = {key: make_kernel_mlp_apply(load_model(store, key, device=dev)[0].params,
+                                         dev).layers for key in (first_key, second_key)}
+    service = _ServeProcess(str(store.root), reload_interval=RELOAD["poll_s"])
+    try:
+        if capacity_rps is None:
+            capacity_rps = _capacity(service.base_url, TRAFFIC["probe_clients"],
+                                     TRAFFIC["probe_s"])
+        rate = min(RELOAD["factor"] * capacity_rps, TRAFFIC["cap_rps"])
+        log = generate_request_log(TrafficConfig(rate_rps=rate, duration_s=RELOAD["duration_s"],
+                                                 seed=TRAFFIC["seed"] + 1))
+        before = service.health()["graph_cache"]
+        promote = threading.Timer(RELOAD["swap_at_s"], lambda: ModelRegistry(store).promote(
+            second_key, day=date(2026, 7, 4), reason="chip_smoke: live swap"))
+        promote.start()
+        report, answers = _drive(service.base_url, log)
+        promote.join()
+        health = service.health()
+        after = health["graph_cache"]
+        by_key, checks, crossed = _own_checkpoint_checks(torch, dev, layers, answers)
+        rollback = _cli(["registry", "rollback", "--store", str(store.root)])
+        t0 = time.perf_counter()
+        reached = None
+        while time.perf_counter() - t0 < 10 * RELOAD["poll_s"]:
+            if service.health()["model_key"] == first_key:
+                reached = time.perf_counter() - t0
+                break
+            time.sleep(0.01)
+        launches = {**dict.fromkeys(VARIANTS, 0), "kernel": service.health()["launches"]}
+    finally:
+        stopped = service.stop()
+    out = {"rate_rps": rate, **_load_line(report), "answering_keys": sorted(
+               k or "none" for k in by_key),
+           "captures_across_drive": after["captures"] - before["captures"],
+           "misses_across_drive": after["misses"] - before["misses"],
+           "rebinds_across_drive": after["rebinds"] - before["rebinds"],
+           "p99_ms_by_checkpoint": {k: 1e3 * (v["latency"]["p99_s"] or 0.0)
+                                    for k, v in report["per_model_key"].items()},
+           "checks": checks, "err_over_scale_vs_other_checkpoint": crossed,
+           "served_after_drive": health["model_key"], "rollback_rc": rollback["rc"],
+           "rollback_cli_s": rollback["seconds"], "rollback_reached_s": reached,
+           "poll_s": RELOAD["poll_s"], "launches": launches, "sigterm": stopped}
+    emit("reload", **out)
+    if (out["captures_across_drive"] or out["misses_across_drive"]
+            or out["rebinds_across_drive"] < 1 or set(by_key) != {first_key, second_key}
+            or _own_checkpoint_failed(checks, crossed)
+            or report["ok"] != report["requests"] or health["model_key"] != second_key):
+        raise RuntimeError(f"reload: the live swap broke its contract: {out}")
+    if launches["kernel"] < 1:
+        raise RuntimeError(f"reload: the service launched no kernel: {out}")
+    if rollback["rc"] != 0 or reached is None or reached > 2 * RELOAD["poll_s"]:
+        raise RuntimeError(f"reload: the rollback did not reach the service within two "
+                           f"polls: {out} {rollback['err'][-2000:]}")
+    return out
+
+
+def phase_canary(torch, dev, workdir: str) -> dict:
+    """``canary``: ``run_canary_chaos`` on the card for ``nan``,
+    ``latency`` and ``healthy``, the two checkpoints 1024-wide MLPs
+    (the loop's training settings) served on ``auto`` (-> ``kernel``):
+    the watchdog's verdicts must be abort, abort and promote, production
+    byte-identical to its canary-free twin, each verdict's flight record
+    must open with ``cli trace show`` (exit 0). Every 200 of the
+    canary'd app, production's and the canary's alike, is held against
+    the plain version of the checkpoint its ``X-Bodywork-Model-Key``
+    names at the ``kernel`` bar, and must miss the other checkpoint's:
+    a rebind that left the other stream's weights in the shared slot
+    fails here. The weight-slot rebinds per 1000 requests are printed,
+    with the verdict's window, each stream's request times (the slowest
+    with their index) and the interpreter's collections during the drive:
+    at sub-millisecond requests the watchdog's p99 of a few dozen samples
+    is their slowest, and a full collection of the heap the earlier
+    phases left, landing in one canary request, decides it; so that heap
+    is collected and frozen before each scenario."""
+    import gc
+
+    from bodywork_tpu_torch.chaos import canary as canary_module
+    from bodywork_tpu_torch.chaos import run_canary_chaos
+    from bodywork_tpu_torch.models import load_model
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, make_kernel_mlp_apply, reset_launches
+    from bodywork_tpu_torch.serve import GRAPH_CACHE
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    # the harness's per-request trace (bodies, model keys, statuses), kept
+    drives = []
+    drive = canary_module._drive
+
+    def recorded(app, twin_app, watcher, xs, *args):
+        seconds, handle = [], app.handle
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return handle(*a, **k)
+            finally:
+                seconds.append(time.perf_counter() - t0)
+
+        app.handle = timed
+        trace = drive(app, twin_app, watcher, xs, *args)
+        drives.append((xs, trace, seconds))
+        return trace
+
+    out = {}
+    reset_launches()
+    canary_module._drive = recorded
+    try:
+        runs, collections = {}, {}
+        for scenario in ("nan", "latency", "healthy"):
+            root = os.path.join(workdir, f"canary-{scenario}")
+            gc.collect()
+            gc.freeze()
+            pauses, started = [], [0.0]
+
+            def timed(stage, info, pauses=pauses, started=started):
+                if stage == "start":
+                    started[0] = time.perf_counter()
+                else:
+                    pauses.append((info["generation"], 1e3 * (time.perf_counter() - started[0])))
+
+            gc.callbacks.append(timed)
+            before = GRAPH_CACHE.stats()
+            t0 = time.perf_counter()
+            try:
+                summary = run_canary_chaos(
+                    FilesystemStore(root), scenario=scenario, seed=0,
+                    n_requests=CANARY["requests"], fraction=CANARY["fraction"],
+                    model_type="mlp", model_kwargs=LOOP_MLP, device=dev)
+            finally:
+                gc.callbacks.remove(timed)
+                gc.unfreeze()
+            runs[scenario] = (root, summary, drives[-1], time.perf_counter() - t0,
+                              before, GRAPH_CACHE.stats())
+            collections[scenario] = {"count": len(pauses), "gen2": sum(g == 2 for g, _ in pauses),
+                                     "max_ms": max((ms for _g, ms in pauses), default=0.0)}
+    finally:
+        canary_module._drive = drive
+    launches = dict(LAUNCHES)
+    for scenario, (root, summary, (xs, trace, handled), seconds, before, after) in runs.items():
+        store = FilesystemStore(root)
+        keys = (summary["production_key"], summary["canary_key"])
+        layers = {key: make_kernel_mlp_apply(load_model(store, key, device=dev)[0].params,
+                                             dev).layers for key in keys}
+        answers = {(i, "/score/v1", (float(x),)): (status, key, body) for i, (x, status, key, body)
+                   in enumerate(zip(xs, trace["statuses"], trace["keys"], trace["bodies"]))}
+        groups, checks, crossed = _own_checkpoint_checks(torch, dev, layers, answers)
+        # each stream's in-process request times, the slowest with their index
+        request_ms = {}
+        for i, (key, s) in enumerate(zip(trace["keys"], handled)):
+            request_ms.setdefault("production" if key == keys[0] else "canary", []).append(
+                (1e3 * s, i))
+        request_ms = {stream: {"n": len(v), "median": statistics.median(ms for ms, _i in v),
+                               "slowest": sorted(v, reverse=True)[:5]}
+                      for stream, v in request_ms.items()}
+        dump = summary["flight_record_keys"][-1] if summary["flight_record_keys"] else None
+        shown = None
+        if dump is not None:
+            doc = json.loads(FilesystemStore(root).get_bytes(dump))
+            shown = _cli(["trace", "show", doc["traces"][0]["trace_id"], "--store", root])
+        # the canary'd app and its twin each answered every request
+        served = 2 * summary["n_requests"]
+        out[scenario] = row = {
+            "ok": summary["ok"], "aborted": summary["aborted"],
+            "promoted": summary["promoted"], "abort_at_request": summary["abort_at_request"],
+            "promote_at_request": summary["promote_at_request"],
+            "alias_cas_writes": summary["alias_cas_writes"],
+            "violating_responses_serialized": summary["violating_responses_serialized"],
+            "production_responses_compared": summary["production_responses_compared"],
+            "production_responses_mismatched": summary["production_responses_mismatched"],
+            "fallback_span_traces": summary["fallback_span_traces"],
+            "answers_by_checkpoint": {("production" if k == keys[0] else "canary"): len(v)
+                                      for k, v in groups.items() if k in layers},
+            "plain_checks": {("production" if k == keys[0] else "canary"): c
+                             for k, c in checks.items()},
+            "err_over_scale_vs_other_checkpoint": crossed,
+            "flight_record": dump, "trace_show_rc": shown["rc"] if shown else None,
+            "verdict_window": doc.get("window") if dump is not None else None,
+            "request_ms": request_ms, "collections": collections[scenario],
+            "rebinds": after["rebinds"] - before["rebinds"],
+            "captures": after["captures"] - before["captures"],
+            "rebinds_per_1000_requests": 1e3 * (after["rebinds"] - before["rebinds"]) / served,
+            "requests_served": served, "seconds": seconds}
+        emit("canary", scenario=scenario, **row)
+        want = (False, True) if scenario == "healthy" else (True, False)
+        if (not summary["ok"] or (summary["aborted"], summary["promoted"]) != want
+                or summary["production_responses_mismatched"] or shown is None
+                or shown["rc"] != 0 or set(groups) - set(layers)
+                or _own_checkpoint_failed(checks, crossed)):
+            raise RuntimeError(f"canary {scenario}: {row} {summary}")
+    if launches["kernel"] < 1:
+        raise RuntimeError(f"the canary scenarios launched no kernel: {launches}")
+    return {"scenarios": out, "launches": launches}
+
+
+def phase_ab(torch, dev, workdir: str) -> dict:
+    """``ab``: ``run_ab_simulation`` of ``["linear", "mlp"]`` on the card,
+    3 days, the MLP at hidden (1024, 1024, 1024) with the loop's training
+    settings: the pair concurrently, then each variant solo in this
+    process; each variant's datasets, checkpoints, metrics and registry
+    records byte-identical to its solo run (journals and snapshots left
+    out, the test metrics' wall-clock column masked, as
+    :func:`_compare_results` does). The pair's wall-clock against the sum
+    of the solos; launches counted over the pair."""
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import (
+        compare_report,
+        run_ab_simulation,
+        variants_from_model_types,
+    )
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+
+    def variants(models):
+        vs = variants_from_model_types(models)
+        for v in vs:
+            if v.name.endswith("mlp"):
+                v.spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
+        return vs
+
+    reset_launches()
+    t0 = time.perf_counter()
+    pair = run_ab_simulation(variants(["linear", "mlp"]), os.path.join(workdir, "pair"),
+                             LOOP_START, AB["days"], devices=[dev])
+    pair_s = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    solo_s, compared = {}, {}
+    for name, variant in zip(("a-linear", "b-mlp"), variants(["linear", "mlp"])):
+        t0 = time.perf_counter()
+        solo = run_ab_simulation([variant], os.path.join(workdir, f"solo-{name}"), LOOP_START,
+                                 AB["days"], devices=[dev])
+        solo_s[name] = time.perf_counter() - t0
+        if solo[name].error is not None:
+            raise RuntimeError(f"ab: the solo {name} run failed: {solo[name].error!r}")
+        compared[name] = _compare_results(
+            _results_of(os.path.join(workdir, "pair", name)),
+            _results_of(os.path.join(workdir, f"solo-{name}", name)))
+    errors = {k: repr(v.error) for k, v in pair.items() if v.error is not None}
+    out = {"days": AB["days"], "pair_s": pair_s, "solo_s": solo_s,
+           "sum_of_solos_s": sum(solo_s.values()),
+           "pair_over_sum_of_solos": pair_s / sum(solo_s.values()),
+           "pair_errors": errors, "compared": compared,
+           "report_rows": len(compare_report(pair)), "launches": launches}
+    emit("ab", **out)
+    if errors or any(c["differ"] or c["only_in_first"] or c["only_in_second"]
+                     for c in compared.values()) or launches["kernel"] < 1:
+        raise RuntimeError(f"ab: a variant of the pair is not its solo run: {out}")
+    return out
 
 
 def _day_line(model_type: str, r, launched: int) -> dict:
@@ -2827,8 +3438,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="device,generator,mlp-draws,build,kernels,slice,serving,trace,day-loop,"
-                "incremental,quantized,resume,sigterm,day-report,profile,timing",
+        default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
+                "canary,ab,day-loop,incremental,quantized,resume,sigterm,day-report,profile,"
+                "timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -2864,8 +3476,9 @@ def main(argv=None) -> int:
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled = {}, {}, {}, {}
-    for phase in ("slice", "serving", "trace", "day-loop", "incremental", "resume", "sigterm",
-                  "day-report", "profile"):
+    traffic, reloaded, canaried, ab = {}, {}, {}, {}
+    for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "ab", "day-loop",
+                  "incremental", "resume", "sigterm", "day-report", "profile"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -2876,6 +3489,14 @@ def main(argv=None) -> int:
                 serving = phase_serving(torch, dev, workdir)
             elif phase == "trace":
                 traced = phase_trace(torch, dev, workdir)
+            elif phase == "traffic":
+                traffic = phase_traffic(torch, dev, workdir)
+            elif phase == "reload":
+                reloaded = phase_reload(torch, dev, workdir, traffic.get("capacity_rps"))
+            elif phase == "canary":
+                canaried = phase_canary(torch, dev, workdir)
+            elif phase == "ab":
+                ab = phase_ab(torch, dev, workdir)
             elif phase == "day-report":
                 reported = phase_day_report(torch, dev, workdir)
             elif phase == "profile":
@@ -2922,6 +3543,10 @@ def main(argv=None) -> int:
             # the traced services and their overhead runs; the reported
             # day's own process; the profiled simulation and its two twins
             for path, result, key in (("trace", traced, "launches_all"),
+                                      ("traffic", traffic, "launches"),
+                                      ("reload", reloaded, "launches"),
+                                      ("canary", canaried, "launches"),
+                                      ("ab", ab, "launches"),
                                       ("day-report", reported, "launches"),
                                       ("profile", profiled, "launches")):
                 if result:

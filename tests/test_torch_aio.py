@@ -317,9 +317,102 @@ def test_protocol_faults_answer_and_close_like_jax(services, head, status):
     assert b"Connection: close" in answers[0]
 
 
+@pytest.mark.parametrize("content_type,body,framing", [
+    ("text/plain", {"X": 50}, "json"),
+    ("", {"X": [1.0, 2.0]}, "json"),
+    ("application/x-bodywork-rows", [[50.0]], "binary"),
+    ("application/x-bodywork-rows; charset=binary", [[1.0], [2.0]], "binary"),
+])
+def test_content_type_rules_match_jaxs_per_engine(services, content_type, body, framing):
+    """Which framing a content type selects: the binary rows by their
+    type on every engine; JSON under any other type on the asyncio
+    engines, and only under a JSON type on the thread engines. Each port
+    engine answers its JAX counterpart's status and bytes."""
+    from bodywork_tpu_torch.serve.wire import encode_binary_rows
+
+    data = (encode_binary_rows(np.asarray(body, dtype=np.float32)) if framing == "binary"
+            else json.dumps(body).encode())
+    path = "/score/v1" if len(body if framing == "binary" else np.atleast_1d(body["X"])) == 1 \
+        else "/score/v1/batch"
+    answers = {name: _http(base, path, data, None, content_type)
+               for name, (_h, base) in services.items()}
+    for port, jax in (("thread", "jax-thread"), ("aio", "jax-aio")):
+        assert (answers[port][0], answers[port][2]) == (answers[jax][0], answers[jax][2]), port
+    if framing == "binary":
+        assert answers["thread"][0] == answers["aio"][0] == 200
+    else:
+        assert (answers["thread"][0], answers["aio"][0]) == (400, 200)
+
+
 def test_engine_tables_stay_in_step_with_jax():
     from bodywork_tpu.serve.server import SERVER_ENGINES as JAX_SERVER_ENGINES
 
     serve = cli.build_parser()._subparsers._group_actions[0].choices["serve"]
     action = next(a for a in serve._actions if a.dest == "server_engine")
     assert tuple(action.choices) == SERVER_ENGINES == JAX_SERVER_ENGINES
+
+
+def test_aio_dispatch_timing_includes_the_executor_wait_in_both_packages():
+    """One executor worker, a predictor that holds it for HOLD seconds,
+    two concurrent batch requests at trace fraction 1: on both packages'
+    aio engines the second request's ``device_dispatch_seconds``
+    observation and ``device-dispatch`` span include the first request's
+    hold (the JAX engine times the whole ``await run_in_executor``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from bodywork_tpu.obs import get_registry as jax_get_registry
+    from bodywork_tpu.obs.tracing import configured_tracing as jax_configured_tracing
+    from bodywork_tpu_torch.obs import get_registry
+    from bodywork_tpu_torch.obs.tracing import configured_tracing
+
+    hold = 0.25
+
+    class Held(PaddedPredictor):
+        def predict(self, X):
+            time.sleep(hold)
+            return super().predict(X)
+
+    rng = np.random.default_rng(5)
+    X = rng.uniform(0, 100, 300).astype(np.float32)
+    jax_model = JaxLinearRegressor().fit(X, (3.0 + 0.5 * X).astype(np.float32))
+    model = LinearRegressor(params={k: torch.tensor(np.asarray(v))
+                                    for k, v in jax_model.params.items()})
+    predictor = Held(model, (1, 8))
+    packages = {
+        "port": (AioServiceHandle(create_app(model, DAY, predictor=predictor), "127.0.0.1", 0),
+                 get_registry, configured_tracing),
+        "jax": (JaxAioServiceHandle(jax_create_app(jax_model, DAY, predictor=_Shared(predictor)),
+                                    "127.0.0.1", 0),
+                jax_get_registry, jax_configured_tracing),
+    }
+    for name, (handle, registry, tracing) in packages.items():
+        handle.server._executor = ThreadPoolExecutor(max_workers=1)
+        handle.start()
+        base = handle.url.replace("/score/v1", "")
+        hist = registry().histogram("bodywork_tpu_device_dispatch_seconds")
+        try:
+            with tracing(1.0, seed=11) as tracer:
+                count0, sum0 = hist.count(), hist.sum()
+                start = threading.Barrier(2)
+                statuses = []
+
+                def one(x, start=start, statuses=statuses, base=base):
+                    start.wait()
+                    statuses.append(_http(base, "/score/v1/batch", {"X": [x, x + 1.0]})[0])
+
+                threads = [threading.Thread(target=one, args=(x,)) for x in (10.0, 20.0)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=30)
+                assert statuses == [200, 200], name
+                assert hist.count() - count0 == 2, name
+                # the two observations: one hold, then the wait plus a hold
+                assert hist.sum() - sum0 >= 2.9 * hold, (name, hist.sum() - sum0)
+                spans = sorted(s["duration_s"] for t in tracer.recorder.snapshot()
+                               for s in t["spans"] if s["name"] == "device-dispatch")
+                assert len(spans) == 2, (name, spans)
+                assert spans[0] >= 0.95 * hold and spans[1] >= 1.95 * hold, (name, spans)
+        finally:
+            handle.stop()
+            handle.app.close()

@@ -31,6 +31,9 @@ import bodywork_tpu_torch.serve.aio, bodywork_tpu_torch.serve.batcher
 import bodywork_tpu_torch.serve.admission, bodywork_tpu_torch.serve.app
 import bodywork_tpu_torch.obs.tracing, bodywork_tpu_torch.obs.spans
 import bodywork_tpu_torch.utils.profiling
+import bodywork_tpu_torch.traffic, bodywork_tpu_torch.serve.reload
+import bodywork_tpu_torch.ops.slo, bodywork_tpu_torch.chaos.plan
+import bodywork_tpu_torch.chaos.canary, bodywork_tpu_torch.pipeline.ab
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
