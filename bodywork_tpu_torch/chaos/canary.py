@@ -30,9 +30,9 @@ The port drives the app in-process through ``ScoringApp.handle`` (the
 JAX harness uses werkzeug's test client; the request bodies are the same
 bytes). The two trained checkpoints are linear models by default, as in
 the JAX harness; ``model_type="mlp"`` with ``model_kwargs`` runs the
-scenario on an MLP on ``device``, where production and canary share one
-captured graph set and every switch between their streams rebinds the
-weights.
+scenario on an MLP on ``device``, where the canary serves from the graph
+cache's weight-slot lane beside production's, so neither stream rebinds
+the other's weights.
 
 Exposed as ``cli chaos canary --store DIR --scenario nan|latency|healthy``.
 """

@@ -1,9 +1,10 @@
 """Seeded, deterministic fault plans — the chaos subsystem's contract
 (the port's copy of ``bodywork_tpu.chaos.plan``: the same fields, the
-same decision streams, the same JSON plan documents). In the port the
-canary stream's latency (``serve.app``) and the crash schedule
-(``chaos.kill``) consume it so far; the faulted store, the flaky HTTP
-middleware, bit rot and the soak are later slices.
+same decision streams, the same JSON plan documents), consumed by the
+fault-injecting store (``chaos.store``), the flaky scoring service
+(``chaos.http``, ``serve.aio``), the canary stream's latency
+(``serve.app``), the at-rest bit rot (``chaos.bitrot``) and the crash
+schedule (``chaos.kill``).
 
 A :class:`FaultPlan` holds per-op fault probabilities (transient store
 errors, injected latency, crash-after-partial-write, payload corruption,

@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
 generate|serve|test|train|run-day|run-sim|run-ab|compact|registry|trace|
-traffic|chaos``.
+traffic|chaos|fsck``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -36,7 +36,9 @@ traffic|chaos``.
   the JAX command's exit codes: 0 done, 1 a stage failed, 5 another
   runner holds the day's lease, 6 the journal marks the day complete and
   every artefact verified (nothing ran), 143 SIGTERM (the journal marks
-  the day interrupted; the next run resumes it). ``run-sim --store S
+  the day interrupted; the next run resumes it); ``run-day --scrub``
+  scrubs the store after the day (``fsck``, detect only) and puts its
+  findings in the day report. ``run-sim --store S
   --days N [--date D] [--samples-per-day R] [--overlap-generate]`` runs
   N days with the horizon prefetch, the lookahead train and the snapshot
   compactor (exit 5 and 143 as ``run-day``); ``--overlap-generate`` runs
@@ -79,6 +81,17 @@ traffic|chaos``.
   [--requests N] [--fraction F] [--device cuda|cpu]`` runs the canary
   release-safety acceptance and prints its summary (exit 0 PASS, 1
   FAIL).
+
+- ``chaos run-sim --store S --days N [--date D] [--seed N] [--plan F]
+  [--samples-per-day N] [--model linear|mlp] [--mode single|batch]
+  [--train-mode full|incremental] [--bit-rot] [--crash-schedule
+  sweep|JSON] [--device cuda|cpu]`` runs the chaos soak (a faulted twin
+  over the retrying, breaker-guarded, fault-injecting store and a flaky
+  scoring service), the at-rest bit-rot soak or the crash-resume soak,
+  and requires byte-identical final artefacts (exit 0 PASS, 1 FAIL).
+- ``fsck --store S [--repair] [--json]`` scrubs the whole store against
+  its write-time digests: exit 0 when no actionable finding remains, 7
+  otherwise (it imports no torch).
 
 - ``trace show ID|tail [-n N] [--traces N]|export --chrome OUT
   [--trace-id ID] --store S`` reads the flight-recorder dumps under
@@ -328,7 +341,7 @@ def _prune_templated(template: str, keep: int = TRACE_RETENTION) -> None:
             pass
 
 
-def _write_day_outputs(args, runner, result, d: date) -> None:
+def _write_day_outputs(args, runner, result, d: date, fsck: dict | None = None) -> None:
     """``run-day --trace-out/--report-out``: the runner's whole timeline
     (bootstrap included) as a Chrome trace, and the day's report."""
     from bodywork_tpu_torch.obs.spans import day_report, write_chrome_trace, write_day_report
@@ -339,7 +352,8 @@ def _write_day_outputs(args, runner, result, d: date) -> None:
         path = write_chrome_trace(trace_out, runner.recorder.spans(),
                                   process_name=f"run-day {d}")
         print(f"trace: {path}")
-    path = write_day_report(report_out or _derived_report_path(trace_out), day_report(result))
+    path = write_day_report(report_out or _derived_report_path(trace_out),
+                            day_report(result, fsck=fsck))
     print(f"report: {path}")
     if args.trace_out and "{date}" in args.trace_out:
         _prune_templated(args.trace_out)
@@ -369,8 +383,23 @@ def cmd_run_day(args) -> int:
         print(f"day {d}: resumed — skipped {', '.join(result.skipped_stages)} "
               "(journal-verified)")
     _print_day(result)
+    fsck_report = None
+    if args.scrub:
+        # detect-only scrub after the day converges: the findings are
+        # printed, counted on the audit counters and ride the day report.
+        # The day's snapshot compactor finishes first: a scrub listing the
+        # store while it writes a snapshot and its sidecar finds the
+        # sidecar without its primary (the JAX command scrubs without
+        # waiting, and can report that orphan)
+        from bodywork_tpu_torch.audit import run_fsck
+
+        runner._drain_compactor()
+        fsck_report = run_fsck(runner.store, repair=False)
+        by_sev = fsck_report["by_severity"]
+        print("fsck: " + (", ".join(f"{s}={n}" for s, n in sorted(by_sev.items()))
+                          or "clean"))
     if args.trace_out or args.report_out:
-        _write_day_outputs(args, runner, result, d)
+        _write_day_outputs(args, runner, result, d, fsck_report)
     return 0
 
 
@@ -724,6 +753,180 @@ def cmd_chaos_canary(args) -> int:
     return 1
 
 
+#: ``fsck`` exit when actionable integrity findings remain after the scan
+#: (and, with ``--repair``, after the repairs that could run)
+FSCK_FINDINGS_EXIT = 7
+
+
+def cmd_fsck(args) -> int:
+    """Full-store integrity scrub: every prefix of the schema verified
+    against its write-time digest evidence and the reference graph; with
+    ``--repair`` the safe repair subset runs. Exit 0 when no actionable
+    finding remains, 7 otherwise, 1 on an error. Imports no torch."""
+    from bodywork_tpu_torch.audit import run_fsck
+    from bodywork_tpu_torch.store import open_store
+
+    report = run_fsck(open_store(args.store), repair=args.repair)
+    if args.json:
+        print(json.dumps(report, indent=2, sort_keys=True))
+    else:
+        by_sev = report["by_severity"]
+        print(f"scanned {report['keys_scanned']} artefact(s) across "
+              f"{len(report['prefixes'])} prefix(es): "
+              + (", ".join(f"{s}={n}" for s, n in sorted(by_sev.items())) or "clean"))
+        for finding in report["findings"]:
+            print(f"  [{finding['severity']}] {finding['problem']} "
+                  f"{finding['key']}: {finding['detail']}")
+        for entry in report["repairs"]:
+            print(f"  repair {entry['action']} {entry['key']}: "
+                  f"{entry['outcome']} — {entry['detail']}")
+        if report["residual"]:
+            print(f"{len(report['residual'])} actionable finding(s) remain")
+    return 0 if report["ok"] else FSCK_FINDINGS_EXIT
+
+
+def _chaos_drift(args):
+    if args.samples_per_day is None:
+        return None
+    from bodywork_tpu_torch.data.drift_config import DriftConfig
+
+    return DriftConfig(n_samples=args.samples_per_day)
+
+
+def cmd_chaos_run_sim(args) -> int:
+    """Seeded chaos soak: the N-day simulation fault-free and under the
+    fault plan, the faulted run's final artefacts required byte-identical
+    to the clean run's. ``--bit-rot`` and ``--crash-schedule`` run the
+    at-rest corruption and the process-death soaks instead. Exit 0 on a
+    verified pass, 1 otherwise.
+
+    Seed precedence, as the JAX command's: ``--seed`` > a ``--plan``
+    file's own seed > ``BODYWORK_TPU_CHAOS_SEED`` > 0."""
+    from bodywork_tpu_torch.chaos import FaultPlan, run_chaos_sim
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    if args.store.startswith("gs://"):
+        log.error("chaos run-sim needs two fresh local stores for the byte-level "
+                  "comparison; point --store at a directory, not gs://")
+        return 1
+    env_seed = _env_number("BODYWORK_TPU_CHAOS_SEED", int, 0)
+    if args.plan:
+        plan = FaultPlan.from_file(args.plan)
+        if args.seed is not None:
+            plan.seed = args.seed
+    else:
+        seed = args.seed if args.seed is not None else env_seed
+        plan = FaultPlan.default(seed if seed is not None else 0)
+    if args.crash_schedule or plan.crash_schedule:
+        if args.bit_rot or plan.bit_rot_p > 0:
+            log.warning("crash soak selected; the plan's bit-rot knobs are ignored "
+                        "here — run a separate chaos run-sim --bit-rot")
+        return _chaos_crash_sim(args, plan, log)
+    if args.bit_rot or plan.bit_rot_p > 0:
+        return _chaos_bit_rot_sim(args, plan, log)
+    summary = run_chaos_sim(
+        args.store, _date(args), args.days, plan, model_type=args.model,
+        scoring_mode=args.mode, drift=_chaos_drift(args), train_mode=args.train_mode,
+        device=args.device,
+    )
+    faults = summary["faults_injected"]
+    print("faults injected: " + (" ".join(
+        f"{k.removeprefix('kind=')}={int(v)}" for k, v in sorted(faults.items())) or "none"))
+    for name, deltas in summary["retries"].items():
+        print(f"{name.removeprefix('bodywork_tpu_')}: {int(sum(deltas.values()))}")
+    print(f"breaker state: {summary['breaker_state']}")
+    comparison = summary["comparison"]
+    if summary["ok"]:
+        print(f"PASS: {comparison['matched']} final artefact(s) byte-identical to the "
+              f"fault-free run (seed={plan.seed}, {args.days} day(s), 0 torn)")
+        return 0
+    log.error(f"chaos soak FAILED: mismatched={comparison['mismatched']} "
+              f"missing={comparison['missing']} extra={comparison['extra']} "
+              f"torn={comparison['torn']} snapshot_ok={comparison['snapshot_ok']}")
+    return 1
+
+
+def _chaos_bit_rot_sim(args, plan, log) -> int:
+    """The at-rest bit-rot soak (``--bit-rot``): the flag arms a plan whose
+    ``bit_rot_p`` is 0 at the stock 0.25; a plan file's own bit-rot fields
+    are never overridden."""
+    from bodywork_tpu_torch.chaos import run_bit_rot_sim
+
+    if plan.bit_rot_p == 0:
+        plan.bit_rot_p = 0.25
+    if any(getattr(plan, f) for f in ("store_transient_p", "store_latency_p", "torn_write_p",
+                                      "corrupt_read_p", "http_error_p", "http_latency_p")):
+        log.warning("bit-rot soak twins run WITHOUT in-flight fault injection; the plan's "
+                    "in-flight probabilities are ignored here — run a separate chaos "
+                    "run-sim for them")
+    summary = run_bit_rot_sim(
+        args.store, _date(args), args.days, plan, model_type=args.model,
+        scoring_mode=args.mode, drift=_chaos_drift(args), train_mode=args.train_mode,
+        device=args.device,
+    )
+    print(f"bit rot injected: {summary['injected']} key(s) across "
+          + ", ".join(f"{p}={n}" for p, n in sorted(summary["injected_by_prefix"].items())))
+    print(f"detected: {summary['detected']}/{summary['injected']} (severities: "
+          + (", ".join(f"{s}={n}" for s, n in sorted(summary["findings_by_severity"].items()))
+             or "none") + ")")
+    repaired = sum(1 for r in summary["repairs"] if r["outcome"] == "repaired")
+    print(f"repairs: {repaired}/{len(summary['repairs'])} applied")
+    if summary["ok"]:
+        print(f"PASS: {summary['injected']} injected corruption(s) all detected, "
+              f"classified, and repaired; store byte-identical to the healthy twin "
+              f"outside quarantine/ (seed={summary['seed']}, {args.days} day(s))")
+        return 0
+    log.error(f"bit-rot soak FAILED: undetected={summary['undetected']} "
+              f"residual={[f['key'] for f in summary['post_repair_residual']]} "
+              f"comparison_ok={summary['comparison']['ok']}")
+    return 1
+
+
+def _chaos_crash_sim(args, plan, log) -> int:
+    """The crash-resume soak (``--crash-schedule``): ``sweep`` kills a
+    subprocess runner at every stage boundary plus seeded mid-stage
+    store-op points; otherwise the value is a JSON kill-point list
+    (inline or a file path), or the ``--plan`` file's ``crash_schedule``.
+    Children run fault-free."""
+    from bodywork_tpu_torch.chaos import run_crash_sim
+    from bodywork_tpu_torch.chaos.kill import parse_schedule
+
+    points = None  # None: run_crash_sim builds the full sweep
+    raw = args.crash_schedule
+    if raw and raw.strip().lower() != "sweep":
+        if os.path.exists(raw):
+            with open(raw) as f:
+                raw = f.read()
+        try:
+            points = parse_schedule(raw)
+        except ValueError as exc:
+            log.error(f"bad --crash-schedule: {exc}")
+            return 1
+    elif not raw and plan.crash_schedule:
+        points = list(plan.crash_schedule)
+    if args.plan and (plan.corrupt_read_p or any(
+            getattr(plan, f) for f in ("store_transient_p", "store_latency_p",
+                                       "torn_write_p", "http_error_p", "http_latency_p"))):
+        log.warning("crash soak children run WITHOUT in-call fault injection; the plan's "
+                    "fault probabilities are ignored here")
+    summary = run_crash_sim(
+        args.store, _date(args), args.days, seed=plan.seed, points=points,
+        model_type=args.model, scoring_mode=args.mode,
+        samples_per_day=args.samples_per_day, device=args.device,
+    )
+    failed = [r for r in summary["results"] if not r["ok"]]
+    for r in failed:
+        log.error(f"crash point {r['point']}: {r.get('error') or 'diverged'}")
+    if summary["ok"]:
+        print(f"PASS: {summary['points']} kill point(s) all converged byte-identical to "
+              f"the uninterrupted twin (seed={summary['seed']}, {args.days} day(s))")
+        return 0
+    log.error(f"crash soak FAILED: {len(failed)}/{summary['points']} point(s) did not "
+              "converge")
+    return 1
+
+
 #: ``trace`` exit when the requested trace (or any dump) is absent: apart
 #: from 1 (an error), so a script tells "not recorded" from "broken"
 TRACE_ABSENT_EXIT = 9
@@ -965,6 +1168,10 @@ def build_parser() -> argparse.ArgumentParser:
                            help="write the day report (JSON: stage seconds + spans) "
                                 "here; default <trace-out stem>.report.json when "
                                 "--trace-out is given")
+            p.add_argument("--scrub", action="store_true",
+                           help="run a detect-only integrity scrub (fsck) after the day "
+                                "converges; the findings are printed, counted on the "
+                                "bodywork_tpu_audit_* counters and ride the day report")
             p.add_argument("--no-resume", action="store_true",
                            help="ignore the runs/ journal: no lease, no verified skipping, "
                                 "a full re-run. Default: resume, skipping completed stages "
@@ -1132,6 +1339,53 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
                    help="rows a day for the two seeded training days (default 96)")
     p.add_argument("--device", **device)
+
+    p = chaos_sub.add_parser(
+        "run-sim", help="seeded chaos soak: faulted N-day sim vs fault-free twin, final "
+                        "artefacts must be byte-identical")
+    p.set_defaults(fn=cmd_chaos_run_sim)
+    p.add_argument("--store", required=True,
+                   help="fresh local directory for the two runs' stores (gs:// refused: "
+                        "the byte-level comparison needs local twins)")
+    p.add_argument("--days", type=_positive_int, required=True)
+    p.add_argument("--date", default=None, help="start date (YYYY-MM-DD)")
+    p.add_argument("--seed", type=int, default=None,
+                   help="fault-plan seed; precedence: this flag > a --plan file's own "
+                        "seed > env BODYWORK_TPU_CHAOS_SEED > 0")
+    p.add_argument("--plan", default=os.environ.get("BODYWORK_TPU_CHAOS_PLAN"),
+                   metavar="FILE",
+                   help="JSON fault plan (FaultPlan fields; unknown keys rejected); "
+                        "default: the stock all-kinds plan (env BODYWORK_TPU_CHAOS_PLAN)")
+    p.add_argument("--samples-per-day", type=_positive_int, default=None, metavar="N",
+                   help="rows the generator draws a day (default 1440)")
+    p.add_argument("--bit-rot", action="store_true",
+                   help="the at-rest bit-rot soak instead: flip seeded bytes across every "
+                        "populated prefix of a finished sim's store, then fsck must detect "
+                        "and classify all of it and --repair converge byte-identical to a "
+                        "healthy twin outside quarantine/")
+    p.add_argument("--crash-schedule", default=None, metavar="SPEC",
+                   help="the crash-resume soak instead: 'sweep' (every stage boundary + "
+                        "seeded mid-stage store-op points) or a JSON kill-point list "
+                        "(inline or a file path)")
+    p.add_argument("--model", default="linear", choices=["linear", "mlp"])
+    p.add_argument("--mode", default="batch", choices=["single", "batch"])
+    p.add_argument("--train-mode", default="full", choices=list(TRAIN_MODES),
+                   help="run BOTH twins through this training mode")
+    p.add_argument("--device", **device)
+
+    p = sub.add_parser("fsck", help="full-store integrity scrub: every prefix against its "
+                                    "write-time digests and the reference graph; --repair "
+                                    "runs the safe subset (quarantine, rebuild, "
+                                    "digest-verified restore)")
+    p.set_defaults(fn=cmd_fsck)
+    p.add_argument("--store", **store)
+    p.add_argument("--repair", action="store_true",
+                   help="run the safe repair subset: corrupt bytes move to quarantine/ "
+                        "(never deleted), derived artefacts rebuild, replicas restore "
+                        "digest-verified, dangling alias slots demote; data-loss findings "
+                        "are quarantined and reported")
+    p.add_argument("--json", action="store_true",
+                   help="print the full report as one JSON document on stdout")
 
     p = sub.add_parser("trace", help="inspect request traces in stored flight-recorder "
                                      "dumps (obs/flightrec/)")

@@ -143,18 +143,22 @@ class SpanRecorder:
             return list(self._spans)
 
 
-def day_report(result, spans: list[Span] | None = None) -> dict:
+def day_report(result, spans: list[Span] | None = None, fsck: dict | None = None) -> dict:
     """Structured JSON-able run report for one ``DayResult``. ``spans``
     defaults to ``result.spans`` (the runner attaches the day window's
-    slice). Schema (the JAX package's)::
+    slice). ``fsck``, an integrity-scrub report (``audit.run_fsck``, what
+    ``cli run-day --scrub`` produces), adds its findings block. Schema
+    (the JAX package's)::
 
         {"schema": "bodywork_tpu.day_report/1",
          "day": "YYYY-MM-DD", "wall_clock_s": float,
          "stage_seconds": {stage: float},
-         "spans": [{name, category, start_s, duration_s, thread, meta?}]}
+         "spans": [{name, category, start_s, duration_s, thread, meta?}],
+         "fsck"?: {"clean", "ok", "keys_scanned", "by_severity",
+                   "findings": [...]}}
     """
     spans = result.spans if spans is None else spans
-    return {
+    report = {
         "schema": "bodywork_tpu.day_report/1",
         "day": str(result.day),
         "wall_clock_s": round(result.wall_clock_s, 6),
@@ -164,6 +168,15 @@ def day_report(result, spans: list[Span] | None = None) -> dict:
         },
         "spans": [s.to_dict() for s in spans],
     }
+    if fsck is not None:
+        report["fsck"] = {
+            "clean": fsck["clean"],
+            "ok": fsck["ok"],
+            "keys_scanned": fsck["keys_scanned"],
+            "by_severity": fsck["by_severity"],
+            "findings": fsck["findings"],
+        }
+    return report
 
 
 def write_day_report(path: str | Path, report: dict) -> Path:

@@ -550,8 +550,9 @@ class LocalRunner:
 
     def _drain_compactor(self, timeout_s: float = 60.0) -> bool:
         """Join the background compactor; True when none is left running.
-        Called on every exit of ``run_simulation``, so no half-written
-        snapshot races whatever reads the store next."""
+        Called on every exit of ``run_simulation``, and by ``cli run-day
+        --scrub`` before its scrub, so no half-written snapshot races
+        whatever reads the store next."""
         thread = self._compact_thread
         if thread is None:
             return True

@@ -29,9 +29,16 @@ serves every connection from one event loop:
 :class:`AioServiceHandle` has the thread engine's handle interface
 (``start``, ``stop``, ``wait``, ``serve_forever``, ``add_cleanup``,
 ``url``, ``base_url``). Request tracing is the thread engine's (the same
-ids, spans and ``X-Bodywork-Trace-Id`` header; ``serve.app``). The
-fault plan's HTTP composition, the row-queue front ends and the
-multi-process ``/metrics`` are later slices.
+ids, spans and ``X-Bodywork-Trace-Id`` header; ``serve.app``).
+
+**Chaos composition**: when a fault plan is active
+(``chaos.plan.activate``), a scoring request consults it before the
+timed, counted handler, exactly where the JAX engine does and where
+``chaos.http.FlakyScoringMiddleware`` sits on the in-process path (the
+same decision streams, so a seed replays the same adversity); an
+injected 503/429 counts as ``bodywork_tpu_serve_shed_total{reason=
+"chaos"}``, never mistakable for an admission shed. The row-queue front
+ends and the multi-process ``/metrics`` are later slices.
 """
 from __future__ import annotations
 
@@ -58,6 +65,7 @@ from bodywork_tpu_torch.serve.app import (
     METRICS_CONTENT_TYPE,
     sanity_violation,
 )
+from bodywork_tpu_torch.serve.admission import count_shed
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
 from bodywork_tpu_torch.serve.wire import MODEL_KEY_HEADER
 from bodywork_tpu_torch.utils.logging import get_logger
@@ -138,6 +146,7 @@ class AioScoringServer:
         # rows, batch scoring, /metrics renders)
         self._executor = ThreadPoolExecutor(max_workers=executor_workers,
                                             thread_name_prefix="aio-dispatch")
+        self._plan_getter = None
 
     def close(self) -> None:
         self._executor.shutdown(wait=False)
@@ -248,6 +257,23 @@ class AioScoringServer:
                 pass
 
     # -- dispatch ----------------------------------------------------------
+    def _chaos_decision(self, path: str):
+        """The active fault plan's ``(injected status or None, latency or
+        None, Retry-After seconds)`` for one scoring request; the plan
+        module is imported at the first request, not with serving."""
+        if self._plan_getter is None:
+            from bodywork_tpu_torch.chaos.plan import get_active_plan
+
+            self._plan_getter = get_active_plan
+        plan = self._plan_getter()
+        if plan is None:
+            return None, None, 0.0
+        delay = plan.http_latency_delay(path)
+        status = plan.http_error(path)
+        if status is not None:
+            count_shed("chaos")
+        return status, delay, plan.http_retry_after_s
+
     async def _dispatch(self, method: str, path: str, headers: dict, body: bytes):
         """Route one request: ``(status, body, content_type, extra
         headers)``, with the thread engine's request and latency metrics
@@ -257,6 +283,17 @@ class AioScoringServer:
         admitted request without one mints its id in
         :meth:`_score_common` and publishes it through ``trace_box``."""
         app = self._next_app()
+        if path.startswith("/score/v1"):
+            # before the timed, counted handler: an injected answer never
+            # counts as a request and injected latency never lands in the
+            # scoring-latency histogram
+            injected, delay, chaos_retry_after = self._chaos_decision(path)
+            if delay is not None:
+                await asyncio.sleep(delay)
+            if injected is not None:
+                return (injected,
+                        json.dumps({"error": f"injected fault: HTTP {injected}"}).encode(),
+                        "application/json", (("Retry-After", str(chaos_retry_after)),))
         t0 = time.perf_counter()
         routes = {
             ("POST", "/score/v1"): self._score_single,

@@ -371,11 +371,12 @@ class ScoringApp:
         self._degraded_reason = None
         self._g_degraded.set(0.0 if self.served is not None else 2.0)
 
-    def _warm_predictor_for(self, model):
+    def _warm_predictor_for(self, model, canary: bool = False):
         """A warmed predictor for ``model`` on the served predictor's
         engine and buckets (a same-architecture checkpoint rebinds the
-        captured graphs and captures nothing)."""
-        from bodywork_tpu_torch.serve.predictor import PaddedPredictor
+        captured graphs and captures nothing), in production's weight-slot
+        lane, or for a ``canary`` in the other one."""
+        from bodywork_tpu_torch.serve.predictor import PaddedPredictor, use_serving_lane
         from bodywork_tpu_torch.serve.server import build_predictor
 
         old = self.served
@@ -384,6 +385,7 @@ class ScoringApp:
         else:
             predictor = build_predictor(model, old.predictor.engine,
                                         buckets=old.predictor.buckets)
+        use_serving_lane(predictor, old.predictor if old is not None else None, canary)
         predictor.warmup()
         return predictor
 
@@ -428,7 +430,7 @@ class ScoringApp:
         scoring traffic routes to it by :func:`routes_to_canary`. Its
         predictor is warm before it publishes, as for a swap."""
         if predictor is None:
-            predictor = self._warm_predictor_for(model)
+            predictor = self._warm_predictor_for(model, canary=True)
         old = self._canary
         self._canary_fraction = float(fraction)
         self._canary_seed = int(seed)

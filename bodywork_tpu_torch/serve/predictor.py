@@ -39,7 +39,13 @@ A graph bakes in the pointers it was captured with, where the JAX
 executable took the params as arguments. So a slot records whose weights
 its buffers hold, and a dispatch for another predictor of the same
 architecture first copies that predictor's weights in (a *rebind*: a
-same-architecture hot swap captures nothing). One lock per slot covers
+same-architecture hot swap captures nothing). An architecture has two
+slots, *lanes* 0 and 1, each with its own graphs: production serves from
+one and a live canary from the other (:func:`use_serving_lane`), so the
+two streams never rebind each other's
+weights on the request path; the first canary of an architecture
+captures its lane's graphs at its warm-up, and later ones rebind them.
+One lock per slot covers
 the staging, the copy in, the rebind, the replay and the copy out, so
 every front end's threads may dispatch through it. A capture runs on a
 side stream in ``thread_local`` error mode, so work other threads launch
@@ -350,9 +356,24 @@ class PaddedPredictor:
         self.buckets = tuple(sorted(buckets))
         self.device = model.device
         self._token = next(self._tokens)
+        #: which of the architecture's two weight slots this predictor
+        #: dispatches through (0 unless it serves beside another)
+        self.slot_lane = 0
         #: per-instance handles: (bucket, n_features) -> program
         self._graphs: dict[tuple, _BucketGraph] = {}
         self._slot: _WeightSlot | None = None
+
+    def use_lane(self, lane: int) -> None:
+        """Dispatch through the architecture's weight slot ``lane`` (0 or
+        1). Call it before :meth:`warmup`: the handles of the other lane
+        are dropped, so the next dispatch of each bucket builds or finds
+        its program in ``lane``."""
+        if lane not in (0, 1):
+            raise ValueError(f"slot lane must be 0 or 1, got {lane!r}")
+        if lane != self.slot_lane:
+            self.slot_lane = lane
+            self._graphs.clear()
+            self._slot = None
 
     # -- the program the graph cache holds ---------------------------------
     def _graph_weights(self):
@@ -386,7 +407,8 @@ class PaddedPredictor:
             return entry
         weights = self._graph_weights()
         arch = (type(self).__name__, type(self.model).__qualname__, self.dtype,
-                params_shape_digest(weights), str(self.device), self._graph_key_extra())
+                params_shape_digest(weights), str(self.device), self._graph_key_extra(),
+                self.slot_lane)
         if self._slot is None:
             self._slot = GRAPH_CACHE.slot(arch, weights, self._token)
         slot = self._slot
@@ -447,6 +469,16 @@ class PaddedPredictor:
         else:
             Xp = X
         return self._predict_padded(Xp)[:n]
+
+
+def use_serving_lane(predictor, production, canary: bool) -> None:
+    """Before ``predictor``'s warm-up: put it in ``production``'s (the
+    served predictor's, or None) weight-slot lane, or for a ``canary`` in
+    the lane beside it. Predictors outside the graph cache are left as
+    they are."""
+    if hasattr(predictor, "use_lane"):
+        lane = getattr(production, "slot_lane", 0)
+        predictor.use_lane(1 - lane if canary else lane)
 
 
 def _require_mlp(model, engine: str) -> None:

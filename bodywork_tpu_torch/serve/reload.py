@@ -13,7 +13,9 @@ re-runs its shadow gate), warms it on the watcher thread, then swaps it
 into every app at once (``ScoringApp.swap_model``). On the card a
 same-architecture checkpoint rebinds the captured CUDA graphs and
 captures nothing; another architecture captures its graphs here, on a
-side stream in ``thread_local`` mode, while request threads replay.
+side stream in ``thread_local`` mode, while request threads replay. A
+canary is built in the weight-slot lane beside production's
+(``serve.predictor``), so its requests never rebind production's weights.
 
 Each poll also reconciles the apps' canary with the alias document's
 slot (loading a new canary off the request path, clearing a retired one,
@@ -159,12 +161,14 @@ class CheckpointWatcher:
         self._poll_watchdog()
         return swapped
 
-    def _build_swap_predictor(self, model):
+    def _build_swap_predictor(self, model, canary: bool = False):
         """A warmed predictor for a model being swapped in (production or
-        canary): the boot's engine selection and, for a quantized dtype,
-        its shadow gate. Buckets: the caller's list, else the served
-        predictor's when the engine resolves the same, else the new
-        engine's own."""
+        ``canary``): the boot's engine selection and, for a quantized
+        dtype, its shadow gate. Buckets: the caller's list, else the
+        served predictor's when the engine resolves the same, else the
+        new engine's own. Weight-slot lane: production's for a swap, the
+        other one for a canary."""
+        from bodywork_tpu_torch.serve.predictor import use_serving_lane
         from bodywork_tpu_torch.serve.server import build_serving_predictor, resolve_engine
 
         current = self.apps[0].predictor  # None on a degraded boot
@@ -179,6 +183,7 @@ class CheckpointWatcher:
             swap_buckets = None
         predictor, _served_dtype = build_serving_predictor(
             self.store, model, new_resolved, buckets=swap_buckets, dtype=self.dtype)
+        use_serving_lane(predictor, current, canary)
         # every bucket captured (or rebound) and run before the swap
         predictor.warmup()
         return predictor
@@ -215,7 +220,7 @@ class CheckpointWatcher:
             return
         try:
             model, model_date = load_model(self.store, state["key"], device=self.device)
-            predictor = self._build_swap_predictor(model)
+            predictor = self._build_swap_predictor(model, canary=True)
         except Exception as exc:
             # neither the service nor production goes down with a
             # half-written canary: retry next poll

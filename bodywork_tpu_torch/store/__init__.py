@@ -1,23 +1,43 @@
-"""Artefact store: the subset of ``bodywork_tpu.store`` the serving slice
-needs, on the same on-disk layout so each package opens the other's
-store."""
+"""Artefact store (the port's copy of ``bodywork_tpu.store``), on the same
+on-disk layout, so each package opens the other's store."""
 from __future__ import annotations
 
 import os
 
-from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore, CasConflict
+from bodywork_tpu_torch.store.base import (
+    ArtefactNotFound,
+    ArtefactStore,
+    CasConflict,
+    DelegatingStore,
+)
 from bodywork_tpu_torch.store.filesystem import FilesystemStore
+from bodywork_tpu_torch.store.resilient import ResilientStore
 
-__all__ = ["ArtefactNotFound", "ArtefactStore", "CasConflict", "FilesystemStore", "open_store"]
+__all__ = ["ArtefactNotFound", "ArtefactStore", "CasConflict", "DelegatingStore",
+           "FilesystemStore", "ResilientStore", "open_store"]
 
 
 def open_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:
-    """A store for a directory path (or an already-open store). Object
-    stores (``gs://``) wait for a later slice of the port."""
+    """Open an artefact store from a URL-ish spec (an open store is
+    returned as it is):
+
+    - ``/path/to/dir`` or ``file:///path`` -> :class:`FilesystemStore`
+    - ``gs://bucket/prefix`` -> :class:`~bodywork_tpu_torch.store.gcs.GCSStore`
+
+    The backend comes wrapped, outermost, in the audit subsystem's
+    :class:`~bodywork_tpu_torch.audit.manifest.AuditedStore`, as in the
+    JAX package: every write through an entry point records its
+    write-time digest sidecar under ``audit/``, the evidence ``cli fsck``
+    verifies cold artefacts against."""
     if isinstance(location, ArtefactStore):
         return location
-    if str(location).startswith("gs://"):
-        raise ValueError(
-            "gs:// stores are not ported yet; use a filesystem store path"
-        )
-    return FilesystemStore(location)
+    from bodywork_tpu_torch.audit.manifest import AuditedStore
+
+    url = str(location)
+    if url.startswith("gs://"):
+        from bodywork_tpu_torch.store.gcs import GCSStore
+
+        return AuditedStore(GCSStore.from_url(url))
+    if url.startswith("file://"):
+        url = url[len("file://"):]
+    return AuditedStore(FilesystemStore(url))

@@ -8,8 +8,10 @@ in each key (the reference's S3 protocol, ``stage_1_train_model.py:61-67``):
 write the model registry's documents and the run journal ride, against a
 backend's ``version_token``; ``version_tokens`` and ``get_many`` are the
 batched reads of the history loader (``data.io``). :class:`DelegatingStore`
-is the base of the wrappers (the day loop's write fence, ``store.epoch``;
-the kill switch, ``chaos.kill``).
+is the base of the wrappers: the audit sidecars (``audit.manifest``), the
+retries and breaker (``store.resilient``), the chaos fault injector
+(``chaos.store``), the day loop's write fence (``store.epoch``) and the
+kill switch (``chaos.kill``).
 
 A backend that declares a ``backend_label`` (``"filesystem"``) gets its
 primitive operations counted and timed through the shared obs registry,
@@ -93,6 +95,9 @@ class ArtefactStore(abc.ABC):
     #: set by real backends to have their primitive operations counted and
     #: timed; wrappers leave it unset
     backend_label: str | None = None
+    #: True for a backend whose ops already retry under the shared policy
+    #: (GCS): a ResilientStore directly over it adds only the breaker
+    self_retrying: bool = False
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -200,6 +205,10 @@ class DelegatingStore(ArtefactStore):
     def __init__(self, inner: ArtefactStore):
         self._inner = inner
 
+    @property
+    def inner(self) -> ArtefactStore:
+        return self._inner
+
     def put_bytes(self, key: str, data: bytes) -> None:
         self._inner.put_bytes(key, data)
 
@@ -234,3 +243,15 @@ class DelegatingStore(ArtefactStore):
 
     def __repr__(self) -> str:
         return f"{type(self).__name__}({self._inner!r})"
+
+
+def innermost_backend(store: ArtefactStore) -> ArtefactStore | None:
+    """The real backend under any wrapper stack (the first store down the
+    ``_inner`` chain declaring a ``backend_label``), or None."""
+    seen = set()
+    while store is not None and id(store) not in seen:
+        seen.add(id(store))
+        if store.backend_label:
+            return store
+        store = getattr(store, "_inner", None)
+    return None

@@ -20,9 +20,18 @@ stores:
   dumps of sampled request traces (``bodywork_tpu_torch.obs.tracing``):
   diagnostic evidence nothing else reads, so deleting the prefix only
   loses the record of past verdicts
+- ``audit/digests/<key>.json`` — the write-time digest sidecar of
+  ``<key>`` (``bodywork_tpu_torch.audit.manifest``), and
+  ``quarantine/<key>`` — corrupt bytes the fsck repair planner parked
+  (``bodywork_tpu_torch.audit.repair``)
+- ``tuning/``, ``serve/`` and ``tenants/<id>/`` — the tuned serving
+  configs, the dispatcher leader lease and the tenant namespaces of the
+  JAX package; the port does not write them yet, and its fsck audits
+  them in a store the JAX package wrote
 """
 from __future__ import annotations
 
+import re
 from datetime import date
 
 DATASETS_PREFIX = "datasets/"
@@ -35,14 +44,54 @@ TRAINSTATE_PREFIX = "trainstate/"
 SNAPSHOTS_PREFIX = "snapshots/"
 RUNS_PREFIX = "runs/"
 FLIGHTREC_PREFIX = "obs/flightrec/"
-#: the JAX schema's prefixes of modules not ported yet, named here so
-#: :data:`ALL_PREFIXES` is the JAX package's tuple
 REGISTRY_PREFIX = "registry/"
-TUNING_PREFIX = "tuning/"
 AUDIT_PREFIX = "audit/"
+AUDIT_DIGESTS_PREFIX = "audit/digests/"
 QUARANTINE_PREFIX = "quarantine/"
+#: the JAX schema's prefixes of modules not ported yet, named here so
+#: :data:`ALL_PREFIXES` is the JAX package's tuple and fsck audits them
+TUNING_PREFIX = "tuning/"
 SERVE_PREFIX = "serve/"
 TENANTS_PREFIX = "tenants/"
+
+#: the schema tags of the JAX package's documents under those prefixes
+#: (``registry/configlog.py``, ``tune/config.py``, ``tune/costmodel.py``,
+#: ``serve/leadership.py``), which the port's fsck validates
+CONFIG_LOG_SCHEMA = "bodywork_tpu.config_log/1"
+TUNED_CONFIG_SCHEMA = "bodywork_tpu.tuned_config/1"
+COST_MODEL_SCHEMA = "bodywork_tpu.cost_model/1"
+LEADER_SCHEMA = "bodywork_tpu.dispatcher_leader/1"
+
+#: the reserved tenant whose namespace IS the unprefixed root
+DEFAULT_TENANT = "default"
+
+#: what a tenant id may look like: a DNS label, 1-63 lowercase
+#: alphanumerics and single interior hyphens
+TENANT_ID_PATTERN = re.compile(r"^[a-z0-9]([a-z0-9-]{0,61}[a-z0-9])?$")
+
+
+def validate_tenant_id(tenant_id: str) -> str:
+    """``tenant_id`` if it matches :data:`TENANT_ID_PATTERN` (and holds no
+    ``--``), else ``ValueError`` naming the value and the grammar."""
+    if not isinstance(tenant_id, str) or not TENANT_ID_PATTERN.match(tenant_id):
+        raise ValueError(
+            f"invalid tenant id {tenant_id!r}: want lowercase DNS-label "
+            "(^[a-z0-9]([a-z0-9-]{0,61}[a-z0-9])?$)"
+        )
+    if "--" in tenant_id:
+        raise ValueError(
+            f"invalid tenant id {tenant_id!r}: consecutive hyphens reserved"
+        )
+    return tenant_id
+
+
+def tenant_prefix(tenant_id: str) -> str:
+    """The key prefix of ``tenant_id``'s namespace (empty for
+    :data:`DEFAULT_TENANT`)."""
+    validate_tenant_id(tenant_id)
+    if tenant_id == DEFAULT_TENANT:
+        return ""
+    return f"{TENANTS_PREFIX}{tenant_id}/"
 
 #: every prefix of the store schema, in the JAX package's order (the
 #: default scope of the fault plan's at-rest bit-rot decisions)
@@ -62,6 +111,11 @@ ALL_PREFIXES = (
     SERVE_PREFIX,
     TENANTS_PREFIX,
 )
+
+
+def dispatcher_leader_key() -> str:
+    """The dispatcher leadership lease document of a namespace."""
+    return f"{SERVE_PREFIX}dispatcher-leader.json"
 
 
 def dataset_key(d: date) -> str:
@@ -116,3 +170,34 @@ def flight_record_key(seq: int, verdict: str, doc_digest: str) -> str:
     content digest's fragment keeps distinct concurrent dumps apart."""
     fragment = doc_digest.removeprefix("sha256:")[:16]
     return f"{FLIGHTREC_PREFIX}flight-{seq:06d}-{verdict}-{fragment}.json"
+
+
+def audit_digest_key(key: str) -> str:
+    """The write-time digest sidecar of artefact ``key``: its path
+    mirrored under ``audit/digests/`` with a ``.json`` suffix, so a
+    sidecar never collides with a primary and :func:`audit_primary_key`
+    inverts it exactly."""
+    return f"{AUDIT_DIGESTS_PREFIX}{key}.json"
+
+
+def audit_primary_key(sidecar_key: str) -> str | None:
+    """Inverse of :func:`audit_digest_key`, or None for a key that is not
+    a well-formed sidecar key."""
+    if not sidecar_key.startswith(AUDIT_DIGESTS_PREFIX) or not sidecar_key.endswith(".json"):
+        return None
+    return sidecar_key[len(AUDIT_DIGESTS_PREFIX):-len(".json")]
+
+
+#: suffix of a quarantine METADATA document, beside the parked payload
+QUARANTINE_META_SUFFIX = ".quarantine.json"
+
+
+def quarantine_key(key: str) -> str:
+    """Where the fsck repair planner parks corrupt bytes found at
+    ``key``: its path mirrored under ``quarantine/``."""
+    return f"{QUARANTINE_PREFIX}{key}"
+
+
+def quarantine_meta_key(key: str) -> str:
+    """The metadata document of the bytes quarantined from ``key``."""
+    return f"{QUARANTINE_PREFIX}{key}{QUARANTINE_META_SUFFIX}"

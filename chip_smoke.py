@@ -86,7 +86,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    chaos acceptance (``nan``, ``latency``, ``healthy``) on 1024-wide
    MLPs: abort, abort, promote, production byte-identical to its
    canary-free twin, each flight record opened by ``cli trace show``,
-   rebinds per 1000 requests printed; ``ab``: ``run_ab_simulation`` of
+   the canary on the weight-slot lane beside production's with no rebind
+   and no capture during a drive, the six slowest requests of each stream
+   printed; ``ab``: ``run_ab_simulation`` of
    ``["linear", "mlp"]`` for 3 days, the pair concurrently then each
    variant solo, each variant's artefacts byte-identical to its solo
    run, the pair's wall-clock against the sum of the solos;
@@ -170,7 +172,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the trace's CUDA device events, the f32 kernel by name (one event per
    counted launch) or inside graph launches, the trace's bytes and the
    run's seconds with the profiler on and off;
-8. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+8. ``audit`` — two 1024-wide MLP days through ``cli run-day --scrub``
+   processes (the audited store the command line opens): each day's
+   ``fsck:`` line clean, the sidecars by class, each process's seconds
+   writing sidecars by the primary's prefix with the replicas' zlib
+   apart, each day's wall-clock and train stage; then the port's
+   ``run_fsck`` and the JAX package's ``cli fsck --json`` (a CPU
+   subprocess) must both find the store clean; ``chaos-sim``:
+   ``run_chaos_sim`` over 3 MLP days (fits cut to 200 steps), the stock
+   plan, seed 0, both twins on the card, every final artefact
+   byte-identical (per prefix), the faults and retries by kind, the
+   breaker's opens, each twin's seconds; ``bit-rot``: ``run_bit_rot_sim``
+   over 3 MLP days, 100% of the flips detected and classified, the
+   repairs by action, the victim byte-identical outside ``quarantine/``;
+   ``crash-sim``: ``run_crash_sim`` of 2 linear days at 2 stage boundaries
+   and 2 seeded store-op points, each child killed there (exit 86) and its
+   restart converging, the seconds of each point;
+9. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -296,6 +314,16 @@ RELOAD = {"factor": 0.5, "duration_s": 6.0, "swap_at_s": 2.0, "poll_s": 0.5}
 CANARY = {"requests": 240, "fraction": 0.35}
 #: ab: the A/B simulation's days
 AB = {"days": 3}
+#: the store-integrity and chaos soaks: the loop's 1024-wide MLP,
+#: its fits in the soaks cut to the profile's 200 Adam steps
+SOAK_MLP = {**LOOP_MLP, "n_steps": PROFILE_SIM["n_steps"]}
+SOAK_DAYS = 3
+#: what the soaks cut from the loop's configuration
+_SOAK_REDUCED = [f"Adam steps per fit {LOOP_MLP['n_steps']} -> {SOAK_MLP['n_steps']}"]
+AUDIT_DAYS = 2
+#: the crash sweep on the card: 2 linear days, 2 of its 10 stage
+#: boundaries and 2 seeded store-op points
+CRASH = {"days": 2, "boundaries": (1, 7), "store_op_samples": 2, "seed": 0}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1896,10 +1924,12 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     canary'd app, production's and the canary's alike, is held against
     the plain version of the checkpoint its ``X-Bodywork-Model-Key``
     names at the ``kernel`` bar, and must miss the other checkpoint's:
-    a rebind that left the other stream's weights in the shared slot
-    fails here. The weight-slot rebinds per 1000 requests are printed,
-    with the verdict's window, each stream's request times (the slowest
-    with their index) and the interpreter's collections during the drive:
+    answers from the other stream's weights fail here. The canary must
+    serve from the weight-slot lane beside production's, with no rebind,
+    capture or build during the drive (with one shared slot every canary
+    request rebound it, which slowed them). Printed: the rebinds per 1000
+    requests, the verdict's window, each stream's request times (the six
+    slowest with their index) and the interpreter's collections during the drive:
     at sub-millisecond requests the watchdog's p99 of a few dozen samples
     is their slowest, and a full collection of the heap the earlier
     phases left, landing in one canary request, decides it; so that heap
@@ -1928,8 +1958,13 @@ def phase_canary(torch, dev, workdir: str) -> dict:
                 seconds.append(time.perf_counter() - t0)
 
         app.handle = timed
+        lanes = {"production": app.predictor.slot_lane,
+                 "canary": app._canary.predictor.slot_lane if app._canary else None}
+        before = GRAPH_CACHE.stats()
         trace = drive(app, twin_app, watcher, xs, *args)
-        drives.append((xs, trace, seconds))
+        after = GRAPH_CACHE.stats()
+        drives.append((xs, trace, seconds, lanes,
+                       {k: after[k] - before[k] for k in ("rebinds", "captures", "misses")}))
         return trace
 
     out = {}
@@ -1967,7 +2002,8 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     finally:
         canary_module._drive = drive
     launches = dict(LAUNCHES)
-    for scenario, (root, summary, (xs, trace, handled), seconds, before, after) in runs.items():
+    for scenario, (root, summary, (xs, trace, handled, lanes, in_drive), seconds, before,
+                   after) in runs.items():
         store = FilesystemStore(root)
         keys = (summary["production_key"], summary["canary_key"])
         layers = {key: make_kernel_mlp_apply(load_model(store, key, device=dev)[0].params,
@@ -1981,7 +2017,7 @@ def phase_canary(torch, dev, workdir: str) -> dict:
             request_ms.setdefault("production" if key == keys[0] else "canary", []).append(
                 (1e3 * s, i))
         request_ms = {stream: {"n": len(v), "median": statistics.median(ms for ms, _i in v),
-                               "slowest": sorted(v, reverse=True)[:5]}
+                               "slowest": sorted(v, reverse=True)[:6]}
                       for stream, v in request_ms.items()}
         dump = summary["flight_record_keys"][-1] if summary["flight_record_keys"] else None
         shown = None
@@ -2007,6 +2043,12 @@ def phase_canary(torch, dev, workdir: str) -> dict:
             "flight_record": dump, "trace_show_rc": shown["rc"] if shown else None,
             "verdict_window": doc.get("window") if dump is not None else None,
             "request_ms": request_ms, "collections": collections[scenario],
+            "slot_lanes": lanes, "graph_cache_in_drive": in_drive,
+            # what made canary requests slow before the repair: every one
+            # rebound the shared weight slot (the twin's production request
+            # sat between any two); a live canary now has its own lane
+            "slow_source": "shared weight slot: a rebind on every canary request "
+                           "(repaired: the canary's own slot lane)",
             "rebinds": after["rebinds"] - before["rebinds"],
             "captures": after["captures"] - before["captures"],
             "rebinds_per_1000_requests": 1e3 * (after["rebinds"] - before["rebinds"]) / served,
@@ -2016,6 +2058,7 @@ def phase_canary(torch, dev, workdir: str) -> dict:
         if (not summary["ok"] or (summary["aborted"], summary["promoted"]) != want
                 or summary["production_responses_mismatched"] or shown is None
                 or shown["rc"] != 0 or set(groups) - set(layers)
+                or lanes["production"] == lanes["canary"] or any(in_drive.values())
                 or _own_checkpoint_failed(checks, crossed)):
             raise RuntimeError(f"canary {scenario}: {row} {summary}")
     if launches["kernel"] < 1:
@@ -2238,15 +2281,18 @@ def _strip_column(data: bytes, column: str) -> bytes:
 
 
 def _results_of(root: str) -> dict:
-    """The store's results by key: its journals and snapshots (operational
-    state) left out, the test metrics without their wall-clock response
-    time."""
+    """The store's results by key, as the chaos soak compares them
+    (``chaos.sim._COMPARE_EXCLUDED`` left out: the journals and snapshots,
+    which are operational state, and the audit sidecars that hash a wall
+    clock or version tokens), the test metrics without their wall-clock
+    response time."""
+    from bodywork_tpu_torch.chaos.sim import _COMPARE_EXCLUDED
     from bodywork_tpu_torch.store import FilesystemStore
 
     store = FilesystemStore(root)
     return {key: (_strip_column(store.get_bytes(key), "mean_response_time")
                   if key.startswith("test-metrics/") else store.get_bytes(key))
-            for key in store.list_keys() if not key.startswith(("runs/", "snapshots/"))}
+            for key in store.list_keys() if not key.startswith(_COMPARE_EXCLUDED)}
 
 
 def _compare_results(a: dict, b: dict) -> dict:
@@ -2930,20 +2976,22 @@ def phase_resume(torch, dev, workdir: str) -> dict:
         artefact_digest,
     )
     from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
-    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store import FilesystemStore, open_store
     from bodywork_tpu_torch.store.schema import model_key, run_journal_key
 
     spec = default_pipeline("mlp", "batch")
     spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
     day = LOOP_START
-    twin = LocalRunner(spec, FilesystemStore(os.path.join(workdir, "twin")), device=dev)
+    # audited stores, as the command line opens them: both sides carry
+    # the write-time digest sidecars
+    twin = LocalRunner(spec, open_store(os.path.join(workdir, "twin")), device=dev)
     twin.bootstrap(day)
     reset_launches()
     full = twin.run_day(day)
     twin_launches = dict(LAUNCHES)
     root = os.path.join(workdir, "resumed")
     store = FilesystemStore(root)
-    LocalRunner(spec, store, device=dev).bootstrap(day)
+    LocalRunner(spec, open_store(root), device=dev).bootstrap(day)
     args = _mlp_day_args(root, day)
     ttl = {"BODYWORK_TPU_RUN_LEASE_TTL_S": "1"}
     killed = _cli(args, {**ttl, ENV_SCHEDULE: '[{"kind": "stage_boundary", "n": 1}]'},
@@ -2958,7 +3006,8 @@ def phase_resume(torch, dev, workdir: str) -> dict:
                lease_ttl_s=900).acquire()
     leased = _cli(_mlp_day_args(root, day + timedelta(days=1)), ttl)
     served = _served(resumed["out"])
-    twin_results, resumed_results = _results_of(twin.store.root), _results_of(root)
+    twin_results = _results_of(os.path.join(workdir, "twin"))
+    resumed_results = _results_of(root)
     gap = _compare_results(twin_results, resumed_results)
     rehash_s, rehash_bytes = _rehash_seconds(store, day)
     counted = [killed["resumes"], resumed["resumes"], noop["resumes"]]
@@ -3129,6 +3178,245 @@ def _kernel_events(path: str) -> dict:
         "f32_kernel_named": sum("mlp_f32_kernel" in e.get("name", "") for e in device),
         "graph_launches": sum(e.get("name") == "cudaGraphLaunch" for e in events),
     }
+
+
+_AUDIT_PROBE = """
+import atexit, json, sys, time, zlib
+from bodywork_tpu_torch.audit import manifest
+spent = {}
+def _add(key, what, seconds):
+    entry = spent.setdefault(key.split("/", 1)[0] + "/", {})
+    entry[what] = entry.get(what, 0.0) + seconds
+real_write = manifest.write_sidecar
+def write_sidecar(store, key, data):
+    t0 = time.perf_counter()
+    try:
+        return real_write(store, key, data)
+    finally:
+        _add(key, "sidecar_s", time.perf_counter() - t0)
+        _add(key, "bytes", len(data))
+real_compress = zlib.compress
+class _Zlib:
+    error = zlib.error
+    decompress = staticmethod(zlib.decompress)
+    @staticmethod
+    def compress(data, level):
+        t0 = time.perf_counter()
+        try:
+            return real_compress(data, level)
+        finally:
+            spent.setdefault("zlib", {"seconds": 0.0})["seconds"] += time.perf_counter() - t0
+manifest.write_sidecar = write_sidecar
+manifest.zlib = _Zlib
+atexit.register(lambda: print("SIDECARS " + json.dumps(spent), file=sys.stderr, flush=True))
+from bodywork_tpu_torch import cli
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def phase_audit(torch, dev, workdir: str) -> dict:
+    """``audit``: two 1024-wide MLP days through ``cli run-day --scrub``,
+    each in a process of its own on the card (the loop's settings, served
+    by ``kernel``), writing through the audited store the command line
+    opens: every day's ``fsck:`` line must read ``clean``. Printed: the
+    sidecars by class, the seconds each process spent writing sidecars by
+    the primary's prefix (the train stage writes ``models/`` and
+    ``model-metrics/``) with the replicas' zlib apart, each day's
+    wall-clock and train stage. Then the port's ``run_fsck`` and the JAX
+    package's ``cli fsck --json`` (a subprocess on the CPU: its fsck
+    imports no accelerator runtime) must both report the store clean with
+    0 findings."""
+    import re
+
+    from bodywork_tpu_torch.audit import run_fsck
+    from bodywork_tpu_torch.store import open_store
+
+    root = os.path.join(workdir, "audit")
+    days, launches = [], {}
+    for i in range(AUDIT_DAYS):
+        day = LOOP_START + timedelta(days=i)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _AUDIT_PROBE, *_mlp_day_args(root, day), "--scrub"],
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+            text=True, timeout=300)
+        seconds = time.perf_counter() - t0
+        served = _served(proc.stdout)
+        fsck_line = re.search(r"^fsck: (.*)$", proc.stdout, re.M)
+        train = re.search(r"^  stage-1-train-model: ([0-9.]+)s$", proc.stdout, re.M)
+        sidecars = re.search(r"^SIDECARS (\{.*\})$", proc.stderr, re.M)
+        row = {"day": str(day), "rc": proc.returncode, "process_s": seconds,
+               "day_s": _day_seconds(proc.stdout, day),
+               "train_stage_s": float(train[1]) if train else None,
+               "fsck": fsck_line[1] if fsck_line else None,
+               "sidecar_seconds": json.loads(sidecars[1]) if sidecars else None,
+               "served": served}
+        days.append(row)
+        emit("audit-day", **row)
+        if (proc.returncode != 0 or row["fsck"] != "clean" or served is None
+                or served["engine"] != "kernel" or served["launches"] < 1 or sidecars is None):
+            raise RuntimeError(f"audit: day {day}: {row}\n{proc.stderr[-3000:]}")
+        for name, n in served["launches_by_kernel"].items():
+            launches[name] = launches.get(name, 0) + n
+    store = open_store(root)
+    by_class = {}
+    for key in store.list_keys("audit/digests/"):
+        cls = key[len("audit/digests/"):].split("/", 1)[0] + "/"
+        by_class[cls] = by_class.get(cls, 0) + 1
+    t0 = time.perf_counter()
+    port_report = run_fsck(store)
+    port_s = time.perf_counter() - t0
+    jax_fsck = subprocess.run(
+        [sys.executable, "-m", "bodywork_tpu.cli", "fsck", "--store", root, "--json"],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT, "JAX_PLATFORMS": "cpu"},
+        capture_output=True, text=True, timeout=300)
+    try:
+        jax_report = json.loads(jax_fsck.stdout)
+    except ValueError:
+        jax_report = None
+    out = {"days": days, "sidecars_by_class": by_class,
+           "port_fsck": {"clean": port_report["clean"], "findings": len(port_report["findings"]),
+                         "keys_scanned": port_report["keys_scanned"], "seconds": port_s},
+           "jax_fsck": {"rc": jax_fsck.returncode,
+                        "clean": jax_report and jax_report["clean"],
+                        "findings": None if jax_report is None else len(jax_report["findings"]),
+                        "keys_scanned": jax_report and jax_report["keys_scanned"]},
+           "launches": launches}
+    emit("audit", **out)
+    if (not port_report["clean"] or port_report["findings"] or jax_report is None
+            or jax_fsck.returncode != 0 or not jax_report["clean"] or jax_report["findings"]
+            or jax_report["keys_scanned"] != port_report["keys_scanned"]):
+        raise RuntimeError(f"audit: the card-written store is not clean to both packages' "
+                           f"fsck: {out}\n{jax_fsck.stderr[-3000:]}")
+    return out
+
+
+def _by_prefix_verdict(root: str, comparison: dict, extra_excluded: tuple = ()) -> dict:
+    """The compared keys of a soak's healthy twin by top-level prefix, each
+    with its verdict (no key missing, extra or mismatched there)."""
+    from bodywork_tpu_torch.chaos.sim import _COMPARE_EXCLUDED
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    bad = set(comparison["missing"]) | set(comparison["extra"]) | set(comparison["mismatched"])
+    out = {}
+    for key in FilesystemStore(root).list_keys():
+        if key.startswith(_COMPARE_EXCLUDED + tuple(extra_excluded)):
+            continue
+        prefix = key.split("/", 1)[0] + "/"
+        if prefix == "audit/":
+            prefix = "audit/" + key.split("/")[2] + "/"
+        entry = out.setdefault(prefix, {"keys": 0, "identical": True})
+        entry["keys"] += 1
+        entry["identical"] &= key not in bad
+    return out
+
+
+def phase_chaos_sim(torch, dev, workdir: str) -> dict:
+    """``chaos-sim``: ``run_chaos_sim`` over 3 days of the 1024-wide MLP
+    (its fits cut to 200 Adam steps), the stock fault plan, seed 0, both
+    twins on the card: the faulted twin over the fault-injecting,
+    retrying, breaker-guarded store and the flaky scoring service, served
+    by ``kernel``. Every final artefact must be byte-identical to the
+    fault-free twin's (the verdict per prefix printed), with the injected
+    faults and the retries by kind, the breaker's opens, each twin's
+    seconds, and ``kernel``'s launches over both twins (> 0)."""
+    from bodywork_tpu_torch.chaos import FaultPlan, run_chaos_sim
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+
+    root = os.path.join(workdir, "chaos")
+    reset_launches()
+    summary = run_chaos_sim(root, LOOP_START, SOAK_DAYS, FaultPlan.default(0),
+                            model_type="mlp", device=dev, model_kwargs=SOAK_MLP)
+    launches = dict(LAUNCHES)
+    comparison = summary["comparison"]
+    out = {"days": SOAK_DAYS, "seed": summary["seed"], "ok": summary["ok"],
+           "reduced": _SOAK_REDUCED,
+           "matched": comparison["matched"], "torn": comparison["torn"],
+           "snapshot_ok": comparison["snapshot_ok"], "journal_ok": comparison["journal_ok"],
+           "by_prefix": _by_prefix_verdict(os.path.join(root, "baseline"), comparison),
+           "faults_injected": summary["faults_injected"], "retries": summary["retries"],
+           "breaker_state": summary["breaker_state"], "breaker_opens": summary["breaker_opens"],
+           "seconds": summary["seconds"], "launches": launches}
+    emit("chaos-sim", **out)
+    if not summary["ok"] or launches["kernel"] < 1:
+        raise RuntimeError(f"chaos-sim: {out} {comparison}")
+    return out
+
+
+def phase_bit_rot(torch, dev, workdir: str) -> dict:
+    """``bit-rot``: ``run_bit_rot_sim`` over 3 days of the 1024-wide MLP
+    (fits cut to 200 steps) on the card, the stock plan with bit rot at
+    0.25, seed 0: the flips by prefix, the share of them fsck detected and
+    classified (100% required), the repairs by action and outcome, and the
+    victim byte-identical to the healthy twin outside ``quarantine/``
+    after the repair; each twin's and each scrub's seconds; ``kernel``'s
+    launches over both twins (> 0)."""
+    from bodywork_tpu_torch.chaos import FaultPlan, run_bit_rot_sim
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+
+    plan = FaultPlan.default(0)
+    plan.bit_rot_p = 0.25
+    root = os.path.join(workdir, "bitrot")
+    reset_launches()
+    summary = run_bit_rot_sim(root, LOOP_START, SOAK_DAYS, plan, model_type="mlp",
+                              device=dev, model_kwargs=SOAK_MLP)
+    launches = dict(LAUNCHES)
+    repairs = {}
+    for r in summary["repairs"]:
+        label = f"{r['action']}:{r['outcome']}"
+        repairs[label] = repairs.get(label, 0) + 1
+    out = {"days": SOAK_DAYS, "seed": summary["seed"], "ok": summary["ok"],
+           "reduced": _SOAK_REDUCED,
+           "injected": summary["injected"], "injected_by_prefix": summary["injected_by_prefix"],
+           "detected": summary["detected"],
+           "detected_share": summary["detected"] / max(summary["injected"], 1),
+           "undetected": summary["undetected"],
+           "findings_by_severity": summary["findings_by_severity"], "repairs": repairs,
+           "post_repair_residual": len(summary["post_repair_residual"]),
+           "identical_outside_quarantine": summary["comparison"]["ok"],
+           "by_prefix": _by_prefix_verdict(os.path.join(root, "healthy"),
+                                           summary["comparison"]),
+           "seconds": summary["seconds"], "launches": launches}
+    emit("bit-rot", **out)
+    if not summary["ok"] or summary["undetected"] or launches["kernel"] < 1:
+        raise RuntimeError(f"bit-rot: {out}")
+    return out
+
+
+def phase_crash_sim(torch, dev, workdir: str) -> dict:
+    """``crash-sim``: ``run_crash_sim`` of 2 linear days on the card
+    (``run-sim --device cuda`` children) at 4 kill points: 2 of the 10
+    stage boundaries and 2 store-op points drawn by ``sweep_points`` with
+    seed 0 from the artefacts such a run writes. Each child must die at
+    its point (``EXIT_KILLED``) and its restart reach the uninterrupted
+    twin's artefacts byte for byte; the seconds of each point."""
+    from bodywork_tpu_torch.chaos import run_crash_sim, sweep_points
+    from bodywork_tpu_torch.chaos.kill import EXIT_KILLED
+    from bodywork_tpu_torch.store import schema
+
+    days = [LOOP_START + timedelta(days=i) for i in range(CRASH["days"] + 1)]
+    written = ([schema.dataset_key(d) for d in days]
+               + [schema.model_key(d) for d in days[:-1]]
+               + [schema.model_metrics_key(d) for d in days[:-1]]
+               + [schema.test_metrics_key(d) for d in days[1:]])
+    store_ops = [p for p in sweep_points(CRASH["days"], 4, written, seed=CRASH["seed"],
+                                         store_op_samples=CRASH["store_op_samples"])
+                 if p["kind"] == "store_op"]
+    points = [{"kind": "stage_boundary", "n": n} for n in CRASH["boundaries"]] + store_ops
+    t0 = time.perf_counter()
+    summary = run_crash_sim(os.path.join(workdir, "crash"), LOOP_START, CRASH["days"],
+                            seed=CRASH["seed"], points=points, model_type="linear",
+                            device=dev)
+    rows = [{"point": r["point"], "kill_exit": r["kill_exit"],
+             "restart_exit": r.get("restart_exit"), "ok": r["ok"],
+             "seconds": r.get("seconds"), "error": r.get("error")}
+            for r in summary["results"]]
+    out = {"days": CRASH["days"], "ok": summary["ok"], "points": rows,
+           "seconds": time.perf_counter() - t0}
+    emit("crash-sim", **out)
+    if not summary["ok"] or any(r["kill_exit"] != EXIT_KILLED for r in rows):
+        raise RuntimeError(f"crash-sim: {out} {summary['results']}")
+    return out
 
 
 def phase_profile(torch, dev, workdir: str) -> dict:
@@ -3440,7 +3728,7 @@ def main(argv=None) -> int:
         "--phases",
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
                 "canary,ab,day-loop,incremental,quantized,resume,sigterm,day-report,profile,"
-                "timing",
+                "audit,chaos-sim,bit-rot,crash-sim,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -3477,8 +3765,10 @@ def main(argv=None) -> int:
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled = {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
+    audited, chaos_sim, bit_rot = {}, {}, {}
     for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "ab", "day-loop",
-                  "incremental", "resume", "sigterm", "day-report", "profile"):
+                  "incremental", "resume", "sigterm", "day-report", "profile", "audit",
+                  "chaos-sim", "bit-rot", "crash-sim"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -3501,6 +3791,14 @@ def main(argv=None) -> int:
                 reported = phase_day_report(torch, dev, workdir)
             elif phase == "profile":
                 profiled = phase_profile(torch, dev, workdir)
+            elif phase == "audit":
+                audited = phase_audit(torch, dev, workdir)
+            elif phase == "chaos-sim":
+                chaos_sim = phase_chaos_sim(torch, dev, workdir)
+            elif phase == "bit-rot":
+                bit_rot = phase_bit_rot(torch, dev, workdir)
+            elif phase == "crash-sim":
+                phase_crash_sim(torch, dev, workdir)
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
             elif phase == "resume":
@@ -3548,7 +3846,10 @@ def main(argv=None) -> int:
                                       ("canary", canaried, "launches"),
                                       ("ab", ab, "launches"),
                                       ("day-report", reported, "launches"),
-                                      ("profile", profiled, "launches")):
+                                      ("profile", profiled, "launches"),
+                                      ("audit", audited, "launches"),
+                                      ("chaos-sim", chaos_sim, "launches"),
+                                      ("bit-rot", bit_rot, "launches")):
                 if result:
                     by_path[path] = result[key][engine]
             kernels.append({

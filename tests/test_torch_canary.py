@@ -397,6 +397,51 @@ def test_watcher_loads_routes_and_clears_the_canary(tmp_path, checkpoints):
     assert app.canary_key is None
 
 
+def test_a_live_canary_serves_from_its_own_weight_slot(tmp_path, checkpoints):
+    """The canary the watcher loads dispatches through the other weight-
+    slot lane: production's requests, a canary-free twin's and the
+    canary's interleave with no rebind and no build on the request path,
+    each stream answering from its own checkpoint. A promotion keeps the
+    lanes, and the next canary takes production's old lane: built
+    nothing, it only rebinds there at its warm-up."""
+    from bodywork_tpu_torch.serve.predictor import GRAPH_CACHE
+
+    port, _ = _pair(tmp_path, checkpoints)
+    ModelRegistry(port).canary_start(KEY2, fraction=0.5, seed=2, day=D2)
+    production = _port_model(checkpoints["first"])
+    app = create_app(production, D1, predictor=PaddedPredictor(production, (1, 8)),
+                     model_key=KEY1, model_source="production")
+    twin = create_app(production, D1, predictor=app.predictor, warmup=False,
+                      model_key=KEY1, model_source="production")
+    _counting, watcher = _watched(port, app, SloPolicy())
+    watcher.check_once()
+    canary = app._canary.predictor
+    assert (app.predictor.slot_lane, canary.slot_lane) == (0, 1)
+    assert app.predictor._slot is not canary._slot
+    before = GRAPH_CACHE.stats()
+    plain = {KEY1: production, KEY2: _port_model(checkpoints["second"])}
+    for x in np.linspace(1, 99, 40):
+        status, headers, body = _post(app, "/score/v1", {"X": float(x)})
+        twin_body = _post(twin, "/score/v1", {"X": float(x)})[2]
+        key = headers[MODEL_KEY_HEADER]
+        want = float(plain[key].predict(np.array([[x]], dtype=np.float32))[0])
+        assert status == 200 and json.loads(body)["prediction"] == pytest.approx(want, abs=1e-4)
+        assert json.loads(twin_body)["prediction"] == pytest.approx(
+            float(production.predict(np.array([[x]], dtype=np.float32))[0]), abs=1e-4)
+    after = GRAPH_CACHE.stats()
+    assert after["rebinds"] == before["rebinds"] and after["misses"] == before["misses"]
+
+    ModelRegistry(port).canary_promote(day=D2)
+    app.promote_canary_bundle()
+    assert app.predictor is canary and app.predictor.slot_lane == 1
+    ModelRegistry(port).canary_start(KEY3, fraction=0.5, seed=2, day=D3)
+    misses = GRAPH_CACHE.stats()["misses"]
+    watcher.check_once()
+    assert (app.model_key, app.predictor.slot_lane) == (KEY2, 1)
+    assert (app.canary_key, app._canary.predictor.slot_lane) == (KEY3, 0)
+    assert GRAPH_CACHE.stats()["misses"] == misses
+
+
 def test_watcher_repairs_a_dangling_slot_in_one_cas(tmp_path, checkpoints):
     port, _ = _pair(tmp_path, checkpoints)
     ModelRegistry(port).canary_start(KEY2, fraction=0.5, day=D2)

@@ -96,11 +96,12 @@ def test_key_parts(cache, engine):
     predictor = build_predictor(port_mlp(0), engine)
     predictor.predict(X_of(3))
     (key,) = cache._graphs
-    cls, model_cls, dtype, digest, shape, device, extra = key
+    cls, model_cls, dtype, digest, shape, device, extra, lane = key
     assert cls == type(predictor).__name__ and model_cls == "MLPRegressor"
     assert dtype == predictor.dtype
     assert digest == port.params_shape_digest(predictor._graph_weights())
     assert shape == (predictor._bucket_for(3), 1) and device == "cpu" and extra == ()
+    assert lane == predictor.slot_lane == 0
 
 
 def test_one_miss_per_bucket_at_warmup_then_none(cache):

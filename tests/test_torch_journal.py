@@ -86,13 +86,18 @@ def _strip_column(data: bytes, column: str) -> bytes:
 
 
 def artefacts(root) -> dict[str, bytes]:
-    """The store's results: everything but the journals, the snapshots
-    (operational state) and the test metrics' response time (a wall
-    clock)."""
+    """The store's results: everything but what the chaos soak's
+    comparison excludes (``chaos.sim._COMPARE_EXCLUDED``: the journals and
+    snapshots, which are operational state, and the audit sidecars of
+    the test metrics and snapshots, which hash a wall clock and version
+    tokens), and the test metrics' response time (a wall clock)."""
+    from bodywork_tpu_torch.chaos.sim import _COMPARE_EXCLUDED
+
+    assert RUNS_PREFIX in _COMPARE_EXCLUDED and "snapshots/" in _COMPARE_EXCLUDED
     store = FilesystemStore(root)
     out = {}
     for key in store.list_keys():
-        if key.startswith((RUNS_PREFIX, "snapshots/")):
+        if key.startswith(_COMPARE_EXCLUDED):
             continue
         data = store.get_bytes(key)
         out[key] = _strip_column(data, "mean_response_time") if key.startswith(

@@ -34,6 +34,11 @@ import bodywork_tpu_torch.utils.profiling
 import bodywork_tpu_torch.traffic, bodywork_tpu_torch.serve.reload
 import bodywork_tpu_torch.ops.slo, bodywork_tpu_torch.chaos.plan
 import bodywork_tpu_torch.chaos.canary, bodywork_tpu_torch.pipeline.ab
+import bodywork_tpu_torch.audit, bodywork_tpu_torch.audit.fsck, bodywork_tpu_torch.audit.repair
+import bodywork_tpu_torch.audit.manifest, bodywork_tpu_torch.tenancy
+import bodywork_tpu_torch.store.resilient, bodywork_tpu_torch.store.gcs
+import bodywork_tpu_torch.chaos.store, bodywork_tpu_torch.chaos.http
+import bodywork_tpu_torch.chaos.sim, bodywork_tpu_torch.chaos.bitrot
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
