@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
-generate|serve|test|train|run-day|run-sim|run-ab|compact|registry|trace|
-traffic|chaos|fsck``.
+generate|serve|test|train|run-day|run-sim|run-ab|run-stage|wait-for|
+report|compact|deploy|registry|trace|traffic|chaos|fsck``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -97,6 +97,26 @@ traffic|chaos|fsck``.
   [--trace-id ID] --store S`` reads the flight-recorder dumps under
   ``obs/flightrec/`` (either package's): exit 9 when the trace (or, for
   ``tail`` and ``export``, any dump) is absent, 1 on an error.
+
+- ``run-stage --store S --stage NAME [--spec F] [--date D] [--scoring-url
+  U] [--device cuda|cpu]`` runs one stage of the pipeline, the pod entry
+  point of the k8s manifests: a batch stage runs and exits 0, a service
+  stage serves on its declared port until the process is stopped (a
+  SIGTERM ends it as it ends the JAX command). The test stage imports no
+  torch and resolves no device. ``wait-for --store S [--dataset]
+  [--model] [--dataset-newer-than-model] [--service-url U] [--timeout S]
+  [--poll-interval S]`` blocks until the conditions hold (exit 0,
+  "conditions met") or the timeout passes (exit 1): the initContainer
+  gate that orders the pods. ``deploy --out DIR [--spec F]
+  [--emit-images DIR] [--force] [--store-path P] [--image I]
+  [--store-volume auto|pvc|hostpath|gcs] ...`` writes the GKE manifests
+  for a GPU node pool (exit 1 when stages reference derived image tags
+  and neither ``--emit-images`` nor ``--force`` is given). ``report
+  --store S [--plot OUT.png] [--fail-on-drift] [--window N] ...`` prints
+  the train-vs-live drift table and exits 4 on drift with
+  ``--fail-on-drift`` (the verdict line on stderr). ``--spec F`` (the
+  ConfigMap's pipeline YAML) on ``run-stage``, ``run-day``, ``run-sim``
+  and ``deploy`` overrides ``--model``, ``--mode`` and ``--mlp-*``.
 
 ``--device`` defaults to ``cuda``: without a card the command refuses to
 run unless ``--device cpu`` is given.
@@ -246,19 +266,34 @@ def cmd_train(args) -> int:
     return 0
 
 
+def _pipeline_spec(args):
+    """The pipeline spec of an orchestration command: an explicit
+    ``--spec`` YAML wins (how in-cluster pods receive the deploy-time
+    spec through the ConfigMap); otherwise the default pipeline built
+    from ``--model``, ``--mode``, ``--overlap-generate`` and ``--mlp-*``."""
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE, PipelineSpec, default_pipeline
+
+    if getattr(args, "spec", None):
+        from pathlib import Path
+
+        return PipelineSpec.from_yaml(Path(args.spec).read_text())
+    spec = default_pipeline(args.model, args.mode,
+                            overlap_generate=getattr(args, "overlap_generate", False))
+    if hasattr(args, "mlp_hidden"):
+        spec.stages[TRAIN_STAGE].args.update(_mlp_kwargs(args))
+    return spec
+
+
 def _runner(args):
     """The day loop's runner, over the store wrapped in the kill switch
     that ``BODYWORK_TPU_CRASH_SCHEDULE`` arms (untouched when unset)."""
     from bodywork_tpu_torch.chaos.kill import arm_from_env, wrap_store
     from bodywork_tpu_torch.data.drift_config import DriftConfig
-    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
-    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.pipeline import LocalRunner
     from bodywork_tpu_torch.store import open_store
 
     arm_from_env()
-    spec = default_pipeline(args.model, args.mode,
-                            overlap_generate=getattr(args, "overlap_generate", False))
-    spec.stages[TRAIN_STAGE].args.update(_mlp_kwargs(args))
+    spec = _pipeline_spec(args)
     samples = getattr(args, "samples_per_day", None)
     drift = DriftConfig(n_samples=samples) if samples else None
     return LocalRunner(spec, wrap_store(open_store(args.store)), drift=drift,
@@ -424,6 +459,176 @@ def cmd_run_sim(args) -> int:
         path = write_chrome_trace(args.trace_out, runner.recorder.spans(),
                                   process_name=f"run-sim {args.days}d")
         print(f"trace: {path}")
+    return 0
+
+
+def cmd_run_stage(args) -> int:
+    """Run one named stage of the pipeline: the per-pod entry point the
+    k8s manifests use. A service stage blocks for the pod's lifetime on
+    its declared port; the process installs no SIGTERM handler, so a
+    SIGTERM ends it as it ends the JAX command."""
+    from bodywork_tpu_torch.pipeline.runner import resolve_executable
+    from bodywork_tpu_torch.pipeline.stages import StageContext
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.errors import tag_stage
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    spec = _pipeline_spec(args)
+    if args.stage not in spec.stages:
+        get_logger("cli").error(f"unknown stage {args.stage!r}; have {sorted(spec.stages)}")
+        return 1
+    # every stage pod reports under its own stage name, not the
+    # 'cli-run-stage' tag main() set before the stage was known
+    tag_stage(args.stage)
+    stage = spec.stages[args.stage]
+    # the device as asked for: only a stage that uses one resolves it
+    ctx = StageContext(store=open_store(args.store), today=_date(args), device=args.device,
+                       scoring_url=args.scoring_url)
+    fn = resolve_executable(stage.executable)
+    get_logger("cli").info(f"run-stage {stage.name} ({stage.kind}) for {ctx.today}")
+    if stage.kind == "service":
+        handle = fn(ctx, host="0.0.0.0", port=stage.port or 5000, **stage.args)
+        handle.wait()
+    else:
+        fn(ctx, **stage.args)
+    return 0
+
+
+def _url_ok(url: str) -> bool:
+    """True when ``url`` answers a status below 400 within 2 s."""
+    import http.client
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=2) as resp:
+            return resp.status < 400
+    except (OSError, http.client.HTTPException, ValueError):
+        return False
+
+
+def cmd_wait_for(args) -> int:
+    """Block until pipeline preconditions hold: the DAG-ordering gate of
+    the k8s materialisation (every Job's initContainer). Exit 0 with
+    "conditions met", or 1 when ``--timeout`` passes first."""
+    import time
+
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, MODELS_PREFIX
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    store = open_store(args.store)
+    deadline = time.monotonic() + args.timeout
+
+    def _conditions_met() -> bool:
+        if args.dataset and not store.history(DATASETS_PREFIX):
+            return False
+        if args.model and not store.history(MODELS_PREFIX):
+            return False
+        if args.dataset_newer_than_model:
+            datasets = store.history(DATASETS_PREFIX)
+            models = store.history(MODELS_PREFIX)
+            if not datasets or not models or datasets[-1][1] <= models[-1][1]:
+                return False
+        return not args.service_url or _url_ok(args.service_url)
+
+    while not _conditions_met():
+        if time.monotonic() > deadline:
+            get_logger("cli").error(f"wait-for conditions not met within {args.timeout}s")
+            return 1
+        time.sleep(args.poll_interval)
+    print("conditions met")
+    return 0
+
+
+#: ``report --fail-on-drift`` exit code: not 1 (error), 2 (usage) or 3
+DRIFT_EXIT = 4
+
+
+def cmd_report(args) -> int:
+    """The train-vs-live drift table on stdout (``--plot``: the dashboard
+    too); the drift verdict on stderr, exit 4 with ``--fail-on-drift``."""
+    from bodywork_tpu_torch.monitor.analytics import (
+        detect_drift,
+        drift_report,
+        format_drift_report,
+    )
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    store = open_store(args.store)
+    report = drift_report(store)
+    if not report:
+        print("no metric history yet")
+        return 0
+    print(format_drift_report(report))
+    if args.plot:
+        from bodywork_tpu_torch.monitor.analytics import render_drift_dashboard
+
+        # a failure here (matplotlib missing) is a logged error and exit 1,
+        # as the JAX command's catch-all makes it
+        try:
+            print(render_drift_dashboard(store, args.plot, report=report))
+        except Exception as exc:  # noqa: BLE001
+            get_logger("cli").error(exc)
+            return 1
+    verdict = detect_drift(
+        report, mape_ratio=args.mape_ratio, corr_floor=args.corr_floor,
+        window=args.window, bias_z=args.bias_z,
+        bias_window=args.bias_window, bias_baseline=args.bias_baseline,
+    )
+    if verdict["drifted"]:
+        # stderr: stdout carries the (parseable) table
+        scope = f"last {args.window} day(s)" if args.window is not None else "all history"
+        rules = f"bias |z| > {args.bias_z} over {args.bias_window}d or corr < {args.corr_floor}"
+        if args.mape_ratio is not None:
+            rules += f" or MAPE_live > {args.mape_ratio} x MAPE_train"
+        print(
+            f"DRIFT: {len(verdict['flagged_dates'])}/{verdict['n_days']} "
+            f"day(s) flagged over {scope}, first "
+            f"{verdict['first_flagged_date']} ({rules})",
+            file=sys.stderr,
+        )
+        if args.fail_on_drift:
+            return DRIFT_EXIT
+    return 0
+
+
+def cmd_deploy(args) -> int:
+    """Write the GKE manifests (and, with ``--emit-images``, the per-stage
+    image build contexts). Manifests that reference derived per-stage
+    image tags with no build contexts emitted would ship pods that cannot
+    pull their image: refused (exit 1) unless ``--force``."""
+    from bodywork_tpu_torch.pipeline.images import uses_derived_tag, write_stage_images
+    from bodywork_tpu_torch.pipeline.k8s import write_manifests
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    spec = _pipeline_spec(args)
+    derived = [s.name for s in spec.stages.values() if uses_derived_tag(s)]
+    if derived and not args.emit_images:
+        if not args.force:
+            log.error(
+                f"stages {derived} reference derived per-stage image tags "
+                "that nothing builds: pass --emit-images DIR to emit "
+                "their build contexts (then run build.sh), or --force to "
+                "write the manifests anyway"
+            )
+            return 1
+        log.warning(
+            f"--force: manifests reference derived per-stage image tags "
+            f"for {derived} with no build contexts emitted; pods will "
+            "ImagePullBackOff until the images are built and pushed"
+        )
+    written = write_manifests(
+        spec, args.out, store_path=args.store_path, image=args.image,
+        store_volume=args.store_volume, storage_class=args.storage_class or None,
+        pvc_size=args.pvc_size,
+    )
+    for path in written:
+        print(path)
+    if args.emit_images:
+        for path in write_stage_images(spec, args.emit_images, image=args.image):
+            print(path)
     return 0
 
 
@@ -1149,6 +1354,8 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--date", default=None, help="(first) day, YYYY-MM-DD (default today)")
         p.add_argument("--mode", default="batch", choices=["single", "batch"],
                        help="the test stage's requests: one row or one batch each")
+        p.add_argument("--spec", default=None,
+                       help="pipeline spec YAML (overrides --model/--mode/--mlp-*)")
         p.add_argument("--trace-out", default=None, metavar="PATH",
                        help="write the runner's spans as a Chrome trace-event file "
                             "(Perfetto, chrome://tracing); run-day also writes the "
@@ -1177,6 +1384,79 @@ def build_parser() -> argparse.ArgumentParser:
                                 "a full re-run. Default: resume, skipping completed stages "
                                 "whose recorded artefact digests verify (exit 5: another "
                                 "runner holds the lease; 6: the day was already complete)")
+
+    p = sub.add_parser("run-stage", help="run one pipeline stage (pod entrypoint)")
+    p.set_defaults(fn=cmd_run_stage)
+    p.add_argument("--spec", default=None,
+                   help="pipeline spec YAML (overrides --model/--mode/--mlp-*)")
+    add_model_args(p)
+    p.add_argument("--stage", required=True)
+    p.add_argument("--date", default=None)
+    p.add_argument("--mode", default="batch", choices=["single", "batch"])
+    p.add_argument("--scoring-url", default=None)
+
+    p = sub.add_parser("wait-for", help="block until pipeline preconditions hold")
+    p.set_defaults(fn=cmd_wait_for)
+    p.add_argument("--store", **store)
+    p.add_argument("--dataset", action="store_true", help="wait until any dataset exists")
+    p.add_argument("--model", action="store_true",
+                   help="wait until any model checkpoint exists")
+    p.add_argument("--dataset-newer-than-model", action="store_true",
+                   help="wait until the latest dataset postdates the latest model")
+    p.add_argument("--service-url", default=None,
+                   help="wait until this health URL returns 200")
+    p.add_argument("--timeout", type=float, default=300.0)
+    p.add_argument("--poll-interval", type=float, default=2.0)
+
+    p = sub.add_parser("report", help="longitudinal train-vs-live drift report")
+    p.set_defaults(fn=cmd_report)
+    p.add_argument("--store", **store)
+    p.add_argument("--plot", default=None, metavar="OUT.png",
+                   help="also render the drift dashboard PNG here (requires matplotlib)")
+    p.add_argument("--fail-on-drift", action="store_true",
+                   help="exit 4 when the drift rule flags any day (1=error, 2=usage)")
+    p.add_argument("--mape-ratio", type=float, default=None,
+                   help="OPT-IN: flag a day when MAPE_live exceeds this multiple of "
+                        "MAPE_train (disabled by default: day-level MAPE is unbounded "
+                        "when labels touch zero; the calibrated detector is the bias rule)")
+    p.add_argument("--corr-floor", type=float, default=0.5,
+                   help="flag a day when the live score/label correlation falls below "
+                        "this (default 0.5)")
+    p.add_argument("--bias-z", type=float, default=4.0,
+                   help="flag a day when the trailing-window live residual-mean statistic "
+                        "exceeds this many standard errors (default 4.0)")
+    p.add_argument("--bias-window", type=_positive_int, default=7, metavar="N",
+                   help="trailing days accumulated by the bias rule (default 7)")
+    p.add_argument("--bias-baseline", type=_positive_int, default=14, metavar="N",
+                   help="first N days of the report used as the bias rule's yardstick "
+                        "(default 14)")
+    p.add_argument("--window", type=_positive_int, default=None, metavar="N",
+                   help="evaluate the drift rule over the last N days only (default: all "
+                        "history)")
+
+    p = sub.add_parser("deploy", help="write GKE manifests for a GPU node pool")
+    p.set_defaults(fn=cmd_deploy)
+    p.add_argument("--spec", default=None, help="pipeline spec YAML (overrides --model/--mode)")
+    p.add_argument("--out", required=True)
+    p.add_argument("--store-path", default="/mnt/artefact-store")
+    p.add_argument("--image", default="bodywork-tpu/runtime:latest")
+    p.add_argument("--store-volume", default="auto", choices=["auto", "pvc", "hostpath", "gcs"],
+                   help="shared-store medium: ReadWriteMany PVC (multi-node safe), hostPath "
+                        "(single-node clusters ONLY), or direct GCS; auto picks gcs for "
+                        "gs:// store paths and pvc otherwise")
+    p.add_argument("--storage-class", default="standard-rwx",
+                   help="storageClassName for the store PVC (default: GKE Filestore's RWX "
+                        "class; pass '' for the cluster default, which must support "
+                        "ReadWriteMany)")
+    p.add_argument("--pvc-size", default="10Gi")
+    p.add_argument("--emit-images", default=None, metavar="DIR",
+                   help="also write per-stage image build contexts (Dockerfile + pinned "
+                        "requirements.txt + build.sh) to DIR")
+    p.add_argument("--force", action="store_true",
+                   help="write manifests referencing derived per-stage image tags even "
+                        "without --emit-images (pods ImagePullBackOff until built)")
+    p.add_argument("--model", default="linear", choices=["linear", "mlp"])
+    p.add_argument("--mode", default="batch", choices=["single", "batch"])
 
     p = sub.add_parser("compact", help="consolidate dataset history into a snapshots/ "
                                        "artefact")
@@ -1418,9 +1698,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     from bodywork_tpu_torch.utils.logging import configure_logger
 
+    from bodywork_tpu_torch.utils.errors import init_error_monitoring
+
     args = build_parser().parse_args(argv)
     # logs on stderr: stdout carries the command's result
     configure_logger(args.log_level, stream=sys.stderr)
+    init_error_monitoring(f"cli-{args.command}")
     return args.fn(args)
 
 

@@ -10,28 +10,39 @@ where that side has no record (the JAX report's NaN). :func:`detect_drift`
 turns it into the same verdict as the JAX function, with the same rules
 and thresholds; the registry gate reads it for its production-has-drifted
 override. The CSVs are read with the ``csv`` module and numpy, so the
-gate's process needs no pandas. The dashboard and ``cli report`` are a
-later slice (ROADMAP Queue 1 item 11).
+gate's process needs no pandas. :func:`format_drift_report` prints the
+report as the JAX command prints its DataFrame
+(``to_string(index=False)``), and :func:`render_drift_dashboard` draws
+the JAX package's three panels, with matplotlib imported only there.
 """
 from __future__ import annotations
 
 import csv
 import io
 import math
+import re
 
 import numpy as np
 
 from bodywork_tpu_torch.store.base import ArtefactStore
 from bodywork_tpu_torch.store.schema import MODEL_METRICS_PREFIX, TEST_METRICS_PREFIX
 from bodywork_tpu_torch.utils.dates import parse_date
+from bodywork_tpu_torch.utils.logging import get_logger
 
-__all__ = ["detect_drift", "drift_report"]
+__all__ = ["detect_drift", "drift_report", "format_drift_report", "render_drift_dashboard"]
+
+log = get_logger("monitor.analytics")
+
+_INT_FIELD = re.compile(r"^[+-]?[0-9]+$")
 
 
 def _field(value: str):
-    """One CSV field as pandas reads it: empty is missing, else a number."""
+    """One CSV field as pandas reads it: empty is missing, an integer
+    literal an int, else a float (or the text)."""
     if value == "":
         return None
+    if _INT_FIELD.match(value):
+        return int(value)
     try:
         return float(value)
     except ValueError:
@@ -51,29 +62,34 @@ def _load_history(store: ArtefactStore, prefix: str) -> list[dict]:
     return rows
 
 
-def _suffixed(rows: list[dict], suffix: str) -> dict:
-    """date -> that day's columns, suffixed (a later record of a date
-    wins where a side holds two)."""
-    out = {}
+def _columns(rows: list[dict]) -> list[str]:
+    """The metric columns of ``rows`` in order of first appearance (a
+    day's CSV order; a column a later day adds comes after)."""
+    columns: dict = {}
     for row in rows:
-        out[row["date"]] = {f"{k}{suffix}": v for k, v in row.items() if k != "date"}
-    return out
+        columns.update(dict.fromkeys(k for k in row if k != "date"))
+    return list(columns)
 
 
 def drift_report(store: ArtefactStore) -> list[dict]:
-    """Train-time against live-test metrics, joined by date, oldest first
-    (the outer join of the JAX report; empty when neither side has a
-    record). The gap between ``MAPE_train`` and ``MAPE_live`` over days
-    is the concept-drift signal."""
-    train = _suffixed(_load_history(store, MODEL_METRICS_PREFIX), "_train")
-    live = _suffixed(_load_history(store, TEST_METRICS_PREFIX), "_live")
-    columns = sorted({c for side in (train, live) for cols in side.values() for c in cols})
+    """Train-time against live-test metrics, joined by date, oldest first:
+    the outer join of the JAX report, its columns in the JAX DataFrame's
+    order (``date``, the train metrics suffixed ``_train``, the live ones
+    suffixed ``_live``), None where a side has no value; empty when
+    neither side has a record. The gap between ``MAPE_train`` and
+    ``MAPE_live`` over days is the concept-drift signal."""
+    sides = []
+    for prefix, suffix in ((MODEL_METRICS_PREFIX, "_train"), (TEST_METRICS_PREFIX, "_live")):
+        rows = _load_history(store, prefix)
+        # a later record of a date wins where a side holds two
+        by_date = {row["date"]: row for row in rows}
+        sides.append((by_date, [(c, c + suffix) for c in _columns(rows)]))
     report = []
-    for d in sorted(set(train) | set(live)):
-        row = dict.fromkeys(columns)
-        row.update(train.get(d, {}))
-        row.update(live.get(d, {}))
-        row["date"] = d
+    for d in sorted(set(sides[0][0]) | set(sides[1][0])):
+        row = {"date": d}
+        for by_date, columns in sides:
+            record = by_date.get(d, {})
+            row.update((out, record.get(c)) for c, out in columns)
         report.append(row)
     return report
 
@@ -180,4 +196,161 @@ def detect_drift(report: list[dict], mape_ratio: float | None = None,
             flagged.append(str(row["date"]))
     if flagged:
         out.update(drifted=True, first_flagged_date=flagged[0], flagged_dates=flagged)
+    return out
+
+
+# -- the report table, as pandas' DataFrame.to_string(index=False) --------
+
+_PRECISION = 6  # pandas' display.precision
+_DECIMAL = re.compile(r"^\s*[\+-]?[0-9]+\.[0-9]*$")
+
+
+def _missing(value) -> bool:
+    return value is None or (isinstance(value, float) and math.isnan(value))
+
+
+def _trim_zeros(cells: list[str]) -> list[str]:
+    """Trailing zeros trimmed equally from every decimal, leaving one."""
+    def should_trim(values):
+        numbers = [x for x in values if _DECIMAL.match(x)]
+        return bool(numbers) and all(x.endswith("0") for x in numbers)
+
+    while should_trim(cells):
+        cells = [x[:-1] if _DECIMAL.match(x) else x for x in cells]
+    return [x + "0" if _DECIMAL.match(x) and x.endswith(".") else x for x in cells]
+
+
+def _float_cells(values: list) -> list[str]:
+    """A float column's cells: fixed at 6 decimals with the zeros trimmed,
+    or scientific when a value would print as 0 or a large one is long."""
+    def cells_as(spec):
+        return ["NaN" if _missing(v) else format(float(v), spec) for v in values]
+
+    cells = _trim_zeros(cells_as(f".{_PRECISION}f"))
+    magnitudes = [abs(float(v)) for v in values if not _missing(v)]
+    too_long = max((len(c) for c in cells), default=0) > _PRECISION + 6
+    has_large = any(m > 1e6 for m in magnitudes)
+    has_small = any(0 < m < 10 ** (-_PRECISION) for m in magnitudes)
+    if has_small or (too_long and has_large):
+        cells = cells_as(f".{_PRECISION}e")
+    return cells
+
+
+def format_drift_report(report: list[dict]) -> str:
+    """The report as the JAX command prints it (``to_string(index=False)``
+    of its DataFrame): right-aligned columns one space apart; a column of
+    ints (every value an integer literal, none missing) as ints, a numeric
+    column with a missing value or a fraction as pandas' floats with
+    ``NaN``, the dates as ISO text. Empty string for an empty report."""
+    if not report:
+        return ""
+    columns = []
+    for name in report[0]:
+        values = [row.get(name) for row in report]
+        present = [v for v in values if not _missing(v)]
+        numeric = all(isinstance(v, (int, float)) and not isinstance(v, bool) for v in present)
+        if numeric and present and all(type(v) is int for v in values):
+            header, cells = " " + name, [str(v) for v in values]
+        elif numeric and name != "date":
+            header, cells = " " + name, _float_cells(values)
+        else:
+            header, cells = name, ["NaN" if _missing(v) else str(v) for v in values]
+        width = max(len(header), *(len(c) for c in cells))
+        columns.append([header.rjust(width), *(c.rjust(width) for c in cells)])
+    return "\n".join(" ".join(line) for line in zip(*columns))
+
+
+# -- the dashboard ---------------------------------------------------------
+
+# categorical slots 1-2 of the reference palette, as the JAX dashboard's
+_TRAIN_COLOR = "#2a78d6"  # blue: train-time metrics
+_LIVE_COLOR = "#eb6834"   # orange: live-test metrics
+_SURFACE = "#fcfcfb"
+_INK = "#0b0b0b"
+_INK_2 = "#52514e"
+_GRID = "#e4e3df"
+
+
+def render_drift_dashboard(store: ArtefactStore, out_path, report: list[dict] | None = None):
+    """Render the longitudinal drift dashboard to a PNG (the JAX package's
+    ``render_drift_dashboard``; reference C12's visual half): three
+    stacked panels over the days, one y-scale each: MAPE train vs live;
+    train R^2 vs live score/label correlation; mean scoring-service
+    response time (ms). ``report`` skips the store read when the caller
+    just computed :func:`drift_report`. Returns the written path.
+
+    matplotlib is imported here (the Agg backend); without it this raises
+    ``RuntimeError``."""
+    from datetime import datetime, time
+    from pathlib import Path
+
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")  # headless: never require a display
+        import matplotlib.pyplot as plt
+    except ImportError as exc:
+        raise RuntimeError(
+            "rendering the drift dashboard requires matplotlib "
+            "(pip install matplotlib)"
+        ) from exc
+
+    if report is None:
+        report = drift_report(store)
+    if not report:
+        raise ValueError("no metric history to plot (run some days first)")
+
+    days = np.array([datetime.combine(row["date"], time()) for row in report],
+                    dtype="datetime64[ns]")
+
+    def column(name, scale=1.0):
+        return np.array([math.nan if _missing(row.get(name)) else float(row[name]) * scale
+                         for row in report])
+
+    fig, axes = plt.subplots(3, 1, figsize=(9, 9), sharex=True, facecolor=_SURFACE)
+
+    def _style(ax, title, ylabel):
+        ax.set_facecolor(_SURFACE)
+        ax.set_title(title, color=_INK, fontsize=11, loc="left", pad=8)
+        ax.set_ylabel(ylabel, color=_INK_2, fontsize=9)
+        ax.grid(True, color=_GRID, linewidth=0.8)
+        ax.tick_params(colors=_INK_2, labelsize=8)
+        for side in ("top", "right"):
+            ax.spines[side].set_visible(False)
+        for side in ("left", "bottom"):
+            ax.spines[side].set_color(_GRID)
+
+    line_kw = dict(linewidth=2, marker="o", markersize=5, clip_on=False)
+
+    def _series(ax, name, color, label=None, scale=1.0):
+        values = column(name, scale)
+        if name in report[0] and not np.isnan(values).all():
+            kw = {"label": label} if label else {}
+            ax.plot(days, values, color=color, **kw, **line_kw)
+
+    _series(axes[0], "MAPE_train", _TRAIN_COLOR, "train (held-out)")
+    _series(axes[0], "MAPE_live", _LIVE_COLOR, "live service")
+    _style(axes[0], "MAPE per simulated day — the drift gap", "MAPE")
+
+    _series(axes[1], "r_squared_train", _TRAIN_COLOR, "train R²")
+    _series(axes[1], "r_squared_live", _LIVE_COLOR, "live score/label corr")
+    _style(axes[1], "Fit quality per day", "R² / corr")
+
+    _series(axes[2], "mean_response_time_live", _TRAIN_COLOR, scale=1000.0)
+    _style(axes[2], "Mean scoring-service response time", "ms")
+
+    for ax in axes[:2]:
+        if ax.has_data():
+            legend = ax.legend(loc="best", fontsize=8, frameon=False, labelcolor=_INK)
+            for line in legend.get_lines():
+                line.set_linewidth(2)
+    axes[2].tick_params(axis="x", rotation=30)
+    fig.align_ylabels(axes)
+    fig.tight_layout()
+
+    out = Path(out_path)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fig.savefig(out, dpi=144, facecolor=_SURFACE, bbox_inches="tight")
+    plt.close(fig)
+    log.info(f"drift dashboard rendered to {out}")
     return out

@@ -76,10 +76,7 @@ import urllib.error
 import urllib.request
 from datetime import date, timedelta
 
-import torch
-
 from bodywork_tpu_torch.data.drift_config import DriftConfig
-from bodywork_tpu_torch.device import resolve_device
 from bodywork_tpu_torch.obs.spans import Span, SpanRecorder
 from bodywork_tpu_torch.pipeline.spec import PipelineSpec, StageSpec
 from bodywork_tpu_torch.pipeline.stages import StageContext, stage_artefact_keys
@@ -180,6 +177,8 @@ class LocalRunner:
         self.spec = spec
         self.store = store
         self.drift = drift or DriftConfig()
+        from bodywork_tpu_torch.device import resolve_device
+
         #: the device every stage computes on, worker threads included
         self.device = resolve_device(device)
         #: (date, box) handoff from a lookahead train to the next run_day
@@ -202,6 +201,8 @@ class LocalRunner:
         """Make the runner's card the current CUDA device of the calling
         thread (a worker thread starts on device 0 otherwise)."""
         if self.device.type == "cuda":
+            import torch
+
             return torch.cuda.device(self.device)
         return contextlib.nullcontext()
 
@@ -211,6 +212,8 @@ class LocalRunner:
         starts a new thread with its default team (every core) whatever
         ``torch.set_num_threads`` said in another thread, and on a busy
         host that oversubscription slowed a small MLP fit 40x."""
+        import torch
+
         torch.set_num_threads(n_threads)
 
     def _background(self, name: str, work) -> threading.Thread:
@@ -220,6 +223,8 @@ class LocalRunner:
         package's: the interpreter joins it before it tears down, where a
         daemon thread still inside a torch call aborts the process
         (``std::terminate``) instead of exiting with the run's code."""
+        import torch
+
         n_threads = torch.get_num_threads()
 
         def _target():
@@ -244,6 +249,8 @@ class LocalRunner:
             # writes out of the shared store
             epoch = EpochGuardedStore(ctx.store, label=stage.name)
             attempt_ctx = dataclasses.replace(ctx, store=epoch)
+            import torch
+
             n_threads = torch.get_num_threads()
 
             def _target(attempt_ctx=attempt_ctx, box=box):

@@ -10,15 +10,17 @@ returns a started handle the runner owns for the rest of the day.
 - ``generate_stage`` <- ``stage_3_synthetic_data_generation.main``
 - ``test_stage``     <- ``stage_4_test_model_scoring_service.main``
 
-Every stage computes on ``ctx.device``, the runner's device (the card
-unless the runner was asked for the CPU).
+The device stages compute on ``ctx.device``, the runner's device (the
+card unless the runner was asked for the CPU); a single stage run by
+``cli run-stage`` carries the device it was asked for, and only the
+stages that use one resolve it. The test stage uses none, and its whole
+path (this module, ``monitor.tester``, ``data.io``) imports no torch, so
+its pod needs no accelerator runtime.
 """
 from __future__ import annotations
 
 import dataclasses
 from datetime import date, timedelta
-
-import torch
 
 from bodywork_tpu_torch.data.drift_config import DriftConfig
 from bodywork_tpu_torch.store.base import ArtefactStore
@@ -35,8 +37,10 @@ class StageContext:
     #: the simulated "today" (the reference uses ``date.today()``;
     #: parameterising it lets a simulation run faster than real time)
     today: date
-    #: where the stages compute
-    device: torch.device
+    #: where the device stages compute: a ``torch.device``, or for a single
+    #: stage of ``cli run-stage`` the device asked for ("cuda", "cpu"),
+    #: which :func:`_device` resolves only in a stage that uses one
+    device: object
     drift: DriftConfig = dataclasses.field(default_factory=DriftConfig)
     #: service handles started earlier in the DAG, keyed by stage name
     services: dict = dataclasses.field(default_factory=dict)
@@ -60,6 +64,14 @@ class StageContext:
     #: True in a lookahead context: compute but write no artefact (the
     #: collecting day's train stage persists them at its DAG position)
     defer_artefacts: bool = False
+
+
+def _device(ctx: StageContext):
+    """The context's device, resolved (a CUDA request without a card
+    raises here, in the stage that needs the device)."""
+    from bodywork_tpu_torch.device import resolve_device
+
+    return resolve_device(ctx.device)
 
 
 def stage_artefact_keys(stage_spec, result, ctx: StageContext) -> list[str]:
@@ -110,7 +122,7 @@ def generate_stage(ctx: StageContext, offset_days: int = 1) -> str:
     if box is not None and "X" in box:
         X, y = box["X"], box["y"]
     else:
-        X, y = generate_day(target, ctx.drift, device=ctx.device)
+        X, y = generate_day(target, ctx.drift, device=_device(ctx))
     return persist_dataset(ctx.store, Dataset(X, y, target))
 
 
@@ -211,7 +223,7 @@ def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None 
     return train_on_history(
         ctx.store, model_type, model_kwargs=model_kwargs or None,
         persist=not ctx.defer_artefacts, mesh_data=mesh_data, mesh_model=mesh_model,
-        mode=mode if mode is not None else _train_env_mode(), device=ctx.device,
+        mode=mode if mode is not None else _train_env_mode(), device=_device(ctx),
     )
 
 
@@ -238,7 +250,7 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     env_engine, env_max_pending, env_retry_max, env_dtype = _serve_env_knobs()
     env_window, env_max_rows, env_buckets = _serve_tuned_env_knobs()
     served_key, served_source = resolve_serving_key(ctx.store)
-    model, model_date = load_model(ctx.store, served_key, device=ctx.device)
+    model, model_date = load_model(ctx.store, served_key, device=_device(ctx))
     buckets = buckets or env_buckets
     return serve_model(
         model, model_date, host=host, port=port, block=False, engine=engine,

@@ -369,6 +369,11 @@ class ServiceHandle:
         finally:
             self._server.server_close()
 
+    def wait(self) -> None:
+        """Block until the server thread exits: a service pod's lifetime
+        (``cli run-stage`` of a service stage)."""
+        self._thread.join()
+
     def stop(self) -> None:
         for fn in self._cleanups:
             fn()

@@ -188,7 +188,31 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``crash-sim``: ``run_crash_sim`` of 2 linear days at 2 stage boundaries
    and 2 seeded store-op points, each child killed there (exit 86) and its
    restart converging, the seconds of each point;
-9. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+9. ``deploy`` — ``cli deploy --out DIR --emit-images DIR2`` of
+   ``default_pipeline("mlp")`` with the day loop's 1024-wide MLP in a
+   fresh process whose own import log shows no pyyaml, jsonschema or
+   torch: both validator layers pass every manifest, every written file
+   loads back to the generated document, ``from_yaml(to_yaml(spec)) ==
+   spec``; the documents by kind, each pod's ``nvidia.com/gpu`` and
+   nodeSelector, the derived image tags and their base images; then
+   ``pods``: the emitted manifests run as ``kubectl apply -f`` runs them
+   on one store seeded by ``cli generate``: the train, generate and test
+   Jobs and the serve Deployment (1 replica) started at once, each its
+   initContainer's ``wait-for`` and then its container's command, read
+   from the written YAML with only the substitutions printed in
+   ``reduced`` (the interpreter, the store mount, the ConfigMap's file,
+   the Service's DNS name, and the clocks: the CronJobs run on the day
+   after the pods, as a CronJob fires on a later day); the gates must
+   order the pods, the serve pod serve on ``kernel`` with its
+   ``/healthz`` launches growing across the test Job, the test day's rows
+   agree with the served checkpoint's plain version at the ``kernel``
+   bar, the test Job's process import no torch (its own import log), and
+   SIGTERM end the serve pod as it ends the JAX command; each pod's gate
+   wait, start-up and body seconds and the pods' day beside the
+   in-process day; then ``pods-cronjobs``: each CronJob's command once,
+   the drift gate (exit 0 or 4 and its table), ``compact``, the ``fsck``
+   scrub (clean) and ``run-day`` of the next date, served on ``kernel``;
+10. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -3419,6 +3443,378 @@ def phase_crash_sim(torch, dev, workdir: str) -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _pods_spec(port: int):
+    """The deployed spec: ``default_pipeline("mlp")`` whose train stage
+    carries the day loop's 1024-wide MLP and its Adam settings, serving on
+    ``port``."""
+    from bodywork_tpu_torch.pipeline import default_pipeline
+
+    spec = default_pipeline("mlp", "batch", port=port)
+    spec.stages["stage-1-train-model"].args.update({**LOOP_MLP, "hidden": list(HIDDEN)})
+    return spec
+
+
+def _deploy(workdir: str, spec) -> dict:
+    """``cli deploy --emit-images`` of ``spec`` in a fresh process, with the
+    modules it imported (``-X importtime``)."""
+    spec_file = os.path.join(workdir, "pipeline.yaml")
+    with open(spec_file, "w") as f:
+        f.write(spec.to_yaml())
+    out, images = os.path.join(workdir, "k8s"), os.path.join(workdir, "images")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m", "bodywork_tpu_torch.cli", "deploy",
+         "--out", out, "--emit-images", images, "--spec", spec_file],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True,
+        timeout=300)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"deploy exited {proc.returncode}: {proc.stderr[-3000:]}")
+    modules = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+               for line in proc.stderr.splitlines() if line.startswith("import time:")}
+    return {"out": out, "images": images, "spec_file": spec_file, "seconds": seconds,
+            "modules": modules}
+
+
+def phase_deploy(torch, dev, workdir: str) -> dict:
+    """``deploy``: ``python -m bodywork_tpu_torch.cli deploy --out DIR
+    --emit-images DIR2`` of the 1024-wide MLP pipeline in a fresh process
+    that imports no pyyaml, jsonschema or torch (its own import log says
+    so): both validator layers pass every manifest, every written file
+    loads back (the port's YAML reader) to the generated document, the
+    ConfigMap holds ``to_yaml(spec)`` and ``from_yaml(to_yaml(spec)) ==
+    spec``; the documents by kind, each pod's ``nvidia.com/gpu`` and
+    nodeSelector, and the derived image tags."""
+    import importlib.util
+
+    from bodywork_tpu_torch.pipeline import PipelineSpec, _yaml, generate_manifests
+    from bodywork_tpu_torch.pipeline.images import stage_image_tag
+    from bodywork_tpu_torch.pipeline.k8s_schema import validate_against_k8s_schema
+    from bodywork_tpu_torch.pipeline.k8s_validate import validate_manifest
+
+    spec = _pods_spec(5000)
+    run = _deploy(workdir, spec)
+    banned = sorted(run["modules"] & {"yaml", "jsonschema", "torch", "matplotlib", "pandas"})
+    docs = generate_manifests(spec)
+    written = sorted(os.listdir(run["out"]))
+    errors, mismatched = [], []
+    for name in written:
+        with open(os.path.join(run["out"], name)) as f:
+            loaded = _yaml.load(f.read())
+        if loaded != docs.get(name):
+            mismatched.append(name)
+        errors += validate_manifest(loaded, name) + validate_against_k8s_schema(loaded, name)
+    kinds: dict = {}
+    for doc in docs.values():
+        kinds[doc["kind"]] = kinds.get(doc["kind"], 0) + 1
+    pods = {}
+    for name, doc in docs.items():
+        spec_of = doc["spec"]["jobTemplate"]["spec"] if doc["kind"] == "CronJob" else doc.get("spec")
+        pod = (spec_of or {}).get("template", {}).get("spec")
+        if pod:
+            pods[name] = {"gpu": pod["containers"][0]["resources"].get("limits", {}).get(
+                "nvidia.com/gpu", 0), "node_selector": pod.get("nodeSelector")}
+    tags = {name: stage_image_tag(stage, "bodywork-tpu/runtime:latest")
+            for name, stage in spec.stages.items()}
+    bases = {}
+    for name in spec.stages:
+        with open(os.path.join(run["images"], name, "Dockerfile")) as f:
+            bases[name] = next(line[5:] for line in f.read().splitlines()
+                               if line.startswith("FROM "))
+    configmap = docs["00-pipeline-spec-configmap.yaml"]["data"]["pipeline.yaml"]
+    out = {"files": len(written), "kinds": kinds, "pods": pods, "image_tags": tags,
+           "image_bases": bases, "seconds": run["seconds"],
+           "banned_modules_imported": banned,
+           "pyyaml_installed_here": importlib.util.find_spec("yaml") is not None,
+           "validator_errors": errors, "files_not_loading_back": mismatched,
+           "spec_round_trips": PipelineSpec.from_yaml(spec.to_yaml()) == spec,
+           "configmap_is_the_spec": configmap == spec.to_yaml()}
+    emit("deploy", **out)
+    if (banned or errors or mismatched or written != sorted(docs) or not out["spec_round_trips"]
+            or not out["configmap_is_the_spec"]):
+        raise RuntimeError(f"deploy: {out}")
+    return out
+
+
+#: the pods' clocks: POSIX TZ strings with no zoneinfo needed. The pods run
+#: on one date and the CronJobs' day loop on the next, as a CronJob fires
+#: on a later day: with the UTC hour >= 10 the pods run in UTC and the
+#: CronJobs at UTC+14; before, the pods at UTC-12 and the CronJobs in UTC
+_TZ_OFFSETS = {"UTC0": 0, "BEHIND12": -12, "AHEAD-14": 14}
+
+
+def _clock_date(tz: str) -> date:
+    from datetime import datetime, timezone
+
+    return (datetime.now(timezone.utc) + timedelta(hours=_TZ_OFFSETS[tz])).date()
+
+
+def _log_epoch(path: str, pattern: str, tz: str) -> float | None:
+    """Wall time of the first log line of ``path`` matching ``pattern``
+    (the port's log lines begin with the local time in ``tz``)."""
+    import re
+    from datetime import datetime, timezone
+
+    with open(path) as f:
+        for line in f:
+            if re.search(pattern, line):
+                stamp = datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f")
+                zone = timezone(timedelta(hours=_TZ_OFFSETS[tz]))
+                return stamp.replace(tzinfo=zone).timestamp()
+    return None
+
+
+def _manifest_commands(out_dir: str, store: str, spec_file: str, stage_dns: str) -> dict:
+    """Each written manifest's init and main commands and env, with the
+    allowed substitutions: ``python`` -> this interpreter, the store
+    mount -> ``store``, the ConfigMap's file -> ``spec_file``, the serve
+    Service's DNS name -> 127.0.0.1."""
+    from bodywork_tpu_torch.pipeline import _yaml
+
+    def swap(arg: str) -> str:
+        if arg == "python":
+            return sys.executable
+        return (arg.replace("/etc/bodywork/pipeline.yaml", spec_file)
+                .replace("/mnt/artefact-store", store).replace(stage_dns, "127.0.0.1"))
+
+    commands = {}
+    for name in sorted(os.listdir(out_dir)):
+        with open(os.path.join(out_dir, name)) as f:
+            doc = _yaml.load(f.read())
+        if doc["kind"] not in ("Job", "Deployment", "CronJob"):
+            continue
+        spec = doc["spec"]["jobTemplate"]["spec"] if doc["kind"] == "CronJob" else doc["spec"]
+        pod = spec["template"]["spec"]
+        container = pod["containers"][0]
+        init = pod.get("initContainers", [])
+        commands[name] = {
+            "kind": doc["kind"],
+            "init": [swap(a) for a in init[0]["command"]] if init else None,
+            "command": [swap(a) for a in container["command"]],
+            "env": {e["name"]: e["value"] for e in container.get("env", [])},
+            "replicas": spec.get("replicas"),
+        }
+    return commands
+
+
+def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) -> dict:
+    """``pods``: the emitted manifests run as ``kubectl apply -f`` runs
+    them, on one store directory, every pod started at once: the train,
+    generate and test Jobs and the serve Deployment, each its
+    initContainer's ``wait-for`` then its container's command, both read
+    from the written YAML, with only the substitutions printed in
+    ``reduced``. The store holds one day made by ``cli generate``, as an
+    operator seeds it. The gates must order the pods (train after the
+    dataset, serve after the model, generate after ``/healthz``, test
+    after the new dataset), each exiting 0; the serve pod serves on
+    ``kernel`` and its ``/healthz`` launches grow across the test Job; the
+    test day's rows POSTed to it agree with the served checkpoint's plain
+    version at the ``kernel`` bar; the test Job's process imported no
+    torch (its own import log); SIGTERM ends the serve pod as it ends the
+    JAX command (no handler). Then each CronJob's command once: the drift
+    gate (exit 0 or 4, its table), ``compact``, the ``fsck`` scrub (clean)
+    and the day loop for the next date in a fresh process. Each pod's
+    seconds: gate wait, process start to the stage body, the body."""
+    import signal
+    import threading
+
+    from bodywork_tpu_torch.models.checkpoint import load_model
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply, mlp_stack_plain
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.store.schema import dataset_key, model_key, test_metrics_key
+
+    pods_tz, cron_tz = ("UTC0", "AHEAD-14") if time.gmtime().tm_hour >= 10 else ("BEHIND12", "UTC0")
+    day = _clock_date(pods_tz)
+    port = _free_port()
+    spec = _pods_spec(port)
+    run = _deploy(workdir, spec)
+    store_dir = os.path.join(workdir, "store")
+    configmap = os.path.join(workdir, "configmap-pipeline.yaml")
+    with open(os.path.join(run["out"], "00-pipeline-spec-configmap.yaml")) as f:
+        from bodywork_tpu_torch.pipeline import _yaml
+
+        with open(configmap, "w") as g:
+            g.write(_yaml.load(f.read())["data"]["pipeline.yaml"])
+    commands = _manifest_commands(run["out"], store_dir, configmap,
+                                  spec.service_dns("stage-2-serve-model"))
+    reduced = {
+        "python": sys.executable, "/mnt/artefact-store": "the phase's store directory",
+        "/etc/bodywork/pipeline.yaml": "the ConfigMap's data written to a file",
+        spec.service_dns("stage-2-serve-model"): f"127.0.0.1 (port {port}, free at generate)",
+        "serve replicas": "2 -> 1",
+        "clocks": f"pods TZ={pods_tz} (day {day}), CronJobs TZ={cron_tz} (the next day)",
+        "test Job env": "PYTHONPROFILEIMPORTTIME=1 (its own import log)",
+    }
+    seed = _cli(["generate", "--store", store_dir, "--date", str(day)])
+    if seed["rc"] != 0:
+        raise RuntimeError(f"seeding the store failed: {seed['err'][-2000:]}")
+    base = f"http://127.0.0.1:{port}"
+    env = {**os.environ, "PYTHONPATH": ROOT, "TZ": pods_tz}
+    jobs = {"train": "01-stage-1-train-model-job.yaml", "serve":
+            "02-stage-2-serve-model-deployment.yaml",
+            "generate": "03-stage-3-generate-next-dataset-job.yaml",
+            "test": "04-stage-4-test-model-scoring-service-job.yaml"}
+    recs = {name: {} for name in jobs}
+    health_across_test = {}
+
+    def pod(name: str) -> None:
+        rec, c = recs[name], commands[jobs[name]]
+        try:
+            pod_env = {**env, **c["env"]}
+            if name == "test":
+                pod_env["PYTHONPROFILEIMPORTTIME"] = "1"
+            rec["started"] = time.time()
+            if c["init"]:
+                gate = subprocess.run(c["init"], cwd=ROOT, env=pod_env, capture_output=True,
+                                      text=True, timeout=600)
+                rec["gate_rc"], rec["gate_end"] = gate.returncode, time.time()
+                if gate.returncode != 0:
+                    rec["error"] = f"gate exited {gate.returncode}: {gate.stderr[-1000:]}"
+                    return
+            if name == "test":
+                health_across_test["before"] = get(base + "/healthz")
+            rec["log"] = os.path.join(workdir, f"{name}.log")
+            with open(rec["log"], "w") as log:
+                rec["proc_start"] = time.time()
+                proc = subprocess.Popen(c["command"], cwd=ROOT, env=pod_env,
+                                        stdout=subprocess.DEVNULL, stderr=log)
+                rec["proc"] = proc
+                if name == "serve":
+                    return
+                rec["rc"] = proc.wait(timeout=900)
+                rec["exited"] = time.time()
+            if name == "test":
+                health_across_test["after"] = get(base + "/healthz")
+        except Exception as exc:  # noqa: BLE001 - reported below
+            rec["error"] = repr(exc)
+
+    t_pods = time.time()
+    threads = [threading.Thread(target=pod, args=(n,)) for n in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    serve = recs["serve"].get("proc")
+    try:
+        failed = {n: r.get("error") or r.get("rc") for n, r in recs.items()
+                  if r.get("error") or (n != "serve" and r.get("rc") != 0)}
+        if failed or serve is None or serve.poll() is not None:
+            logs = {n: open(r["log"]).read()[-1500:] for n, r in recs.items() if r.get("log")}
+            raise RuntimeError(f"pods failed: {failed}; serve alive: "
+                               f"{serve is not None and serve.poll() is None}; logs {logs}")
+        store = open_store(store_dir)
+        expected = [dataset_key(day), model_key(day), dataset_key(day + timedelta(days=1)),
+                    test_metrics_key(day + timedelta(days=1))]
+        missing = [k for k in expected if not store.exists(k)]
+        if missing:
+            cause = (" (the clock crossed midnight during the phase)"
+                     if _clock_date(pods_tz) != day else "")
+            raise RuntimeError(f"the pods' day {day} left no {missing}{cause}")
+        mtime = lambda key: os.path.getmtime(os.path.join(store_dir, key))  # noqa: E731
+        ready = _log_epoch(recs["serve"]["log"], "listening on", pods_tz)
+        order = {
+            "train_after_dataset": recs["train"]["gate_end"] >= mtime(dataset_key(day)),
+            "serve_after_model": recs["serve"]["gate_end"] >= mtime(model_key(day)),
+            "generate_after_healthz": ready is not None and recs["generate"]["gate_end"] >= ready,
+            "test_after_new_dataset":
+                recs["test"]["gate_end"] >= mtime(dataset_key(day + timedelta(days=1))),
+        }
+        seconds = {}
+        for name, rec in recs.items():
+            body = _log_epoch(rec["log"], r"cli\.cmd_run_stage - run-stage ", pods_tz)
+            end = ready if name == "serve" else rec["exited"]
+            seconds[name] = {"gate_wait_s": rec["gate_end"] - rec["started"],
+                             "start_to_body_s": None if body is None else body - rec["proc_start"],
+                             "body_s": None if body is None or end is None else end - body}
+        day_s = recs["test"]["exited"] - t_pods
+        with open(recs["test"]["log"]) as f:
+            test_log = f.read()
+        test_torch = sorted({line.rsplit("|", 1)[-1].strip() for line in test_log.splitlines()
+                             if line.startswith("import time:")
+                             and line.rsplit("|", 1)[-1].strip().split(".")[0] == "torch"})
+        imported_any = "import time:" in test_log
+        before, after = health_across_test["before"], health_across_test["after"]
+        health = get(base + "/healthz")
+        # the test day's rows through the serve pod, against the plain
+        # version of the checkpoint it serves
+        from bodywork_tpu_torch.data import load_latest_dataset
+
+        tested = load_latest_dataset(store)
+        got = torch.tensor(post(base + "/score/v1/batch", {"X": tested.X[:, 0].tolist()})[
+            "predictions"], device=dev)
+        model, _ = load_model(store, health["model_key"], device=dev)
+        apply = make_kernel_mlp_apply(model.params, dev)
+        want = mlp_stack_plain(apply.layers, torch.as_tensor(tested.X, device=dev), None)
+        err, rel = rel_err(got, want)
+        launches = health["launches"]
+    finally:
+        if serve is not None and serve.poll() is None:
+            serve.send_signal(signal.SIGTERM)
+        serve_rc = serve.wait(timeout=60) if serve is not None else None
+    pods_out = {
+        "day": str(day), "reduced": reduced, "order": order, "seconds": seconds,
+        "day_s": day_s, "in_process_day_s": in_process_day_s,
+        "serve": {"engine": health["engine"], "device": health["device"],
+                  "model_key": health["model_key"],
+                  "launches_before_test": before["launches"],
+                  "launches_after_test": after["launches"], "launches": launches,
+                  "sigterm_exit": serve_rc},
+        "answers": {"rows": int(tested.X.shape[0]), "rows_of": str(tested.date),
+                    "max_abs_err": err, "err_over_scale": rel, "bar": BARS["kernel"]},
+        "test_job_imported_torch": test_torch, "test_job_import_log": imported_any,
+    }
+    emit("pods", **pods_out)
+    if (not all(order.values()) or health["engine"] != "kernel"
+            or not after["launches"] > before["launches"] or rel >= BARS["kernel"]
+            or not bool(torch.isfinite(got).all()) or test_torch or not imported_any
+            or serve_rc != -signal.SIGTERM):
+        raise RuntimeError(f"pods: {pods_out}")
+
+    # the CronJobs' commands, once each, on the next day's clock
+    cron_env = {**os.environ, "PYTHONPATH": ROOT, "TZ": cron_tz}
+    cron = {}
+    for name in ("99-drift-gate-cronjob.yaml", "99-compact-history-cronjob.yaml",
+                 "99-store-scrub-cronjob.yaml", "99-daily-loop-cronjob.yaml"):
+        c = commands[name]
+        t0 = time.perf_counter()
+        proc = subprocess.run(c["command"], cwd=ROOT, env={**cron_env, **c["env"]},
+                              capture_output=True, text=True, timeout=900)
+        cron[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                      "out": proc.stdout, "err": proc.stderr}
+    gate, scrub, loop_day = (cron["99-drift-gate-cronjob.yaml"],
+                             cron["99-store-scrub-cronjob.yaml"],
+                             cron["99-daily-loop-cronjob.yaml"])
+    next_day = day + timedelta(days=1)
+    fsck = json.loads(scrub["out"]) if scrub["rc"] == 0 else None
+    served = _served(loop_day["out"])
+    cron_out = {
+        "drift_gate": {"exit": gate["rc"], "table": gate["out"].splitlines(),
+                       "verdict": [l for l in gate["err"].splitlines() if l.startswith("DRIFT")]},
+        "compact": {"exit": cron["99-compact-history-cronjob.yaml"]["rc"],
+                    "out": cron["99-compact-history-cronjob.yaml"]["out"].strip()},
+        "fsck": {"exit": scrub["rc"], "findings": None if fsck is None else len(fsck["findings"]),
+                 "keys_scanned": None if fsck is None else fsck["keys_scanned"]},
+        "run_day": {"exit": loop_day["rc"], "day": str(next_day),
+                    "day_s": _day_seconds(loop_day["out"], next_day), "served": served},
+        "seconds": {name: c["seconds"] for name, c in cron.items()},
+    }
+    emit("pods-cronjobs", **cron_out)
+    if (gate["rc"] not in (0, 4) or cron["99-compact-history-cronjob.yaml"]["rc"] != 0
+            or fsck is None or fsck["findings"] or loop_day["rc"] != 0 or served is None
+            or served["engine"] != "kernel" or cron_out["run_day"]["day_s"] is None):
+        raise RuntimeError(f"pods CronJobs: {cron_out} {loop_day['err'][-2000:]}")
+    return {"launches": {"kernel": launches, "kernel-bf16": 0, "kernel-int8": 0},
+            "run_day_launches": served["launches_by_kernel"]}
+
+
 def phase_profile(torch, dev, workdir: str) -> dict:
     """``profile``: ``cli run-sim --profile-dir`` of the 1024-wide MLP for
     2 days, its fits cut to PROFILE_SIM's steps, between two unprofiled
@@ -3728,7 +4124,7 @@ def main(argv=None) -> int:
         "--phases",
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
                 "canary,ab,day-loop,incremental,quantized,resume,sigterm,day-report,profile,"
-                "audit,chaos-sim,bit-rot,crash-sim,timing",
+                "audit,chaos-sim,bit-rot,crash-sim,deploy,pods,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -3765,10 +4161,10 @@ def main(argv=None) -> int:
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled = {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
-    audited, chaos_sim, bit_rot = {}, {}, {}
+    audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
     for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "ab", "day-loop",
                   "incremental", "resume", "sigterm", "day-report", "profile", "audit",
-                  "chaos-sim", "bit-rot", "crash-sim"):
+                  "chaos-sim", "bit-rot", "crash-sim", "deploy", "pods"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -3799,6 +4195,11 @@ def main(argv=None) -> int:
                 bit_rot = phase_bit_rot(torch, dev, workdir)
             elif phase == "crash-sim":
                 phase_crash_sim(torch, dev, workdir)
+            elif phase == "deploy":
+                phase_deploy(torch, dev, workdir)
+            elif phase == "pods":
+                podded = phase_pods(torch, dev, workdir, in_process_day_s=(
+                    loop["mlp"]["median_days_2_7_s"] if loop else None))
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
             elif phase == "resume":
@@ -3852,6 +4253,11 @@ def main(argv=None) -> int:
                                       ("bit-rot", bit_rot, "launches")):
                 if result:
                     by_path[path] = result[key][engine]
+            # the serve pod's launches, read from its /healthz, and the
+            # next day's run-day CronJob process's, read from its output
+            if podded:
+                by_path["pods"] = podded["launches"][engine]
+                by_path["pods-run-day"] = podded["run_day_launches"].get(engine, 0)
             kernels.append({
                 "name": engine, "route": "cuda", "source": SOURCES[engine],
                 "replaces": REPLACES[engine], "launches": sum(by_path.values()),

@@ -39,9 +39,16 @@ import bodywork_tpu_torch.audit.manifest, bodywork_tpu_torch.tenancy
 import bodywork_tpu_torch.store.resilient, bodywork_tpu_torch.store.gcs
 import bodywork_tpu_torch.chaos.store, bodywork_tpu_torch.chaos.http
 import bodywork_tpu_torch.chaos.sim, bodywork_tpu_torch.chaos.bitrot
+import bodywork_tpu_torch.pipeline._yaml, bodywork_tpu_torch.pipeline.spec
+import bodywork_tpu_torch.pipeline.images, bodywork_tpu_torch.pipeline.k8s
+import bodywork_tpu_torch.pipeline.k8s_schema, bodywork_tpu_torch.pipeline.k8s_validate
+import bodywork_tpu_torch.utils.errors
 import chip_smoke
+# nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
+# standard library, numpy and torch alone
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu", "yaml", "jsonschema",
+                                    "matplotlib", "sentry_sdk"))
 print(",".join(bad))
 sys.exit(1 if bad else 0)
 """
@@ -88,4 +95,36 @@ def test_no_source_file_imports_jax_or_the_jax_package(path):
     roots = _imported_roots(path)
     assert not roots & {"jax", "jaxlib", "optax", "bodywork_tpu"}, roots
     # nor the serving dependencies the card's machine does not have
-    assert not roots & {"pandas", "werkzeug", "requests", "yaml", "flask"}, roots
+    assert not roots & {"pandas", "werkzeug", "requests", "yaml", "flask", "jsonschema"}, roots
+
+
+def _module_level_roots(path: Path) -> set[str]:
+    """Roots imported at module level (outside any function or class)."""
+    roots = set()
+    for node in ast.parse(path.read_text(), filename=str(path)).body:
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_optional_libraries_are_imported_only_where_used(path):
+    """matplotlib (the dashboard) and sentry_sdk (error monitoring) load
+    lazily, inside the function that needs them."""
+    assert not _module_level_roots(path) & {"matplotlib", "sentry_sdk"}
+
+
+#: the test stage's run-stage chain, which its pod runs with no torch
+_TORCH_FREE = ["cli.py", "pipeline/__init__.py", "pipeline/runner.py", "pipeline/stages.py",
+               "pipeline/spec.py", "pipeline/_yaml.py", "pipeline/images.py",
+               "pipeline/k8s.py", "pipeline/k8s_schema.py", "pipeline/k8s_validate.py",
+               "pipeline/ab.py", "pipeline/journal.py", "monitor/__init__.py",
+               "monitor/tester.py", "monitor/analytics.py", "data/__init__.py", "data/io.py",
+               "utils/errors.py"]
+
+
+@pytest.mark.parametrize("name", _TORCH_FREE)
+def test_the_test_stage_chain_imports_no_torch_at_module_level(name):
+    assert "torch" not in _module_level_roots(ROOT / "bodywork_tpu_torch" / name)
