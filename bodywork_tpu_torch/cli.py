@@ -176,6 +176,32 @@ def _env_number(name: str, cast, minimum):
                       warn=lambda msg: print(f"warning: {msg}", file=sys.stderr))
 
 
+def _env_paths(name: str) -> list:
+    """A repeatable path flag's default from the environment: a
+    colon-separated list (a Deployment cannot repeat a flag through one
+    env var); empty segments drop."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return []
+    return [p for p in raw.split(":") if p.strip()]
+
+
+def _env_flag(name: str) -> bool:
+    """A boolean flag's default from the environment: a malformed value
+    is ignored (False) with a note on stderr."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return False
+    value = raw.strip().lower()
+    if value in ("1", "true", "yes", "on"):
+        return True
+    if value in ("", "0", "false", "no", "off"):
+        return False
+    print(f"warning: ignoring {name}={raw!r} (expected a boolean like 1/0/true/false)",
+          file=sys.stderr)
+    return False
+
+
 def _bucket_list(raw: str) -> tuple[int, ...]:
     """``--buckets``: comma-separated positive ints."""
     from bodywork_tpu_torch.utils.env import bucket_list
@@ -201,7 +227,7 @@ def cmd_serve(args) -> int:
     batch_window = (args.batch_window_ms
                     if args.batch_window_ms is not None and args.batch_window_ms >= 0
                     else None)
-    if args.batch_max_rows and not batch_window:
+    if args.batch_max_rows and not batch_window and not args.tuned_config:
         log.warning("--batch-max-rows has no effect without --batch-window-ms; "
                     "request coalescing stays OFF")
     # serve_latest_model drains on a SIGTERM while serving (admission
@@ -215,6 +241,10 @@ def cmd_serve(args) -> int:
                 batch_max_rows=args.batch_max_rows, server_engine=args.server_engine,
                 max_pending=args.max_pending, retry_after_max_s=args.retry_after_max_s,
                 watch_interval_s=args.reload_interval or None,
+                tuned_config=args.tuned_config, online_tune=args.online_tune,
+                tune_request_logs=tuple(args.tune_request_log or ()),
+                tune_results_logs=tuple(args.tune_results_log or ()),
+                cost_budget_s=args.cost_budget_s,
             )
         except ShutdownRequested:
             log.warning("SIGTERM during service startup; exiting")
@@ -963,6 +993,201 @@ def cmd_chaos_canary(args) -> int:
 FSCK_FINDINGS_EXIT = 7
 
 
+def _tune_status(store) -> int:
+    """``cli tune status``: the active tuned config (digest, the
+    observation window it was fitted from, each knob's source: tuned,
+    default or env-override) and the config log's applied/reverted
+    history. Exit 1 on a corrupt config log or active document: corrupt
+    must never read as defaults."""
+    from bodywork_tpu_torch.registry.configlog import ConfigLogCorrupt, read_config_log
+    from bodywork_tpu_torch.tune.config import (
+        KNOB_DEFAULTS,
+        TUNED_KNOB_ENV,
+        _resolve_ref,
+        load_tuned_config,
+    )
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    try:
+        log_doc = read_config_log(store)
+    except ConfigLogCorrupt as exc:
+        log.error(str(exc))
+        return 1
+    # the config log's active entry where the online controller wrote
+    # one, else the newest tuned document (what `--tuned-config latest`
+    # would serve)
+    if log_doc is not None and log_doc.get("active"):
+        active_key = log_doc["active"]["key"]
+    else:
+        active_key = _resolve_ref(store, "latest")
+    knobs = digest = doc = None
+    if active_key is not None:
+        knobs, digest, doc = load_tuned_config(store, active_key)
+        if doc is None:
+            log.error(f"active tuned config {active_key!r} is unreadable or "
+                      "fails validation")
+            return 1
+    per_knob = {}
+    for knob, env_name in TUNED_KNOB_ENV.items():
+        if os.environ.get(env_name, "").strip():
+            per_knob[knob] = {"source": "env-override",
+                              "value": os.environ[env_name].strip()}
+        elif knobs is not None and knob in knobs:
+            per_knob[knob] = {"source": "tuned", "value": knobs[knob]}
+        else:
+            default = KNOB_DEFAULTS.get(knob)
+            per_knob[knob] = {"source": "default",
+                              "value": list(default) if isinstance(default, tuple)
+                              else default}
+    out = {
+        "active": ({"key": active_key, "digest": digest,
+                    "observations": doc.get("observations"),
+                    "cost_model": doc.get("cost_model")}
+                   if doc is not None else None),
+        "knobs": per_knob,
+        "config_log": ({"rev": log_doc.get("rev"), "last_op": log_doc.get("last_op"),
+                        "previous": (log_doc["previous"]["digest"]
+                                     if log_doc.get("previous") else None),
+                        "history": log_doc.get("history")}
+                       if log_doc is not None else None),
+    }
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def cmd_tune(args) -> int:
+    """Fit the serving knobs from observed traces: ingest ``traffic run``
+    request and results logs, obs snapshots and day reports into one
+    observation table, probe the serving checkpoint's per-bucket
+    dispatch cost on ``--device`` (the card unless asked for the CPU),
+    fit the learned cost model on the probe's curve and the knobs on the
+    table, and persist the tuned config under ``tuning/`` (what ``serve
+    --tuned-config latest`` consumes). stdout is one JSON document; exit
+    1 when there is nothing to ingest. ``tune status`` reports the active
+    config instead (:func:`_tune_status`)."""
+    from bodywork_tpu_torch.obs.spans import SpanRecorder, write_chrome_trace
+    from bodywork_tpu_torch.registry.records import RegistryCorrupt
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.store.base import ArtefactNotFound
+    from bodywork_tpu_torch.tune.collect import (
+        ObservationTable,
+        ingest_day_report,
+        ingest_obs_snapshot,
+        ingest_request_log,
+        ingest_results_log,
+    )
+    from bodywork_tpu_torch.tune.config import KNOB_DEFAULTS, write_tuned_config
+    from bodywork_tpu_torch.tune.model import fit_tuned_config
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    store = open_store(args.store)
+    if args.action == "status":
+        return _tune_status(store)
+    device = None
+    if args.probe:
+        from bodywork_tpu_torch.device import resolve_device
+
+        device = resolve_device(args.device)  # no card and no --device cpu: raises
+    table = ObservationTable()
+    try:
+        for path in args.traffic_log:
+            n = ingest_request_log(table, path)
+            log.info(f"ingested {n} scheduled requests from {path}")
+        for path in args.results_log:
+            n = ingest_results_log(table, path)
+            log.info(f"ingested {n} request outcomes from {path}")
+        for path in args.obs_snapshot:
+            ingest_obs_snapshot(table, path)
+            log.info(f"ingested obs snapshot {path}")
+        for path in args.day_report:
+            ingest_day_report(table, path)
+            log.info(f"ingested day report {path}")
+    except (OSError, ValueError, KeyError) as exc:
+        log.error(f"trace ingestion failed: {exc}")
+        return 1
+    n_features = None
+    if args.probe:
+        from bodywork_tpu_torch.tune.collect import probe_dispatch_costs
+
+        try:
+            table.dispatch_cost_s = probe_dispatch_costs(
+                store, tuple(args.probe_buckets), reps=args.probe_reps, device=device)
+            table.sources.append("dispatch_probe")
+        except (ArtefactNotFound, RegistryCorrupt) as exc:
+            # no serviceable checkpoint: the probe is one evidence source,
+            # not a precondition (a device fault still raises)
+            log.warning(f"dispatch-cost probe unavailable ({exc!r}); "
+                        "fitting from passive traces only")
+        else:
+            from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
+
+            n_features = load_model(store, resolve_serving_key(store)[0],
+                                    device=device)[0].n_features or 1
+    cost_model_out = None
+    if table.dispatch_cost_s and n_features is not None and not args.dry_run:
+        # the measured curve is also the learned cost model's training
+        # data: fitted and persisted beside the tuned config, so the
+        # online controller and the cost-priced shed can price what the
+        # probe never measured (a curve below MIN_SAMPLES rungs skips)
+        from bodywork_tpu_torch.tune.costmodel import (
+            fit_cost_model,
+            samples_from_probe,
+            write_cost_model,
+        )
+
+        try:
+            cm_doc = fit_cost_model(samples_from_probe(table.dispatch_cost_s, n_features))
+        except ValueError as exc:
+            log.warning(f"cost-model fit skipped ({exc!r})")
+        else:
+            cm_key, cm_digest = write_cost_model(store, cm_doc, _date(args))
+            cost_model_out = {"key": cm_key, "digest": cm_digest,
+                              "holdout": cm_doc["holdout"]}
+            log.info(f"cost model -> {cm_key} (holdout mean rel err "
+                     f"{cm_doc['holdout']['mean_rel_err']:.3f})")
+    if not table.sources:
+        log.error("nothing to tune from: no traces ingested and no probe — "
+                  "pass --traffic-log/--results-log/--obs-snapshot/"
+                  "--day-report or point --store at a store with a "
+                  "serviceable checkpoint")
+        return 1
+    recorder = SpanRecorder(label="tune")
+    doc = fit_tuned_config(table, recorder=recorder)
+    if args.trace_out:
+        write_chrome_trace(args.trace_out, recorder.spans())
+        log.info(f"decision trace -> {args.trace_out}")
+    out: dict = {
+        "knobs": doc["knobs"],
+        "defaults": {k: (list(v) if isinstance(v, tuple) else v)
+                     for k, v in KNOB_DEFAULTS.items()},
+        "decisions": doc["decisions"],
+        "observations": doc["observations"],
+        "cost_model": cost_model_out,
+    }
+    if args.dry_run:
+        out["key"] = None
+        out["dry_run"] = True
+    elif not doc["knobs"]:
+        # every knob kept its default: nothing for serving to consume
+        log.warning("no knob left its default (insufficient evidence) — "
+                    "nothing persisted; see the decision trace for what was "
+                    "missing")
+        out["key"] = None
+        out["nothing_fitted"] = True
+    else:
+        try:
+            key, digest = write_tuned_config(store, doc, day=_date(args))
+        except (OSError, ValueError) as exc:
+            log.error(f"failed to persist tuned config: {exc}")
+            return 1
+        out["key"] = key
+        out["digest"] = digest
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def cmd_fsck(args) -> int:
     """Full-store integrity scrub: every prefix of the schema verified
     against its write-time digest evidence and the reference graph; with
@@ -1313,6 +1538,80 @@ def build_parser() -> argparse.ArgumentParser:
              "live canary on each poll (0 disables; the service then serves its "
              "boot-time model until restart)",
     )
+    p.add_argument(
+        "--tuned-config", metavar="REF",
+        default=os.environ.get("BODYWORK_TPU_TUNED_CONFIG", "").strip() or None,
+        help="serve with a fitted knob set from `cli tune`: a tuning/ store key or "
+             "'latest' (env BODYWORK_TPU_TUNED_CONFIG overrides). Tuned values fill "
+             "every knob not set explicitly (window/max-rows/buckets/max-pending); a "
+             "missing or malformed document degrades to the built-in defaults with a "
+             "warning, never a failed boot",
+    )
+    p.add_argument(
+        "--online-tune", action="store_true",
+        default=_env_flag("BODYWORK_TPU_TUNE_ONLINE"),
+        help="arm the online re-tune controller on the reload-watcher loop: "
+             "incremental drift detection over the --tune-*-log files, mid-flight knob "
+             "refits under a config guard that reverts a regressing config in one CAS. "
+             "Requires --reload-interval > 0 (env BODYWORK_TPU_TUNE_ONLINE=1 overrides)",
+    )
+    p.add_argument(
+        "--tune-request-log", action="append", metavar="FILE",
+        default=_env_paths("BODYWORK_TPU_TUNE_REQUEST_LOGS"),
+        help="a growing `traffic run` request log the online controller watches "
+             "incrementally; repeatable (env BODYWORK_TPU_TUNE_REQUEST_LOGS "
+             "colon-separated)",
+    )
+    p.add_argument(
+        "--tune-results-log", action="append", metavar="FILE",
+        default=_env_paths("BODYWORK_TPU_TUNE_RESULTS_LOGS"),
+        help="a growing `traffic run --results-out` outcome log the online "
+             "controller watches incrementally; repeatable (env "
+             "BODYWORK_TPU_TUNE_RESULTS_LOGS colon-separated)",
+    )
+    p.add_argument(
+        "--cost-budget-s", type=float, metavar="S",
+        default=_env_number("BODYWORK_TPU_COST_BUDGET_S", float, 0.0),
+        help="arm admission's cost-priced shed: bound the estimated dispatch-seconds "
+             "of admitted-and-unfinished work, priced per request by the latest "
+             "learned cost model under tuning/ (env BODYWORK_TPU_COST_BUDGET_S "
+             "overrides; requires admission to be armed)",
+    )
+
+    p = sub.add_parser("tune", help="fit the serving knobs from observed traces; "
+                                    "`tune status` reports the active config and the "
+                                    "apply/revert history")
+    p.set_defaults(fn=cmd_tune)
+    p.add_argument(
+        "action", nargs="?", default="fit", choices=["fit", "status"],
+        help="fit (default): ingest traces and write a tuned config; status: print "
+             "the active tuned config (digest, source window, per-knob source incl. "
+             "env overrides) and the online controller's applied/reverted history "
+             "from the config log — exit 1 on a corrupt document",
+    )
+    p.add_argument("--store", **store)
+    p.add_argument("--date", default=None,
+                   help="date key for the tuned document (default: today)")
+    p.add_argument("--traffic-log", action="append", default=[], metavar="FILE",
+                   help="a `traffic run --log-out` request log to ingest; repeatable")
+    p.add_argument("--results-log", action="append", default=[], metavar="FILE",
+                   help="a `traffic run --results-out` outcome log to ingest; repeatable")
+    p.add_argument("--obs-snapshot", action="append", default=[], metavar="FILE",
+                   help="an obs registry snapshot JSON to ingest; repeatable")
+    p.add_argument("--day-report", action="append", default=[], metavar="FILE",
+                   help="a `run-day --report-out` document to ingest; repeatable")
+    p.add_argument("--no-probe", dest="probe", action="store_false",
+                   help="skip the dispatch-cost probe (by default the serving "
+                        "checkpoint's padded dispatch is timed at each candidate bucket)")
+    p.add_argument("--probe-buckets", default=(1, 8, 64, 256, 512, 1024, 4096),
+                   type=_bucket_list, metavar="N[,N...]",
+                   help="candidate buckets the dispatch-cost probe measures")
+    p.add_argument("--probe-reps", type=_positive_int, default=5,
+                   help="timed probe repetitions per bucket (median wins)")
+    p.add_argument("--device", **device)
+    p.add_argument("--dry-run", action="store_true", help="fit and print, write nothing")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write the per-knob decision trace as a Chrome trace-event file")
 
     p = sub.add_parser("test", help="black-box test the live scoring service")
     p.set_defaults(fn=cmd_test)

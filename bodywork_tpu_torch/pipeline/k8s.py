@@ -27,10 +27,8 @@ tenant namespace (``BODYWORK_TPU_TENANT``: ROADMAP Queue 1 item 14), the
 split serving topology, the dispatcher standby pair and the front-end
 fleet (``BODYWORK_TPU_SERVE_TRANSPORT``, ``BODYWORK_TPU_SERVE_STANDBY``,
 ``BODYWORK_TPU_FRONTENDS``, ``BODYWORK_TPU_DISPATCHER_ADDR``,
-``BODYWORK_TPU_SERVE_ROLE``: ROADMAP Queue 1 item 15), the tuned config
-and the online tuner (``BODYWORK_TPU_TUNED_CONFIG``,
-``BODYWORK_TPU_TUNE_ONLINE``: item 17) and a serving mesh
-(``BODYWORK_TPU_MESH_DATA`` / ``_MODEL`` > 1: item 19). So the split
+``BODYWORK_TPU_SERVE_ROLE``: ROADMAP Queue 1 item 15) and a serving
+mesh (``BODYWORK_TPU_MESH_DATA`` / ``_MODEL`` > 1: item 19). So the split
 topology's dispatcher Deployment and Service are never emitted and are
 left out of the port until item 15. The serve Deployment's HPA is
 emitted as the JAX generator emits it for every service stage; its
@@ -70,8 +68,6 @@ _UNPORTED_ENV = {
     "BODYWORK_TPU_FRONTENDS": (15, "the front-end fleet"),
     "BODYWORK_TPU_DISPATCHER_ADDR": (15, "the split serving topology"),
     "BODYWORK_TPU_SERVE_ROLE": (15, "the split serving topology"),
-    "BODYWORK_TPU_TUNED_CONFIG": (17, "the tuned serving config"),
-    "BODYWORK_TPU_TUNE_ONLINE": (17, "the online tuning controller"),
 }
 _MESH_ENV = ("BODYWORK_TPU_MESH_DATA", "BODYWORK_TPU_MESH_MODEL")
 

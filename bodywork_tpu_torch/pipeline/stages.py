@@ -178,8 +178,9 @@ def _serve_tuned_env_knobs() -> tuple[float | None, int | None, tuple[int, ...] 
     batch_max_rows, buckets)`` (``BODYWORK_TPU_BATCH_WINDOW_MS``, ``0``
     meaning coalescing off; ``BODYWORK_TPU_BATCH_MAX_ROWS``;
     ``BODYWORK_TPU_BUCKETS``, comma-separated positive ints), with the
-    same malformed-is-ignored rule. The JAX stage's tuned-config
-    reference is a later slice."""
+    same malformed-is-ignored rule. The JAX stage returns the tuned-config
+    reference as a fourth value; here :func:`_serve_tuned_config_ref`
+    reads it."""
     import os
 
     from bodywork_tpu_torch.utils.env import bucket_list, number_env
@@ -193,6 +194,17 @@ def _serve_tuned_env_knobs() -> tuple[float | None, int | None, tuple[int, ...] 
             log.warning(f"ignoring BODYWORK_TPU_BUCKETS: {exc}")
     return (number_env("BODYWORK_TPU_BATCH_WINDOW_MS", float, 0.0),
             number_env("BODYWORK_TPU_BATCH_MAX_ROWS", int, 1), buckets)
+
+
+def _serve_tuned_config_ref() -> str | None:
+    """The deployed tuned-config reference (``BODYWORK_TPU_TUNED_CONFIG``:
+    a ``tuning/`` key or ``latest``; unset or blank is None), the JAX
+    stage's fourth tuned env knob."""
+    import os
+
+    from bodywork_tpu_torch.tune.config import TUNED_CONFIG_ENV
+
+    return os.environ.get(TUNED_CONFIG_ENV, "").strip() or None
 
 
 def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None = None,
@@ -229,7 +241,7 @@ def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None 
 
 def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
-                engine: str = "auto"):
+                engine: str = "auto", tuned_config: str | None = None):
     """Load the checkpoint to serve (the registry's ``production`` alias
     where the store has one) onto the device and start the scoring
     service on a background thread (reference stage 2); returns the
@@ -242,8 +254,13 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     The front end, admission budget, serving precision, coalescer and
     buckets come from the pod environment as the JAX stage's do
     (:func:`_serve_env_knobs`, :func:`_serve_tuned_env_knobs`); an
-    explicit ``buckets`` wins. A quantized dtype serves only if the shadow
-    quality gate admits it."""
+    explicit ``buckets`` wins. ``tuned_config`` (default: the pod's
+    ``BODYWORK_TPU_TUNED_CONFIG``, :func:`_serve_tuned_config_ref`) names
+    a tuned serving-config document whose fitted values fill every knob
+    left unset: spec args, then the per-knob env vars, then the tuned
+    document, then the built-in defaults, and a malformed document
+    degrades to the defaults (``tune.config``). A quantized dtype serves
+    only if the shadow quality gate admits it."""
     from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
     from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
@@ -252,6 +269,8 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     served_key, served_source = resolve_serving_key(ctx.store)
     model, model_date = load_model(ctx.store, served_key, device=_device(ctx))
     buckets = buckets or env_buckets
+    if tuned_config is None:
+        tuned_config = _serve_tuned_config_ref()
     return serve_model(
         model, model_date, host=host, port=port, block=False, engine=engine,
         buckets=tuple(buckets) if buckets else None, replicas=replicas,
@@ -260,6 +279,7 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
         store=ctx.store,
         batch_window_ms=env_window, batch_max_rows=env_max_rows, server_engine=env_engine,
         max_pending=env_max_pending, retry_after_max_s=env_retry_max,
+        tuned_config=tuned_config,
     )
 
 

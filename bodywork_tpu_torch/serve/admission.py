@@ -22,19 +22,25 @@ touches the coalescer):
   delay it saw (admission -> response ready); the moving average, clamped
   to ``[retry_after_min_s, retry_after_max_s]``, is the ``Retry-After``
   every shed 429 and no-model 503 carries.
-- **Saturation signals**: the ``bodywork_tpu_serve_queue_depth`` gauge
-  and ``bodywork_tpu_serve_shed_total{reason}`` (``admission`` for the
-  budget, ``drain`` during a graceful shutdown); ``/healthz`` shows
-  :meth:`state`.
+- **Cost-priced shed** (:meth:`AdmissionController.configure_cost_shed`,
+  armed by ``serve --cost-budget-s`` from the learned cost model,
+  ``tune/costmodel.py``): each request is priced in estimated
+  dispatch-seconds before any work, and shed (``reason="cost"``) while
+  the priced work admitted and unfinished would pass the budget.
+- **Saturation signals**: the ``bodywork_tpu_serve_queue_depth`` and
+  ``bodywork_tpu_serve_pending_cost_seconds`` gauges and
+  ``bodywork_tpu_serve_shed_total{reason}`` (``admission`` for the
+  budget, ``cost`` for the priced budget, ``drain`` during a graceful
+  shutdown); ``/healthz`` shows :meth:`state`.
 
 The JAX package's cross-process budget (``SharedBudgetSlot``, for
-``serve --workers``) and its cost-priced shed (for the online tuner) are
-later slices; here ``state()["shared_pending"]`` and
-``state()["cost_shed"]`` are always null, as they are in the JAX package
-without those options.
+``serve --workers``) is a later slice (ROADMAP Queue 1 item 15); here
+``state()["shared_pending"]`` is always null, as it is in the JAX
+package without that option.
 """
 from __future__ import annotations
 
+import collections
 import math
 import threading
 
@@ -45,6 +51,7 @@ log = get_logger("serve.admission")
 
 __all__ = [
     "DEFAULT_MAX_PENDING",
+    "PENDING_COST_METRIC",
     "SHED_TOTAL_METRIC",
     "QUEUE_DEPTH_METRIC",
     "AdmissionController",
@@ -63,6 +70,9 @@ DEFAULT_MAX_PENDING = 512
 SHED_TOTAL_METRIC = "bodywork_tpu_serve_shed_total"
 #: admitted-and-unfinished scoring requests; gauge aggregate ``sum``
 QUEUE_DEPTH_METRIC = "bodywork_tpu_serve_queue_depth"
+#: estimated dispatch-seconds of admitted-and-unfinished work while the
+#: cost-priced shed is armed (:meth:`AdmissionController.configure_cost_shed`)
+PENDING_COST_METRIC = "bodywork_tpu_serve_pending_cost_seconds"
 
 
 def count_shed(reason: str) -> None:
@@ -122,7 +132,23 @@ class AdmissionController:
         self._ewma_delay_s: float | None = None
         self._shed_count = 0
         self._admitted_count = 0
-        self._g_depth = get_registry().gauge(
+        #: the cost-priced shed (:meth:`configure_cost_shed`), off by default
+        self._cost_pricer = None
+        self._cost_budget_s: float | None = None
+        self._pending_cost_s = 0.0
+        #: per-admit estimates, one popped per release: releases may come
+        #: out of order, but every admit pushes once and every release pops
+        #: once, so the pending sum drains to zero with the queue
+        self._cost_fifo: collections.deque = collections.deque()
+        reg = get_registry()
+        self._g_cost = reg.gauge(
+            PENDING_COST_METRIC,
+            "Estimated dispatch-seconds of admitted-and-unfinished work "
+            "(cost-priced shed; 0 when unarmed)",
+            aggregate="sum",
+        )
+        self._g_cost.set(0.0)
+        self._g_depth = reg.gauge(
             QUEUE_DEPTH_METRIC,
             "Admitted-and-unfinished scoring requests (per worker; the "
             "multiproc aggregation sums replicas)",
@@ -159,34 +185,96 @@ class AdmissionController:
     def draining(self) -> bool:
         return self._draining
 
-    def try_admit(self) -> bool:
+    def configure_cost_shed(self, pricer, budget_s: float | None) -> None:
+        """Arm (or, with ``pricer=None``, disarm) the cost-priced shed:
+        ``pricer(rows)`` returns a request's estimated dispatch-seconds
+        (``tune.costmodel.cost_pricer`` builds one from the learned cost
+        model), and admission sheds (reason ``"cost"``) while the
+        estimated cost of admitted-and-unfinished work would exceed
+        ``budget_s``. The count budget bounds how many requests are held;
+        the cost budget how much device time they represent."""
+        if pricer is not None and (budget_s is None or budget_s <= 0.0):
+            raise ValueError(f"cost budget_s must be > 0, got {budget_s}")
+        with self._lock:
+            self._cost_pricer = pricer
+            self._cost_budget_s = float(budget_s) if pricer is not None else None
+            if pricer is None:
+                self._pending_cost_s = 0.0
+                self._cost_fifo.clear()
+        self._g_cost.set(self._pending_cost_s)
+
+    def _price(self, rows: int) -> float | None:
+        """Estimated dispatch-seconds of a ``rows``-row request, or None
+        when unarmed or the pricer fails (a broken pricer must never
+        break admission)."""
+        pricer = self._cost_pricer
+        if pricer is None:
+            return None
+        try:
+            est = float(pricer(rows))
+        except Exception:
+            return None
+        return est if est >= 0.0 and math.isfinite(est) else None
+
+    def try_admit(self, rows: int = 1) -> bool:
         """Admit one request against the pending budget. Returns False,
         and counts the shed, when the budget is exhausted by admitted
         requests or by upstream backlog (the depth probe; ``>`` not
         ``>=`` because the probing request's own connection is part of
-        that count), or when the controller is draining."""
+        that count), when the controller is draining, or when the armed
+        cost-priced shed prices this request past its budget. ``rows``
+        is advisory (callers that cannot know it pass 1)."""
         if self._draining:
             with self._lock:
                 self._shed_count += 1
             count_shed("drain")
             return False
+        est = self._price(rows)
+        if est is not None:
+            with self._lock:
+                budget = self._cost_budget_s
+                over = (
+                    budget is not None
+                    and self._pending_cost_s + est > budget
+                    # an empty service always admits one request, or a
+                    # budget below one request's cost would be an outage
+                    and self._pending_cost_s > 0.0
+                )
+                if over:
+                    self._shed_count += 1
+            if over:
+                count_shed("cost")
+                return False
         external = self._external_depth()
         with self._lock:
             if self._pending >= self.max_pending or external > self.max_pending:
                 self._shed_count += 1
                 shed = True
+                cost = None
             else:
                 self._pending += 1
                 self._admitted_count += 1
                 if self._pending > self.max_observed_pending:
                     self.max_observed_pending = self._pending
+                cost = self._cost_admit_locked(est)
                 shed = False
             depth = max(self._pending, external)
         self._g_depth.set(float(depth))
+        if cost is not None:
+            self._g_cost.set(cost)
         if shed:
             count_shed("admission")
             return False
         return True
+
+    def _cost_admit_locked(self, est: float | None) -> float | None:
+        """Record an admitted request's estimate (the caller holds the
+        lock); the new pending cost, or None when it was not priced."""
+        if est is None:
+            return None
+        self._pending_cost_s += est
+        self._cost_fifo.append(est)
+        return self._pending_cost_s
 
     def release(self, observed_delay_s: float | None = None) -> None:
         """Return one unit of budget; ``observed_delay_s`` (admission ->
@@ -195,7 +283,13 @@ class AdmissionController:
         with self._lock:
             if self._pending > 0:
                 self._pending -= 1
+                if self._cost_fifo:
+                    # clamped: a mid-flight configure_cost_shed may only
+                    # under-count pending cost, never shed on phantom cost
+                    self._pending_cost_s = max(
+                        0.0, self._pending_cost_s - self._cost_fifo.popleft())
             depth = max(self._pending, external)
+            cost = self._pending_cost_s
             if observed_delay_s is not None and observed_delay_s >= 0.0:
                 if self._ewma_delay_s is None:
                     self._ewma_delay_s = float(observed_delay_s)
@@ -205,6 +299,8 @@ class AdmissionController:
                         a * float(observed_delay_s) + (1.0 - a) * self._ewma_delay_s
                     )
         self._g_depth.set(float(depth))
+        if self._cost_pricer is not None:
+            self._g_cost.set(cost)
 
     # -- signals ------------------------------------------------------------
     @property
@@ -239,6 +335,9 @@ class AdmissionController:
             ewma = self._ewma_delay_s
             shed = self._shed_count
             admitted = self._admitted_count
+            cost_armed = self._cost_pricer is not None
+            pending_cost = self._pending_cost_s
+            cost_budget = self._cost_budget_s
         return {
             "queue_depth": max(pending, external),
             "pending": pending,
@@ -251,7 +350,11 @@ class AdmissionController:
             "ewma_queue_delay_s": round(ewma, 6) if ewma is not None else None,
             "admitted_total": admitted,
             "shed_total": shed,
-            "cost_shed": None,
+            # the cost-priced shed: None until configure_cost_shed arms it
+            "cost_shed": (
+                {"pending_cost_s": round(pending_cost, 6), "budget_s": cost_budget}
+                if cost_armed else None
+            ),
         }
 
 

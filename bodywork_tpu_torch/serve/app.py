@@ -246,6 +246,16 @@ class ScoringApp:
         self._canary_seed = 0
         #: the SLO watchdog's latest evaluation (``ops.slo`` publishes it)
         self.slo_state: dict | None = None
+        #: the online tune controller's latest state (``tune.online``
+        #: publishes it every poll), and the controller itself where
+        #: ``serve --online-tune`` armed one (drills inject through its
+        #: ``apply_tuned``)
+        self.tune_state: dict | None = None
+        self.tune_controller = None
+        #: doc_digest of the applied tuned serving config
+        #: (``tune.config.resolve_serving_knobs``; the serving wiring and
+        #: the online controller set it), None on hand-set or built-in knobs
+        self.tuned_config_digest: str | None = None
         self._plan_getter = None  # the chaos plan's resolver, looked up once
         self.batcher = batcher
         self.admission = admission
@@ -345,6 +355,11 @@ class ScoringApp:
     def predictor(self):
         served = self.served
         return None if served is None else served.predictor
+
+    @property
+    def model_date(self) -> str | None:
+        served = self.served
+        return None if served is None else served.model_date
 
     @property
     def model_key(self) -> str | None:
@@ -774,7 +789,8 @@ class ScoringApp:
 
     def effective_config(self) -> dict:
         """The knob values live in this process, read from the live
-        objects (coalescer, admission controller, predictor)."""
+        objects (coalescer, admission controller, predictor), and the
+        applied tuned config's digest (None: hand-set or built-in)."""
         predictor = self.predictor
         batcher = self.batcher
         admission = self.admission
@@ -785,13 +801,13 @@ class ScoringApp:
             "buckets": list(buckets) if buckets else None,
             "max_pending": admission.max_pending if admission is not None else None,
             "dtype": getattr(predictor, "dtype", "float32") if predictor is not None else None,
-            "tuned_config": None,
+            "tuned_config": self.tuned_config_digest,
         }
 
     def healthz_response(self) -> tuple[dict, int, int | None]:
         """``(payload, status, retry_after_s or None)``: the health document
         both front ends serve. The keys are the JAX app's, in its order
-        (``mesh`` and ``tuning`` null: later slices), then the port's
+        (``mesh`` null: a later slice), then the port's
         ``engine``, ``device``, ``launches`` (of the serving kernel since
         the counts were last reset; null for a plain engine) and
         ``graph_cache``."""
@@ -809,7 +825,7 @@ class ScoringApp:
         common = {
             "canary_key": canary.model_key if canary is not None else None,
             "canary_fraction": self._canary_fraction if canary is not None else None,
-            "watchdog": self.slo_state, "tuning": None,
+            "watchdog": self.slo_state, "tuning": self.tune_state,
         }
         if served is None:
             return ({

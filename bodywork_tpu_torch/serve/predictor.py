@@ -59,6 +59,7 @@ predictor instances. Each predictor still captures its own graphs.
 from __future__ import annotations
 
 import atexit
+import copy
 import itertools
 import os
 import threading
@@ -374,6 +375,19 @@ class PaddedPredictor:
             self.slot_lane = lane
             self._graphs.clear()
             self._slot = None
+
+    def with_buckets(self, buckets: tuple[int, ...]) -> "PaddedPredictor":
+        """This predictor on another bucket ladder: the same model, weights
+        (and their owner token), weight-slot lane and handles, so a rung
+        already captured for the architecture replays with no rebind and
+        no capture, and only a new rung builds at :meth:`warmup`. Requests
+        still on this predictor and on the new one share the slot's
+        weights and never rebind each other (the online tuner's ladder
+        swap, ``serve.reload.CheckpointWatcher.apply_bucket_ladder``)."""
+        twin = copy.copy(self)
+        twin.buckets = tuple(sorted(buckets))
+        twin._graphs = dict(self._graphs)
+        return twin
 
     # -- the program the graph cache holds ---------------------------------
     def _graph_weights(self):

@@ -19,14 +19,18 @@ canary is built in the weight-slot lane beside production's
 
 Each poll also reconciles the apps' canary with the alias document's
 slot (loading a new canary off the request path, clearing a retired one,
-repairing a dangling slot) and drives the SLO watchdog (``ops.slo``).
+repairing a dangling slot), drives the SLO watchdog (``ops.slo``), then
+the online tune controller where one rides the loop (``tune.online``).
+Its ladder changes land through :meth:`CheckpointWatcher.apply_bucket_ladder`:
+the served predictor on the new ladder, same model, weights and lane,
+warmed here (a new rung is captured on this thread, never on a request)
+before the swap.
 
 The watcher's thread is not a daemon, unlike the JAX package's: a daemon
 thread still inside a torch call at interpreter teardown aborts the
 process. :meth:`CheckpointWatcher.stop` stops and joins it; a service's
-cleanups (its SIGTERM drain included) call it. The online tuner's hooks
-(``tune_controller``, ``apply_bucket_ladder``) and mesh swaps are later
-slices and raise.
+cleanups (its SIGTERM drain included) call it. Mesh swaps are a later
+slice (ROADMAP Queue 1 item 19) and raise.
 """
 from __future__ import annotations
 
@@ -67,10 +71,6 @@ class CheckpointWatcher:
                 "serving over a device mesh is not ported yet (ROADMAP Queue 1 item 19, "
                 "the mesh on torch.distributed)"
             )
-        if tune_controller is not None:
-            raise NotImplementedError(
-                "the online tune controller is not ported yet (ROADMAP Queue 1 item 17)"
-            )
         self.apps = list(app) if isinstance(app, (list, tuple)) else [app]
         self.store = store
         self.poll_interval_s = poll_interval_s
@@ -108,6 +108,11 @@ class CheckpointWatcher:
         self._current_canary: tuple | None = None
         #: the SLO watchdog (``ops.slo``), polled once a cycle
         self.slo_watchdog = slo_watchdog
+        #: the online tune controller (``tune.online``), polled right after
+        #: the watchdog; its ladder changes go through this watcher
+        self.tune_controller = tune_controller
+        if tune_controller is not None and tune_controller.apply_buckets is None:
+            tune_controller.apply_buckets = self.apply_bucket_ladder
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, name="checkpoint-watcher")
 
@@ -121,6 +126,7 @@ class CheckpointWatcher:
             key, source, canary_state, canary_dangling = resolve_serving_state(self.store)
         except ArtefactNotFound:
             self._poll_watchdog()
+            self._poll_tuner()
             return False
         except Exception as exc:
             # e.g. RegistryCorrupt: the latest checkpoint might be ungated,
@@ -148,6 +154,7 @@ class CheckpointWatcher:
                     app.set_degraded(f"hot reload of {key} failed; serving last-good model")
                 self._sync_canary(canary_state, canary_dangling)
                 self._poll_watchdog()
+                self._poll_tuner()
                 return False
             # a coalesced batch holds one bundle's rows only, so a swap
             # landing mid-queue splits old and new rows into separate calls
@@ -159,6 +166,7 @@ class CheckpointWatcher:
             swapped = True
         self._sync_canary(canary_state, canary_dangling)
         self._poll_watchdog()
+        self._poll_tuner()
         return swapped
 
     def _build_swap_predictor(self, model, canary: bool = False):
@@ -231,6 +239,46 @@ class CheckpointWatcher:
                            fraction=state["fraction"], seed=state["seed"],
                            bounds=state.get("bounds"))
         self._current_canary = desired
+
+    def apply_bucket_ladder(self, buckets: tuple) -> None:
+        """Swap the served predictor onto the ladder ``buckets`` without
+        changing the model (the online tune controller's ladder apply).
+        The new predictor is the served one on the new ladder
+        (``PaddedPredictor.with_buckets``): the same model, key, weights
+        and weight-slot lane, so requests still in flight on the old one
+        never rebind the slot against it. It is warmed here, on the
+        watcher's thread, before the swap: a rung already captured for
+        the architecture captures nothing, a new one is captured (or
+        refused) here and never on a scoring request. The ladder is
+        pinned as this watcher's bucket policy for later model swaps."""
+        app = self.apps[0]
+        current = app.predictor
+        key = app.model_key
+        if current is None or key is None:
+            raise RuntimeError("no model is served; cannot apply a ladder")
+        self.buckets = ladder = tuple(buckets)
+        predictor = current.with_buckets(ladder)
+        predictor.warmup()
+        model = current.model
+        bounds = self._record_bounds(key)
+        model_date, source = app.model_date, app.model_source
+        # identity-preserving: same model, key, date and source, so the
+        # bodies stay byte-identical across the ladder change
+        for each in self.apps:
+            each.swap_model(model, model_date, predictor, model_key=key,
+                            model_source=source, model_bounds=bounds)
+        self._current = (key, self.store.version_token(key))
+        log.info(f"bucket ladder applied live: {ladder}")
+
+    def _poll_tuner(self) -> None:
+        """Drive the online tune controller once a poll, after the
+        watchdog; a controller error must never stop model reloads."""
+        if self.tune_controller is None:
+            return
+        try:
+            self.tune_controller.poll()
+        except Exception as exc:
+            log.error(f"online tune poll failed: {exc!r}")
 
     def _poll_watchdog(self) -> None:
         """Drive the SLO watchdog once. A promote re-anchors the current

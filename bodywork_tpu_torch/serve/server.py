@@ -398,6 +398,23 @@ def registry_bounds(store, key: str | None):
         return None
 
 
+def _arm_cost_shed(store, admission, model, buckets, budget_s: float) -> None:
+    """Arm ``admission``'s cost-priced shed from the latest learned cost
+    model under ``tuning/``: each request priced as the ladder rung it
+    pads to, before any parse-side queueing. With no readable cost model
+    admission stays count-only, with a warning."""
+    from bodywork_tpu_torch.tune.costmodel import cost_pricer, load_cost_model
+
+    doc, digest = load_cost_model(store, "latest")
+    if doc is None:
+        log.warning("cost-priced shed requested but no cost model is readable under "
+                    "tuning/; admission stays count-only")
+        return
+    admission.configure_cost_shed(
+        cost_pricer(doc, model.n_features or 1, buckets=buckets), budget_s)
+    log.info(f"cost-priced shed armed (model {digest[:23]}..., budget {budget_s}s)")
+
+
 def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 block: bool = True, engine: str = "auto",
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
@@ -406,7 +423,10 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 batch_window_ms: float | None = None, batch_max_rows: int | None = None,
                 server_engine: str = "thread", max_pending: int | None = None,
                 retry_after_max_s: float | None = None,
-                watch_interval_s: float | None = None, device=None):
+                watch_interval_s: float | None = None, device=None,
+                tuned_config: str | None = None, online_tune: bool = False,
+                tune_request_logs: tuple = (), tune_results_logs: tuple = (),
+                cost_budget_s: float | None = None):
     """Serve a loaded model from its device: build the predictor for the
     engine and dtype (:func:`build_serving_predictor`; a quantized dtype
     shadows over ``store``'s datasets), warm every bucket (a capture or a
@@ -427,10 +447,39 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
     handle (``handle.watcher`` is the watcher or None); a blocking
     service leaves on SIGTERM (``ShutdownRequested``) by closing
     admission, then stopping: the watcher joined, the coalescers
-    flushed."""
+    flushed.
+
+    ``tuned_config`` names a tuned serving-config document in ``store``
+    (a ``tuning/`` key or ``"latest"``, ``cli tune``'s output): its
+    fitted values fill every knob the caller left unset (window, max
+    rows, buckets, ``max_pending``, which then arms admission on either
+    engine), resolved before any predictor is built; a missing or
+    malformed document degrades to the built-in defaults with a warning
+    (``tune.config.resolve_serving_knobs``), and the applied digest
+    rides ``/healthz`` ``effective_config.tuned_config``.
+    ``cost_budget_s`` arms admission's cost-priced shed from the latest
+    learned cost model under ``tuning/``, when one is readable.
+    ``online_tune`` arms the online re-tune controller (``tune.online``)
+    on the watcher's polls, watching ``tune_request_logs`` /
+    ``tune_results_logs``; it needs ``watch_interval_s``, and without it
+    logs a warning."""
     if server_engine not in SERVER_ENGINES:
         raise ValueError(f"unknown server engine {server_engine!r}; "
                          f"expected one of {SERVER_ENGINES}")
+    # the tuned knobs resolve before any predictor or app is built, so
+    # they flow into the same plumbing explicit values do
+    tuned_digest = None
+    if tuned_config:
+        from bodywork_tpu_torch.tune.config import resolve_serving_knobs
+
+        resolved = resolve_serving_knobs(
+            store, tuned_config, batch_window_ms=batch_window_ms,
+            batch_max_rows=batch_max_rows, buckets=buckets, max_pending=max_pending)
+        batch_window_ms = resolved.batch_window_ms
+        batch_max_rows = resolved.batch_max_rows
+        buckets = resolved.buckets
+        max_pending = resolved.max_pending
+        tuned_digest = resolved.tuned_digest
     if dtype not in (None, "float32") and store is None:
         raise ValueError(f"dtype={dtype} needs the store whose datasets its shadow "
                          "gate scores")
@@ -453,6 +502,10 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                    model_bounds=model_bounds)
         for _ in range(max(replicas, 1))
     ]
+    for app in apps:
+        app.tuned_config_digest = tuned_digest
+    if cost_budget_s and admission is not None and model is not None:
+        _arm_cost_shed(store, admission, model, buckets, cost_budget_s)
     watcher = None
     try:
         if predictor is not None:
@@ -468,14 +521,31 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
             from bodywork_tpu_torch.ops.slo import SloWatchdog, policy_from_env
             from bodywork_tpu_torch.serve.reload import NOTHING_SERVED, CheckpointWatcher
 
-            # the SLO watchdog rides the watcher's polls: canary routing,
-            # breach detection and the one-CAS abort or promote
+            tune_controller = None
+            if online_tune:
+                from bodywork_tpu_torch.tune.online import OnlineTuneController
+                from bodywork_tpu_torch.tune.online import policy_from_env as tune_policy
+
+                tune_controller = OnlineTuneController(
+                    store, apps[0], policy=tune_policy(),
+                    request_logs=tune_request_logs, results_logs=tune_results_logs)
+                # reachable from the app for drills (a sabotage injects
+                # through apply_tuned)
+                apps[0].tune_controller = tune_controller
+            # the SLO watchdog, then the tune controller, ride the watcher's
+            # polls: canary routing, breach detection and the one-CAS abort
+            # or promote; drift, refit and the one-CAS config revert
             watcher = CheckpointWatcher(
                 apps, store, poll_interval_s=watch_interval_s, engine=engine,
                 served_key=model_key if model is not None else NOTHING_SERVED,
                 buckets=buckets, slo_watchdog=SloWatchdog(store, apps, policy=policy_from_env()),
                 dtype=dtype, device=model.device if model is not None else resolve_device(device),
+                tune_controller=tune_controller,
             )
+        elif online_tune:
+            log.warning("--online-tune requested without a watch interval; the "
+                        "controller rides the reload-watcher loop — set "
+                        "watch_interval_s to arm it")
     except BaseException:
         for app in apps:
             app.close()
@@ -510,7 +580,10 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        batch_max_rows: int | None = None, server_engine: str = "thread",
                        max_pending: int | None = None,
                        retry_after_max_s: float | None = None,
-                       watch_interval_s: float | None = None):
+                       watch_interval_s: float | None = None,
+                       tuned_config: str | None = None, online_tune: bool = False,
+                       tune_request_logs: tuple = (), tune_results_logs: tuple = (),
+                       cost_budget_s: float | None = None):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
@@ -523,7 +596,9 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
     alias document) boots a service answering 503 + ``Retry-After``
     until one lands, where without it the error raises. ``store`` is an
     artefact store or a store directory. With ``block=False`` returns a
-    started handle."""
+    started handle. ``tuned_config``, ``cost_budget_s``, ``online_tune``
+    and the ``tune_*_logs`` are :func:`serve_model`'s (the tuned knobs
+    resolve there, before any predictor is built)."""
     from bodywork_tpu_torch.registry.records import RegistryCorrupt
     from bodywork_tpu_torch.store.base import ArtefactNotFound
 
@@ -544,4 +619,7 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        store=store, batch_window_ms=batch_window_ms,
                        batch_max_rows=batch_max_rows, server_engine=server_engine,
                        max_pending=max_pending, retry_after_max_s=retry_after_max_s,
-                       watch_interval_s=watch_interval_s, device=dev)
+                       watch_interval_s=watch_interval_s, device=dev,
+                       tuned_config=tuned_config, online_tune=online_tune,
+                       tune_request_logs=tune_request_logs,
+                       tune_results_logs=tune_results_logs, cost_budget_s=cost_budget_s)

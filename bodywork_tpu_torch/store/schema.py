@@ -24,10 +24,13 @@ stores:
   ``<key>`` (``bodywork_tpu_torch.audit.manifest``), and
   ``quarantine/<key>`` — corrupt bytes the fsck repair planner parked
   (``bodywork_tpu_torch.audit.repair``)
-- ``tuning/``, ``serve/`` and ``tenants/<id>/`` — the tuned serving
-  configs, the dispatcher leader lease and the tenant namespaces of the
-  JAX package; the port does not write them yet, and its fsck audits
-  them in a store the JAX package wrote
+- ``tuning/tuned-config-<date>.json``, ``tuning/cost-model-<date>.json``
+  and ``tuning/config-log.json`` — the tuned serving configs, the learned
+  dispatch-cost models and the config lifecycle log
+  (``bodywork_tpu_torch.tune``, ``bodywork_tpu_torch.registry.configlog``)
+- ``serve/`` and ``tenants/<id>/`` — the dispatcher leader lease and the
+  tenant namespaces of the JAX package; the port does not write them
+  yet, and its fsck audits them in a store the JAX package wrote
 """
 from __future__ import annotations
 
@@ -48,15 +51,17 @@ REGISTRY_PREFIX = "registry/"
 AUDIT_PREFIX = "audit/"
 AUDIT_DIGESTS_PREFIX = "audit/digests/"
 QUARANTINE_PREFIX = "quarantine/"
+#: tuned serving configs, cost models and the config log (``tune/``)
+TUNING_PREFIX = "tuning/"
 #: the JAX schema's prefixes of modules not ported yet, named here so
 #: :data:`ALL_PREFIXES` is the JAX package's tuple and fsck audits them
-TUNING_PREFIX = "tuning/"
 SERVE_PREFIX = "serve/"
 TENANTS_PREFIX = "tenants/"
 
-#: the schema tags of the JAX package's documents under those prefixes
+#: the schema tags of the documents under ``tuning/`` and ``serve/``
 #: (``registry/configlog.py``, ``tune/config.py``, ``tune/costmodel.py``,
-#: ``serve/leadership.py``), which the port's fsck validates
+#: and the JAX package's ``serve/leadership.py``): defined here once, and
+#: read by their writers, their loaders and fsck
 CONFIG_LOG_SCHEMA = "bodywork_tpu.config_log/1"
 TUNED_CONFIG_SCHEMA = "bodywork_tpu.tuned_config/1"
 COST_MODEL_SCHEMA = "bodywork_tpu.cost_model/1"
@@ -170,6 +175,26 @@ def flight_record_key(seq: int, verdict: str, doc_digest: str) -> str:
     content digest's fragment keeps distinct concurrent dumps apart."""
     fragment = doc_digest.removeprefix("sha256:")[:16]
     return f"{FLIGHTREC_PREFIX}flight-{seq:06d}-{verdict}-{fragment}.json"
+
+
+def tuned_config_key(d: date) -> str:
+    """The tuned serving-config document fitted on day ``d``
+    (``tune/config.py``): date-keyed, so ``--tuned-config latest``
+    resolves through the ``history``/``latest`` protocol."""
+    return f"{TUNING_PREFIX}tuned-config-{d}.json"
+
+
+def cost_model_key(d: date) -> str:
+    """The learned dispatch-cost model fitted on day ``d``
+    (``tune/costmodel.py``); its basename keeps tuned-config ``latest``
+    resolution and fsck's per-kind validation apart."""
+    return f"{TUNING_PREFIX}cost-model-{d}.json"
+
+
+#: the config lifecycle log (``registry/configlog.py``): the active tuned
+#: config, the one before it and the applied/reverted history. A live
+#: compare-and-swap document with no date, outside ``history``/``latest``.
+CONFIG_LOG_KEY = f"{TUNING_PREFIX}config-log.json"
 
 
 def audit_digest_key(key: str) -> str:

@@ -88,7 +88,20 @@ Phases, each printing one JSON line (any failure exits non-zero):
    canary-free twin, each flight record opened by ``cli trace show``,
    the canary on the weight-slot lane beside production's with no rebind
    and no capture during a drive, the six slowest requests of each stream
-   printed; ``ab``: ``run_ab_simulation`` of
+   printed; ``tune``: config 13's shape, ``cli serve`` (``aio``, ``auto``
+   -> ``kernel``, the defaults) driven by the ``uniform_row`` and
+   ``heavy_tail_row`` profiles 4 s each with their request and results
+   logs, ``cli tune --device cuda`` on them (the dispatch-cost probe on
+   the card, the cost model within its held-out bound, ``tune status``,
+   ``tuning/`` clean under fsck), then ``cli serve --tuned-config latest
+   --cost-budget-s 4.0`` whose ``/healthz`` must report the document's
+   knobs and digest, both profiles again, every answer held against the
+   plain version, default against tuned printed; ``online-tune``: config
+   18's shape in process, the online controller's refit applied and
+   graduated with no capture, build or rebind after boot, a sabotaged
+   window reverted in one config-log CAS with its flight record, and a
+   new ladder rung (1024) captured once on the watcher's thread
+   mid-drive; ``ab``: ``run_ab_simulation`` of
    ``["linear", "mlp"]`` for 3 days, the pair concurrently then each
    variant solo, each variant's artefacts byte-identical to its solo
    run, the pair's wall-clock against the sum of the solos;
@@ -338,6 +351,19 @@ RELOAD = {"factor": 0.5, "duration_s": 6.0, "swap_at_s": 2.0, "poll_s": 0.5}
 CANARY = {"requests": 240, "fraction": 0.35}
 #: ab: the A/B simulation's days
 AB = {"days": 3}
+#: config 13's self-tuning shape (``bench.py:3032-3140``): the uniform_row
+#: and heavy_tail_row profiles, each driven 4 s (not 8), the probe's rungs
+TUNE = {"drive_s": 4.0, "uniform_rps": 150.0, "heavy_rps": 40.0, "heavy_rows": 700,
+        "probe_buckets": "1,8,64,256,512,1024,4096", "probe_reps": 5, "cost_budget_s": 4.0,
+        "cost_holdout_bound": 0.5}
+#: config 18's online tuning shape (``bench.py:4623-4645``), then a new rung
+ONLINE_TUNE = {"poll_s": 0.25, "phase_a_s": 5.0, "phase_a_rps": 60.0, "phase_b_s": 5.0,
+               "phase_b_rps": 180.0, "min_window_requests": 60, "min_verdict_requests": 15,
+               "verdict_polls": 40, "cooldown_polls": 2, "revert_p99_ratio": 12.0,
+               "sabotage_window_ms": 900.0, "calibration_s": 2.5, "calibration_rps": 40.0,
+               "sabotage_drive_s": 4.0, "sabotage_rps": 40.0, "probe_reps": 3,
+               "cost_budget_s": 4.0, "new_rung": 1024, "rung_drive_s": 4.0, "rung_rps": 60.0,
+               "slow_factor": 5.0}
 #: the store-integrity and chaos soaks: the loop's 1024-wide MLP,
 #: its fits in the soaks cut to the profile's 200 Adam steps
 SOAK_MLP = {**LOOP_MLP, "n_steps": PROFILE_SIM["n_steps"]}
@@ -487,6 +513,16 @@ def post(url: str, payload) -> dict:
     )
     with urllib.request.urlopen(request, timeout=60) as resp:
         return json.loads(resp.read())
+
+
+def post_raw(url: str, payload) -> bytes:
+    """The response body of a JSON POST, byte for byte."""
+    request = urllib.request.Request(
+        url, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"}, method="POST",
+    )
+    with urllib.request.urlopen(request, timeout=60) as resp:
+        return resp.read()
 
 
 def get(url: str) -> dict:
@@ -1601,16 +1637,18 @@ def _body_transport(base_url: str, kind: str, sink: dict, n_requests: int):
     return transport
 
 
-def _drive(base_url: str, log: list, kind: str = "json") -> tuple:
+def _drive(base_url: str, log: list, kind: str = "json", results_log=None) -> tuple:
     """A correctness drive: ``run_open_loop`` of ``log`` through
-    :func:`_body_transport`, ``(report dict, answers)``. One event loop
+    :func:`_body_transport`, ``(report dict, answers)``, each request's
+    outcome written to ``results_log`` where given. One event loop
     sends it, so its latencies are bound by the driver; the load points'
     numbers come from :func:`_measure`."""
     from bodywork_tpu_torch.traffic import run_open_loop
 
     answers: dict = {}
     transport = _body_transport(base_url, kind, answers, len(log))
-    report = run_open_loop(base_url, log, timeout_s=30.0, transport=transport)
+    report = run_open_loop(base_url, log, timeout_s=30.0, transport=transport,
+                           results_log=results_log)
     return report.to_dict(), answers
 
 
@@ -1714,15 +1752,16 @@ class _ServeProcess:
     kernel launches and graph-cache counts come from its ``/healthz``
     (counted from the process's start)."""
 
-    def __init__(self, store_root: str, reload_interval: float = 0.0):
+    def __init__(self, store_root: str, reload_interval: float = 0.0, args=None):
         import queue
         import threading
 
+        if args is None:  # config 9's coalescer
+            args = ["--batch-window-ms", str(TRAFFIC["window_ms"]),
+                    "--batch-max-rows", str(TRAFFIC["max_rows"])]
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "bodywork_tpu_torch.cli", "serve", "--store", store_root,
-             "--host", "127.0.0.1", "--port", "0", "--server-engine", "aio",
-             "--batch-window-ms", str(TRAFFIC["window_ms"]),
-             "--batch-max-rows", str(TRAFFIC["max_rows"]),
+             "--host", "127.0.0.1", "--port", "0", "--server-engine", "aio", *args,
              "--reload-interval", str(reload_interval)],
             cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
@@ -2088,6 +2127,468 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     if launches["kernel"] < 1:
         raise RuntimeError(f"the canary scenarios launched no kernel: {launches}")
     return {"scenarios": out, "launches": launches}
+
+
+def _profile_logs(duration_s: float) -> dict:
+    """Config 13's two row-shape profiles (``bench.py:3064-3100``):
+    ``uniform_row`` (Poisson single rows at 150/s, seed 131) and
+    ``heavy_tail_row`` (single rows at 30/s, seed 132, merged by arrival
+    with 700-row batches at 10/s, seed 133), ``duration_s`` each:
+    name -> (config, requests)."""
+    from bodywork_tpu_torch.traffic import TrafficConfig, generate_request_log
+
+    uniform = TrafficConfig(rate_rps=TUNE["uniform_rps"], duration_s=duration_s, seed=131)
+    singles = TrafficConfig(rate_rps=0.75 * TUNE["heavy_rps"], duration_s=duration_s, seed=132)
+    batches = TrafficConfig(rate_rps=0.25 * TUNE["heavy_rps"], duration_s=duration_s, seed=133,
+                            batch_fraction=1.0, batch_rows=TUNE["heavy_rows"])
+    heavy = sorted([*generate_request_log(singles), *generate_request_log(batches)],
+                   key=lambda r: r.t_s)
+    return {"uniform_row": (uniform, generate_request_log(uniform)),
+            "heavy_tail_row": (singles, heavy)}
+
+
+def _logged_drive(base_url: str, config, requests, workdir: str, name: str) -> tuple:
+    """One profile's drive keeping every answer, with its request log and
+    results log written as ``traffic run --log-out/--results-out`` write
+    them: ``(report dict, answers, log path, results path)``."""
+    from bodywork_tpu_torch.traffic import run_open_loop, write_request_log
+
+    log_path = os.path.join(workdir, f"{name}.requests.jsonl")
+    results_path = os.path.join(workdir, f"{name}.results.jsonl")
+    write_request_log(log_path, config, requests)
+    answers: dict = {}
+    report = run_open_loop(base_url, requests, timeout_s=30.0, results_log=results_path,
+                           transport=_body_transport(base_url, "json", answers, len(requests)))
+    return report.to_dict(), answers, log_path, results_path
+
+
+def _rows_check(torch, dev, layers: list, answers: dict) -> dict:
+    """Every 200, single row or batch, held against the kernel's plain
+    version of ``layers`` on the card at the ``kernel`` bar."""
+    from bodywork_tpu_torch.ops.mlp_kernel import mlp_stack_plain
+
+    xs, got = [], []
+    for (_t, route, x), (status, _key, body) in answers.items():
+        if status != 200:
+            continue
+        doc = json.loads(body)
+        if route.endswith("/batch"):
+            xs.extend(x)
+            got.extend(doc["predictions"])
+        else:
+            xs.append(x[0])
+            got.append(doc["prediction"])
+    if not xs:
+        raise RuntimeError("no request was answered 200")
+    X = torch.tensor([[v] for v in xs], dtype=torch.float32, device=dev)
+    err, rel = rel_err(torch.tensor(got, dtype=torch.float32, device=dev),
+                       mlp_stack_plain(layers, X, None))
+    return {"rows_checked": len(xs), "max_abs_err": err, "err_over_scale": rel,
+            "bar": BARS["kernel"]}
+
+
+def _effective_mismatch(knobs: dict, effective: dict) -> dict:
+    """Each tuned knob whose live value (``/healthz`` ``effective_config``)
+    differs from the document's: a window of 0 is coalescing off, so no
+    coalescer runs and its two knobs read null."""
+    want = {k: list(v) if isinstance(v, tuple) else v for k, v in knobs.items()}
+    if want.get("batch_window_ms") == 0.0:
+        want["batch_window_ms"] = None
+        if "batch_max_rows" in want:
+            want["batch_max_rows"] = None
+    return {k: (v, effective.get(k)) for k, v in want.items() if effective.get(k) != v}
+
+
+def phase_tune(torch, dev, workdir: str) -> dict:
+    """``tune``: config 13's shape (``bench.py:3032-3140``) on the card.
+    ``cli serve`` (``aio``, ``auto`` -> ``kernel``, the built-in defaults)
+    in its own process serves the 1024-wide MLP; the ``uniform_row`` and
+    ``heavy_tail_row`` profiles drive it 4 s each (not 8), with their
+    request and results logs written; ``cli tune`` fits on both with the
+    dispatch-cost probe on the card at (1, 8, 64, 256, 512, 1024, 4096), 5
+    reps: exit 0, one JSON document, the tuned document valid, a cost
+    model with held-out mean relative error <= 0.5 (config 18's bound),
+    ``tune status`` exit 0 and the store's ``tuning/`` clean under fsck.
+    The service restarts with ``--tuned-config latest --cost-budget-s
+    4.0 --online-tune --reload-interval 1`` (no watch logs: the controller
+    idles): ``/healthz`` ``effective_config`` must hold the document's
+    knobs and its digest, ``tuning`` reported; both profiles again, every
+    200 (single rows and batches) held against the plain version at the
+    ``kernel`` bar. Printed, not required: default against tuned p50/p99
+    and goodput per profile, the probe's curve, the knobs and their
+    decisions."""
+    from bodywork_tpu_torch.audit import run_fsck
+    from bodywork_tpu_torch.models import load_model
+    from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.tune.config import load_tuned_config
+
+    store = _serving_models(torch, dev, workdir)[0]
+    root = str(store.root)
+    layers = make_kernel_mlp_apply(load_model(store, device=dev)[0].params, dev).layers
+    profiles = _profile_logs(TUNE["drive_s"])
+    runs, launches = {}, 0
+    # the tuned service also rides the online controller (no watch logs:
+    # it idles), so /healthz reports a tuning state
+    for mode, args in (("default", []), ("tuned", [
+            "--tuned-config", "latest", "--cost-budget-s", str(TUNE["cost_budget_s"]),
+            "--online-tune"])):
+        if mode == "tuned":
+            traces = [p for name in profiles for p in runs["default"][name][2:4]]
+            fit = _cli(["tune", "--store", root, "--device", "cuda",
+                        *[a for path in traces[0::2] for a in ("--traffic-log", path)],
+                        *[a for path in traces[1::2] for a in ("--results-log", path)],
+                        "--probe-buckets", TUNE["probe_buckets"],
+                        "--probe-reps", str(TUNE["probe_reps"])])
+            if fit["rc"] != 0:
+                raise RuntimeError(f"cli tune exited {fit['rc']}: {fit['err'][-3000:]}")
+            tuned = json.loads(fit["out"])  # one JSON document
+            status = _cli(["tune", "status", "--store", root])
+            knobs, digest, doc = load_tuned_config(open_store(root), "latest")
+            fsck = run_fsck(open_store(root))
+            tuning_findings = [f for f in fsck["findings"] if f["key"].startswith("tuning/")]
+        service = _ServeProcess(root, reload_interval=1.0 if mode == "tuned" else 0.0,
+                                args=args)
+        try:
+            health = service.health() if mode == "default" else _wait_for(
+                lambda: (lambda h: h if h["tuning"] is not None else None)(service.health()),
+                10.0) or service.health()
+            runs[mode] = {name: _logged_drive(service.base_url, config, requests,
+                                              workdir, f"{mode}-{name}")
+                          for name, (config, requests) in profiles.items()}
+            after = service.health()
+        finally:
+            stopped = service.stop()
+        launches += after["launches"] or 0
+        if after["engine"] != "kernel":
+            raise RuntimeError(f"tune: {mode} served through {after['engine']!r}")
+        runs[mode]["health"], runs[mode]["sigterm"] = health, stopped
+        runs[mode]["checks"] = {name: _rows_check(torch, dev, layers, runs[mode][name][1])
+                                for name in profiles}
+    health = runs["tuned"]["health"]
+    effective = health["effective_config"]
+    holdout = (tuned.get("cost_model") or {}).get("holdout") or {}
+    mismatch = _effective_mismatch(knobs or {}, effective)
+    by_profile = {name: {mode: _load_line(runs[mode][name][0]) for mode in ("default", "tuned")}
+                  for name in profiles}
+    out = {
+        "cli_tune_rc": fit["rc"], "cli_tune_s": fit["seconds"], "key": tuned.get("key"),
+        "digest": tuned.get("digest"), "knobs": tuned["knobs"],
+        "decisions": [{k: d[k] for k in ("knob", "chosen", "default", "source", "basis")}
+                      for d in tuned["decisions"]],
+        "probe_curve_s": tuned["observations"]["dispatch_cost_s"],
+        "observations": {k: tuned["observations"][k] for k in (
+            "arrival_rate_rps", "row_shape", "service_rate_rps", "sources")},
+        "cost_model": tuned.get("cost_model"), "cost_holdout_bound": TUNE["cost_holdout_bound"],
+        "tune_status_rc": status["rc"], "tuning_fsck_findings": tuning_findings,
+        "document_valid": knobs is not None and digest == tuned.get("digest"),
+        "effective_config": effective, "effective_mismatch": mismatch,
+        "tuning": health["tuning"], "admission_cost_shed": (health["admission"] or {}).get(
+            "cost_shed"),
+        "by_profile": by_profile,
+        "plain_checks": {mode: runs[mode]["checks"] for mode in ("default", "tuned")},
+        "graph_cache": {mode: runs[mode]["health"]["graph_cache"] for mode in runs},
+        "launches": {**dict.fromkeys(VARIANTS, 0), "kernel": launches},
+    }
+    emit("tune", **out)
+    failed = [(m, n) for m in ("default", "tuned") for n, c in runs[m]["checks"].items()
+              if not c["err_over_scale"] < BARS["kernel"]]
+    if (failed or status["rc"] != 0 or tuning_findings or not out["document_valid"]
+            or not holdout or not holdout["mean_rel_err"] <= TUNE["cost_holdout_bound"]
+            or mismatch or effective["tuned_config"] != digest or health["tuning"] is None
+            or launches < 1):
+        raise RuntimeError(f"tune: {out} plain-version misses {failed} {status['err'][-2000:]}")
+    return out
+
+
+def _wait_for(predicate, timeout_s: float, tick_s: float = 0.02):
+    """``predicate()``'s first truthy value within ``timeout_s``, else its
+    last value."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        value = predicate()
+        if value:
+            return value
+        time.sleep(tick_s)
+    return predicate()
+
+
+def phase_online_tune(torch, dev, workdir: str) -> dict:
+    """``online-tune``: config 18's shape (``bench.py:4620-4700``) on the
+    card, in process: the dispatch-cost probe's curve (``torch`` engine,
+    3 reps) fits the cost model, then ``serve_latest_model`` (``aio``,
+    ``auto`` -> ``kernel``, coalescer 2 ms / 64 rows, ``max_pending``
+    512, the cost-priced shed armed at 4.0 s) boots with every power of
+    two <= 512 as its ladder, warmed, ``online_tune`` on and the watcher
+    polling every 0.25 s, tracing at 1.0. Phase A (Poisson 60/s, 5 s)
+    pins the controller's reference; phase B (180/s, 5 s) is appended to
+    its watch log while in flight: the controller must apply a refit (a
+    config-log ``applied`` entry, one CAS) that graduates; the graph
+    cache's captures and misses must not move after boot and nothing
+    rebinds; every request answers 200, held against the plain version
+    at the ``kernel`` bar; a fixed probe request's body is byte-identical
+    before and after; ``shed_total{reason="cost"}`` stays 0. Then the
+    sabotage: ``apply_tuned`` of a 900 ms window must be reverted within
+    the guard's poll budget in exactly one config-log CAS (counted at the
+    store) with the flight-record key in the revert event. Then a ladder
+    holding 1024, a rung not captured at boot, is applied mid-drive from
+    the watcher's poll: it must be captured on the watcher's thread,
+    exactly once, with every request 200 and none slower than 5x the
+    drive's p99."""
+    import threading
+
+    from bodywork_tpu_torch.models import load_model
+    from bodywork_tpu_torch.obs.tracing import configured_tracing
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, make_kernel_mlp_apply, reset_launches
+    from bodywork_tpu_torch.ops.slo import _sum_counter
+    from bodywork_tpu_torch.registry.configlog import read_config_log
+    from bodywork_tpu_torch.serve import GRAPH_CACHE, serve_latest_model
+    from bodywork_tpu_torch.serve import predictor as predictor_module
+    from bodywork_tpu_torch.store import FilesystemStore
+    from bodywork_tpu_torch.store.base import DelegatingStore
+    from bodywork_tpu_torch.store.schema import CONFIG_LOG_KEY
+    from bodywork_tpu_torch.traffic import TrafficConfig, generate_request_log, write_request_log
+    from bodywork_tpu_torch.tune.collect import probe_dispatch_costs
+    from bodywork_tpu_torch.tune.config import write_tuned_config
+    from bodywork_tpu_torch.tune.costmodel import (
+        fit_cost_model,
+        samples_from_probe,
+        write_cost_model,
+    )
+
+    class CasCounting(DelegatingStore):
+        """Counts ``put_bytes_if_match`` per key at the store boundary, so a
+        one-CAS claim is counted where it lands."""
+
+        def __init__(self, inner):
+            super().__init__(inner)
+            self.cas_calls: dict = {}
+
+        def put_bytes_if_match(self, key, data, expected_token=None):
+            self.cas_calls[key] = self.cas_calls.get(key, 0) + 1
+            return self.inner.put_bytes_if_match(key, data, expected_token)
+
+    cfg = ONLINE_TUNE
+    _serving_models(torch, dev, workdir)
+    store = CasCounting(FilesystemStore(os.path.join(workdir, "serving-store")))
+    layers = make_kernel_mlp_apply(load_model(store, device=dev)[0].params, dev).layers
+    ladder = tuple(2 ** i for i in range(10))  # every rung a refit can pick
+    t0 = time.perf_counter()
+    curve = probe_dispatch_costs(store, ladder, reps=cfg["probe_reps"], device=dev)
+    cm_doc = fit_cost_model(samples_from_probe(curve, n_features=1), seed=18)
+    write_cost_model(store, cm_doc, date(2026, 7, 3))
+    probe_s = time.perf_counter() - t0
+    tune_env = {"BODYWORK_TPU_TUNE_MIN_WINDOW_REQUESTS": str(cfg["min_window_requests"]),
+                "BODYWORK_TPU_TUNE_DRIFT_THRESHOLD": "0.5",
+                "BODYWORK_TPU_TUNE_COOLDOWN_POLLS": str(cfg["cooldown_polls"]),
+                "BODYWORK_TPU_TUNE_VERDICT_POLLS": str(cfg["verdict_polls"]),
+                "BODYWORK_TPU_TUNE_MIN_VERDICT_REQUESTS": str(cfg["min_verdict_requests"]),
+                "BODYWORK_TPU_TUNE_REVERT_P99_RATIO": str(cfg["revert_p99_ratio"])}
+    saved_env = {k: os.environ.get(k) for k in tune_env}
+    os.environ.update(tune_env)
+    watch_log = os.path.join(workdir, "live.requests.jsonl")
+    # which thread each capture ran on
+    captured_on = []
+    build = predictor_module._BucketGraph.__init__
+
+    def recording_build(self, *args, **kwargs):
+        build(self, *args, **kwargs)
+        if self.graph is not None:
+            captured_on.append((threading.current_thread().name, int(self.x.shape[0])))
+
+    predictor_module._BucketGraph.__init__ = recording_build
+    refits = lambda: _sum_counter("bodywork_tpu_tune_online_refits_total", outcome="applied")  # noqa: E731
+    reverts = lambda: _sum_counter("bodywork_tpu_tune_online_reverts_total")  # noqa: E731
+    cost_sheds = lambda: _sum_counter("bodywork_tpu_serve_shed_total", reason="cost")  # noqa: E731
+    base = {"refits": refits(), "reverts": reverts(), "cost_sheds": cost_sheds()}
+    handle = None
+    reset_launches()
+    try:
+        with configured_tracing(1.0, seed=18):
+            t_boot = time.perf_counter()
+            handle = serve_latest_model(
+                store, host="127.0.0.1", port=0, block=False, device=dev,
+                server_engine="aio", watch_interval_s=cfg["poll_s"], buckets=ladder,
+                max_pending=512, batch_window_ms=2.0, batch_max_rows=64, online_tune=True,
+                tune_request_logs=(watch_log,), cost_budget_s=cfg["cost_budget_s"])
+            boot_s = time.perf_counter() - t_boot
+            app = handle.app
+            controller = app.tune_controller
+            watcher = handle.watcher
+            if app.predictor.engine != "kernel":
+                raise RuntimeError(f"online-tune: auto served {app.predictor.engine!r}")
+            cost_shed = app.admission.state()["cost_shed"]
+            at_boot = GRAPH_CACHE.stats()
+            captures_at_boot = len(captured_on)
+            probe = {"X": [50.0]}
+            body_boot = post_raw(handle.base_url + "/score/v1", probe)
+            # phase A pins the reference
+            cfg_a = TrafficConfig(rate_rps=cfg["phase_a_rps"], duration_s=cfg["phase_a_s"],
+                                  seed=181)
+            requests_a = generate_request_log(cfg_a)
+            write_request_log(watch_log, cfg_a, requests_a)
+            report_a, answers_a = _drive(handle.base_url, requests_a)
+            reference = _wait_for(lambda: controller._reference, 20.0)
+            # phase B: the shape shift appended to the watch log mid-drive
+            requests_b = generate_request_log(TrafficConfig(
+                rate_rps=cfg["phase_b_rps"], duration_s=cfg["phase_b_s"], seed=182))
+
+            def append_phase_b():
+                offset = cfg["phase_a_s"] + 0.2 * cfg["phase_b_s"]
+                with open(watch_log, "a") as f:
+                    for r in requests_b:
+                        f.write(json.dumps({"t_s": round(r.t_s + offset, 9), "route": r.route,
+                                            "rows": r.rows, "x": list(r.x)}) + "\n")
+
+            cas_before = store.cas_calls.get(CONFIG_LOG_KEY, 0)
+            appender = threading.Timer(0.2 * cfg["phase_b_s"], append_phase_b)
+            appender.start()
+            try:
+                report_b, answers_b = _drive(handle.base_url, requests_b)
+            finally:
+                appender.join()
+            t_wait = time.perf_counter()
+            refit_applied = bool(_wait_for(lambda: refits() - base["refits"] >= 1, 20.0))
+            _wait_for(lambda: controller._guard is None,
+                      cfg["verdict_polls"] * cfg["poll_s"] + 20.0)
+            graduated = controller._guard is None and reverts() == base["reverts"]
+            graduate_wait_s = time.perf_counter() - t_wait
+            cas_refit = store.cas_calls.get(CONFIG_LOG_KEY, 0) - cas_before
+            refit_entry = (read_config_log(store) or {}).get("active") or {}
+            body_refit = post_raw(handle.base_url + "/score/v1", probe)
+            after_drive = GRAPH_CACHE.stats()
+            effective_refit = app.effective_config()
+            # the sabotage: an absurd but valid window, through apply_tuned
+            calibration = generate_request_log(TrafficConfig(
+                rate_rps=cfg["calibration_rps"], duration_s=cfg["calibration_s"], seed=183))
+            report_cal, answers_cal = _drive(handle.base_url, calibration)
+            sab_knobs = {"batch_window_ms": cfg["sabotage_window_ms"]}
+            sab_key, sab_digest = write_tuned_config(
+                store, {"knobs": sab_knobs, "decisions": [],
+                        "note": "chip_smoke sabotage: a valid config with an absurd window"},
+                day=date(2026, 9, 18))
+            cas_before = store.cas_calls.get(CONFIG_LOG_KEY, 0)
+            t_sab = time.perf_counter()
+            sab_applied = controller.apply_tuned(
+                sab_knobs, sab_key, sab_digest,
+                reason=f"chip_smoke_sabotage(window_ms={cfg['sabotage_window_ms']})")
+            cas_sab_apply = store.cas_calls.get(CONFIG_LOG_KEY, 0) - cas_before
+            sabotage = generate_request_log(TrafficConfig(
+                rate_rps=cfg["sabotage_rps"], duration_s=cfg["sabotage_drive_s"], seed=184))
+            report_sab, answers_sab = _drive(handle.base_url, sabotage)
+            reverted = bool(_wait_for(lambda: reverts() - base["reverts"] >= 1,
+                                      cfg["verdict_polls"] * cfg["poll_s"] + 20.0))
+            revert_s = time.perf_counter() - t_sab
+            cas_revert = store.cas_calls.get(CONFIG_LOG_KEY, 0) - cas_before - cas_sab_apply
+            log_doc = read_config_log(store) or {}
+            revert_events = [e for e in log_doc.get("history", []) if e["event"] == "reverted"]
+            revert_event = revert_events[-1] if revert_events else {}
+            effective_revert = app.effective_config()
+            body_revert = post_raw(handle.base_url + "/score/v1", probe)
+            # a new rung, applied from the watcher's own poll mid-drive
+            _wait_for(lambda: controller._cooldown == 0 and controller._guard is None, 10.0)
+            new_ladder = [*ladder[:7], cfg["new_rung"]]
+            rung_box: dict = {}
+            poll = controller.poll
+
+            def poll_with_rung():
+                if "want" in rung_box and "done" not in rung_box:
+                    rung_box["done"] = True
+                    t = time.perf_counter()
+                    rung_box["action"] = controller.apply_tuned(
+                        {"buckets": new_ladder}, "tuning/chip-smoke-rung.json",
+                        "sha256:chip-smoke-rung", reason="chip_smoke_new_rung")
+                    rung_box["apply_s"] = time.perf_counter() - t
+                    rung_box["thread"] = threading.current_thread().name
+                return poll()
+
+            # the boot window back first: the revert restored the refit's
+            # knobs, whose window of 0 (coalescing off) is not applied live,
+            # so the sabotage's 900 ms window is still in force
+            window_before_rung = app.batcher.reconfigure(window_ms=2.0)
+            controller.poll = poll_with_rung
+            captures_before = len(captured_on)
+            stats_before = GRAPH_CACHE.stats()
+            timer = threading.Timer(1.0, lambda: rung_box.setdefault("want", True))
+            timer.start()
+            rung_log = generate_request_log(TrafficConfig(
+                rate_rps=cfg["rung_rps"], duration_s=cfg["rung_drive_s"], seed=185))
+            rung_results = os.path.join(workdir, "new-rung.results.jsonl")
+            report_rung, answers_rung = _drive(handle.base_url, rung_log,
+                                               results_log=rung_results)
+            timer.join()
+            _wait_for(lambda: "action" in rung_box, 10.0)
+            controller.poll = poll
+            stats_rung = GRAPH_CACHE.stats()
+            new_captures = captured_on[captures_before:]
+            effective_rung = app.effective_config()
+            health = get(handle.base_url + "/healthz")
+            launches = dict(LAUNCHES)
+    finally:
+        predictor_module._BucketGraph.__init__ = build
+        if handle is not None:
+            handle.stop()
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    drives = {"phase_a": (report_a, answers_a), "phase_b": (report_b, answers_b),
+              "calibration": (report_cal, answers_cal), "sabotage": (report_sab, answers_sab),
+              "new_rung": (report_rung, answers_rung)}
+    checks = {name: _rows_check(torch, dev, layers, a) for name, (_r, a) in drives.items()}
+    rung_p99 = report_rung["latency"]["p99_s"]
+    with open(rung_results) as f:
+        rung_max = max((json.loads(line).get("latency_s") or 0.0 for line in f if line.strip()),
+                       default=None)
+    out = {
+        "probe_curve_s": curve, "probe_and_fit_s": probe_s, "boot_s": boot_s,
+        "cost_model_holdout": cm_doc["holdout"], "cost_shed_at_boot": cost_shed,
+        "cost_sheds": cost_sheds() - base["cost_sheds"],
+        "reference": reference, "refit_applied": refit_applied, "refit_cas": cas_refit,
+        "refit_knobs": refit_entry.get("knobs"), "effective_after_refit": effective_refit,
+        "graduated": graduated, "graduate_wait_s": graduate_wait_s,
+        "graph_cache_at_boot": at_boot, "graph_cache_after_drive": after_drive,
+        "captures_at_boot": captures_at_boot,
+        "probe_body_identical": body_boot == body_refit == body_revert,
+        "drives": {name: {**_load_line(r), "checks": checks[name]}
+                   for name, (r, _a) in drives.items()},
+        "sabotage": {"applied": sab_applied, "apply_cas": cas_sab_apply,
+                     "reverted": reverted, "revert_cas": cas_revert, "revert_s": revert_s,
+                     "poll_budget_s": cfg["verdict_polls"] * cfg["poll_s"],
+                     "flight_record": revert_event.get("flight_record"),
+                     "reason": revert_event.get("reason"),
+                     "window_after_revert": effective_revert["batch_window_ms"],
+                     "window_reset_before_rung": window_before_rung},
+        "new_rung": {"ladder": new_ladder, "action": rung_box.get("action"),
+                     "applied_on": rung_box.get("thread"), "apply_s": rung_box.get("apply_s"),
+                     "captures": new_captures,
+                     "misses": stats_rung["misses"] - stats_before["misses"],
+                     "rebinds": stats_rung["rebinds"] - stats_before["rebinds"],
+                     "buckets_live": effective_rung["buckets"],
+                     "p99_ms": 1e3 * rung_p99 if rung_p99 else None,
+                     "max_ms": 1e3 * rung_max if rung_max else None},
+        "tuning": health["tuning"], "watcher_thread": watcher._thread.name,
+        "launches": {**dict.fromkeys(VARIANTS, 0), **{k: launches.get(k, 0) for k in VARIANTS}},
+    }
+    emit("online-tune", **out)
+    moved = {k: after_drive[k] - at_boot[k] for k in ("captures", "misses", "rebinds")}
+    bad_checks = [n for n, c in checks.items() if not c["err_over_scale"] < BARS["kernel"]]
+    not_ok = [n for n, (r, _a) in drives.items() if r["ok"] != r["requests"]]
+    rung = out["new_rung"]
+    if (not refit_applied or cas_refit != 1 or not graduated or any(moved.values())
+            or not out["probe_body_identical"] or out["cost_sheds"] or cost_shed is None
+            or bad_checks or not_ok or sab_applied != "applied" or not reverted
+            or cas_revert != 1 or not revert_event.get("flight_record")
+            or out["sabotage"]["revert_s"] > out["sabotage"]["poll_budget_s"] + 5.0
+            or rung["action"] != "applied" or rung["applied_on"] != watcher._thread.name
+            or [(t, b) for t, b in new_captures] != [(watcher._thread.name, cfg["new_rung"])]
+            or rung["rebinds"] or rung["max_ms"] is None or rung["p99_ms"] is None
+            or rung["max_ms"] > cfg["slow_factor"] * rung["p99_ms"]
+            or launches.get("kernel", 0) < 1):
+        raise RuntimeError(f"online-tune: {out} moved {moved} plain misses {bad_checks} "
+                           f"not all 200 {not_ok}")
+    return out
 
 
 def phase_ab(torch, dev, workdir: str) -> dict:
@@ -4123,8 +4624,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases",
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
-                "canary,ab,day-loop,incremental,quantized,resume,sigterm,day-report,profile,"
-                "audit,chaos-sim,bit-rot,crash-sim,deploy,pods,timing",
+                "canary,tune,online-tune,ab,day-loop,incremental,quantized,resume,sigterm,"
+                "day-report,profile,audit,chaos-sim,bit-rot,crash-sim,deploy,pods,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -4161,8 +4662,10 @@ def main(argv=None) -> int:
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled = {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
+    tuned, online_tuned = {}, {}
     audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
-    for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "ab", "day-loop",
+    for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "tune",
+                  "online-tune", "ab", "day-loop",
                   "incremental", "resume", "sigterm", "day-report", "profile", "audit",
                   "chaos-sim", "bit-rot", "crash-sim", "deploy", "pods"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
@@ -4181,6 +4684,10 @@ def main(argv=None) -> int:
                 reloaded = phase_reload(torch, dev, workdir, traffic.get("capacity_rps"))
             elif phase == "canary":
                 canaried = phase_canary(torch, dev, workdir)
+            elif phase == "tune":
+                tuned = phase_tune(torch, dev, workdir)
+            elif phase == "online-tune":
+                online_tuned = phase_online_tune(torch, dev, workdir)
             elif phase == "ab":
                 ab = phase_ab(torch, dev, workdir)
             elif phase == "day-report":
@@ -4245,6 +4752,8 @@ def main(argv=None) -> int:
                                       ("traffic", traffic, "launches"),
                                       ("reload", reloaded, "launches"),
                                       ("canary", canaried, "launches"),
+                                      ("tune", tuned, "launches"),
+                                      ("online-tune", online_tuned, "launches"),
                                       ("ab", ab, "launches"),
                                       ("day-report", reported, "launches"),
                                       ("profile", profiled, "launches"),

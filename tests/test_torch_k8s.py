@@ -502,8 +502,6 @@ def test_manifest_validator_covers_service_ingress_cronjob_paths():
     ("BODYWORK_TPU_FRONTENDS", "2", 15),
     ("BODYWORK_TPU_DISPATCHER_ADDR", "x:9091", 15),
     ("BODYWORK_TPU_SERVE_ROLE", "frontend", 15),
-    ("BODYWORK_TPU_TUNED_CONFIG", "latest", 17),
-    ("BODYWORK_TPU_TUNE_ONLINE", "1", 17),
     ("BODYWORK_TPU_MESH_DATA", "2", 19),
     ("BODYWORK_TPU_MESH_MODEL", "4", 19),
 ])
@@ -518,6 +516,41 @@ def test_a_mode_the_port_lacks_is_refused_by_its_roadmap_item(name, value, item)
         serve, env={name: "1" if "MESH" in name else "default" if "TENANT" in name else ""})
     docs = generate_manifests(spec, store_path="/mnt/store")
     assert not any("dispatcher" in filename for filename in docs)
+
+
+@pytest.mark.parametrize("name,value", [
+    ("BODYWORK_TPU_TUNED_CONFIG", "latest"),
+    ("BODYWORK_TPU_TUNE_ONLINE", "1"),
+])
+def test_a_tuned_serve_stage_emits_the_jax_generators_manifests(name, value):
+    """The control plane's two serve-stage knobs (ROADMAP Queue 1 item 17)
+    are emitted, not refused: the manifests equal the JAX generator's for
+    the same spec under the mapping, the knob on the serve container."""
+    from bodywork_tpu.pipeline import default_pipeline as jax_pipeline
+    from bodywork_tpu.pipeline import generate_manifests as jax_manifests
+
+    spec, jax_spec = default_pipeline("mlp"), jax_pipeline("mlp")
+    for s in (spec, jax_spec):
+        serve = s.stages["stage-2-serve-model"]
+        s.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={name: value})
+    kw = dict(store_path="/mnt/artefact-store", image="registry.example/bodywork:v3")
+    port = generate_manifests(spec, **kw)
+    jax = jax_manifests(jax_spec, **kw)
+    assert list(port) == list(jax)
+    mapped, masked = _map_jax(jax), _mask_port(port)
+    assert masked == mapped
+    dumped, jax_dumped = _dump_all(masked), _dump_all(mapped)
+    (serve_file,) = [f for f, doc in port.items() if doc["kind"] == "Deployment"]
+    for f in port:
+        if f != serve_file:
+            assert dumped[f] == jax_dumped[f], f
+    # the declared knob creates the serve container's env key ahead of
+    # envFrom in both generators (the mapping's reorder is for the
+    # compile-cache entries only): the key order is the JAX generator's
+    for c, jax_c in zip(_containers(port[serve_file]), _containers(jax[serve_file])):
+        assert list(c) == list(jax_c)
+    serve_env = [e for c in _containers(port[serve_file]) for e in c.get("env", [])]
+    assert {"name": name, "value": value} in serve_env
 
 
 # -- the stage pods' measured import closures -------------------------------

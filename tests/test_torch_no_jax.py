@@ -43,6 +43,9 @@ import bodywork_tpu_torch.pipeline._yaml, bodywork_tpu_torch.pipeline.spec
 import bodywork_tpu_torch.pipeline.images, bodywork_tpu_torch.pipeline.k8s
 import bodywork_tpu_torch.pipeline.k8s_schema, bodywork_tpu_torch.pipeline.k8s_validate
 import bodywork_tpu_torch.utils.errors
+import bodywork_tpu_torch.tune, bodywork_tpu_torch.tune.config, bodywork_tpu_torch.tune.collect
+import bodywork_tpu_torch.tune.costmodel, bodywork_tpu_torch.tune.model
+import bodywork_tpu_torch.tune.online, bodywork_tpu_torch.registry.configlog
 import chip_smoke
 # nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
 # standard library, numpy and torch alone
@@ -122,9 +125,30 @@ _TORCH_FREE = ["cli.py", "pipeline/__init__.py", "pipeline/runner.py", "pipeline
                "pipeline/k8s.py", "pipeline/k8s_schema.py", "pipeline/k8s_validate.py",
                "pipeline/ab.py", "pipeline/journal.py", "monitor/__init__.py",
                "monitor/tester.py", "monitor/analytics.py", "data/__init__.py", "data/io.py",
-               "utils/errors.py"]
+               "utils/errors.py",
+               # the control plane the serve stage's boot, fsck and the cli
+               # parser import: the probe loads torch inside its call
+               "tune/__init__.py", "tune/config.py", "tune/collect.py",
+               "tune/costmodel.py", "tune/model.py", "tune/online.py",
+               "registry/configlog.py"]
 
 
 @pytest.mark.parametrize("name", _TORCH_FREE)
 def test_the_test_stage_chain_imports_no_torch_at_module_level(name):
     assert "torch" not in _module_level_roots(ROOT / "bodywork_tpu_torch" / name)
+
+
+def test_the_control_plane_imports_neither_torch_nor_jax_in_a_fresh_process():
+    """``tune.*`` and ``registry.configlog`` (ROADMAP Queue 1 item 17) load
+    with the standard library alone: no torch, numpy only where a fit or
+    an ingest runs, no jax and nothing of the JAX package."""
+    probe = ("import sys\n"
+             "import bodywork_tpu_torch.tune.config, bodywork_tpu_torch.tune.collect\n"
+             "import bodywork_tpu_torch.tune.costmodel, bodywork_tpu_torch.tune.model\n"
+             "import bodywork_tpu_torch.tune.online, bodywork_tpu_torch.registry.configlog\n"
+             "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'jaxlib', 'bodywork_tpu'))))\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""

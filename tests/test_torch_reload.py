@@ -236,7 +236,7 @@ def test_an_empty_store_boots_degraded_until_the_first_checkpoint(tmp_path):
 
 def test_the_later_slices_hooks_refuse():
     app = create_app(_mlp(8), D1)
-    for kwargs in ({"mesh_data": 2}, {"mesh_model": 2}, {"tune_controller": object()}):
+    for kwargs in ({"mesh_data": 2}, {"mesh_model": 2}):
         with pytest.raises(NotImplementedError):
             CheckpointWatcher(app, FilesystemStore.__new__(FilesystemStore),
                               served_key=NOTHING_SERVED, **kwargs)
