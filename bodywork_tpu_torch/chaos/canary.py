@@ -38,6 +38,7 @@ Exposed as ``cli chaos canary --store DIR --scenario nan|latency|healthy``.
 """
 from __future__ import annotations
 
+import gc
 import hashlib
 import io
 import json
@@ -300,15 +301,25 @@ def run_canary_chaos(
     ]
     bounds = as_bounds(bounds_doc) or (-np.inf, np.inf)
     plan = FaultPlan(seed=seed, canary_latency_p=1.0, canary_latency_s=0.05)
-    # the drive (and the final reconcile poll — the watchdog's dump
-    # must see the tracer's recorder) runs under scoped tracing config
-    with configured_tracing(trace_fraction, seed=seed):
-        if scenario == "latency":
-            with activate(plan):
+    # the watchdog judges the drive's request latencies: collect and
+    # freeze the heap first, so no cyclic collection of what the process
+    # built before (a full one takes milliseconds in a process holding
+    # torch) lands inside a request and stands in the window as that
+    # stream's latency; the drive's own garbage is still collected
+    gc.collect()
+    gc.freeze()
+    try:
+        # the drive (and the final reconcile poll — the watchdog's dump
+        # must see the tracer's recorder) runs under scoped tracing config
+        with configured_tracing(trace_fraction, seed=seed):
+            if scenario == "latency":
+                with activate(plan):
+                    trace = _drive(app, twin_app, watcher, xs, poll_every, bounds)
+            else:
                 trace = _drive(app, twin_app, watcher, xs, poll_every, bounds)
-        else:
-            trace = _drive(app, twin_app, watcher, xs, poll_every, bounds)
-        watcher.check_once()  # final reconcile (covers n % poll_every != 0)
+            watcher.check_once()  # final reconcile (covers n % poll_every != 0)
+    finally:
+        gc.unfreeze()
     state = (app.slo_state or {}).get("state")
     if state == "breached" and trace["abort_at"] is None:
         trace["abort_at"] = n_requests

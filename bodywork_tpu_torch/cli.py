@@ -1,6 +1,6 @@
 """Command line of the port: ``python -m bodywork_tpu_torch.cli
 generate|serve|test|train|run-day|run-sim|run-ab|run-stage|wait-for|
-report|compact|deploy|registry|trace|traffic|chaos|fsck``.
+report|compact|deploy|registry|trace|traffic|chaos|fsck|tune|fleet-sim``.
 
 - ``generate --store S [--date D] [--days N] [--device cuda|cpu]`` writes
   N days of drift data starting at D (default: today, one day);
@@ -118,6 +118,20 @@ report|compact|deploy|registry|trace|traffic|chaos|fsck``.
   ConfigMap's pipeline YAML) on ``run-stage``, ``run-day``, ``run-sim``
   and ``deploy`` overrides ``--model``, ``--mode`` and ``--mlp-*``.
 
+- ``fleet-sim --store S [--days N] [--tenants N] [--sabotage TENANT]
+  [--seed N] [--samples-per-day N] [--model linear|mlp] [--mlp-*]
+  [--json]`` runs N scenario-zoo tenants' pipelines in one store under
+  ``tenants/<id>/``, one optionally NaN-sabotaged, and every healthy
+  tenant again alone, whose artefacts must be byte-identical (exit 0 on
+  a pass, 1 otherwise). ``serve --workers N [--metrics]`` serves through N
+  spawned replica processes on one ``SO_REUSEPORT`` port, respawned on
+  death, admitting against one budget, ``/metrics`` aggregated.
+
+Every command that opens a store takes ``--tenant ID``: its keys live
+under ``tenants/<ID>/`` (``default``, or unset, is the root). The flag
+beats ``BODYWORK_TPU_TENANT``; a malformed flag exits 1, a malformed
+environment value falls back to the root with a warning.
+
 ``--device`` defaults to ``cuda``: without a card the command refuses to
 run unless ``--device cpu`` is given.
 """
@@ -153,13 +167,35 @@ def _env_choice(name: str, choices: tuple, default: str) -> str:
     return raw or default
 
 
+def _store(args):
+    """The command's store, scoped to its tenant (:func:`_tenant_id`)."""
+    from bodywork_tpu_torch.store import open_store
+    from bodywork_tpu_torch.tenancy.namespace import scoped_store
+
+    return scoped_store(open_store(args.store), _tenant_id(args))
+
+
+def _tenant_id(args) -> str:
+    """The command's tenant: ``--tenant`` > ``BODYWORK_TPU_TENANT`` > the
+    default (root) namespace. The flag is validated strictly (a typo must
+    fail, never read or write the root), the environment degrades to the
+    root with a warning; both go through ``schema.validate_tenant_id``."""
+    from bodywork_tpu_torch.store.schema import validate_tenant_id
+    from bodywork_tpu_torch.tenancy.namespace import tenant_from_env
+
+    tenant = getattr(args, "tenant", None)
+    if tenant is not None:
+        validate_tenant_id(tenant)
+        return tenant
+    return tenant_from_env()
+
+
 def cmd_generate(args) -> int:
     from bodywork_tpu_torch.data import Dataset, generate_day, persist_dataset
     from bodywork_tpu_torch.device import resolve_device
-    from bodywork_tpu_torch.store import open_store
 
     device = resolve_device(args.device)
-    store = open_store(args.store)
+    store = _store(args)
     start = parse_date(args.date) if args.date else date.today()
     for d in date_range(start, args.days):
         X, y = generate_day(d, device=device)
@@ -230,12 +266,14 @@ def cmd_serve(args) -> int:
     if args.batch_max_rows and not batch_window and not args.tuned_config:
         log.warning("--batch-max-rows has no effect without --batch-window-ms; "
                     "request coalescing stays OFF")
+    if args.workers and args.workers > 1:
+        return _serve_workers(args, batch_window, log)
     # serve_latest_model drains on a SIGTERM while serving (admission
     # closed, coalescer flushed); one during start-up unwinds to here
     with graceful_sigterm() as sigterm_fired:
         try:
             serve_latest_model(
-                args.store, host=args.host, port=args.port, block=True,
+                _store(args), host=args.host, port=args.port, block=True,
                 engine=args.engine, device=args.device, dtype=args.dtype,
                 buckets=args.buckets, batch_window_ms=batch_window,
                 batch_max_rows=args.batch_max_rows, server_engine=args.server_engine,
@@ -251,17 +289,57 @@ def cmd_serve(args) -> int:
     return SIGTERM_EXIT if sigterm_fired.is_set() else 0
 
 
+def _serve_workers(args, batch_window, log) -> int:
+    """``serve --workers N``: N spawned replica processes on one
+    ``SO_REUSEPORT`` port under a respawning supervisor
+    (``serve.multiproc``); exits 143 on SIGTERM after stopping them."""
+    from bodywork_tpu_torch.serve.multiproc import MultiProcessService
+    from bodywork_tpu_torch.utils.shutdown import (
+        SIGTERM_EXIT,
+        ShutdownRequested,
+        graceful_sigterm,
+    )
+
+    if (args.online_tune or args.cost_budget_s or args.tune_request_log
+            or args.tune_results_log):
+        log.warning("--online-tune/--cost-budget-s/--tune-*-log apply to single-process "
+                    "serving; the --workers replicas run without them")
+    svc = MultiProcessService(
+        args.store, host=args.host, port=args.port, workers=args.workers,
+        engine=args.engine, watch_interval_s=args.reload_interval or None,
+        buckets=args.buckets, batch_window_ms=batch_window,
+        batch_max_rows=args.batch_max_rows, metrics=args.metrics,
+        server_engine=args.server_engine, max_pending=args.max_pending,
+        retry_after_max_s=args.retry_after_max_s, dtype=args.dtype,
+        tuned_config=args.tuned_config, device=args.device, tenant=_tenant_id(args),
+    ).start()
+    if svc.metrics_url:
+        log.info(f"aggregated metrics at {svc.metrics_url}")
+    try:
+        # SIGTERM (a pod's stop) unwinds the wait and stops the replicas
+        with graceful_sigterm() as sigterm_fired:
+            try:
+                svc.wait()
+            except ShutdownRequested:
+                log.warning("SIGTERM: stopping serving replicas")
+                svc.stop()
+        return SIGTERM_EXIT if sigterm_fired.is_set() else 0
+    except KeyboardInterrupt:
+        return 0
+    finally:
+        svc.stop()
+
+
 def cmd_test(args) -> int:
     from bodywork_tpu_torch.monitor import (
         HttpScoringClient,
         run_service_test,
         scoring_endpoint,
     )
-    from bodywork_tpu_torch.store import open_store
 
     client = HttpScoringClient(scoring_endpoint(args.scoring_url, args.mode))
     metrics = run_service_test(
-        open_store(args.store), client, mode=args.mode, max_rows=args.max_rows,
+        _store(args), client, mode=args.mode, max_rows=args.max_rows,
     )
     print(json.dumps({k: str(v) if isinstance(v, date) else v for k, v in metrics.items()}))
     return 0
@@ -283,10 +361,9 @@ def _mlp_kwargs(args) -> dict:
 
 
 def cmd_train(args) -> int:
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.train import train_on_history
 
-    result = train_on_history(open_store(args.store), args.model,
+    result = train_on_history(_store(args), args.model,
                               model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
                               device=args.device)
     m = result.metrics
@@ -320,13 +397,12 @@ def _runner(args):
     from bodywork_tpu_torch.chaos.kill import arm_from_env, wrap_store
     from bodywork_tpu_torch.data.drift_config import DriftConfig
     from bodywork_tpu_torch.pipeline import LocalRunner
-    from bodywork_tpu_torch.store import open_store
 
     arm_from_env()
     spec = _pipeline_spec(args)
     samples = getattr(args, "samples_per_day", None)
     drift = DriftConfig(n_samples=samples) if samples else None
-    return LocalRunner(spec, wrap_store(open_store(args.store)), drift=drift,
+    return LocalRunner(spec, wrap_store(_store(args)), drift=drift,
                        device=args.device)
 
 
@@ -418,7 +494,7 @@ def _write_day_outputs(args, runner, result, d: date, fsck: dict | None = None) 
                                   process_name=f"run-day {d}")
         print(f"trace: {path}")
     path = write_day_report(report_out or _derived_report_path(trace_out),
-                            day_report(result, fsck=fsck))
+                            day_report(result, fsck=fsck, tenant=_tenant_id(args)))
     print(f"report: {path}")
     if args.trace_out and "{date}" in args.trace_out:
         _prune_templated(args.trace_out)
@@ -499,7 +575,6 @@ def cmd_run_stage(args) -> int:
     SIGTERM ends it as it ends the JAX command."""
     from bodywork_tpu_torch.pipeline.runner import resolve_executable
     from bodywork_tpu_torch.pipeline.stages import StageContext
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.errors import tag_stage
     from bodywork_tpu_torch.utils.logging import get_logger
 
@@ -512,7 +587,7 @@ def cmd_run_stage(args) -> int:
     tag_stage(args.stage)
     stage = spec.stages[args.stage]
     # the device as asked for: only a stage that uses one resolves it
-    ctx = StageContext(store=open_store(args.store), today=_date(args), device=args.device,
+    ctx = StageContext(store=_store(args), today=_date(args), device=args.device,
                        scoring_url=args.scoring_url)
     fn = resolve_executable(stage.executable)
     get_logger("cli").info(f"run-stage {stage.name} ({stage.kind}) for {ctx.today}")
@@ -542,11 +617,10 @@ def cmd_wait_for(args) -> int:
     "conditions met", or 1 when ``--timeout`` passes first."""
     import time
 
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, MODELS_PREFIX
     from bodywork_tpu_torch.utils.logging import get_logger
 
-    store = open_store(args.store)
+    store = _store(args)
     deadline = time.monotonic() + args.timeout
 
     def _conditions_met() -> bool:
@@ -582,10 +656,9 @@ def cmd_report(args) -> int:
         drift_report,
         format_drift_report,
     )
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
-    store = open_store(args.store)
+    store = _store(args)
     report = drift_report(store)
     if not report:
         print("no metric history yet")
@@ -667,11 +740,10 @@ def cmd_compact(args) -> int:
     a cold process loads it in O(1 + tail) reads; ``--dry-run`` prints
     what it would consolidate and writes nothing."""
     from bodywork_tpu_torch.data.snapshot import SNAPSHOT_KEEP, plan_compaction, write_snapshot
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    store = open_store(args.store)
+    store = _store(args)
     plan = plan_compaction(store)
     if plan["days"] == 0:
         print("no datasets to consolidate")
@@ -742,9 +814,8 @@ def _registry_errors(fn):
 @_registry_errors
 def cmd_registry_list(args) -> int:
     from bodywork_tpu_torch.registry import ModelRegistry, read_aliases
-    from bodywork_tpu_torch.store import open_store
 
-    store = open_store(args.store)
+    store = _store(args)
     records = ModelRegistry(store).records()
     if not records:
         print("no registry records")
@@ -764,11 +835,10 @@ def cmd_registry_list(args) -> int:
 def cmd_registry_show(args) -> int:
     from bodywork_tpu_torch.registry import read_aliases, resolve_alias
     from bodywork_tpu_torch.registry.records import load_record
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    store = open_store(args.store)
+    store = _store(args)
     what = args.what
     if what in _REGISTRY_ALIASES:
         key = resolve_alias(store, what)
@@ -799,9 +869,8 @@ def cmd_registry_show(args) -> int:
 @_registry_errors
 def cmd_registry_promote(args) -> int:
     from bodywork_tpu_torch.registry import ModelRegistry
-    from bodywork_tpu_torch.store import open_store
 
-    doc = ModelRegistry(open_store(args.store)).promote(
+    doc = ModelRegistry(_store(args)).promote(
         _registry_model_key(args.model), day=_date(args), reason="cli: operator promote")
     print(f"production -> {doc['production']} (previous: {doc['previous']})")
     return 0
@@ -810,11 +879,10 @@ def cmd_registry_promote(args) -> int:
 @_registry_errors
 def cmd_registry_rollback(args) -> int:
     from bodywork_tpu_torch.registry import ModelRegistry, RollbackBlocked
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
     try:
-        doc = ModelRegistry(open_store(args.store)).rollback(
+        doc = ModelRegistry(_store(args)).rollback(
             day=_date(args), reason="cli: operator rollback")
     except RollbackBlocked as exc:
         get_logger("cli").error(
@@ -830,14 +898,13 @@ def cmd_registry_rollback(args) -> int:
 def cmd_registry_gate(args) -> int:
     from bodywork_tpu_torch.device import resolve_device
     from bodywork_tpu_torch.registry import GatePolicy, ModelRegistry
-    from bodywork_tpu_torch.store import open_store
 
     policy = GatePolicy()
     device = None
     if args.shadow_days is not None:
         policy.shadow_days = args.shadow_days
         device = resolve_device(args.device)  # the shadow scores on it
-    registry = ModelRegistry(open_store(args.store), policy=policy, device=device)
+    registry = ModelRegistry(_store(args), policy=policy, device=device)
     key = _registry_model_key(args.model) if args.model else None
     decision = registry.gate(day=_date(args), model_key=key, dry_run=args.dry_run)
     if decision is None:
@@ -856,11 +923,10 @@ def cmd_registry_canary(args) -> int:
     """The canary lifecycle: every action one alias CAS through
     :class:`ModelRegistry` (the actions are ``registry.CANARY_ACTIONS``)."""
     from bodywork_tpu_torch.registry import ModelRegistry
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    registry = ModelRegistry(open_store(args.store))
+    registry = ModelRegistry(_store(args))
     action = args.canary_command
     if action == "start":
         key = _registry_model_key(args.model) if args.model else None
@@ -1068,7 +1134,6 @@ def cmd_tune(args) -> int:
     config instead (:func:`_tune_status`)."""
     from bodywork_tpu_torch.obs.spans import SpanRecorder, write_chrome_trace
     from bodywork_tpu_torch.registry.records import RegistryCorrupt
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.store.base import ArtefactNotFound
     from bodywork_tpu_torch.tune.collect import (
         ObservationTable,
@@ -1082,7 +1147,7 @@ def cmd_tune(args) -> int:
     from bodywork_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    store = open_store(args.store)
+    store = _store(args)
     if args.action == "status":
         return _tune_status(store)
     device = None
@@ -1194,9 +1259,8 @@ def cmd_fsck(args) -> int:
     ``--repair`` the safe repair subset runs. Exit 0 when no actionable
     finding remains, 7 otherwise, 1 on an error. Imports no torch."""
     from bodywork_tpu_torch.audit import run_fsck
-    from bodywork_tpu_torch.store import open_store
 
-    report = run_fsck(open_store(args.store), repair=args.repair)
+    report = run_fsck(_store(args), repair=args.repair)
     if args.json:
         print(json.dumps(report, indent=2, sort_keys=True))
     else:
@@ -1221,6 +1285,44 @@ def _chaos_drift(args):
     from bodywork_tpu_torch.data.drift_config import DriftConfig
 
     return DriftConfig(n_samples=args.samples_per_day)
+
+
+def cmd_fleet_sim(args) -> int:
+    """The multi-tenant fleet soak (``tenancy/fleet.py``): N scenario-zoo
+    tenants' daily pipelines interleaved in one shared store under
+    ``tenants/<id>/``, optionally one tenant's final training day
+    NaN-sabotaged, then every healthy tenant re-run alone in a fresh store
+    and required byte-identical to its fleet namespace; the sabotaged
+    tenant's gate must reject with production held. Exit 0 on a verified
+    pass, 1 otherwise; ``--json`` prints exactly one JSON document."""
+    from bodywork_tpu_torch.tenancy import zoo
+    from bodywork_tpu_torch.tenancy.fleet import run_fleet_sim
+    from bodywork_tpu_torch.utils.logging import get_logger
+
+    log = get_logger("cli")
+    if args.store.startswith("gs://"):
+        log.error("fleet-sim needs fresh local stores for the byte-level "
+                  "twin comparison; point --store at a directory, not gs://")
+        return 1
+    specs = zoo(args.tenants, base_seed=args.seed, n_samples=args.samples_per_day)
+    summary = run_fleet_sim(
+        args.store, _date(args), args.days, specs, sabotage_tenant=args.sabotage,
+        model_type=args.model, device=args.device, model_kwargs=_mlp_kwargs(args) or None,
+    )
+    if args.json:
+        print(json.dumps(summary, indent=2, sort_keys=True))
+    else:
+        for tid, cmp_ in summary["comparisons"].items():
+            state = "byte-identical" if cmp_["ok"] else (
+                f"DIVERGED (mismatched={len(cmp_['mismatched'])} "
+                f"missing={len(cmp_['missing'])} extra={len(cmp_['extra'])})"
+            )
+            print(f"  {tid}: solo twin {state}")
+        if summary["sabotage_tenant"]:
+            print(f"  {summary['sabotage_tenant']}: gate_rejected="
+                  f"{summary['gate_rejected']} production_held={summary['production_held']}")
+        print("fleet soak " + ("PASS" if summary["ok"] else "FAIL"))
+    return 0 if summary["ok"] else 1
 
 
 def cmd_chaos_run_sim(args) -> int:
@@ -1380,11 +1482,10 @@ def cmd_trace(args) -> int:
 
 def _trace(args) -> int:
     from bodywork_tpu_torch.obs.tracing import find_trace, flight_trace_spans, iter_flight_records
-    from bodywork_tpu_torch.store import open_store
     from bodywork_tpu_torch.utils.logging import get_logger
 
     log = get_logger("cli")
-    store = open_store(args.store)
+    store = _store(args)
     command = args.trace_command
     if command == "show":
         dump_key, trace_doc = find_trace(store, args.trace_id)
@@ -1537,6 +1638,19 @@ def build_parser() -> argparse.ArgumentParser:
              "should run into the running service, with the SLO watchdog judging a "
              "live canary on each poll (0 disables; the service then serves its "
              "boot-time model until restart)",
+    )
+    p.add_argument(
+        "--workers", type=int, default=1, metavar="N",
+        help="serve through N OS-process replicas sharing this port via "
+             "SO_REUSEPORT, supervised and respawned on death, each with its own "
+             "CUDA context on the card — the local analogue of the reference's "
+             "`replicas: 2` Deployment (default 1: single process, in-process serving)",
+    )
+    p.add_argument(
+        "--metrics", action="store_true",
+        help="with --workers N: aggregate every replica's metrics into one GET "
+             "/metrics view (Prometheus text format) on the serving port. "
+             "Single-process serving exposes /metrics unconditionally",
     )
     p.add_argument(
         "--tuned-config", metavar="REF",
@@ -1952,6 +2066,38 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run BOTH twins through this training mode")
     p.add_argument("--device", **device)
 
+    p = sub.add_parser(
+        "fleet-sim",
+        help="multi-tenant fleet soak: N scenario-zoo tenants interleaved in ONE store "
+             "under tenants/<id>/, optional single-tenant NaN sabotage, every healthy "
+             "tenant proven byte-identical to a solo twin (zero cross-tenant blast radius)")
+    p.set_defaults(fn=cmd_fleet_sim)
+    p.add_argument("--store", required=True,
+                   help="fresh local root dir (fleet/ + solo twins are created under it)")
+    p.add_argument("--date", default=None, help="simulation start date")
+    p.add_argument("--days", type=_positive_int, default=3, metavar="N")
+    p.add_argument("--tenants", type=_positive_int, default=4, metavar="N",
+                   help="fleet size; specs cycle the scenario zoo "
+                        "(tenant-00 is always baseline/steady)")
+    p.add_argument("--sabotage", default=None, metavar="TENANT",
+                   help="NaN-poison this tenant's final training day; its gate must "
+                        "reject, everyone else must stay byte-identical to their solo twins")
+    p.add_argument("--seed", type=int, default=42,
+                   help="base seed folded into every tenant's data seed")
+    p.add_argument("--samples-per-day", type=_positive_int, default=96, metavar="N",
+                   help="rows/day per tenant (default 96 — the soak tests isolation, "
+                        "not the fit)")
+    p.add_argument("--model", default="linear", choices=["linear", "mlp"])
+    p.add_argument("--mlp-hidden", type=_widths, default=None, metavar="W,W,...",
+                   help="the MLP's hidden widths (default: the config's 64,64)")
+    p.add_argument("--mlp-steps", type=_positive_int, default=None,
+                   help="Adam steps per fit (default 2000)")
+    p.add_argument("--mlp-lr", type=float, default=None,
+                   help="Adam learning rate (default 1e-2)")
+    p.add_argument("--json", action="store_true",
+                   help="print the full summary as exactly one JSON document on stdout")
+    p.add_argument("--device", **device)
+
     p = sub.add_parser("fsck", help="full-store integrity scrub: every prefix against its "
                                     "write-time digests and the reference graph; --repair "
                                     "runs the safe subset (quarantine, rebuild, "
@@ -1991,7 +2137,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--trace-id", default=None,
                    help="export only this trace (id or prefix); default: every trace "
                         "of the newest dump")
+    _inject_tenant_arg(parser)
     return parser
+
+
+def _inject_tenant_arg(parser: argparse.ArgumentParser) -> None:
+    """Give every (sub)command that opens a store a ``--tenant`` flag, in
+    one walk over the finished parser tree, so a new store-opening command
+    cannot forget it. ``_store()`` scopes its keys under ``tenants/<ID>/``;
+    ``default`` (or unset) is the root namespace."""
+    for action in parser._actions:
+        if isinstance(action, argparse._SubParsersAction):
+            seen = set()
+            for child in action.choices.values():
+                if id(child) in seen:  # aliases share one parser
+                    continue
+                seen.add(id(child))
+                _inject_tenant_arg(child)
+    options = {s for a in parser._actions for s in a.option_strings}
+    if "--store" in options and "--tenant" not in options:
+        parser.add_argument(
+            "--tenant", default=None, metavar="ID",
+            help="tenant namespace to operate in (strictly validated "
+                 "against the schema tenant-id charset; env "
+                 "BODYWORK_TPU_TENANT is the soft default; 'default' = "
+                 "the root namespace)",
+        )
 
 
 def main(argv=None) -> int:
@@ -2003,6 +2174,14 @@ def main(argv=None) -> int:
     # logs on stderr: stdout carries the command's result
     configure_logger(args.log_level, stream=sys.stderr)
     init_error_monitoring(f"cli-{args.command}")
+    if getattr(args, "tenant", None) is not None:
+        from bodywork_tpu_torch.store.schema import validate_tenant_id
+
+        try:
+            validate_tenant_id(args.tenant)
+        except ValueError as exc:  # the JAX command's exit for a bad flag
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
     return args.fn(args)
 
 

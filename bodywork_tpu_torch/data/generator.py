@@ -36,13 +36,17 @@ __all__ = ["DriftConfig", "alpha", "generate_day", "key_for_date"]
 
 def alpha(day, cfg: DriftConfig = DriftConfig()) -> torch.Tensor:
     """Drifting intercept for a given day-of-year (``stage_3:31-33``), in
-    float32 like the JAX version. It is computed in float64 and rounded
-    once, so it is the same float32 on every device (float32 ``sin``
-    differs between libraries in the last bit)."""
-    day = torch.as_tensor(day, dtype=torch.float64)
-    return (cfg.kappa + cfg.amplitude * torch.sin(
-        2.0 * math.pi * cfg.freq * (day - 1.0) / 364.0
-    )).to(torch.float32)
+    float32 like the JAX version: the argument is formed in float32 as the
+    JAX expression forms it (``2π·freq`` a float32 constant, then the
+    product and the division rounded to float32), whose rounding matters at
+    a high ``freq`` (the seasonality scenario's 130), and its ``sin`` is
+    taken in float64 and rounded once, so it is the same float32 on every
+    device (float32 ``sin`` differs between libraries in the last bit)."""
+    f32 = torch.float32
+    day = torch.as_tensor(day, dtype=f32)
+    arg = torch.tensor(2.0 * math.pi * cfg.freq, dtype=f32) * (day - 1.0) / 364.0
+    s = torch.sin(arg.to(torch.float64)).to(f32)
+    return torch.tensor(cfg.kappa, dtype=f32) + torch.tensor(cfg.amplitude, dtype=f32) * s
 
 
 def key_for_date(d: date, cfg: DriftConfig = DriftConfig(), device=None) -> torch.Tensor:

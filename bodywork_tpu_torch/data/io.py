@@ -76,8 +76,18 @@ class Dataset:
         x_idx = [header.index(c) for c in x_cols]
         y_idx = header.index("y")
         rows = [r for r in reader if r]
-        X = np.array([[float(r[i]) for i in x_idx] for r in rows], dtype=np.float64)
-        y = np.array([float(r[y_idx]) for r in rows], dtype=np.float64)
+        try:
+            X = np.array([[float(r[i]) for i in x_idx] for r in rows], dtype=np.float64)
+            y = np.array([float(r[y_idx]) for r in rows], dtype=np.float64)
+        except (IndexError, ValueError):
+            # pandas' read_csv reads a missing or empty field as NaN (a
+            # NaN-sabotaged day, ``tenancy.fleet.sabotage_dataset_nan``,
+            # writes rows shorter than the header); other text still raises
+            def field(r, i):
+                return float(r[i]) if i < len(r) and r[i] != "" else float("nan")
+
+            X = np.array([[field(r, i) for i in x_idx] for r in rows], dtype=np.float64)
+            y = np.array([field(r, y_idx) for r in rows], dtype=np.float64)
         return cls(X.reshape(len(rows), len(x_cols)), y, data_date)
 
 

@@ -6,9 +6,10 @@ is no CUDA device rather than falling back. A scoring service that
 silently ran on the CPU would answer every request at a fraction of the
 speed its operator sized it for; failing at boot is the honest outcome.
 
-:func:`fence` is the counterpart of ``bodywork_tpu.utils.sync.fence``:
-CUDA kernels launch asynchronously, so timing and error-surfacing code
-waits for the device with ``torch.cuda.synchronize``.
+:func:`fence` (re-exported from :mod:`bodywork_tpu_torch.utils.sync`) is
+the counterpart of ``bodywork_tpu.utils.sync.fence``: CUDA kernels launch
+asynchronously, so timing and error-surfacing code waits for the device
+with ``torch.cuda.synchronize``.
 
 Matrix-product precision: the port's float32 products (training, the
 linear fit, the plain ``torch`` engine) run at full IEEE float32, because
@@ -21,6 +22,8 @@ those products on the card when the caller's process has TF32 on, and
 from __future__ import annotations
 
 import torch
+
+from bodywork_tpu_torch.utils.sync import fence
 
 __all__ = ["fence", "matmul_precision", "require_ieee_f32_matmul", "resolve_device"]
 
@@ -66,24 +69,3 @@ def require_ieee_f32_matmul(device: torch.device) -> None:
             "set torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')"
         )
-
-
-def _tensors(out):
-    if isinstance(out, torch.Tensor):
-        yield out
-    elif isinstance(out, dict):
-        for v in out.values():
-            yield from _tensors(v)
-    elif isinstance(out, (list, tuple)):
-        for v in out:
-            yield from _tensors(v)
-
-
-def fence(out):
-    """Wait until every CUDA computation feeding ``out`` (a tensor or a
-    nested dict/list/tuple of tensors) has finished. Returns ``out``, so
-    it can wrap an expression in place. A device fault raised by a kernel
-    surfaces here. CPU tensors are already complete and need nothing."""
-    for dev in {t.device for t in _tensors(out) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
-    return out

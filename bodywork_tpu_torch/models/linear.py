@@ -45,13 +45,13 @@ def _normal_equations(A: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: flo
 
 def _ols_core(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, l2: float) -> dict:
     ones = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
-    theta = torch.linalg.solve(*_normal_equations(torch.cat([X, ones], dim=1), y, w, l2))
+    theta = torch.linalg.solve_ex(*_normal_equations(torch.cat([X, ones], dim=1), y, w, l2))[0]
     return {"w": theta[:-1], "b": theta[-1]}
 
 
 def _ols_no_intercept_core(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                            l2: float) -> dict:
-    theta = torch.linalg.solve(*_normal_equations(X, y, w, l2))
+    theta = torch.linalg.solve_ex(*_normal_equations(X, y, w, l2))[0]
     return {"w": theta, "b": torch.zeros((), dtype=X.dtype, device=X.device)}
 
 

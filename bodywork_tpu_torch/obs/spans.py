@@ -143,19 +143,22 @@ class SpanRecorder:
             return list(self._spans)
 
 
-def day_report(result, spans: list[Span] | None = None, fsck: dict | None = None) -> dict:
+def day_report(result, spans: list[Span] | None = None, fsck: dict | None = None,
+               tenant: str | None = None) -> dict:
     """Structured JSON-able run report for one ``DayResult``. ``spans``
     defaults to ``result.spans`` (the runner attaches the day window's
     slice). ``fsck``, an integrity-scrub report (``audit.run_fsck``, what
-    ``cli run-day --scrub`` produces), adds its findings block. Schema
-    (the JAX package's)::
+    ``cli run-day --scrub`` produces), adds its findings block. ``tenant``
+    names the tenant namespace the day ran in; the default (root)
+    namespace omits the field. Schema (the JAX package's)::
 
         {"schema": "bodywork_tpu.day_report/1",
          "day": "YYYY-MM-DD", "wall_clock_s": float,
          "stage_seconds": {stage: float},
          "spans": [{name, category, start_s, duration_s, thread, meta?}],
          "fsck"?: {"clean", "ok", "keys_scanned", "by_severity",
-                   "findings": [...]}}
+                   "findings": [...]},
+         "tenant"?: str}
     """
     spans = result.spans if spans is None else spans
     report = {
@@ -168,6 +171,8 @@ def day_report(result, spans: list[Span] | None = None, fsck: dict | None = None
         },
         "spans": [s.to_dict() for s in spans],
     }
+    if tenant is not None and tenant != "default":
+        report["tenant"] = tenant
     if fsck is not None:
         report["fsck"] = {
             "clean": fsck["clean"],

@@ -37,9 +37,10 @@ Counters, the JAX package's: ``bodywork_tpu_runner_journal_corrupt_total``
 {outcome}`` (how each journalled ``run_day`` started, counted by the
 runner: ``fresh``, ``resumed``, ``noop``, ``rerun_mismatch``,
 ``rerun_corrupt``) and ``bodywork_tpu_runner_lease_events_total{event}``
-(``acquired``, ``takeover``, ``lost``). The JAX journal's ``tenant``
-field waits for tenancy (ROADMAP Queue 1 item 14): the port writes the
-root namespace's documents, which omit it.
+(``acquired``, ``takeover``, ``lost``). A journal written through a
+tenant-scoped store carries the JAX journal's ``tenant`` field; the root
+namespace's documents omit it, so they stay byte-identical to
+pre-tenancy ones.
 """
 from __future__ import annotations
 
@@ -118,6 +119,16 @@ def artefact_digest(data: bytes) -> str:
     what resume verification re-hashes (``"sha256:<hex>"``, the registry's
     lineage format)."""
     return sha256_digest(data)
+
+
+def _journal_tenant(store) -> str | None:
+    """The tenant namespace this journal's store is scoped to, or None
+    for the root namespace (whose journals omit the field)."""
+    from bodywork_tpu_torch.store.schema import DEFAULT_TENANT
+    from bodywork_tpu_torch.tenancy.namespace import tenant_of
+
+    tenant = tenant_of(store)
+    return None if tenant == DEFAULT_TENANT else tenant
 
 
 def _count_corrupt() -> None:
@@ -307,6 +318,9 @@ class RunJournal:
                     int(prior_lease.get("fence", 0)) + 1
                 ),
             }
+            tenant = _journal_tenant(self.store)
+            if tenant is not None:
+                new_doc["tenant"] = tenant  # provenance; the root omits it
             try:
                 self._token = self.store.put_bytes_if_match(
                     self.key, _dumps(new_doc), token

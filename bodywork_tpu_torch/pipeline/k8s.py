@@ -21,10 +21,11 @@ store path in every pod; the default for filesystem paths), ``hostpath``
 (single-node clusters only, an explicit opt-in) and ``gcs`` (no volume;
 the default for ``gs://`` paths, ``store/gcs.py``).
 
-Modes whose runtime the port lacks are refused by name rather than
-emitted as pods that would run a command the port does not have: a
-tenant namespace (``BODYWORK_TPU_TENANT``: ROADMAP Queue 1 item 14), the
-split serving topology, the dispatcher standby pair and the front-end
+A stage's ``BODYWORK_TPU_TENANT`` is emitted as the JAX generator emits
+it: the pod's commands scope their store to that tenant. Modes whose
+runtime the port lacks are refused by name rather than emitted as pods
+that would run a command the port does not have: the split serving
+topology, the dispatcher standby pair and the front-end
 fleet (``BODYWORK_TPU_SERVE_TRANSPORT``, ``BODYWORK_TPU_SERVE_STANDBY``,
 ``BODYWORK_TPU_FRONTENDS``, ``BODYWORK_TPU_DISPATCHER_ADDR``,
 ``BODYWORK_TPU_SERVE_ROLE``: ROADMAP Queue 1 item 15) and a serving
@@ -62,7 +63,6 @@ DEFAULT_DAILY_SCHEDULE = "0 6 * * *"
 #: stage env knobs that select a mode the port cannot run yet -> the
 #: ROADMAP Queue 1 item that brings it
 _UNPORTED_ENV = {
-    "BODYWORK_TPU_TENANT": (14, "a tenant namespace"),
     "BODYWORK_TPU_SERVE_TRANSPORT": (15, "the split serving topology"),
     "BODYWORK_TPU_SERVE_STANDBY": (15, "the dispatcher standby pair"),
     "BODYWORK_TPU_FRONTENDS": (15, "the front-end fleet"),

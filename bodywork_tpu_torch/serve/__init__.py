@@ -13,6 +13,7 @@ from bodywork_tpu_torch.serve.app import (
     sanity_violation,
 )
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated, RequestCoalescer
+from bodywork_tpu_torch.serve.multiproc import MultiProcessService
 from bodywork_tpu_torch.serve.predictor import (
     GRAPH_CACHE,
     SERVE_DTYPES,
@@ -49,6 +50,7 @@ __all__ = [
     "GraphCache",
     "Int8MLPPredictor",
     "KernelMLPPredictor",
+    "MultiProcessService",
     "PaddedPredictor",
     "PredictionSanityError",
     "RequestCoalescer",

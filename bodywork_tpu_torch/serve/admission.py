@@ -33,10 +33,13 @@ touches the coalescer):
   budget, ``cost`` for the priced budget, ``drain`` during a graceful
   shutdown); ``/healthz`` shows :meth:`state`.
 
-The JAX package's cross-process budget (``SharedBudgetSlot``, for
-``serve --workers``) is a later slice (ROADMAP Queue 1 item 15); here
-``state()["shared_pending"]`` is always null, as it is in the JAX
-package without that option.
+- **One budget across processes** (:class:`SharedBudgetSlot`, wired by
+  ``serve --workers N``): every replica admits against the sum of a
+  ``multiprocessing.Array('i', n)``, one slot per worker, so
+  ``max_pending`` bounds the service's held work and
+  ``state()["shared_pending"]`` reads it; the supervisor zeroes a dead
+  worker's slot, so a crash cannot leak budget. Without it the field is
+  null, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ __all__ = [
     "SHED_TOTAL_METRIC",
     "QUEUE_DEPTH_METRIC",
     "AdmissionController",
+    "SharedBudgetSlot",
     "build_admission",
     "count_shed",
 ]
@@ -85,6 +89,43 @@ def count_shed(reason: str) -> None:
     ).inc(reason=reason)
 
 
+class SharedBudgetSlot:
+    """One worker's slot in a cross-process admission budget: a
+    ``multiprocessing.Array('i', n_workers)`` whose slot ``i`` only worker
+    ``i`` mutates (its admitted count); an admission compares the array's
+    sum, the service-wide held work, against ``max_pending`` under the
+    array's one lock. Per-slot accounting heals itself: the supervisor
+    zeroes a dead replica's slot before respawning it."""
+
+    def __init__(self, array, index: int):
+        self.array = array
+        self.index = int(index)
+
+    def admit(self, max_pending: int) -> tuple[bool, int]:
+        """Try to take one unit; returns ``(admitted, service_total)``."""
+        with self.array.get_lock():
+            total = sum(self.array)
+            if total >= max_pending:
+                return False, total
+            self.array[self.index] += 1
+            return True, total + 1
+
+    def release(self) -> None:
+        with self.array.get_lock():
+            if self.array[self.index] > 0:
+                self.array[self.index] -= 1
+
+    def total(self) -> int:
+        with self.array.get_lock():
+            return sum(self.array)
+
+    @staticmethod
+    def clear(array, index: int) -> None:
+        """Zero a (dead) worker's slot: the supervisor's reclaim hook."""
+        with array.get_lock():
+            array[index] = 0
+
+
 class AdmissionController:
     """Bounded-pending admission with an EWMA queue-delay estimator.
 
@@ -109,6 +150,7 @@ class AdmissionController:
         ewma_alpha: float = 0.2,
         retry_after_min_s: float = 1.0,
         retry_after_max_s: float = 30.0,
+        shared_slot: SharedBudgetSlot | None = None,
     ):
         if max_pending < 1:
             raise ValueError(f"max_pending must be >= 1, got {max_pending}")
@@ -124,6 +166,8 @@ class AdmissionController:
         self.retry_after_min_s = retry_after_min_s
         self.retry_after_max_s = retry_after_max_s
         self._lock = threading.Lock()
+        #: the service-wide budget slot (``serve --workers``), or None
+        self._shared = shared_slot
         self._pending = 0
         self._draining = False
         self._depth_probe = None
@@ -246,6 +290,32 @@ class AdmissionController:
                 count_shed("cost")
                 return False
         external = self._external_depth()
+        shared = self._shared
+        if shared is not None:
+            # the service-wide budget: the sum of every replica's admitted
+            # and unfinished work (one cross-process lock, O(workers))
+            if external > self.max_pending:
+                admitted, shared_total = False, 0
+            else:
+                admitted, shared_total = shared.admit(self.max_pending)
+            with self._lock:
+                if admitted:
+                    self._pending += 1
+                    self._admitted_count += 1
+                    if shared_total > self.max_observed_pending:
+                        self.max_observed_pending = shared_total
+                    cost = self._cost_admit_locked(est)
+                else:
+                    self._shed_count += 1
+                    cost = None
+                depth = self._pending
+            self._g_depth.set(float(depth))
+            if cost is not None:
+                self._g_cost.set(cost)
+            if not admitted:
+                count_shed("admission")
+                return False
+            return True
         with self._lock:
             if self._pending >= self.max_pending or external > self.max_pending:
                 self._shed_count += 1
@@ -279,16 +349,19 @@ class AdmissionController:
     def release(self, observed_delay_s: float | None = None) -> None:
         """Return one unit of budget; ``observed_delay_s`` (admission ->
         response ready) feeds the EWMA estimator."""
-        external = self._external_depth()
+        shared = self._shared
+        external = self._external_depth() if shared is None else 0
         with self._lock:
             if self._pending > 0:
                 self._pending -= 1
+                if shared is not None:
+                    shared.release()
                 if self._cost_fifo:
                     # clamped: a mid-flight configure_cost_shed may only
                     # under-count pending cost, never shed on phantom cost
                     self._pending_cost_s = max(
                         0.0, self._pending_cost_s - self._cost_fifo.popleft())
-            depth = max(self._pending, external)
+            depth = self._pending if shared is not None else max(self._pending, external)
             cost = self._pending_cost_s
             if observed_delay_s is not None and observed_delay_s >= 0.0:
                 if self._ewma_delay_s is None:
@@ -306,8 +379,12 @@ class AdmissionController:
     @property
     def queue_depth(self) -> int:
         """Requests held anywhere: admitted and unfinished, or queued
-        upstream of admission (the depth probe)."""
+        upstream of admission (the depth probe); with a shared budget, the
+        service-wide admitted count."""
         external = self._external_depth()
+        shared = self._shared
+        if shared is not None:
+            return max(shared.total(), external)
         with self._lock:
             return max(self._pending, external)
 
@@ -330,6 +407,8 @@ class AdmissionController:
     def state(self) -> dict:
         """The /healthz admission block, in the JAX package's schema."""
         external = self._external_depth()
+        shared = self._shared
+        shared_total = shared.total() if shared is not None else None
         with self._lock:
             pending = self._pending
             ewma = self._ewma_delay_s
@@ -338,14 +417,16 @@ class AdmissionController:
             cost_armed = self._cost_pricer is not None
             pending_cost = self._pending_cost_s
             cost_budget = self._cost_budget_s
+        budget_used = shared_total if shared_total is not None else pending
         return {
-            "queue_depth": max(pending, external),
+            "queue_depth": max(budget_used, external),
             "pending": pending,
-            "shared_pending": None,
+            # the service-wide admitted count under serve --workers, else None
+            "shared_pending": shared_total,
             "upstream_depth": external,
             "max_pending": self.max_pending,
             # the exact try_admit predicate
-            "shedding": pending >= self.max_pending or external > self.max_pending,
+            "shedding": budget_used >= self.max_pending or external > self.max_pending,
             "retry_after_s": self.retry_after_s(),
             "ewma_queue_delay_s": round(ewma, 6) if ewma is not None else None,
             "admitted_total": admitted,
@@ -359,12 +440,13 @@ class AdmissionController:
 
 
 def build_admission(server_engine: str, max_pending: int | None,
-                    retry_after_max_s: float | None = None):
+                    retry_after_max_s: float | None = None, shared_slot=None):
     """The admission controller for a serving process, or ``None``: armed
     by an explicit ``max_pending`` on either engine, and by default (at
     :data:`DEFAULT_MAX_PENDING`) on the aio engine, which exists to stay
     responsive past saturation. The thread engine keeps its
-    admit-everything default."""
+    admit-everything default. ``shared_slot`` (:class:`SharedBudgetSlot`)
+    makes ``max_pending`` one budget for every replica process."""
     if max_pending is None and server_engine != "aio":
         return None
     kwargs: dict = {}
@@ -372,4 +454,6 @@ def build_admission(server_engine: str, max_pending: int | None,
         kwargs["max_pending"] = max_pending
     if retry_after_max_s is not None:
         kwargs["retry_after_max_s"] = retry_after_max_s
+    if shared_slot is not None:
+        kwargs["shared_slot"] = shared_slot
     return AdmissionController(**kwargs)

@@ -37,8 +37,10 @@ timed, counted handler, exactly where the JAX engine does and where
 ``chaos.http.FlakyScoringMiddleware`` sits on the in-process path (the
 same decision streams, so a seed replays the same adversity); an
 injected 503/429 counts as ``bodywork_tpu_serve_shed_total{reason=
-"chaos"}``, never mistakable for an admission shed. The row-queue front
-ends and the multi-process ``/metrics`` are later slices.
+"chaos"}``, never mistakable for an admission shed. ``/metrics`` renders
+the app's view (``ScoringApp.metrics_text``: the service-wide merge under
+``serve --workers``). The row-queue front ends are a later slice (ROADMAP
+Queue 1 item 15).
 """
 from __future__ import annotations
 
@@ -51,7 +53,6 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from bodywork_tpu_torch.obs import get_registry
 from bodywork_tpu_torch.obs.tracing import (
     TRACE_ID_HEADER,
     TRACEPARENT_HEADER,
@@ -478,7 +479,7 @@ class AioScoringServer:
 
     async def _metrics(self, app, body: bytes, trace_box=None, content_type: str = ""):
         loop = asyncio.get_running_loop()
-        text = await loop.run_in_executor(self._executor, get_registry().render)
+        text = await loop.run_in_executor(self._executor, app.metrics_text)
         return 200, text.encode(), METRICS_CONTENT_TYPE, ()
 
 
@@ -488,8 +489,12 @@ class AioServiceHandle:
     (:meth:`start`) or in the calling thread (:meth:`serve_forever`);
     :meth:`stop` is thread-safe and runs the registered cleanups first."""
 
-    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000):
+    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000,
+                 sock=None):
         apps = list(app) if isinstance(app, (list, tuple)) else [app]
+        #: a bound socket to listen on (a ``serve --workers`` replica's
+        #: ``SO_REUSEPORT`` socket), or None to bind ``host:port``
+        self._sock = sock
         self.server = AioScoringServer(apps)
         #: the first replica app (in-process scoring goes through it)
         self.app = apps[0]
@@ -523,8 +528,12 @@ class AioServiceHandle:
         self._loop = asyncio.get_running_loop()
         self._stop_event = asyncio.Event()
         try:
-            server = await asyncio.start_server(self.server.handle_connection, self.host,
-                                                self.port, limit=MAX_HEADER_BYTES)
+            if self._sock is not None:
+                server = await asyncio.start_server(self.server.handle_connection,
+                                                    sock=self._sock, limit=MAX_HEADER_BYTES)
+            else:
+                server = await asyncio.start_server(self.server.handle_connection, self.host,
+                                                    self.port, limit=MAX_HEADER_BYTES)
             self.port = server.sockets[0].getsockname()[1]
         except BaseException as exc:
             self._startup_error = exc

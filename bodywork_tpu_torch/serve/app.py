@@ -55,7 +55,10 @@ non-finite prediction raises :class:`PredictionSanityError` and the
 request answers 500, the value never written; a production prediction
 outside the model's registry band (``prediction_bounds``, from its
 training labels) is logged and served, since the band is statistical.
-The multi-process ``/metrics`` waits for a later slice.
+Under ``serve --workers N`` every replica flushes its registry to a
+shared snapshot directory (``metrics_dir``, ``obs.multiproc``), and
+``GET /metrics`` merges this process's live registry with its siblings'
+snapshots, one service-wide view on one port.
 """
 from __future__ import annotations
 
@@ -222,7 +225,11 @@ class ScoringApp:
 
     def __init__(self, model, model_date=None, predictor=None,
                  model_key: str | None = None, model_source: str | None = None,
-                 model_bounds=None, batcher=None, admission=None):
+                 model_bounds=None, batcher=None, admission=None,
+                 metrics_dir: str | None = None):
+        #: the shared snapshot directory of a multi-process service, or
+        #: None (``/metrics`` then renders this process's registry)
+        self.metrics_dir = metrics_dir
         if model is None:
             assert predictor is None, "a predictor needs a model"
             self.served = None
@@ -873,9 +880,17 @@ class ScoringApp:
         return _json_response(payload, status, headers)
 
     def metrics_endpoint(self, body: bytes, content_type: str | None, trace=None):
-        """This process's registry in the Prometheus text format."""
-        return (200, {"Content-Type": METRICS_CONTENT_TYPE},
-                get_registry().render().encode())
+        """This process's registry in the Prometheus text format, merged
+        with its sibling workers' flushed snapshots when ``metrics_dir``
+        is set (``serve --workers N --metrics``)."""
+        return (200, {"Content-Type": METRICS_CONTENT_TYPE}, self.metrics_text().encode())
+
+    def metrics_text(self) -> str:
+        if self.metrics_dir is None:
+            return get_registry().render()
+        from bodywork_tpu_torch.obs.multiproc import aggregated_render
+
+        return aggregated_render(get_registry(), self.metrics_dir)
 
     def close(self) -> None:
         """Stop the coalescer's dispatcher after flushing what it holds.
@@ -887,12 +902,15 @@ class ScoringApp:
 def create_app(model, model_date=None, predictor=None, warmup: bool = True,
                batch_window_ms: float | None = None, batch_max_rows: int | None = None,
                model_key: str | None = None, model_source: str | None = None,
-               admission=None, model_bounds=None) -> ScoringApp:
+               admission=None, model_bounds=None,
+               metrics_dir: str | None = None) -> ScoringApp:
     """A :class:`ScoringApp`, warmed. ``batch_window_ms`` > 0 opts into
     cross-request micro-batching (``serve.batcher``), flushed when
     ``batch_max_rows`` accumulate or the window elapses, whichever first.
     ``admission`` (``serve.admission.AdmissionController``) opts into load
-    shedding; replica apps of one listener share one controller."""
+    shedding; replica apps of one listener share one controller.
+    ``metrics_dir`` points ``GET /metrics`` at a multi-process service's
+    shared snapshot directory."""
     batcher = None
     if batch_window_ms and batch_window_ms > 0:
         from bodywork_tpu_torch.serve.batcher import DEFAULT_MAX_ROWS, RequestCoalescer
@@ -902,7 +920,7 @@ def create_app(model, model_date=None, predictor=None, warmup: bool = True,
         ).start()
     app = ScoringApp(model, model_date, predictor=predictor, model_key=model_key,
                      model_source=model_source, model_bounds=model_bounds,
-                     batcher=batcher, admission=admission)
+                     batcher=batcher, admission=admission, metrics_dir=metrics_dir)
     if warmup and app.predictor is not None:
         app.predictor.warmup()
     return app

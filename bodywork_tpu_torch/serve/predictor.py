@@ -148,23 +148,20 @@ class _WeightSlot:
             time.sleep(0)
 
 
-class _BucketGraph:
-    """One bucket's program over a slot: on the card a captured CUDA graph
-    with its static input and output and pinned staging buffers, on the
-    CPU the plain version run eagerly over the static input. ``engine``
-    names the kernel a replay launches (None for the plain engines)."""
+class _CapturedProgram:
+    """One static-shape program: on the card a captured CUDA graph with its
+    static input and output and pinned staging buffers, on the CPU the
+    plain version run eagerly over the static input. The solo serving
+    buckets (:class:`_BucketGraph`) and the tenant stack
+    (``tenancy.stacked``) both dispatch through it."""
 
-    def __init__(self, slot: _WeightSlot, runner, bucket: int, n_features: int,
-                 device: torch.device, engine: str | None):
-        self.slot = slot
+    def __init__(self, runner, shape: tuple, device: torch.device):
         self.device = device
-        self.engine = engine
         self.graph = None
-        self.runner = None
+        self.runner = runner
         with torch.no_grad():
-            self.x = torch.zeros((bucket, n_features), dtype=torch.float32, device=device)
+            self.x = torch.zeros(shape, dtype=torch.float32, device=device)
             if device.type != "cuda":
-                self.runner = runner
                 runner(self.x)  # a shape or weight fault raises here, at build
                 return
             # warm on the side stream the capture uses (workspaces, kernel
@@ -186,6 +183,36 @@ class _BucketGraph:
         self.out_host = torch.empty(self.out.shape, dtype=self.out.dtype, pin_memory=True)
         self.done = torch.cuda.Event()
 
+    def run(self, X: np.ndarray, on_replay=None) -> np.ndarray:
+        """Copy ``X`` in, run or replay, and copy the output out;
+        ``on_replay()`` is called after each replay is launched. The caller
+        holds whatever lock guards the buffers and the weights."""
+        with torch.no_grad():
+            if self.graph is None:
+                self.x.numpy()[...] = X
+                return self.runner(self.x).numpy().copy()
+            stream = torch.cuda.current_stream(self.device)
+            self.staging.numpy()[...] = X
+            self.x.copy_(self.staging, non_blocking=True)
+            self.graph.replay()
+            if on_replay is not None:
+                on_replay()
+            self.out_host.copy_(self.out, non_blocking=True)
+            self.done.record(stream)
+            self.done.synchronize()
+            return self.out_host.numpy().copy()
+
+
+class _BucketGraph(_CapturedProgram):
+    """One bucket's program over a shared weight slot. ``engine`` names
+    the kernel a replay launches (None for the plain engines)."""
+
+    def __init__(self, slot: _WeightSlot, runner, bucket: int, n_features: int,
+                 device: torch.device, engine: str | None):
+        self.slot = slot
+        self.engine = engine
+        super().__init__(runner, (bucket, n_features), device)
+
     def run(self, Xp: np.ndarray, owner: int, weights, cache: "GraphCache") -> np.ndarray:
         """Score one padded batch with ``owner``'s ``weights``: rebind the
         slot if another predictor's weights are in it, then copy in, run
@@ -193,25 +220,14 @@ class _BucketGraph:
         slot = self.slot
         slot.acquire()
         try:
-            with torch.no_grad():
-                if slot.owner != owner:
-                    # every leaf in one call (a fused copy on the card), not
-                    # one copy launch per leaf on the request path
+            if slot.owner != owner:
+                # every leaf in one call (a fused copy on the card), not
+                # one copy launch per leaf on the request path
+                with torch.no_grad():
                     torch._foreach_copy_(list(_leaves(slot.weights)), list(_leaves(weights)))
-                    slot.owner = owner
-                    cache.count_rebind()
-                if self.graph is None:
-                    self.x.numpy()[...] = Xp
-                    return self.runner(self.x).numpy().copy()
-                stream = torch.cuda.current_stream(self.device)
-                self.staging.numpy()[...] = Xp
-                self.x.copy_(self.staging, non_blocking=True)
-                self.graph.replay()
-                cache.count_replay(self.engine)
-                self.out_host.copy_(self.out, non_blocking=True)
-                self.done.record(stream)
-                self.done.synchronize()
-                return self.out_host.numpy().copy()
+                slot.owner = owner
+                cache.count_rebind()
+            return super().run(Xp, lambda: cache.count_replay(self.engine))
         finally:
             slot.release()
 

@@ -326,11 +326,23 @@ class ServiceHandle:
     free port. :meth:`stop` runs the registered cleanups (the apps'
     coalescers flush and stop) before it closes the listener."""
 
-    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000):
+    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000, sock=None):
         self.app = app
         #: the scoring apps behind the front (one unless replicated)
         self.replica_apps = list(getattr(app, "apps", [app]))
-        self._server = _ThreadingServer((host, port), _handler_for(app))
+        if sock is None:
+            self._server = _ThreadingServer((host, port), _handler_for(app))
+        else:
+            # a bound socket handed in (a ``serve --workers`` replica's
+            # SO_REUSEPORT socket): listen on it instead of binding one
+            self._server = _ThreadingServer(sock.getsockname(), _handler_for(app),
+                                            bind_and_activate=False)
+            self._server.socket.close()
+            self._server.socket = sock
+            self._server.server_address = sock.getsockname()
+            self._server.server_name = host
+            self._server.server_port = sock.getsockname()[1]
+            self._server.server_activate()
         self.host = host
         self.port = self._server.server_port
         self._cleanups: list = []
@@ -426,7 +438,8 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 watch_interval_s: float | None = None, device=None,
                 tuned_config: str | None = None, online_tune: bool = False,
                 tune_request_logs: tuple = (), tune_results_logs: tuple = (),
-                cost_budget_s: float | None = None):
+                cost_budget_s: float | None = None, sock=None, shared_slot=None,
+                metrics_dir: str | None = None):
     """Serve a loaded model from its device: build the predictor for the
     engine and dtype (:func:`build_serving_predictor`; a quantized dtype
     shadows over ``store``'s datasets), warm every bucket (a capture or a
@@ -462,7 +475,13 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
     ``online_tune`` arms the online re-tune controller (``tune.online``)
     on the watcher's polls, watching ``tune_request_logs`` /
     ``tune_results_logs``; it needs ``watch_interval_s``, and without it
-    logs a warning."""
+    logs a warning.
+
+    A ``serve --workers`` replica (``serve.multiproc``) passes ``sock``
+    (its bound ``SO_REUSEPORT`` socket, listened on instead of
+    ``host:port``), ``shared_slot`` (its slot of the service-wide
+    admission budget, ``serve.admission.SharedBudgetSlot``) and
+    ``metrics_dir`` (the shared snapshot directory ``/metrics`` merges)."""
     if server_engine not in SERVER_ENGINES:
         raise ValueError(f"unknown server engine {server_engine!r}; "
                          f"expected one of {SERVER_ENGINES}")
@@ -494,12 +513,13 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
         log.info(f"serving {model.info} on {model.device} through engine "
                  f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} "
                  f"replica(s), {server_engine} front end)")
-    admission = build_admission(server_engine, max_pending, retry_after_max_s)
+    admission = build_admission(server_engine, max_pending, retry_after_max_s,
+                                shared_slot=shared_slot)
     apps = [
         create_app(model, model_date, predictor=predictor, warmup=False,
                    batch_window_ms=batch_window_ms, batch_max_rows=batch_max_rows,
                    model_key=model_key, model_source=model_source, admission=admission,
-                   model_bounds=model_bounds)
+                   model_bounds=model_bounds, metrics_dir=metrics_dir)
         for _ in range(max(replicas, 1))
     ]
     for app in apps:
@@ -513,10 +533,10 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
         if server_engine == "aio":
             from bodywork_tpu_torch.serve.aio import AioServiceHandle
 
-            handle = AioServiceHandle(apps, host, port)
+            handle = AioServiceHandle(apps, host, port, sock=sock)
         else:
             handle = ServiceHandle(RoundRobinApp(apps) if len(apps) > 1 else apps[0],
-                                   host, port)
+                                   host, port, sock=sock)
         if watch_interval_s:
             from bodywork_tpu_torch.ops.slo import SloWatchdog, policy_from_env
             from bodywork_tpu_torch.serve.reload import NOTHING_SERVED, CheckpointWatcher
@@ -583,7 +603,8 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        watch_interval_s: float | None = None,
                        tuned_config: str | None = None, online_tune: bool = False,
                        tune_request_logs: tuple = (), tune_results_logs: tuple = (),
-                       cost_budget_s: float | None = None):
+                       cost_budget_s: float | None = None, sock=None, shared_slot=None,
+                       metrics_dir: str | None = None):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
@@ -598,7 +619,8 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
     artefact store or a store directory. With ``block=False`` returns a
     started handle. ``tuned_config``, ``cost_budget_s``, ``online_tune``
     and the ``tune_*_logs`` are :func:`serve_model`'s (the tuned knobs
-    resolve there, before any predictor is built)."""
+    resolve there, before any predictor is built), and so are a
+    replica's ``sock``, ``shared_slot`` and ``metrics_dir``."""
     from bodywork_tpu_torch.registry.records import RegistryCorrupt
     from bodywork_tpu_torch.store.base import ArtefactNotFound
 
@@ -622,4 +644,5 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        watch_interval_s=watch_interval_s, device=dev,
                        tuned_config=tuned_config, online_tune=online_tune,
                        tune_request_logs=tune_request_logs,
-                       tune_results_logs=tune_results_logs, cost_budget_s=cost_budget_s)
+                       tune_results_logs=tune_results_logs, cost_budget_s=cost_budget_s,
+                       sock=sock, shared_slot=shared_slot, metrics_dir=metrics_dir)

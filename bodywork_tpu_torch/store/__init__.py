@@ -14,7 +14,7 @@ from bodywork_tpu_torch.store.filesystem import FilesystemStore
 from bodywork_tpu_torch.store.resilient import ResilientStore
 
 __all__ = ["ArtefactNotFound", "ArtefactStore", "CasConflict", "DelegatingStore",
-           "FilesystemStore", "ResilientStore", "open_store"]
+           "FilesystemStore", "ResilientStore", "open_scoped_store", "open_store"]
 
 
 def open_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:
@@ -41,3 +41,14 @@ def open_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:
     if url.startswith("file://"):
         url = url[len("file://"):]
     return AuditedStore(FilesystemStore(url))
+
+
+def open_scoped_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:
+    """:func:`open_store`, scoped to the tenant ``BODYWORK_TPU_TENANT``
+    names (a malformed value degrades to the root with a warning): the
+    seam for spawned serving processes, which inherit their configuration
+    through the environment. CLI entry points call :func:`open_store` and
+    apply their flag-beats-env precedence themselves."""
+    from bodywork_tpu_torch.tenancy.namespace import scoped_store, tenant_from_env
+
+    return scoped_store(open_store(location), tenant_from_env())

@@ -1,7 +1,31 @@
-"""Tenant namespaces: the part of ``bodywork_tpu.tenancy`` the integrity
-scrub reads (``tenants/<id>/`` subtrees of a store the JAX package
-wrote); the fleet soak and the scoped entry points wait for a later slice
-of the port."""
-from bodywork_tpu_torch.tenancy.namespace import TenantStore, list_tenants
+"""The multi-tenant fleet layer (the port of ``bodywork_tpu.tenancy``):
+tenant-namespaced stores (:mod:`.namespace`), stacked one-dispatch
+serving of many same-architecture tenants (:mod:`.stacked`), the scenario
+zoo (:mod:`.scenarios`), fair round-robin retrain scheduling
+(:mod:`.scheduler`) and the seeded fleet soak (:mod:`.fleet`).
 
-__all__ = ["TenantStore", "list_tenants"]
+:mod:`.namespace`, :mod:`.scenarios` and :mod:`.scheduler` import no
+torch, so front ends and the cli load them without a device runtime;
+:mod:`.stacked` and :mod:`.fleet` hold the torch-facing pieces. This
+``__init__`` re-exports only the torch-free surface, as the JAX
+package's re-exports only its jax-free one.
+"""
+from bodywork_tpu_torch.tenancy.namespace import (
+    TENANT_ENV,
+    TenantStore,
+    list_tenants,
+    scoped_store,
+    tenant_from_env,
+)
+from bodywork_tpu_torch.tenancy.scenarios import (
+    SCENARIOS,
+    TRAFFIC_SHAPES,
+    TenantSpec,
+    traffic_profile,
+    zoo,
+)
+from bodywork_tpu_torch.tenancy.scheduler import FairScheduler
+
+__all__ = ["SCENARIOS", "TENANT_ENV", "TRAFFIC_SHAPES", "FairScheduler", "TenantSpec",
+           "TenantStore", "list_tenants", "scoped_store", "tenant_from_env",
+           "traffic_profile", "zoo"]

@@ -1,22 +1,37 @@
-"""Tenant-scoped store views (the port's copy of the part of
-``bodywork_tpu.tenancy.namespace`` that fsck uses).
+"""Tenant-scoped store views (the port's copy of
+``bodywork_tpu.tenancy.namespace``).
 
 A tenant's artefacts live under ``tenants/<id>/``, the whole store schema
 mirrored there; the reserved ``default`` tenant is the unprefixed root.
 :class:`TenantStore` rebases every key and prefix on the way in and
-strips it on the way out, so a caller sees a single-tenant store.
+strips it on the way out, so a caller sees a single-tenant store and
+training, the registry, journals, snapshots, sidecars and tuned configs
+become tenant-aware without learning a tenant argument. Listings stay
+prefix-bounded: a scoped ``list_keys(p)`` walks only
+``tenants/<id>/p`` on the backend.
 """
 from __future__ import annotations
 
+import os
+
 from bodywork_tpu_torch.store.base import ArtefactStore, DelegatingStore
 from bodywork_tpu_torch.store.schema import (
+    DEFAULT_TENANT,
     TENANT_ID_PATTERN,
     TENANTS_PREFIX,
     tenant_prefix,
     validate_tenant_id,
 )
+from bodywork_tpu_torch.utils.logging import get_logger
 
-__all__ = ["TenantStore", "list_tenants"]
+__all__ = ["TENANT_ENV", "TenantStore", "list_tenants", "scoped_store", "tenant_from_env",
+           "tenant_of"]
+
+log = get_logger("tenancy.namespace")
+
+#: the pod environment's tenant knob, parsed with the stages' contract:
+#: a malformed value degrades to ``default`` with a warning
+TENANT_ENV = "BODYWORK_TPU_TENANT"
 
 
 class TenantStore(DelegatingStore):
@@ -69,6 +84,46 @@ class TenantStore(DelegatingStore):
 
     def mutable_cache(self, name: str) -> dict:
         return self._inner.mutable_cache(f"{self._prefix}{name}")
+
+
+def scoped_store(store: ArtefactStore, tenant_id: str) -> ArtefactStore:
+    """``store`` viewed through ``tenant_id``'s namespace; the reserved
+    ``default`` tenant returns ``store`` unwrapped, so a root deployment's
+    keys stay byte-identical. Callers scope the root store once, when it
+    is opened (``cli --tenant`` / :data:`TENANT_ENV`)."""
+    validate_tenant_id(tenant_id)
+    if tenant_id == DEFAULT_TENANT:
+        return store
+    return TenantStore(store, tenant_id)
+
+
+def tenant_of(store: ArtefactStore) -> str:
+    """The tenant a store view is scoped to (``default`` for a store that
+    is not a :class:`TenantStore`): the label of tenant metric families."""
+    while store is not None:
+        if isinstance(store, TenantStore):
+            return store.tenant_id
+        store = getattr(store, "_inner", None)
+    return DEFAULT_TENANT
+
+
+def tenant_from_env(environ=None) -> str:
+    """The deployed tenant from :data:`TENANT_ENV`. A malformed value
+    degrades to ``default`` with a warning (a typo never crashes the pod
+    and can touch only the root namespace); the ``--tenant`` flag, by
+    contrast, refuses it."""
+    env = os.environ if environ is None else environ
+    raw = env.get(TENANT_ENV, "").strip()
+    if not raw:
+        return DEFAULT_TENANT
+    try:
+        return validate_tenant_id(raw)
+    except ValueError:
+        log.warning(
+            f"ignoring {TENANT_ENV}={raw!r} "
+            f"(want lowercase DNS-label, pattern {TENANT_ID_PATTERN.pattern})"
+        )
+        return DEFAULT_TENANT
 
 
 def list_tenants(store: ArtefactStore) -> list[str]:

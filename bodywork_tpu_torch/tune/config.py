@@ -99,8 +99,9 @@ KNOB_DEFAULTS = {
 #: which tuned knobs bind in the device-owning dispatcher of the JAX
 #: package's disaggregated serving (``serve --frontends N``, ROADMAP
 #: Queue 1 item 15): the coalescer's two and the ladder; ``max_pending``
-#: binds upstream, in every front end's shared budget. In the port's flat
-#: topologies every knob binds in the one serving process.
+#: binds upstream, in every front end's shared budget. In the port's
+#: topologies (one process, or ``serve --workers N`` replicas that each
+#: resolve the document) every knob binds in the serving process.
 DISPATCHER_SCOPED_KNOBS = ("batch_window_ms", "batch_max_rows", "buckets")
 
 

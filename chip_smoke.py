@@ -101,7 +101,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
    graduated with no capture, build or rebind after boot, a sabotaged
    window reverted in one config-log CAS with its flight record, and a
    new ladder rung (1024) captured once on the watcher's thread
-   mid-drive; ``ab``: ``run_ab_simulation`` of
+   mid-drive; ``tenancy``: stacked multi-tenant serving
+   (``tenancy.stacked``), config 15's fleets of 2, 4 and 8 MLPs of hidden
+   (32, 32) at bucket 8 and 8 tenants of the 1024-wide MLP at buckets 8,
+   64 and 512: every tenant's ``scan`` answers byte-equal to its solo
+   ``torch`` predictor's, ``vmap`` within its stated tolerance, no capture
+   across an eviction, a never-seen admission and a re-admission, the
+   stacked replay's device ms against the sequential solo replays';
+   ``ab``: ``run_ab_simulation`` of
    ``["linear", "mlp"]`` for 3 days, the pair concurrently then each
    variant solo, each variant's artefacts byte-identical to its solo
    run, the pair's wall-clock against the sum of the solos;
@@ -200,7 +207,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
    repairs by action, the victim byte-identical outside ``quarantine/``;
    ``crash-sim``: ``run_crash_sim`` of 2 linear days at 2 stage boundaries
    and 2 seeded store-op points, each child killed there (exit 86) and its
-   restart converging, the seconds of each point;
+   restart converging, the seconds of each point; ``fleet-sim``:
+   ``run_fleet_sim`` of 4 scenario-zoo tenants for 3 days in one store,
+   one NaN-sabotaged, linear and then the 1024-wide MLP (fits cut to 200
+   steps): every healthy tenant byte-identical to its solo twin, the
+   sabotaged gate rejecting, ``kernel``'s launches; ``workers``: ``cli
+   serve --workers 2 --metrics`` on the card against a one-process ``cli
+   serve``: both worker processes answering the one-process bodies, a
+   SIGKILL mid-traffic with zero failed scores and the respawn, a hot
+   reload reaching both, the aggregated ``/metrics``, a 64-row burst shed
+   by the service-wide budget of 8, one worker's footprint on the card
+   (its CUDA context included) and
+   the closed-loop requests/s and p50/p99 of both topologies;
 9. ``deploy`` — ``cli deploy --out DIR --emit-images DIR2`` of
    ``default_pipeline("mlp")`` with the day loop's 1024-wide MLP in a
    fresh process whose own import log shows no pyyaml, jsonschema or
@@ -374,6 +392,14 @@ AUDIT_DAYS = 2
 #: the crash sweep on the card: 2 linear days, 2 of its 10 stage
 #: boundaries and 2 seeded store-op points
 CRASH = {"days": 2, "boundaries": (1, 7), "store_op_samples": 2, "seed": 0}
+#: tenancy: config 15's shape (bench.py: fleets of 2/4/8, 8 rows a tenant,
+#: bucket 8, hidden (32, 32)), then 8 tenants of the served width
+TENANCY = {"fleet_sizes": (2, 4, 8), "small_widths": (1, 32, 32, 1), "small_buckets": (8,),
+           "small_rows": 8, "wide_tenants": 8, "wide_buckets": (8, 64, 512)}
+FLEET = {"tenants": 4, "days": 3, "sabotage": "tenant-01", "samples_per_day": 1440}
+#: (6 closed-loop clients stay under the budget of 8: the load drive sheds nothing)
+WORKERS = {"workers": 2, "max_pending": 8, "burst": 64, "clients": 6, "per_client": 50,
+           "drill_requests": 40, "kill_at": 10, "reload_s": 0.5}
 
 
 def emit(phase: str, **fields) -> None:
@@ -1752,7 +1778,8 @@ class _ServeProcess:
     kernel launches and graph-cache counts come from its ``/healthz``
     (counted from the process's start)."""
 
-    def __init__(self, store_root: str, reload_interval: float = 0.0, args=None):
+    def __init__(self, store_root: str, reload_interval: float = 0.0, args=None,
+                 env: dict | None = None):
         import queue
         import threading
 
@@ -1763,8 +1790,8 @@ class _ServeProcess:
             [sys.executable, "-m", "bodywork_tpu_torch.cli", "serve", "--store", store_root,
              "--host", "127.0.0.1", "--port", "0", "--server-engine", "aio", *args,
              "--reload-interval", str(reload_interval)],
-            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+            cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT, **(env or {})},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self.lines: list = []
         self._queue: queue.Queue = queue.Queue()
         threading.Thread(target=lambda: [self._queue.put(line) for line in self.proc.stdout],
@@ -1786,6 +1813,27 @@ class _ServeProcess:
 
     def health(self) -> dict:
         return get(self.base_url + "/healthz")
+
+    def wait_for_line(self, pattern: str, timeout_s: float):
+        """The first output line from now on matching ``pattern`` (a
+        regex), as its match; raises past ``timeout_s``."""
+        import queue
+        import re
+
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                line = self._queue.get(timeout=0.5)
+            except queue.Empty:
+                if self.proc.poll() is not None:
+                    break
+                continue
+            self.lines.append(line)
+            match = re.search(pattern, line)
+            if match:
+                return match
+        raise RuntimeError(f"no line matching {pattern!r} within {timeout_s} s: "
+                           + "".join(self.lines)[-3000:])
 
     def stop(self) -> dict:
         """SIGTERM: exit 143 within 60 s, no abort in the output."""
@@ -1995,8 +2043,8 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     slowest with their index) and the interpreter's collections during the drive:
     at sub-millisecond requests the watchdog's p99 of a few dozen samples
     is their slowest, and a full collection of the heap the earlier
-    phases left, landing in one canary request, decides it; so that heap
-    is collected and frozen before each scenario."""
+    phases left, landing in one canary request, decides it; so
+    ``run_canary_chaos`` collects and freezes that heap before its drive."""
     import gc
 
     from bodywork_tpu_torch.chaos import canary as canary_module
@@ -2023,11 +2071,26 @@ def phase_canary(torch, dev, workdir: str) -> dict:
         app.handle = timed
         lanes = {"production": app.predictor.slot_lane,
                  "canary": app._canary.predictor.slot_lane if app._canary else None}
+        # the interpreter's collections inside the drive, each with its ms
+        pauses, started = [], [0.0]
+
+        def collected(stage, info):
+            if stage == "start":
+                started[0] = time.perf_counter()
+            else:
+                pauses.append((info["generation"], 1e3 * (time.perf_counter() - started[0])))
+
         before = GRAPH_CACHE.stats()
-        trace = drive(app, twin_app, watcher, xs, *args)
+        gc.callbacks.append(collected)
+        try:
+            trace = drive(app, twin_app, watcher, xs, *args)
+        finally:
+            gc.callbacks.remove(collected)
         after = GRAPH_CACHE.stats()
         drives.append((xs, trace, seconds, lanes,
-                       {k: after[k] - before[k] for k in ("rebinds", "captures", "misses")}))
+                       {k: after[k] - before[k] for k in ("rebinds", "captures", "misses")},
+                       {"count": len(pauses), "gen2": sum(g == 2 for g, _ in pauses),
+                        "max_ms": max((ms for _g, ms in pauses), default=0.0)}))
         return trace
 
     out = {}
@@ -2037,36 +2100,20 @@ def phase_canary(torch, dev, workdir: str) -> dict:
         runs, collections = {}, {}
         for scenario in ("nan", "latency", "healthy"):
             root = os.path.join(workdir, f"canary-{scenario}")
-            gc.collect()
-            gc.freeze()
-            pauses, started = [], [0.0]
-
-            def timed(stage, info, pauses=pauses, started=started):
-                if stage == "start":
-                    started[0] = time.perf_counter()
-                else:
-                    pauses.append((info["generation"], 1e3 * (time.perf_counter() - started[0])))
-
-            gc.callbacks.append(timed)
             before = GRAPH_CACHE.stats()
             t0 = time.perf_counter()
-            try:
-                summary = run_canary_chaos(
-                    FilesystemStore(root), scenario=scenario, seed=0,
-                    n_requests=CANARY["requests"], fraction=CANARY["fraction"],
-                    model_type="mlp", model_kwargs=LOOP_MLP, device=dev)
-            finally:
-                gc.callbacks.remove(timed)
-                gc.unfreeze()
+            summary = run_canary_chaos(
+                FilesystemStore(root), scenario=scenario, seed=0,
+                n_requests=CANARY["requests"], fraction=CANARY["fraction"],
+                model_type="mlp", model_kwargs=LOOP_MLP, device=dev)
             runs[scenario] = (root, summary, drives[-1], time.perf_counter() - t0,
                               before, GRAPH_CACHE.stats())
-            collections[scenario] = {"count": len(pauses), "gen2": sum(g == 2 for g, _ in pauses),
-                                     "max_ms": max((ms for _g, ms in pauses), default=0.0)}
+            collections[scenario] = drives[-1][5]
     finally:
         canary_module._drive = drive
     launches = dict(LAUNCHES)
-    for scenario, (root, summary, (xs, trace, handled, lanes, in_drive), seconds, before,
-                   after) in runs.items():
+    for scenario, (root, summary, (xs, trace, handled, lanes, in_drive, _gc), seconds,
+                   before, after) in runs.items():
         store = FilesystemStore(root)
         keys = (summary["production_key"], summary["canary_key"])
         layers = {key: make_kernel_mlp_apply(load_model(store, key, device=dev)[0].params,
@@ -3944,6 +3991,484 @@ def phase_crash_sim(torch, dev, workdir: str) -> dict:
     return out
 
 
+def _generated_days(torch, dev, days=(date(2026, 7, 1), date(2026, 7, 2), date(2026, 7, 3))):
+    """Three days generated on the card, as device tensors (X, y)."""
+    import numpy as np
+
+    from bodywork_tpu_torch.data import generate_day
+
+    drawn = [generate_day(d, device=dev) for d in days]
+    return (torch.as_tensor(np.concatenate([X for X, _ in drawn]), device=dev),
+            torch.as_tensor(np.concatenate([y for _, y in drawn]), device=dev))
+
+
+def _stacked_models(torch, dev, n: int, widths: tuple, X_hist, y_hist) -> list:
+    """``n`` MLPs of ``widths`` with seeded He-init weights (seeds 0..n-1)
+    and the generated days' scaler, on the card."""
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor
+
+    return [MLPRegressor(MLPConfig(hidden=tuple(widths[1:-1])),
+                         make_params(torch, dev, X_hist, y_hist, seed=i, widths=widths))
+            for i in range(n)]
+
+
+def _stack_point(torch, dev, models, buckets: tuple, rows: dict) -> dict:
+    """One stacked-serving point: the models admitted to a ``scan`` stack
+    and a ``vmap`` stack of capacity ``len(models)``; per bucket, each
+    tenant's rows through the stacked dispatch against its own solo
+    ``torch`` predictor, byte for byte, the ``vmap`` stack's largest
+    distance from solo over the outputs' scale, and the device ms of one stacked replay
+    against the N sequential solo replays it stands for (CUDA events,
+    medians of 30) beside the host ms of one ``predict_multi`` and of N
+    solo ``predict`` calls (medians of 10). Then residency churn (an
+    eviction, a never-seen tenant's admission, a re-admission) and every
+    bucket again: no capture, no build, the re-admitted tenant's bytes its
+    solo predictor's."""
+    import numpy as np
+
+    from bodywork_tpu_torch.serve.predictor import PaddedPredictor
+    from bodywork_tpu_torch.tenancy.stacked import StackedMLPPredictor
+
+    n = len(models)
+    tenants = [f"tenant-{i:02d}" for i in range(n)]
+    stacks = {mode: StackedMLPPredictor(capacity=n, buckets=buckets, stack_mode=mode,
+                                        device=dev) for mode in ("scan", "vmap")}
+    for stack in stacks.values():
+        for tid, model in zip(tenants, models):
+            stack.admit(tid, model)
+        stack.warmup()
+    solos = [PaddedPredictor(model, buckets=buckets) for model in models]
+    for solo in solos:
+        solo.warmup()
+    rng = np.random.default_rng(15)
+    per_bucket = {}
+    for bucket in buckets:
+        batches = {tid: rng.uniform(0, 100, size=(rows.get(bucket, bucket), 1))
+                   .astype(np.float32) for tid in tenants}
+        scan = stacks["scan"].predict_multi(batches)
+        vmap = stacks["vmap"].predict_multi(batches)
+        solo = {tid: s.predict(batches[tid]) for tid, s in zip(tenants, solos)}
+        # the distance relative to the outputs' scale, VMAP_RTOL's measure
+        vmap_rel = max(float(np.max(np.abs(vmap[t] - solo[t])) / np.max(np.abs(solo[t])))
+                       for t in tenants)
+        stacked = stacks["scan"]._programs[bucket]
+        solo_entry = solos[0]._graph_for(bucket, 1)
+        host = {"stacked": [], "sequential": []}
+        for _ in range(10):
+            t0 = time.perf_counter()
+            stacks["scan"].predict_multi(batches)
+            host["stacked"].append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for tid, s in zip(tenants, solos):
+                s.predict(batches[tid])
+            host["sequential"].append(time.perf_counter() - t0)
+        per_bucket[bucket] = {
+            "rows_per_tenant": rows.get(bucket, bucket),
+            "scan_bytes_equal_solo": {t: scan[t].tobytes() == solo[t].tobytes()
+                                      for t in tenants},
+            "vmap_max_err_over_scale": vmap_rel,
+            "stacked_device_ms": _median_ms(torch, lambda p=stacked: p.graph.replay()),
+            "sequential_solo_device_ms": _median_ms(
+                torch, lambda e=solo_entry: [e.graph.replay() for _ in range(n)]),
+            "stacked_host_ms": 1e3 * statistics.median(host["stacked"]),
+            "sequential_solo_host_ms": 1e3 * statistics.median(host["sequential"]),
+        }
+    stack = stacks["scan"]
+    before = stack.stats()
+    victim = tenants[-1]
+    stack.evict(victim)
+    stack.admit("tenant-new", models[0])  # a tenant id the stack never saw
+    stack.evict("tenant-new")
+    stack.admit(victim, models[-1])  # re-admitted
+    readmitted = True
+    for bucket in buckets:
+        X = np.linspace(1.0, 99.0, min(bucket, 8), dtype=np.float32)[:, None]
+        out = stack.predict_multi({victim: X, tenants[0]: X})
+        readmitted &= out[victim].tobytes() == solos[-1].predict(X).tobytes()
+    after = stack.stats()
+    return {"tenants": n, "hidden": list(models[0].config.hidden), "buckets": list(buckets),
+            "per_bucket": per_bucket, "captures_at_warmup": before["captures"],
+            "captures_over_churn": after["captures"] - before["captures"],
+            "builds_over_churn": after["builds"] - before["builds"],
+            "readmitted_bytes_equal_solo": readmitted}
+
+
+def phase_tenancy(torch, dev, workdir: str) -> dict:
+    """``tenancy``: stacked multi-tenant serving on the card. Config 15's
+    shape (fleets of 2, 4 and 8 MLPs of hidden (32, 32), 8 rows a tenant,
+    bucket 8), then 8 tenants of the served (1024, 1024, 1024) MLP at
+    buckets (8, 64, 512): every tenant's ``scan`` bytes equal to its solo
+    ``torch`` predictor's at every bucket, ``vmap`` within
+    ``VMAP_RTOL``, no capture or build across eviction, a never-seen
+    admission and re-admission; stacked against sequential-solo device
+    and host ms printed."""
+    from bodywork_tpu_torch.tenancy.stacked import VMAP_RTOL
+
+    X_hist, y_hist = _generated_days(torch, dev)
+    points = []
+    for n in TENANCY["fleet_sizes"]:
+        models = _stacked_models(torch, dev, n, TENANCY["small_widths"], X_hist, y_hist)
+        points.append(_stack_point(torch, dev, models, TENANCY["small_buckets"],
+                                   {TENANCY["small_buckets"][0]: TENANCY["small_rows"]}))
+    wide = _stacked_models(torch, dev, TENANCY["wide_tenants"], WIDTHS, X_hist, y_hist)
+    points.append(_stack_point(torch, dev, wide, TENANCY["wide_buckets"], {}))
+    failures = []
+    for point in points:
+        emit("tenancy", reduced=["fleet sizes 2/4/8 at hidden (32, 32); 8 tenants at full "
+                                 "width (config 15 runs 1024-wide fleets of up to 32)"]
+             if point is points[-1] else [], **point)
+        for bucket, line in point["per_bucket"].items():
+            if not all(line["scan_bytes_equal_solo"].values()):
+                failures.append((point["tenants"], bucket, "scan bytes"))
+            if not line["vmap_max_err_over_scale"] < VMAP_RTOL:
+                failures.append((point["tenants"], bucket, "vmap",
+                                 line["vmap_max_err_over_scale"]))
+        if point["captures_over_churn"] or point["builds_over_churn"] \
+                or point["captures_at_warmup"] != len(point["buckets"]) \
+                or not point["readmitted_bytes_equal_solo"]:
+            failures.append((point["tenants"], "churn"))
+    if failures:
+        raise RuntimeError(f"tenancy: {failures}")
+    return {"points": points}
+
+
+def phase_fleet_sim(torch, dev, workdir: str) -> dict:
+    """``fleet-sim``: ``run_fleet_sim`` of 4 scenario-zoo tenants for 3
+    days on the card, ``tenant-01`` NaN-sabotaged on its final day, once
+    with the linear model and once with the 1024-wide MLP (fits cut to 200
+    Adam steps, as the chaos soak cuts them): every healthy tenant's fleet
+    namespace byte-identical to its solo twin, the sabotaged tenant's gate
+    rejecting with production held, ``kernel``'s launches over the MLP
+    run (> 0: each tenant's serve stage runs ``auto`` -> ``kernel``)."""
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.tenancy import zoo
+    from bodywork_tpu_torch.tenancy.fleet import run_fleet_sim
+
+    launches = {name: 0 for name in VARIANTS}
+    failures = []
+    for model_type, kwargs in (("linear", None), ("mlp", SOAK_MLP)):
+        specs = zoo(FLEET["tenants"], n_samples=FLEET["samples_per_day"])
+        reset_launches()
+        t0 = time.perf_counter()
+        summary = run_fleet_sim(os.path.join(workdir, f"fleet-{model_type}"), LOOP_START,
+                                FLEET["days"], specs, sabotage_tenant=FLEET["sabotage"],
+                                model_type=model_type, device=dev, model_kwargs=kwargs)
+        seconds = time.perf_counter() - t0
+        run_launches = dict(LAUNCHES)
+        for name, count in run_launches.items():
+            launches[name] += count
+        out = {"model": model_type, "tenants": summary["tenants"],
+               "scenarios": [s.scenario for s in specs], "days": FLEET["days"],
+               "samples_per_day": FLEET["samples_per_day"],
+               "sabotage_tenant": summary["sabotage_tenant"],
+               "gate_rejected": summary["gate_rejected"],
+               "production_held": summary["production_held"],
+               "twins": {t: {"ok": c["ok"], "matched": c["matched"],
+                             "mismatched": len(c["mismatched"])}
+                         for t, c in summary["comparisons"].items()},
+               "ok": summary["ok"], "seconds": seconds, "launches": run_launches,
+               "reduced": _SOAK_REDUCED if model_type == "mlp" else []}
+        emit("fleet-sim", **out)
+        if not summary["ok"] or summary["gate_rejected"] is not True \
+                or summary["production_held"] is not True \
+                or len(summary["comparisons"]) != FLEET["tenants"] - 1:
+            failures.append(out)
+        if model_type == "mlp" and run_launches["kernel"] < 1:
+            failures.append(("no kernel launch", out))
+    if failures:
+        raise RuntimeError(f"fleet-sim: {failures}")
+    return {"launches": launches}
+
+
+def _fresh_score(base_url: str, x: float, attempts: int = 6) -> tuple[int, dict, bytes]:
+    """One single row on a fresh connection, retried on a refused or reset
+    connection (a listener that was just killed): scoring is idempotent."""
+    import http.client
+
+    for attempt in range(attempts):
+        conn = _connect(base_url)
+        try:
+            status, headers, body, _s = _score(conn, x)
+            return status, headers, body
+        except (ConnectionError, http.client.HTTPException, OSError):
+            if attempt == attempts - 1:
+                raise
+            time.sleep(0.05 * 2 ** attempt)
+        finally:
+            conn.close()
+    raise AssertionError("unreachable")
+
+
+def _closed_loop(base_url: str, clients: int, per_client: int, xs) -> dict:
+    """``clients`` closed-loop clients, each on its own keep-alive
+    connection after one untimed request: p50/p99 (nearest rank), the
+    requests/s, and every answer ``(status, body)`` by row."""
+    import threading
+
+    answers = [[] for _ in range(clients)]
+    start = threading.Barrier(clients)
+
+    def client(i):
+        conn = _connect(base_url)
+        _score(conn, 50.0)
+        start.wait()
+        for k in range(per_client):
+            x = xs[(i * per_client + k) % len(xs)]
+            status, _h, body, seconds = _score(conn, x)
+            answers[i].append((x, status, body, seconds))
+        conn.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    seconds = [a[3] for per in answers for a in per]
+    return {"requests": len(seconds), "p50_ms": 1e3 * _nearest_rank(seconds, 50),
+            "p99_ms": 1e3 * _nearest_rank(seconds, 99),
+            "requests_per_s": len(seconds) / wall,
+            "answers": [a[:3] for per in answers for a in per]}
+
+
+def _pid_requests(metrics_dir: str) -> dict:
+    """Scored requests per worker pid, from the snapshots the workers
+    flush into the service's shared metrics directory."""
+    import glob
+
+    counts = {}
+    for path in glob.glob(os.path.join(metrics_dir, "obs-metrics-*.json")):
+        try:
+            payload = json.load(open(path))
+        except (OSError, ValueError):
+            continue
+        family = payload["snapshot"].get("bodywork_tpu_http_requests_total", {})
+        counts[payload["pid"]] = sum(s["value"] for s in family.get("samples", [])
+                                     if s["labels"].get("route") == "/score/v1")
+    return counts
+
+
+def _card_used_mib(torch, dev) -> float:
+    """The card's memory in use by every process, CUDA contexts included
+    (``cudaMemGetInfo``: total less free), in MiB."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return (total - free) / 2**20
+
+
+def phase_workers(torch, dev, workdir: str) -> dict:
+    """``workers``: ``cli serve --workers 2 --metrics`` on the card (the
+    ``aio`` front end, ``auto`` -> ``kernel``, ``--max-pending 8``,
+    ``--reload-interval 0.5``), two spawned processes with a CUDA context
+    each on one ``SO_REUSEPORT`` port, against a one-process ``cli serve``
+    of the same store and knobs. Both workers answer (their flushed
+    snapshots count requests by pid) with bodies byte-equal to the
+    one-process server's; one worker SIGKILLed mid-traffic with zero
+    failed scores (a client that retries a refused connection), then
+    respawned by the supervisor; a newer checkpoint reaches both workers
+    (byte-equal to a one-process service of it); the aggregated
+    ``/metrics`` counts every worker's requests; a burst of 64 rows over
+    the service-wide budget of 8 sheds with 429 + ``Retry-After`` across
+    both processes, counted exactly in the aggregated shed counter. Printed:
+    one worker's whole footprint on the card, its CUDA context included
+    (the drop in the card's memory in use between the kill and the
+    respawn), beside each worker's allocator high-water marks, 6
+    closed-loop clients' requests/s and p50/p99 against the one-process
+    server (under the budget of 8, so the drive sheds nothing), the
+    respawn's seconds and ``kernel``'s launches: each worker's from its
+    exit report (every reporting worker must have launched it), and the
+    one-process server's from its ``/healthz``, apart."""
+    import glob
+    import signal
+    import threading
+
+    import numpy as np
+
+    from bodywork_tpu_torch.models import save_model
+    from bodywork_tpu_torch.serve import serve_latest_model
+
+    store, second, _hist = _serving_models(torch, dev, workdir)
+    root = str(store.root)
+    knobs = ["--max-pending", str(WORKERS["max_pending"]), "--device", dev.type]
+    xs = [round(float(x), 3) for x in np.random.default_rng(21).uniform(0, 100, 64)]
+    # the one-process server: the reference bodies and the throughput baseline
+    single = _ServeProcess(root, 0.0, args=knobs)
+    try:
+        reference = {x: _fresh_score(single.base_url, x)[2] for x in xs}
+        single_load = _closed_loop(single.base_url, WORKERS["clients"],
+                                   WORKERS["per_client"], xs)
+        health = single.health()
+        single_launches = {**dict.fromkeys(VARIANTS, 0), health["engine"]: health["launches"]}
+    finally:
+        single.stop()
+    tmp = os.path.join(workdir, "workers-tmp")
+    os.makedirs(tmp)
+    used_before = _card_used_mib(torch, dev)
+    t0 = time.perf_counter()
+    svc = _ServeProcess(root, WORKERS["reload_s"],
+                        args=["--workers", str(WORKERS["workers"]), "--metrics", *knobs],
+                        env={"TMPDIR": tmp})
+    out, failures = {}, []
+    try:
+        match = svc.wait_for_line(r"replica process\(es\) listening on (\S+) "
+                                  r"\(SO_REUSEPORT, pids \[([\d, ]+)\]\)", 300)
+        out["start_s"] = time.perf_counter() - t0
+        base = match.group(1).replace("/score/v1", "")
+        pids = [int(p) for p in match.group(2).split(",")]
+        (metrics_dir,) = glob.glob(os.path.join(tmp, "bodywork-tpu-obs-*"))
+        out["pids"] = pids
+        used_workers = _card_used_mib(torch, dev)
+        # both workers answer, byte for byte the one-process answers
+        answers = {x: _fresh_score(base, x) for x in xs[:32]}
+        out["bodies_equal_one_process"] = all(
+            a[0] == 200 and a[2] == reference[x] for x, a in answers.items())
+        time.sleep(0.6)  # two flush intervals
+        by_pid = _pid_requests(metrics_dir)
+        out["requests_by_pid"] = {str(p): by_pid.get(p, 0) for p in pids}
+        if not out["bodies_equal_one_process"] or min(by_pid.get(p, 0) for p in pids) < 1:
+            failures.append("both workers answering the one-process bodies")
+        # load: closed-loop clients against the two workers
+        workers_load = _closed_loop(base, WORKERS["clients"], WORKERS["per_client"], xs)
+        out["load"] = {name: {k: v for k, v in load.items() if k != "answers"}
+                       for name, load in (("one_process", single_load),
+                                          ("workers", workers_load))}
+        if not all(s == 200 and b == reference[x] for x, s, b in workers_load["answers"]):
+            failures.append("the closed-loop answers")
+        # kill one worker mid-traffic: zero failed scores
+        victim = pids[0]
+        drill = []
+        # the card's memory in use from the kill to the respawn: its low
+        # is one worker fewer, so the victim's whole footprint, its CUDA
+        # context included, is the drop
+        low = [used_workers]
+        sampling = threading.Event()
+
+        def sample_memory():
+            while not sampling.wait(0.005):
+                low[0] = min(low[0], _card_used_mib(torch, dev))
+
+        sampler = threading.Thread(target=sample_memory, daemon=True)
+        for i in range(WORKERS["drill_requests"]):
+            if i == WORKERS["kill_at"]:
+                os.kill(victim, signal.SIGKILL)
+                t_kill = time.perf_counter()
+                sampler.start()
+            x = xs[i % len(xs)]
+            status, _h, body = _fresh_score(base, x)
+            drill.append(status == 200 and body == reference[x])
+        out["kill_drill"] = {"requests": len(drill), "failed": drill.count(False),
+                             "victim": victim}
+        if not all(drill):
+            failures.append("failed scores across the kill")
+        try:
+            respawn = svc.wait_for_line(r"replica respawned as pid (\d+)", 180)
+        finally:
+            sampling.set()
+            sampler.join()
+        out["card_used_mib"] = {"before": used_before, "workers": used_workers,
+                                "low_after_kill": low[0],
+                                "one_worker": used_workers - low[0],
+                                "per_worker_mean": (used_workers - used_before)
+                                / WORKERS["workers"]}
+        out["respawn"] = {"pid": int(respawn.group(1)),
+                          "seconds_after_kill": time.perf_counter() - t_kill}
+        pids = [p for p in pids if p != victim] + [int(respawn.group(1))]
+        answers = {x: _fresh_score(base, x) for x in xs[:32]}
+        time.sleep(0.6)
+        by_pid = _pid_requests(metrics_dir)
+        out["requests_by_pid_after_respawn"] = {str(p): by_pid.get(p, 0) for p in pids}
+        if not all(a[0] == 200 and a[2] == reference[x] for x, a in answers.items()) \
+                or by_pid.get(pids[-1], 0) < 1:
+            failures.append("the respawned worker answering")
+        # the aggregated /metrics: every live worker's requests
+        text = urllib.request.urlopen(base + "/metrics", timeout=60).read().decode()
+        aggregated = sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                         if line.startswith('bodywork_tpu_http_requests_total{route="/score/v1"'))
+        live = sum(by_pid.get(p, 0) for p in pids)
+        out["metrics"] = {"aggregated_score_requests": aggregated, "live_workers_flushed": live}
+        if aggregated < live:
+            failures.append("the aggregated /metrics")
+        # the shared budget: a burst of 64 over max_pending 8, across both
+        shed_series = 'bodywork_tpu_serve_shed_total{reason="admission"}'
+        shed_before = _metrics_value(base, shed_series)
+        conns = [_connect(base) for _ in range(WORKERS["burst"])]
+        for c in conns:
+            c.connect()
+        results = [None] * len(conns)
+        barrier = threading.Barrier(len(conns))
+
+        def one(i):
+            barrier.wait()
+            results[i] = _score(conns[i], xs[i % len(xs)])
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(conns))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for c in conns:
+            c.close()
+        time.sleep(0.6)
+        sheds = [r for r in results if r[0] == 429]
+        health = get(base + "/healthz")
+        out["shed"] = {"burst": len(results), "ok": sum(r[0] == 200 for r in results),
+                       "shed_429": len(sheds),
+                       "retry_after_s": sorted({r[1].get("Retry-After") for r in sheds}),
+                       "metrics_shed_delta": _metrics_value(base, shed_series) - shed_before,
+                       "shared_pending": health["admission"]["shared_pending"]}
+        if not sheds or None in out["shed"]["retry_after_s"] \
+                or out["shed"]["metrics_shed_delta"] != len(sheds) \
+                or health["admission"]["shared_pending"] is None \
+                or not all(r[2] == reference[xs[i % len(xs)]]
+                           for i, r in enumerate(results) if r[0] == 200):
+            failures.append("the shared budget's shed")
+        # hot reload: a newer checkpoint reaches every worker
+        save_model(store, second, date(2026, 7, 4))
+        t_save = time.perf_counter()
+        fresh = serve_latest_model(store, host="127.0.0.1", port=0, block=False,
+                                   engine="auto", device=dev, server_engine="aio",
+                                   max_pending=WORKERS["max_pending"])
+        try:
+            reloaded_reference = {x: _fresh_score(fresh.base_url, x)[2] for x in xs[:16]}
+        finally:
+            fresh.stop()
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline:
+            answers = {x: _fresh_score(base, x) for x in xs[:16]}
+            if all(a[2] == reloaded_reference[x] for x, a in answers.items()):
+                break
+            time.sleep(0.25)
+        out["reload"] = {"seconds": time.perf_counter() - t_save,
+                         "bodies_equal_one_process": all(
+                             a[2] == reloaded_reference[x] for x, a in answers.items())}
+        if not out["reload"]["bodies_equal_one_process"]:
+            failures.append("the hot reload")
+    finally:
+        stopped = svc.stop()
+    exits = [json.loads(line.split("replica exiting: ", 1)[1])
+             for line in svc.lines if "replica exiting: " in line]
+    # the replicas' own launches, from their exit reports (the killed
+    # worker leaves none); the one-process server's are a path of their own
+    launches = {name: sum(e["launches"].get(name, 0) for e in exits) for name in VARIANTS}
+    out["exit_reports"] = exits
+    out["stop"] = stopped
+    out["launches"] = launches
+    out["one_process_launches"] = single_launches
+    if "one_worker" in out.get("card_used_mib", {}):
+        # the footprint less the allocator's reserve: the CUDA context,
+        # the kernels' modules and the runtime's own buffers
+        reserved = max((e.get("max_memory_reserved", 0) for e in exits), default=0) / 2**20
+        out["card_used_mib"]["one_worker_outside_allocator"] = \
+            out["card_used_mib"]["one_worker"] - reserved
+    emit("workers", **out)
+    if len(exits) != WORKERS["workers"] or any(e["launches"].get("kernel", 0) < 1
+                                               for e in exits):
+        failures.append("each worker's exit report and its kernel launches")
+    if failures:
+        raise RuntimeError(f"workers: {failures} {out}")
+    return {"launches": launches, "one_process_launches": single_launches}
+
+
 def _free_port() -> int:
     import socket
 
@@ -4624,8 +5149,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--phases",
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
-                "canary,tune,online-tune,ab,day-loop,incremental,quantized,resume,sigterm,"
-                "day-report,profile,audit,chaos-sim,bit-rot,crash-sim,deploy,pods,timing",
+                "canary,tune,online-tune,tenancy,ab,day-loop,incremental,quantized,resume,"
+                "sigterm,day-report,profile,audit,chaos-sim,bit-rot,crash-sim,fleet-sim,"
+                "workers,deploy,pods,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -4664,10 +5190,12 @@ def main(argv=None) -> int:
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
     tuned, online_tuned = {}, {}
     audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
+    fleeted, workers = {}, {}
     for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "tune",
-                  "online-tune", "ab", "day-loop",
+                  "online-tune", "tenancy", "ab", "day-loop",
                   "incremental", "resume", "sigterm", "day-report", "profile", "audit",
-                  "chaos-sim", "bit-rot", "crash-sim", "deploy", "pods"):
+                  "chaos-sim", "bit-rot", "crash-sim", "fleet-sim", "workers", "deploy",
+                  "pods"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -4688,6 +5216,8 @@ def main(argv=None) -> int:
                 tuned = phase_tune(torch, dev, workdir)
             elif phase == "online-tune":
                 online_tuned = phase_online_tune(torch, dev, workdir)
+            elif phase == "tenancy":
+                phase_tenancy(torch, dev, workdir)
             elif phase == "ab":
                 ab = phase_ab(torch, dev, workdir)
             elif phase == "day-report":
@@ -4702,6 +5232,10 @@ def main(argv=None) -> int:
                 bit_rot = phase_bit_rot(torch, dev, workdir)
             elif phase == "crash-sim":
                 phase_crash_sim(torch, dev, workdir)
+            elif phase == "fleet-sim":
+                fleeted = phase_fleet_sim(torch, dev, workdir)
+            elif phase == "workers":
+                workers = phase_workers(torch, dev, workdir)
             elif phase == "deploy":
                 phase_deploy(torch, dev, workdir)
             elif phase == "pods":
@@ -4759,7 +5293,11 @@ def main(argv=None) -> int:
                                       ("profile", profiled, "launches"),
                                       ("audit", audited, "launches"),
                                       ("chaos-sim", chaos_sim, "launches"),
-                                      ("bit-rot", bit_rot, "launches")):
+                                      ("bit-rot", bit_rot, "launches"),
+                                      ("fleet-sim", fleeted, "launches"),
+                                      ("workers", workers, "launches"),
+                                      ("workers-one-process", workers,
+                                       "one_process_launches")):
                 if result:
                     by_path[path] = result[key][engine]
             # the serve pod's launches, read from its /healthz, and the

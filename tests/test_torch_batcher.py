@@ -393,16 +393,22 @@ def test_bundle_replaced_under_batched_http_traffic():
             except Exception as exc:  # noqa: BLE001
                 failures.append(repr(exc))
 
+    def wait_for_answer_of(model_date):
+        deadline = time.monotonic() + 10
+        while (not any(d == model_date for d, _ in list(results))
+               and time.monotonic() < deadline):
+            time.sleep(0.005)
+
     threads = [threading.Thread(target=hammer) for _ in range(8)]
     try:
         for t in threads:
             t.start()
-        time.sleep(0.3)
+        wait_for_answer_of("2026-07-01")
         predictor = app.predictor.__class__(m2, app.predictor.buckets)
         predictor.warmup()
         app.served = _Served(predictor, m2.info, "2026-07-02")
         app.batcher.drain()
-        time.sleep(0.3)
+        wait_for_answer_of("2026-07-02")
     finally:
         stop.set()
         for t in threads:

@@ -496,7 +496,6 @@ def test_manifest_validator_covers_service_ingress_cronjob_paths():
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("BODYWORK_TPU_TENANT", "acme", 14),
     ("BODYWORK_TPU_SERVE_TRANSPORT", "tcp", 15),
     ("BODYWORK_TPU_SERVE_STANDBY", "1", 15),
     ("BODYWORK_TPU_FRONTENDS", "2", 15),
@@ -513,7 +512,7 @@ def test_a_mode_the_port_lacks_is_refused_by_its_roadmap_item(name, value, item)
         generate_manifests(spec, store_path="/mnt/store")
     # the inert defaults (empty, a 1-device mesh) are emitted
     spec.stages["stage-2-serve-model"] = dataclasses.replace(
-        serve, env={name: "1" if "MESH" in name else "default" if "TENANT" in name else ""})
+        serve, env={name: "1" if "MESH" in name else ""})
     docs = generate_manifests(spec, store_path="/mnt/store")
     assert not any("dispatcher" in filename for filename in docs)
 
@@ -551,6 +550,32 @@ def test_a_tuned_serve_stage_emits_the_jax_generators_manifests(name, value):
         assert list(c) == list(jax_c)
     serve_env = [e for c in _containers(port[serve_file]) for e in c.get("env", [])]
     assert {"name": name, "value": value} in serve_env
+
+
+@pytest.mark.parametrize("model,store_path", [
+    ("linear", "/mnt/artefact-store"),
+    ("mlp", "gs://bucket/prefix"),
+])
+def test_a_tenant_stage_emits_the_jax_generators_manifests(model, store_path):
+    """A tenant's pipeline (``BODYWORK_TPU_TENANT`` on every stage, ROADMAP
+    Queue 1 item 14) is emitted, not refused: the manifests equal the JAX
+    generator's for the same spec under the mapping, the knob on every
+    stage's container."""
+    from bodywork_tpu.pipeline import default_pipeline as jax_pipeline
+    from bodywork_tpu.pipeline import generate_manifests as jax_manifests
+
+    spec, jax_spec = default_pipeline(model), jax_pipeline(model)
+    for s in (spec, jax_spec):
+        for name, stage in list(s.stages.items()):
+            s.stages[name] = dataclasses.replace(
+                stage, env={**stage.env, "BODYWORK_TPU_TENANT": "acme"})
+    kw = dict(store_path=store_path, image="registry.example/bodywork:v3")
+    port = generate_manifests(spec, **kw)
+    jax = jax_manifests(jax_spec, **kw)
+    assert list(port) == list(jax)
+    assert _mask_port(port) == _map_jax(jax)
+    envs = [e for doc in port.values() for c in _containers(doc) for e in c.get("env", [])]
+    assert {"name": "BODYWORK_TPU_TENANT", "value": "acme"} in envs
 
 
 # -- the stage pods' measured import closures -------------------------------

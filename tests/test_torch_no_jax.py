@@ -46,6 +46,10 @@ import bodywork_tpu_torch.utils.errors
 import bodywork_tpu_torch.tune, bodywork_tpu_torch.tune.config, bodywork_tpu_torch.tune.collect
 import bodywork_tpu_torch.tune.costmodel, bodywork_tpu_torch.tune.model
 import bodywork_tpu_torch.tune.online, bodywork_tpu_torch.registry.configlog
+import bodywork_tpu_torch.tenancy.namespace, bodywork_tpu_torch.tenancy.scenarios
+import bodywork_tpu_torch.tenancy.scheduler, bodywork_tpu_torch.tenancy.stacked
+import bodywork_tpu_torch.tenancy.fleet, bodywork_tpu_torch.utils.sync
+import bodywork_tpu_torch.obs.multiproc, bodywork_tpu_torch.serve.multiproc
 import chip_smoke
 # nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
 # standard library, numpy and torch alone
@@ -130,7 +134,13 @@ _TORCH_FREE = ["cli.py", "pipeline/__init__.py", "pipeline/runner.py", "pipeline
                # parser import: the probe loads torch inside its call
                "tune/__init__.py", "tune/config.py", "tune/collect.py",
                "tune/costmodel.py", "tune/model.py", "tune/online.py",
-               "registry/configlog.py"]
+               "registry/configlog.py",
+               # the journal's tenant field and the cli's store scoping reach
+               # the tenancy's torch-free surface; the replica supervisor's
+               # module loads torch only inside the spawned worker
+               "tenancy/__init__.py", "tenancy/namespace.py", "tenancy/scenarios.py",
+               "tenancy/scheduler.py", "utils/sync.py", "obs/multiproc.py",
+               "serve/multiproc.py"]
 
 
 @pytest.mark.parametrize("name", _TORCH_FREE)
@@ -146,6 +156,22 @@ def test_the_control_plane_imports_neither_torch_nor_jax_in_a_fresh_process():
              "import bodywork_tpu_torch.tune.config, bodywork_tpu_torch.tune.collect\n"
              "import bodywork_tpu_torch.tune.costmodel, bodywork_tpu_torch.tune.model\n"
              "import bodywork_tpu_torch.tune.online, bodywork_tpu_torch.registry.configlog\n"
+             "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in "
+             "('torch', 'jax', 'jaxlib', 'bodywork_tpu'))))\n")
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == ""
+
+
+def test_the_tenancy_surface_imports_neither_torch_nor_jax_in_a_fresh_process():
+    """The tenancy package's re-exports (namespace, scenarios, scheduler),
+    the device fence and the metrics aggregation load without torch, as the
+    JAX package's tenancy surface loads without jax."""
+    probe = ("import sys\n"
+             "import bodywork_tpu_torch.tenancy, bodywork_tpu_torch.tenancy.namespace\n"
+             "import bodywork_tpu_torch.tenancy.scenarios, bodywork_tpu_torch.tenancy.scheduler\n"
+             "import bodywork_tpu_torch.utils.sync, bodywork_tpu_torch.obs.multiproc\n"
              "print(','.join(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('torch', 'jax', 'jaxlib', 'bodywork_tpu'))))\n")
     proc = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,

@@ -266,12 +266,18 @@ def test_the_controller_makes_jaxs_decisions_over_one_scripted_run(tmp_path, mon
     drift -> apply -> error-budget revert (one CAS): the same actions,
     states, config-log bytes and live knobs in both packages. Each
     package gets a registry of its own, so the baselines' cumulative
-    counts start from the same zero whatever ran before in the process."""
+    counts start from the same zero whatever ran before in the process,
+    and a tracer of its own, so the revert's flight record (whose key
+    carries the digest of the recorder's traces) holds no trace that an
+    earlier test's served request left in the process tracer."""
     from bodywork_tpu.obs import registry as jax_registry
-    from bodywork_tpu_torch.obs import registry
+    from bodywork_tpu.obs import tracing as jax_tracing
+    from bodywork_tpu_torch.obs import registry, tracing
 
     monkeypatch.setattr(registry, "_DEFAULT", registry.Registry())
     monkeypatch.setattr(jax_registry, "_DEFAULT", jax_registry.Registry())
+    monkeypatch.setattr(tracing, "_TRACER", tracing.Tracer())
+    monkeypatch.setattr(jax_tracing, "_TRACER", jax_tracing.Tracer())
     runs = _controllers(tmp_path)
     t = {name: 0.0 for name in runs}
     steps = ([("append", 50.0, 60, 0, 0)] + [("append", 50.0, 30, 0, 0)]

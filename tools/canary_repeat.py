@@ -4,7 +4,7 @@
 Run on a machine with a CUDA card, from the repository root::
 
     python3 tools/canary_repeat.py [--reps 10] [--requests 240] [--after-trace]
-                                   [--pin-alternate]
+                                   [--pin-alternate] [--no-sampler]
 
 Repeats ``run_canary_chaos(scenario="healthy")`` on two 1024-wide MLP
 checkpoints (``chip_smoke.py``'s ``canary`` phase, its training settings)
@@ -49,6 +49,37 @@ canary requests by those flags; ``threads`` names the live threads.
 ``--no-twin-between`` skips the canary-free twin's request after each
 request the canary answered (an experiment: the twin then no longer
 switches the slot back to production before the next canary request).
+
+Each slow request also carries ``gap_ms``, the host's time from the end
+of the card's previous work (the last wait on an event, the twin's
+included) to this request's replay, and the card's SM clock and active
+clock-event reasons sampled beside the run (``nvidia-smi
+--query-gpu=timestamp,clocks.sm,clocks_event_reasons.active -lms 20``,
+every sample within 25 ms of the request: ``sm_mhz``, ``reasons``).
+Each line adds the drive's clock summary (``clock``: the samples' SM
+clock median and minimum, and the share of samples that reason idle) and
+``median_gap_ms``. ``--wait spin`` replaces the wait on the event with a
+loop over ``Event.query()`` (an experiment: a blocking wait against a
+spinning one). Each slow request's ``calls_ms`` splits its dispatch's
+host time by call: ``lock`` (the weight slot), ``rebind``, ``stage``
+(the batch into pinned memory), ``h2d`` (the copy's enqueue),
+``replay`` (the graph launch), ``count``, ``d2h`` (the copy back's
+enqueue), ``record``, ``wait`` (the event) and ``out`` (the result's
+copy), summed over the request's dispatches.
+
+Whether the host itself ran slow when a request did: each request is
+bracketed by a fixed piece of interpreter work on the drive's thread
+(``probe_us``, before and after), and a second process times the same
+kind of work every millisecond in a process of its own (``other_probe_max_us``,
+the slowest such probe within the request). ``psi_ms`` is the host's CPU
+pressure stall over the request (``/proc/pressure/cpu``, null where the
+host has none). Each line's ``probes`` gives how often either probe ran
+over twice its median beside the slow requests against beside every
+request, and ``host`` what the host did across the drive: the CPU time's
+shares by kind (``steal`` included), the load average, the pressure
+stall, the processes that took the most CPU and the threads alive at
+each watcher poll (``threads_in_drive``). ``--no-sampler`` leaves the
+``nvidia-smi`` sampler off.
 """
 from __future__ import annotations
 
@@ -72,6 +103,8 @@ def main(argv=None) -> int:
     parser.add_argument("--pin-alternate", action="store_true")
     parser.add_argument("--slow-ms", type=float, default=1.0)
     parser.add_argument("--no-twin-between", action="store_true")
+    parser.add_argument("--wait", choices=("block", "spin"), default="block")
+    parser.add_argument("--no-sampler", action="store_true")
     args = parser.parse_args(argv)
 
     import torch
@@ -103,8 +136,8 @@ def main(argv=None) -> int:
     # the slot, collections inside the request
     import resource
 
-    current = {"run_s": 0.0, "rebind": False, "gc": 0, "lock_s": 0.0, "events": []}
-    graph_run = predictor_module._BucketGraph.run
+    current = {"run_s": 0.0, "rebind": False, "gc": 0, "lock_s": 0.0, "events": [],
+               "gap_s": None, "calls": {}}
     slot_acquire = predictor_module._WeightSlot.acquire
 
     def timed_acquire(self):
@@ -121,6 +154,8 @@ def main(argv=None) -> int:
     graph_replay = torch.cuda.CUDAGraph.replay
 
     def timed_replay(self):
+        if current["gap_s"] is None and last_sync_end[0] is not None:
+            current["gap_s"] = time.perf_counter() - last_sync_end[0]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         graph_replay(self)
@@ -130,6 +165,8 @@ def main(argv=None) -> int:
             del events[:-1]
         events.append([start, end, None])
 
+    last_sync_end = [None]
+
     def timed_sync(self):
         tail = None
         if current["events"] and current["events"][-1][2] is None:
@@ -138,9 +175,14 @@ def main(argv=None) -> int:
             current["events"][-1][2] = tail
         t0 = time.perf_counter()
         try:
+            if args.wait == "spin":
+                while not self.query():
+                    pass
+                return None
             return event_sync(self)
         finally:
-            current["sync_s"] += time.perf_counter() - t0
+            last_sync_end[0] = time.perf_counter()
+            current["sync_s"] += last_sync_end[0] - t0
 
     torch.cuda.CUDAGraph.replay = timed_replay
     torch.cuda.Event.synchronize = timed_sync
@@ -165,11 +207,56 @@ def main(argv=None) -> int:
         except (OSError, ValueError):
             return None
 
+    def split_run(self, Xp, owner, weights, cache):
+        """``_BucketGraph.run``'s body and its ``_CapturedProgram.run``,
+        each host call timed apart."""
+        calls = current["calls"]
+        clock = [time.perf_counter()]
+
+        def tick(name):
+            now = time.perf_counter()
+            calls[name] = calls.get(name, 0.0) + now - clock[0]
+            clock[0] = now
+
+        slot = self.slot
+        slot.acquire()
+        tick("lock")
+        try:
+            with torch.no_grad():
+                if slot.owner != owner:
+                    torch._foreach_copy_(list(predictor_module._leaves(slot.weights)),
+                                         list(predictor_module._leaves(weights)))
+                    slot.owner = owner
+                    cache.count_rebind()
+                    tick("rebind")
+                if self.graph is None:
+                    return predictor_module._CapturedProgram.run(self, Xp)
+                stream = torch.cuda.current_stream(self.device)
+                self.staging.numpy()[...] = Xp
+                tick("stage")
+                self.x.copy_(self.staging, non_blocking=True)
+                tick("h2d")
+                self.graph.replay()
+                tick("replay")
+                cache.count_replay(self.engine)
+                tick("count")
+                self.out_host.copy_(self.out, non_blocking=True)
+                tick("d2h")
+                self.done.record(stream)
+                tick("record")
+                self.done.synchronize()
+                tick("wait")
+                out = self.out_host.numpy().copy()
+                tick("out")
+                return out
+        finally:
+            slot.release()
+
     def timed_run(self, Xp, owner, weights, cache):
         rebind = self.slot.owner != owner
         t0 = time.perf_counter()
         try:
-            return graph_run(self, Xp, owner, weights, cache)
+            return split_run(self, Xp, owner, weights, cache)
         finally:
             current["run_s"] += time.perf_counter() - t0
             current["rebind"] |= rebind
@@ -187,8 +274,15 @@ def main(argv=None) -> int:
         after_poll = [False]
         last_key = [None]
 
+        host0 = _host_snapshot()
+        threads_seen = set()
+
         def timed(*a, **k):
-            current.update(run_s=0.0, rebind=False, gc=0, lock_s=0.0, sync_s=0.0, events=[])
+            current.update(run_s=0.0, rebind=False, gc=0, lock_s=0.0, sync_s=0.0, events=[],
+                           gap_s=None, calls={})
+            probe_before = _busy_probe()
+            psi0 = _cpu_pressure_us()
+            wall0 = time.time()
             sched0 = schedstat()
             ru0 = resource.getrusage(resource.RUSAGE_THREAD)
             cpu0, proc0 = time.thread_time(), time.process_time()
@@ -203,16 +297,23 @@ def main(argv=None) -> int:
                 sched1 = schedstat()
                 sched = ((sched1[0] - sched0[0]) / 1e9, (sched1[1] - sched0[1]) / 1e9) if (
                     sched0 and sched1) else (None, None)
+                psi1 = _cpu_pressure_us()
                 sync_s = current["sync_s"]
                 replay_ms, span_ms = device_ms()
-                requests.append({"s": seconds, "run_s": current["run_s"], "sync_s": sync_s,
+                requests.append({"s": seconds, "wall": wall0, "gap_s": current["gap_s"],
+                                 "calls": dict(current["calls"]),
+                                 "run_s": current["run_s"], "sync_s": sync_s,
                                  "replay_ms": replay_ms, "device_ms": span_ms,
                                  "oncpu_s": sched[0], "runq_s": sched[1],
                                  "rebind": current["rebind"], "gc": current["gc"],
                                  "after_poll": after_poll[0], "lock_s": current["lock_s"],
                                  "cpu_s": cpu, "other_cpu_s": other,
                                  "preempted": ru1.ru_nivcsw - ru0.ru_nivcsw,
-                                 "yields": ru1.ru_nvcsw - ru0.ru_nvcsw})
+                                 "yields": ru1.ru_nvcsw - ru0.ru_nvcsw,
+                                 "psi_s": None if psi0 is None or psi1 is None
+                                 else (psi1 - psi0) / 1e6,
+                                 "probe_before_s": probe_before,
+                                 "probe_after_s": _busy_probe()})
                 after_poll[0] = False
             last_key[0] = out[1].get(MODEL_KEY_HEADER)
             return out
@@ -223,6 +324,7 @@ def main(argv=None) -> int:
             return twin_handle(*a, **k)
 
         def timed_check():
+            threads_seen.update(t.name for t in threading.enumerate())
             t0 = time.perf_counter()
             try:
                 return check()
@@ -232,7 +334,9 @@ def main(argv=None) -> int:
 
         app.handle, watcher.check_once, twin_app.handle = timed, timed_check, twin
         trace = drive(app, twin_app, watcher, xs, *rest)
-        drives.append((trace, requests, polls))
+        host = _host_delta(host0, _host_snapshot())
+        host["threads_in_drive"] = sorted(threads_seen)
+        drives.append((trace, requests, polls, host))
         return trace
 
     production_key = [None]
@@ -250,10 +354,22 @@ def main(argv=None) -> int:
         pinned = args.pin_alternate and rep % 2 == 1
         os.sched_setaffinity(0, {cores[-1]} if pinned else set(cores))
         root = os.path.join(work, f"healthy-{rep}")
-        summary = run_canary_chaos(
-            FilesystemStore(root), scenario="healthy", seed=0, n_requests=args.requests,
-            fraction=0.35, model_type="mlp", model_kwargs=cs.LOOP_MLP, device=dev)
-        trace, requests, polls = drives[-1]
+        clock_log = os.path.join(work, f"clocks-{rep}.csv")
+        sampler = None if args.no_sampler else _start_clock_sampler(clock_log)
+        probe_log = os.path.join(work, f"probe-{rep}.bin")
+        probe = _start_probe(probe_log)
+        try:
+            summary = run_canary_chaos(
+                FilesystemStore(root), scenario="healthy", seed=0, n_requests=args.requests,
+                fraction=0.35, model_type="mlp", model_kwargs=cs.LOOP_MLP, device=dev)
+        finally:
+            _stop(sampler)
+            _stop(probe)
+        samples = _read_clock_samples(clock_log)
+        probes = _read_probe(probe_log)
+        trace, requests, polls, host = drives[-1]
+        t_first, t_last = requests[0]["wall"], requests[-1]["wall"] + requests[-1]["s"]
+        in_drive = [c for c in samples if t_first - 0.025 <= c[0] <= t_last + 0.025]
         by_checkpoint, slow, causes = {}, [], {}
         for i, (key, r) in enumerate(zip(trace["keys"], requests)):
             name = "production" if key == summary["production_key"] else "candidate"
@@ -286,7 +402,22 @@ def main(argv=None) -> int:
                              else round(1e3 * r["runq_s"], 3),
                              "sync_ms": round(1e3 * r["sync_s"], 3),
                              "replay_ms": round(r["replay_ms"], 3),
-                             "device_ms": round(r["device_ms"], 3), "flags": flags})
+                             "device_ms": round(r["device_ms"], 3),
+                             "calls_ms": {k: round(1e3 * v, 3) for k, v in r["calls"].items()},
+                             "gap_ms": None if r["gap_s"] is None
+                             else round(1e3 * r["gap_s"], 3),
+                             "sm_mhz": [c[1] for c in samples
+                                        if r["wall"] - 0.025 <= c[0] <= r["wall"] + r["s"] + 0.025],
+                             "reasons": sorted({c[2] for c in samples
+                                                if r["wall"] - 0.025 <= c[0]
+                                                <= r["wall"] + r["s"] + 0.025}),
+                             "psi_ms": None if r["psi_s"] is None
+                             else round(1e3 * r["psi_s"], 3),
+                             "probe_us": [round(1e6 * r["probe_before_s"], 1),
+                                          round(1e6 * r["probe_after_s"], 1)],
+                             "other_probe_max_us": _window_max(
+                                 probes, r["wall"] - 0.002, r["wall"] + r["s"] + 0.002),
+                             "flags": flags})
                 if name == "candidate":
                     label = "+".join(flags) or "none"
                     causes[label] = causes.get(label, 0) + 1
@@ -317,8 +448,229 @@ def main(argv=None) -> int:
             "slowest": {k: sorted(v, reverse=True)[:6] for k, v in by_checkpoint.items()},
             "slow": slow, "causes": causes,
             "threads": sorted(t.name for t in threading.enumerate()),
+            "median_calls_ms": {
+                name: round(1e3 * statistics.median(r["calls"].get(name, 0.0) for r in requests), 4)
+                for name in ("lock", "stage", "h2d", "replay", "count", "d2h", "record", "wait",
+                             "out")},
+            "median_gap_ms": statistics.median(
+                1e3 * r["gap_s"] for r in requests if r["gap_s"] is not None),
+            "clock": {"samples": len(in_drive),
+                      "sm_mhz_median": statistics.median(c[1] for c in in_drive)
+                      if in_drive else None,
+                      "sm_mhz_min": min((c[1] for c in in_drive), default=None),
+                      "idle_share": (sum(1 for c in in_drive if _idle(c[2])) / len(in_drive))
+                      if in_drive else None,
+                      "reasons": sorted({c[2] for c in in_drive})},
+            "wait": args.wait, "sampler": not args.no_sampler,
+            "host": host, "probes": _probe_summary(requests, slow, probes),
             "polls_ms": [round(p, 2) for p in polls]}), flush=True)
     return 0
+
+
+def _busy_probe() -> float:
+    """Seconds of a fixed piece of pure-interpreter work on this thread:
+    the host thread's own speed just before and after a request."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(100):
+        x += i
+    return time.perf_counter() - t0
+
+
+_PROBE = """
+import array, signal, sys, time
+out, stop = array.array("d"), []
+signal.signal(signal.SIGTERM, lambda *a: stop.append(1))
+while not stop:
+    w, t0 = time.time(), time.perf_counter()
+    x = 0
+    for i in range(500):
+        x += i
+    out.append(w)
+    out.append(time.perf_counter() - t0)
+    time.sleep(0.001)
+with open(sys.argv[1], "wb") as f:
+    out.tofile(f)
+"""
+
+
+def _start_probe(path):
+    """A second process timing a fixed piece of interpreter work every
+    millisecond beside the drive: whether the whole host
+    ran slow when a request did."""
+    import subprocess
+
+    return subprocess.Popen([sys.executable, "-c", _PROBE, path])
+
+
+def _read_probe(path):
+    """``[(epoch seconds, probe seconds)]`` from the probe's log."""
+    import array
+
+    samples = array.array("d")
+    try:
+        with open(path, "rb") as f:
+            samples.frombytes(f.read())
+    except OSError:
+        return []
+    return list(zip(samples[0::2], samples[1::2]))
+
+
+def _window_max(probes, t0, t1):
+    """The slowest probe (us) that started within ``[t0, t1]``."""
+    inside = [d for w, d in probes if t0 <= w <= t1]
+    return round(1e6 * max(inside), 1) if inside else None
+
+
+def _probe_summary(requests, slow, probes) -> dict:
+    """How often the probes ran slow (over twice their median) beside the
+    slow requests and beside every request: the host's speed against the
+    request's."""
+    own = [max(r["probe_before_s"], r["probe_after_s"]) for r in requests]
+    own_median = statistics.median(r["probe_before_s"] for r in requests)
+    t0, t1 = requests[0]["wall"], requests[-1]["wall"] + requests[-1]["s"]
+    other = [d for w, d in probes if t0 <= w <= t1]
+    other_median = statistics.median(other) if other else None
+    slow_idx = {s["i"] for s in slow}
+
+    def share(flags):
+        return round(sum(flags) / len(flags), 4) if flags else None
+
+    other_slow = []
+    for r in requests:
+        m = [d for w, d in probes if r["wall"] - 0.002 <= w <= r["wall"] + r["s"] + 0.002]
+        other_slow.append(bool(m) and other_median is not None and max(m) > 2 * other_median)
+    return {
+        "own_median_us": round(1e6 * own_median, 2),
+        "own_slow_share_all": share([o > 2 * own_median for o in own]),
+        "own_slow_share_slow_requests": share(
+            [own[i] > 2 * own_median for i in sorted(slow_idx)]),
+        "other_median_us": None if other_median is None else round(1e6 * other_median, 2),
+        "other_samples": len(other),
+        "other_max_us": round(1e6 * max(other), 1) if other else None,
+        "other_slow_share_all": share(other_slow),
+        "other_slow_share_slow_requests": share([other_slow[i] for i in sorted(slow_idx)]),
+    }
+
+
+def _cpu_pressure_us():
+    """The host's cumulative CPU pressure stall (``/proc/pressure/cpu``
+    ``some total``, microseconds), or None where the host has none."""
+    try:
+        with open("/proc/pressure/cpu") as f:
+            for line in f:
+                if line.startswith("some"):
+                    return int(line.rsplit("total=", 1)[1])
+    except (OSError, ValueError, IndexError):
+        return None
+    return None
+
+
+def _host_snapshot() -> dict:
+    """The host's CPU counters (``/proc/stat``), load average, CPU
+    pressure and every process's CPU ticks, for a delta across the drive."""
+    snap = {"t": time.time(), "psi": _cpu_pressure_us(), "procs": {}}
+    try:
+        with open("/proc/stat") as f:
+            snap["cpu"] = [int(v) for v in f.readline().split()[1:]]
+        with open("/proc/loadavg") as f:
+            snap["loadavg"] = f.read().split()[:3]
+    except OSError:
+        snap["cpu"], snap["loadavg"] = None, None
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                text = f.read()
+        except OSError:
+            continue
+        comm = text[text.index("(") + 1:text.rindex(")")]
+        fields = text[text.rindex(")") + 2:].split()
+        snap["procs"][int(pid)] = (comm, int(fields[11]) + int(fields[12]))
+    return snap
+
+
+def _host_delta(a: dict, b: dict) -> dict:
+    """What the host did across the drive: the CPU time's shares by kind
+    (``steal`` is time a hypervisor gave this machine's CPUs to others),
+    the load average, the CPU pressure stall, and the processes that took
+    the most CPU meanwhile (ticks of ``SC_CLK_TCK``)."""
+    out = {"seconds": round(b["t"] - a["t"], 3), "loadavg": b["loadavg"],
+           "psi_stall_ms": None if a["psi"] is None or b["psi"] is None
+           else round((b["psi"] - a["psi"]) / 1e3, 3)}
+    if a["cpu"] and b["cpu"]:
+        names = ("user", "nice", "system", "idle", "iowait", "irq", "softirq", "steal")
+        d = [y - x for x, y in zip(a["cpu"], b["cpu"])][:len(names)]
+        total = sum(d) or 1
+        out["cpu_share"] = {n: round(v / total, 4) for n, v in zip(names, d)}
+    me = os.getpid()
+    busy = sorted(((ticks - a["procs"].get(pid, (None, 0))[1], comm, pid)
+                   for pid, (comm, ticks) in b["procs"].items()), reverse=True)
+    out["top_processes"] = [{"pid": pid, "comm": comm, "ticks": t, "self": pid == me}
+                            for t, comm, pid in busy[:5] if t > 0]
+    out["clk_tck"] = os.sysconf("SC_CLK_TCK")
+    return out
+
+
+def _start_clock_sampler(path):
+    """``nvidia-smi`` sampling the SM clock and the clock-event reasons
+    every 20 ms into ``path`` (None where the tool is missing)."""
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        return None
+    for field in ("clocks_event_reasons.active", "clocks_throttle_reasons.active"):
+        out = open(path, "w")
+        proc = subprocess.Popen(
+            ["nvidia-smi", f"--query-gpu=timestamp,clocks.sm,{field}",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=out, stderr=subprocess.DEVNULL)
+        out.close()
+        time.sleep(0.3)
+        if proc.poll() is None:
+            return proc
+    return None
+
+
+def _stop(proc):
+    if proc is not None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=5)
+        except Exception:  # noqa: BLE001 -- never leave the sampler running
+            proc.kill()
+            proc.wait()
+
+
+def _read_clock_samples(path):
+    """``[(epoch seconds, SM MHz, reasons bitmask text)]`` from the log."""
+    from datetime import datetime
+
+    samples = []
+    try:
+        lines = open(path).read().splitlines()
+    except OSError:
+        return samples
+    for line in lines:
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) != 3:
+            continue
+        try:
+            t = datetime.strptime(parts[0], "%Y/%m/%d %H:%M:%S.%f").timestamp()
+            samples.append((t, int(float(parts[1])), parts[2]))
+        except ValueError:
+            continue
+    return samples
+
+
+def _idle(reasons: str) -> bool:
+    """The clock-event bitmask's GPU-idle bit (0x1)."""
+    try:
+        return bool(int(reasons, 16) & 0x1)
+    except ValueError:
+        return False
 
 
 if __name__ == "__main__":
