@@ -125,7 +125,11 @@ report|compact|deploy|registry|trace|traffic|chaos|fsck|tune|fleet-sim``.
   tenant again alone, whose artefacts must be byte-identical (exit 0 on
   a pass, 1 otherwise). ``serve --workers N [--metrics]`` serves through N
   spawned replica processes on one ``SO_REUSEPORT`` port, respawned on
-  death, admitting against one budget, ``/metrics`` aggregated.
+  death, admitting against one budget, ``/metrics`` aggregated. ``serve
+  --frontends N [--transport shm|tcp|unix] [--role auto|frontend|dispatcher]
+  [--standby] [--dispatcher-addr A] [--leader-ttl S]`` splits serving into N
+  torch-free front ends and one device-owning dispatcher (or an
+  active/standby pair), with the JAX command's errors (exit 1).
 
 Every command that opens a store takes ``--tenant ID``: its keys live
 under ``tenants/<ID>/`` (``default``, or unset, is the root). The flag
@@ -150,6 +154,11 @@ from bodywork_tpu_torch.utils.dates import date_range, parse_date
 #: the parser imports no torch
 TRAIN_MODES = ("full", "incremental")
 SERVE_DTYPES = ("float32", "bfloat16", "int8")
+
+#: the row-queue transports and serve roles (``serve.netqueue``'s
+#: ``SERVE_TRANSPORTS`` and ``SERVE_ROLES``; a test pins them equal)
+SERVE_TRANSPORTS = ("shm", "tcp", "unix")
+SERVE_ROLES = ("auto", "frontend", "dispatcher")
 
 #: serving engines the cli offers (``auto`` + the port's engine names)
 SERVE_ENGINES = ("auto", "torch", "torch-bf16", "torch-int8", "kernel", "kernel-bf16",
@@ -266,8 +275,64 @@ def cmd_serve(args) -> int:
     if args.batch_max_rows and not batch_window and not args.tuned_config:
         log.warning("--batch-max-rows has no effect without --batch-window-ms; "
                     "request coalescing stays OFF")
-    if args.workers and args.workers > 1:
-        return _serve_workers(args, batch_window, log)
+    frontends = args.frontends
+    transport = args.transport
+    role = args.role
+    standby = bool(args.standby)
+    if frontends is not None and frontends >= 1 and args.workers > 1:
+        # two incompatible scale-out topologies: replicas each own a
+        # model; front ends share the one dispatcher's
+        log.error("--frontends and --workers are mutually exclusive "
+                  "scale-out modes; pick one")
+        return 1
+    if transport != "shm" and role == "auto" and not frontends:
+        # the socket transports carry the front-end -> dispatcher
+        # handoff; --workers replicas have no such handoff to move
+        log.error("--transport tcp/unix requires --frontends N "
+                  "(or a split --role)")
+        return 1
+    if standby and transport == "shm":
+        log.error("--standby needs --transport tcp or unix: the shm "
+                  "queue is single-host, where the supervisor respawn "
+                  "is already the takeover path")
+        return 1
+    if role == "dispatcher":
+        if not standby:
+            return _serve_dispatcher_role(args, transport, batch_window, log)
+        # --role dispatcher --standby: the active/standby PAIR under one
+        # supervisor, no local HTTP (frontends=0)
+        from bodywork_tpu_torch.serve.netqueue import DEFAULT_DISPATCHER_PORT
+
+        if not args.dispatcher_addr:
+            if transport == "unix":
+                log.error("--role dispatcher with --transport unix "
+                          "needs --dispatcher-addr (the socket path "
+                          "to bind)")
+                return 1
+            args.dispatcher_addr = f"0.0.0.0:{DEFAULT_DISPATCHER_PORT}"
+        frontends = 0
+    if role == "frontend":
+        if standby:
+            # front ends need no flag to ride a failover: the standby
+            # pair announces itself through the lease/fence alone
+            log.warning("--standby concerns the dispatcher side; "
+                        "ignoring it for --role frontend")
+            standby = False
+        if transport == "shm":
+            log.error("--role frontend needs --transport tcp or unix "
+                      "(a remote dispatcher is not reachable over "
+                      "shared memory)")
+            return 1
+        if not args.dispatcher_addr:
+            log.error("--role frontend needs --dispatcher-addr "
+                      "(the dispatcher Service/host to connect to)")
+            return 1
+        frontends = frontends or 1
+    if (args.workers and args.workers > 1) or (
+            frontends is not None and (frontends >= 1 or standby)):
+        return _serve_workers(args, batch_window, log, frontends=frontends,
+                              transport=transport, standby=standby,
+                              external_dispatcher=role == "frontend")
     # serve_latest_model drains on a SIGTERM while serving (admission
     # closed, coalescer flushed); one during start-up unwinds to here
     with graceful_sigterm() as sigterm_fired:
@@ -289,10 +354,57 @@ def cmd_serve(args) -> int:
     return SIGTERM_EXIT if sigterm_fired.is_set() else 0
 
 
-def _serve_workers(args, batch_window, log) -> int:
+def _serve_dispatcher_role(args, transport: str, batch_window, log) -> int:
+    """``serve --role dispatcher``: the device-owning half of the
+    cross-host split, standalone — serves the socket row-queue instead of
+    HTTP (the k8s dispatcher Deployment's entrypoint). No supervisor wraps
+    it here; the Deployment's restartPolicy is the respawn loop, and the
+    front ends' reconnect backoff is the heal path."""
+    from bodywork_tpu_torch.serve.dispatch import dispatcher_main
+    from bodywork_tpu_torch.serve.netqueue import (
+        DEFAULT_DISPATCHER_PORT,
+        parse_dispatcher_addr,
+    )
+
+    if transport == "shm":
+        log.error("--role dispatcher needs --transport tcp or unix "
+                  "(remote front-ends cannot attach to this process's "
+                  "shared memory)")
+        return 1
+    addr = args.dispatcher_addr
+    if not addr:
+        if transport == "unix":
+            log.error("--role dispatcher with --transport unix needs "
+                      "--dispatcher-addr (the socket path to bind)")
+            return 1
+        # tcp default: every interface on the well-known port, which is
+        # what the dispatcher k8s Service targets
+        addr = f"0.0.0.0:{DEFAULT_DISPATCHER_PORT}"
+    try:
+        parsed = parse_dispatcher_addr(transport, addr)
+    except ValueError as exc:
+        log.error(str(exc))
+        return 1
+    # dispatcher_main installs its own SIGTERM -> clean-exit handler (it is
+    # the entrypoint the fleet supervisor spawns)
+    dispatcher_main(
+        args.store, None, None, engine=args.engine,
+        watch_interval_s=args.reload_interval or None, buckets=args.buckets,
+        batch_window_ms=batch_window, batch_max_rows=args.batch_max_rows,
+        dtype=args.dtype, tuned_config=args.tuned_config, transport=transport,
+        dispatcher_addr=parsed, leader_ttl_s=args.leader_ttl, device=args.device,
+        tenant=_tenant_id(args),
+    )
+    return 0
+
+
+def _serve_workers(args, batch_window, log, frontends=None, transport="shm",
+                   standby=False, external_dispatcher=False) -> int:
     """``serve --workers N``: N spawned replica processes on one
     ``SO_REUSEPORT`` port under a respawning supervisor
-    (``serve.multiproc``); exits 143 on SIGTERM after stopping them."""
+    (``serve.multiproc``); with ``frontends`` the split topology instead
+    (N front ends and the dispatcher, or the standby pair); exits 143 on
+    SIGTERM after stopping them."""
     from bodywork_tpu_torch.serve.multiproc import MultiProcessService
     from bodywork_tpu_torch.utils.shutdown import (
         SIGTERM_EXIT,
@@ -303,7 +415,7 @@ def _serve_workers(args, batch_window, log) -> int:
     if (args.online_tune or args.cost_budget_s or args.tune_request_log
             or args.tune_results_log):
         log.warning("--online-tune/--cost-budget-s/--tune-*-log apply to single-process "
-                    "serving; the --workers replicas run without them")
+                    "serving; the --workers/--frontends processes run without them")
     svc = MultiProcessService(
         args.store, host=args.host, port=args.port, workers=args.workers,
         engine=args.engine, watch_interval_s=args.reload_interval or None,
@@ -312,6 +424,9 @@ def _serve_workers(args, batch_window, log) -> int:
         server_engine=args.server_engine, max_pending=args.max_pending,
         retry_after_max_s=args.retry_after_max_s, dtype=args.dtype,
         tuned_config=args.tuned_config, device=args.device, tenant=_tenant_id(args),
+        frontends=frontends, transport=transport, dispatcher_addr=args.dispatcher_addr,
+        external_dispatcher=external_dispatcher, standby=standby,
+        leader_ttl_s=args.leader_ttl,
     ).start()
     if svc.metrics_url:
         log.info(f"aggregated metrics at {svc.metrics_url}")
@@ -1645,6 +1760,65 @@ def build_parser() -> argparse.ArgumentParser:
              "SO_REUSEPORT, supervised and respawned on death, each with its own "
              "CUDA context on the card — the local analogue of the reference's "
              "`replicas: 2` Deployment (default 1: single process, in-process serving)",
+    )
+    p.add_argument(
+        "--frontends", type=_positive_int, metavar="N",
+        default=_env_number("BODYWORK_TPU_FRONTENDS", int, 1),
+        help="disaggregated serving: N model-free, torch-free parse/admission "
+             "front-end processes on this port (SO_REUSEPORT) feeding ONE "
+             "device-owning dispatcher (the one CUDA context) over a row-queue, so "
+             "batches coalesce from the UNION of every front end's rows (--workers "
+             "fragments them per replica). Mutually exclusive with --workers > 1. Env "
+             "BODYWORK_TPU_FRONTENDS overrides",
+    )
+    p.add_argument(
+        # choices pinned == serve.netqueue.SERVE_TRANSPORTS (and the stages
+        # env-knob parser) by tests/test_torch_netqueue.py
+        "--transport", default=_env_choice("BODYWORK_TPU_SERVE_TRANSPORT", SERVE_TRANSPORTS,
+                                           "shm"),
+        choices=list(SERVE_TRANSPORTS),
+        help="row-queue transport between the front ends and the dispatcher "
+             "(--frontends mode only): 'shm' (default — shared memory, one host; env "
+             "BODYWORK_TPU_SERVE_TRANSPORT overrides), 'unix' (domain socket, one "
+             "host), or 'tcp' (cross-host: the split k8s Deployments' transport). "
+             "Admission/shed semantics and response bytes are identical across all "
+             "three",
+    )
+    p.add_argument(
+        "--dispatcher-addr", metavar="ADDR",
+        default=os.environ.get("BODYWORK_TPU_DISPATCHER_ADDR", "").strip() or None,
+        help="where the dispatcher's row-queue listener lives for the socket "
+             "transports: host:port for tcp (the dispatcher k8s Service), a filesystem "
+             "path for unix (env BODYWORK_TPU_DISPATCHER_ADDR overrides). Default: "
+             "auto-picked on loopback / a temp path when both halves run under this "
+             "process (--role auto); REQUIRED for the split roles",
+    )
+    p.add_argument(
+        # choices pinned == serve.netqueue.SERVE_ROLES by tests/test_torch_netqueue.py
+        "--role", default=_env_choice("BODYWORK_TPU_SERVE_ROLE", SERVE_ROLES, "auto"),
+        choices=list(SERVE_ROLES),
+        help="which half of the disaggregated split this process runs (env "
+             "BODYWORK_TPU_SERVE_ROLE overrides): 'auto' (default) runs both halves "
+             "locally; 'frontend' runs only the parse/admission fleet against a remote "
+             "dispatcher at --dispatcher-addr; 'dispatcher' runs only the "
+             "device-owning scorer, serving the socket row-queue instead of HTTP",
+    )
+    p.add_argument(
+        "--standby", action="store_true",
+        default=_env_flag("BODYWORK_TPU_SERVE_STANDBY"),
+        help="dispatcher high availability (socket transports only): run a WARM "
+             "standby dispatcher, its graphs captured, next to the active one, "
+             "arbitrated by a CAS lease on the artefact store — the standby takes "
+             "over within the lease TTL of a leader death, and front ends resubmit "
+             "in-flight rows across the takeover instead of shedding (env "
+             "BODYWORK_TPU_SERVE_STANDBY overrides; with --role dispatcher this "
+             "supervises the active/standby PAIR)",
+    )
+    p.add_argument(
+        "--leader-ttl", type=float, metavar="S", default=None,
+        help="the dispatcher leadership lease's time-to-live in seconds with "
+             "--standby: a dead leader blocks takeover for at most this long "
+             "(default: env BODYWORK_TPU_LEADER_TTL_S, else 5)",
     )
     p.add_argument(
         "--metrics", action="store_true",

@@ -22,19 +22,17 @@ store path in every pod; the default for filesystem paths), ``hostpath``
 the default for ``gs://`` paths, ``store/gcs.py``).
 
 A stage's ``BODYWORK_TPU_TENANT`` is emitted as the JAX generator emits
-it: the pod's commands scope their store to that tenant. Modes whose
-runtime the port lacks are refused by name rather than emitted as pods
-that would run a command the port does not have: the split serving
-topology, the dispatcher standby pair and the front-end
-fleet (``BODYWORK_TPU_SERVE_TRANSPORT``, ``BODYWORK_TPU_SERVE_STANDBY``,
-``BODYWORK_TPU_FRONTENDS``, ``BODYWORK_TPU_DISPATCHER_ADDR``,
-``BODYWORK_TPU_SERVE_ROLE``: ROADMAP Queue 1 item 15) and a serving
-mesh (``BODYWORK_TPU_MESH_DATA`` / ``_MODEL`` > 1: item 19). So the split
-topology's dispatcher Deployment and Service are never emitted and are
-left out of the port until item 15. The serve Deployment's HPA is
-emitted as the JAX generator emits it for every service stage; its
-row-queue metrics come with item 15's fleet, and until then it holds the
-Deployment at its replicas.
+it: the pod's commands scope their store to that tenant. A service stage
+that declares ``BODYWORK_TPU_SERVE_TRANSPORT=tcp`` splits, as the JAX
+generator splits it, into two Deployments: torch-free front ends (``cli
+serve --role frontend``, no GPU) and one device-owning dispatcher (``cli
+serve --role dispatcher``, the stage's GPU) behind its own ``rowqueue``
+Service; ``BODYWORK_TPU_SERVE_STANDBY`` scales the dispatcher to the
+active/standby pair. The serve Deployment's HPA scales the front ends on
+the row-queue's ``bodywork_tpu_rowqueue`` metrics. A serving mesh
+(``BODYWORK_TPU_MESH_DATA`` / ``_MODEL`` > 1) is refused by name rather
+than emitted as pods that would run a command the port does not have:
+ROADMAP Queue 1 item 19.
 
 The daily loop is a CronJob running ``run-day`` (the reference re-runs the
 whole deployment daily, README.md:5), with the history compaction, the
@@ -60,15 +58,6 @@ STORE_VOLUME_MODES = ("auto", "pvc", "hostpath", "gcs")
 
 DEFAULT_DAILY_SCHEDULE = "0 6 * * *"
 
-#: stage env knobs that select a mode the port cannot run yet -> the
-#: ROADMAP Queue 1 item that brings it
-_UNPORTED_ENV = {
-    "BODYWORK_TPU_SERVE_TRANSPORT": (15, "the split serving topology"),
-    "BODYWORK_TPU_SERVE_STANDBY": (15, "the dispatcher standby pair"),
-    "BODYWORK_TPU_FRONTENDS": (15, "the front-end fleet"),
-    "BODYWORK_TPU_DISPATCHER_ADDR": (15, "the split serving topology"),
-    "BODYWORK_TPU_SERVE_ROLE": (15, "the split serving topology"),
-}
 _MESH_ENV = ("BODYWORK_TPU_MESH_DATA", "BODYWORK_TPU_MESH_MODEL")
 
 
@@ -76,12 +65,6 @@ def _refuse_unported_modes(spec: PipelineSpec) -> None:
     for stage in spec.stages.values():
         for name, value in stage.env.items():
             value = str(value).strip()
-            if name in _UNPORTED_ENV and value not in ("", "default"):
-                item, what = _UNPORTED_ENV[name]
-                raise ValueError(
-                    f"stage {stage.name!r}: {name}={value!r} selects {what}, which "
-                    f"the port does not run until ROADMAP Queue 1 item {item}"
-                )
             if name in _MESH_ENV and value:
                 try:
                     size = int(value)
@@ -357,9 +340,23 @@ def _cronjob(spec: PipelineSpec, name: str, namespace: str, labels: dict, schedu
 
 
 def _serve_docs(i: int, spec: PipelineSpec, stage: StageSpec, store: _StoreMedium,
-                image: str, command: list[str], meta: dict, labels: dict) -> dict:
+                image: str, command: list[str], meta: dict, labels: dict,
+                store_path: str) -> dict:
     """The service stage's Deployment, Service, HPA and (with
-    ``ingress``) Ingress."""
+    ``ingress``) Ingress; a stage declaring the tcp row-queue transport
+    splits into front ends and a dispatcher (:func:`_dispatcher_docs`)."""
+    from bodywork_tpu_torch.serve.netqueue import DEFAULT_DISPATCHER_PORT
+
+    # cross-host disaggregated serving (serve.netqueue): both halves run
+    # `cli serve` with an explicit --role (the in-process run-stage
+    # entrypoint cannot run either half of a process fleet); the front
+    # ends keep the stage's name, so its Service/Ingress/HPA target them
+    split = str(stage.env.get("BODYWORK_TPU_SERVE_TRANSPORT", "")).strip() == "tcp"
+    dispatcher_dns = f"{meta['name']}--dispatcher"
+    if split:
+        command = [*_CLI, "serve", "--store", store_path, "--host", "0.0.0.0",
+                   "--port", str(stage.port), "--role", "frontend", "--transport", "tcp",
+                   "--dispatcher-addr", f"{dispatcher_dns}:{DEFAULT_DISPATCHER_PORT}"]
     docs = {}
     docs[f"{i:02d}-{stage.name}-deployment.yaml"] = {
         "apiVersion": "apps/v1",
@@ -387,6 +384,14 @@ def _serve_docs(i: int, spec: PipelineSpec, stage: StageSpec, store: _StoreMediu
             },
         },
     }
+    if split:
+        fe_pod = docs[f"{i:02d}-{stage.name}-deployment.yaml"]["spec"]["template"]["spec"]
+        # the front ends are torch-free parse/admission processes: the
+        # stage's card belongs to the dispatcher alone
+        fe_pod["containers"][0]["resources"].pop("limits", None)
+        fe_pod.pop("nodeSelector", None)
+        docs.update(_dispatcher_docs(i, spec, stage, store, image, meta, labels,
+                                     store_path, dispatcher_dns))
     docs[f"{i:02d}-{stage.name}-service.yaml"] = {
         "apiVersion": "v1",
         "kind": "Service",
@@ -397,9 +402,11 @@ def _serve_docs(i: int, spec: PipelineSpec, stage: StageSpec, store: _StoreMediu
             "type": "ClusterIP",
         },
     }
-    # queue-pressure autoscaling on the row-queue's own saturation signals
-    # (occupancy ratio, wait p90), the JAX generator's HPA: the metrics
-    # come with the front-end fleet (ROADMAP Queue 1 item 15)
+    # queue-pressure autoscaling on the row-queue's own saturation signals,
+    # the JAX generator's HPA: occupancy ~1.0 means the slot pool (not
+    # admission) is the backpressure boundary, and the wait p90 is the
+    # whole front-end -> dispatcher rendezvous a request pays (Pods
+    # metrics through the Prometheus adapter reading the per-pod scrape)
     docs[f"{i:02d}-{stage.name}-hpa.yaml"] = {
         "apiVersion": "autoscaling/v2",
         "kind": "HorizontalPodAutoscaler",
@@ -443,6 +450,67 @@ def _serve_docs(i: int, spec: PipelineSpec, stage: StageSpec, store: _StoreMediu
             }]}}]},
         }
     return docs
+
+
+def _dispatcher_docs(i: int, spec: PipelineSpec, stage: StageSpec, store: _StoreMedium,
+                     image: str, meta: dict, labels: dict, store_path: str,
+                     dispatcher_dns: str) -> dict:
+    """The split serve stage's dispatcher Deployment and its ``rowqueue``
+    Service: ONE serving dispatcher (the row-queue contract is N front
+    ends -> one scorer), or under ``BODYWORK_TPU_SERVE_STANDBY`` two pods
+    of warm candidates arbitrated by the CAS lease, only the leader bound
+    to the probed port (the one scaled shape ``k8s_validate`` accepts)."""
+    from bodywork_tpu_torch.serve.netqueue import DEFAULT_DISPATCHER_PORT
+
+    standby = str(stage.env.get("BODYWORK_TPU_SERVE_STANDBY", "")).strip().lower() in (
+        "1", "true", "yes", "on")
+    dlabels = {**{k: v for k, v in labels.items() if k != "app"}, "app": dispatcher_dns}
+    dmeta = {"name": dispatcher_dns, "namespace": meta["namespace"], "labels": dlabels}
+    dispatcher_cmd = [*_CLI, "serve", "--store", store_path, "--role", "dispatcher",
+                      "--transport", "tcp", "--dispatcher-addr",
+                      f"0.0.0.0:{DEFAULT_DISPATCHER_PORT}"]
+    if standby:
+        dispatcher_cmd.append("--standby")
+    dpod = _pod_spec(spec, stage, store, image, dispatcher_cmd, "Always")
+    dcontainer = dpod["containers"][0]
+    dcontainer["name"] = f"{stage.name}-dispatcher"
+    # the dispatcher serves the socket row-queue, not HTTP: readiness is
+    # "the listener accepts" (it binds only once its model is loaded and
+    # its graphs captured), probed at the TCP layer
+    dcontainer["ports"] = [{"containerPort": DEFAULT_DISPATCHER_PORT, "name": "rowqueue"}]
+    dcontainer["readinessProbe"] = {
+        "tcpSocket": {"port": DEFAULT_DISPATCHER_PORT},
+        "initialDelaySeconds": 2,
+        "periodSeconds": 3,
+        "failureThreshold": int(stage.max_startup_time_s // 3) or 1,
+        "timeoutSeconds": 2,
+    }
+    return {
+        f"{i:02d}-{stage.name}-dispatcher-deployment.yaml": {
+            "apiVersion": "apps/v1",
+            "kind": "Deployment",
+            "metadata": dmeta,
+            "spec": {
+                "replicas": 2 if standby else 1,
+                "selector": {"matchLabels": {"app": dispatcher_dns}},
+                "template": {
+                    "metadata": {"labels": dlabels},
+                    "spec": {**dpod, "terminationGracePeriodSeconds": 30},
+                },
+            },
+        },
+        f"{i:02d}-{stage.name}-dispatcher-service.yaml": {
+            "apiVersion": "v1",
+            "kind": "Service",
+            "metadata": dmeta,
+            "spec": {
+                "selector": {"app": dispatcher_dns},
+                "ports": [{"port": DEFAULT_DISPATCHER_PORT,
+                           "targetPort": DEFAULT_DISPATCHER_PORT, "name": "rowqueue"}],
+                "type": "ClusterIP",
+            },
+        },
+    }
 
 
 def generate_manifests(spec: PipelineSpec, store_path: str = "/mnt/artefact-store",
@@ -498,7 +566,8 @@ def generate_manifests(spec: PipelineSpec, store_path: str = "/mnt/artefact-stor
                     },
                 }
             else:
-                docs.update(_serve_docs(i, spec, stage, store, image, command, meta, labels))
+                docs.update(_serve_docs(i, spec, stage, store, image, command, meta, labels,
+                                        store_path))
     if daily_schedule:
         docs.update(_cron_docs(spec, store, image, namespace, daily_schedule, labels_base))
     # strict structural validation: a typo'd field name fails here, at

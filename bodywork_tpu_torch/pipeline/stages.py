@@ -207,6 +207,61 @@ def _serve_tuned_config_ref() -> str | None:
     return os.environ.get(TUNED_CONFIG_ENV, "").strip() or None
 
 
+def _serve_fleet_env_knobs() -> int | None:
+    """The deployed process-fleet topology knob (``BODYWORK_TPU_FRONTENDS``:
+    N parse/admission front ends feeding one device-owning dispatcher)
+    from the pod environment, the JAX stage's. ``cli serve`` builds the
+    fleet from it; the IN-PROCESS serve stage cannot (one process by
+    construction), so it surfaces and warns. A malformed value is a
+    warning, never a crash-looping pod."""
+    import os
+
+    raw = os.environ.get("BODYWORK_TPU_FRONTENDS", "").strip()
+    if not raw:
+        return None
+    try:
+        frontends = int(raw)
+        if frontends < 1:
+            raise ValueError(raw)
+    except ValueError:
+        log.warning(f"ignoring BODYWORK_TPU_FRONTENDS={raw!r} (need an int >= 1)")
+        return None
+    return frontends
+
+
+def _serve_transport_env_knobs() -> tuple[str, str | None, str, bool]:
+    """The deployed cross-host-split knobs ``(transport, dispatcher_addr,
+    role, standby)`` (``BODYWORK_TPU_SERVE_TRANSPORT``,
+    ``BODYWORK_TPU_DISPATCHER_ADDR``, ``BODYWORK_TPU_SERVE_ROLE``,
+    ``BODYWORK_TPU_SERVE_STANDBY``) from the pod environment, the JAX
+    stage's, consumed like :func:`_serve_fleet_env_knobs`. The choice sets
+    are pinned == ``serve.netqueue.SERVE_TRANSPORTS`` / ``SERVE_ROLES`` ==
+    the ``cli serve`` choices by tests/test_torch_netqueue.py; a malformed
+    value is a warning and the default."""
+    import os
+
+    # hardcoded to keep this import-light, as the cli parser's are
+    transports = ("shm", "tcp", "unix")
+    roles = ("auto", "frontend", "dispatcher")
+    transport = os.environ.get("BODYWORK_TPU_SERVE_TRANSPORT", "").strip()
+    if transport and transport not in transports:
+        log.warning(f"ignoring BODYWORK_TPU_SERVE_TRANSPORT={transport!r} "
+                    f"(expected one of {transports})")
+        transport = ""
+    role = os.environ.get("BODYWORK_TPU_SERVE_ROLE", "").strip()
+    if role and role not in roles:
+        log.warning(f"ignoring BODYWORK_TPU_SERVE_ROLE={role!r} "
+                    f"(expected one of {roles})")
+        role = ""
+    addr = os.environ.get("BODYWORK_TPU_DISPATCHER_ADDR", "").strip() or None
+    raw_standby = os.environ.get("BODYWORK_TPU_SERVE_STANDBY", "").strip().lower()
+    standby = raw_standby in ("1", "true", "yes", "on")
+    if raw_standby and not standby and raw_standby not in ("0", "false", "no", "off"):
+        log.warning(f"ignoring BODYWORK_TPU_SERVE_STANDBY={raw_standby!r} "
+                    "(expected a boolean like 1/0/true/false)")
+    return transport or "shm", addr, role or "auto", standby
+
+
 def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None = None,
                 mesh_data: int | None = None, mesh_model: int = 1, **model_kwargs):
     """Train on the data to date and persist the checkpoint and its
@@ -253,7 +308,8 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
 
     The front end, admission budget, serving precision, coalescer and
     buckets come from the pod environment as the JAX stage's do
-    (:func:`_serve_env_knobs`, :func:`_serve_tuned_env_knobs`); an
+    (:func:`_serve_env_knobs`, :func:`_serve_tuned_env_knobs`; the split
+    topology's knobs, which one process cannot run, are warned of); an
     explicit ``buckets`` wins. ``tuned_config`` (default: the pod's
     ``BODYWORK_TPU_TUNED_CONFIG``, :func:`_serve_tuned_config_ref`) names
     a tuned serving-config document whose fitted values fill every knob
@@ -265,6 +321,21 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
     env_engine, env_max_pending, env_retry_max, env_dtype = _serve_env_knobs()
+    env_frontends = _serve_fleet_env_knobs()
+    if env_frontends:
+        log.warning(
+            f"BODYWORK_TPU_FRONTENDS={env_frontends} selects the "
+            "disaggregated process fleet (`cli serve --frontends`); "
+            "the in-process serve stage runs one process and ignores it"
+        )
+    env_transport, _env_addr, env_role, _env_standby = _serve_transport_env_knobs()
+    if env_transport != "shm" or env_role != "auto":
+        log.warning(
+            f"BODYWORK_TPU_SERVE_TRANSPORT={env_transport!r} / "
+            f"BODYWORK_TPU_SERVE_ROLE={env_role!r} select the cross-host "
+            "disaggregated split (`cli serve --transport/--role`); the "
+            "in-process serve stage runs one process and ignores them"
+        )
     env_window, env_max_rows, env_buckets = _serve_tuned_env_knobs()
     served_key, served_source = resolve_serving_key(ctx.store)
     model, model_date = load_model(ctx.store, served_key, device=_device(ctx))

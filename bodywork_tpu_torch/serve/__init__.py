@@ -1,72 +1,65 @@
-from bodywork_tpu_torch.serve.admission import (
-    DEFAULT_MAX_PENDING,
-    AdmissionController,
-    build_admission,
-    count_shed,
-)
-from bodywork_tpu_torch.serve.aio import AioServiceHandle
-from bodywork_tpu_torch.serve.app import (
-    PredictionSanityError,
-    ScoringApp,
-    as_bounds,
-    create_app,
-    sanity_violation,
-)
-from bodywork_tpu_torch.serve.batcher import CoalescerSaturated, RequestCoalescer
-from bodywork_tpu_torch.serve.multiproc import MultiProcessService
-from bodywork_tpu_torch.serve.predictor import (
-    GRAPH_CACHE,
-    SERVE_DTYPES,
-    BF16MLPPredictor,
-    GraphCache,
-    Int8MLPPredictor,
-    KernelMLPPredictor,
-    PaddedPredictor,
-    params_shape_digest,
-)
-from bodywork_tpu_torch.serve.server import (
-    ENGINE_NAMES,
-    SERVER_ENGINES,
-    RoundRobinApp,
-    ServiceHandle,
-    build_predictor,
-    build_serving_predictor,
-    quantized_engine_for,
-    resolve_engine,
-    serve_latest_model,
-    serve_model,
-)
+"""Serving package. Attribute access is lazy (PEP 562), as in the JAX
+package's ``bodywork_tpu.serve``: the disaggregated front-end processes
+(``serve.frontend``, ``serve.wire``, ``serve.rowqueue``,
+``serve.netqueue``) live under this package but must stay torch-free, so
+importing ``bodywork_tpu_torch.serve.<leaf>`` cannot drag ``predictor``
+or ``server`` (and therefore torch) in eagerly. ``from
+bodywork_tpu_torch.serve import create_app`` still works; it pays the
+import at first access instead of at package import."""
+from __future__ import annotations
 
-__all__ = [
-    "DEFAULT_MAX_PENDING",
-    "ENGINE_NAMES",
-    "GRAPH_CACHE",
-    "SERVE_DTYPES",
-    "SERVER_ENGINES",
-    "AdmissionController",
-    "AioServiceHandle",
-    "BF16MLPPredictor",
-    "CoalescerSaturated",
-    "GraphCache",
-    "Int8MLPPredictor",
-    "KernelMLPPredictor",
-    "MultiProcessService",
-    "PaddedPredictor",
-    "PredictionSanityError",
-    "RequestCoalescer",
-    "RoundRobinApp",
-    "ScoringApp",
-    "ServiceHandle",
-    "as_bounds",
-    "build_admission",
-    "build_predictor",
-    "build_serving_predictor",
-    "count_shed",
-    "create_app",
-    "params_shape_digest",
-    "quantized_engine_for",
-    "resolve_engine",
-    "sanity_violation",
-    "serve_latest_model",
-    "serve_model",
-]
+import importlib
+
+#: public name -> defining submodule; the package namespace resolves
+#: these on first attribute access
+_EXPORTS = {
+    "DEFAULT_MAX_PENDING": "admission",
+    "AdmissionController": "admission",
+    "SharedBudgetSlot": "admission",
+    "build_admission": "admission",
+    "count_shed": "admission",
+    "AioServiceHandle": "aio",
+    "PredictionSanityError": "app",
+    "ScoringApp": "app",
+    "as_bounds": "app",
+    "create_app": "app",
+    "sanity_violation": "app",
+    "CoalescerSaturated": "batcher",
+    "RequestCoalescer": "batcher",
+    "FrontendApp": "frontend",
+    "MultiProcessService": "multiproc",
+    "GRAPH_CACHE": "predictor",
+    "SERVE_DTYPES": "predictor",
+    "BF16MLPPredictor": "predictor",
+    "GraphCache": "predictor",
+    "Int8MLPPredictor": "predictor",
+    "KernelMLPPredictor": "predictor",
+    "PaddedPredictor": "predictor",
+    "params_shape_digest": "predictor",
+    "CheckpointWatcher": "reload",
+    "ENGINE_NAMES": "server",
+    "SERVER_ENGINES": "server",
+    "RoundRobinApp": "server",
+    "ServiceHandle": "server",
+    "build_predictor": "server",
+    "build_serving_predictor": "server",
+    "quantized_engine_for": "server",
+    "resolve_engine": "server",
+    "serve_latest_model": "server",
+    "serve_model": "server",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    submodule = _EXPORTS.get(name)
+    if submodule is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{submodule}"), name)
+    globals()[name] = value  # cache: the next access skips __getattr__
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -39,8 +39,16 @@ same decision streams, so a seed replays the same adversity); an
 injected 503/429 counts as ``bodywork_tpu_serve_shed_total{reason=
 "chaos"}``, never mistakable for an admission shed. ``/metrics`` renders
 the app's view (``ScoringApp.metrics_text``: the service-wide merge under
-``serve --workers``). The row-queue front ends are a later slice (ROADMAP
-Queue 1 item 15).
+``serve --workers``).
+
+**Disaggregated front ends** (``serve --frontends N``): an app with
+``is_frontend`` (``serve.frontend.FrontendApp``) scores by handing its
+parsed rows to the dispatcher over the row-queue, bridged to the loop as
+a coalescer submission is; a down dispatcher answers 503 +
+``Retry-After`` (``DispatcherUnavailable``), an exhausted slot pool sheds
+429 as ``bodywork_tpu_serve_shed_total{reason="rowqueue"}``
+(``SlotsExhausted``), and a sampled request records its ``rowqueue``
+span.
 """
 from __future__ import annotations
 
@@ -60,14 +68,16 @@ from bodywork_tpu_torch.obs.tracing import (
     reset_active_span,
     set_active_span,
 )
-from bodywork_tpu_torch.serve.app import (
-    _METHOD_NOT_ALLOWED,
-    _NOT_FOUND,
-    METRICS_CONTENT_TYPE,
-    sanity_violation,
-)
 from bodywork_tpu_torch.serve.admission import count_shed
+from bodywork_tpu_torch.serve.app import sanity_violation
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
+from bodywork_tpu_torch.serve.httpcore import (
+    METHOD_NOT_ALLOWED,
+    METRICS_CONTENT_TYPE,
+    NOT_FOUND,
+    SCORING_ROUTES,
+)
+from bodywork_tpu_torch.serve.rowqueue import DispatcherUnavailable, SlotsExhausted
 from bodywork_tpu_torch.serve.wire import MODEL_KEY_HEADER
 from bodywork_tpu_torch.utils.logging import get_logger
 
@@ -95,8 +105,6 @@ _REASONS = {
     500: "INTERNAL SERVER ERROR",
     503: "SERVICE UNAVAILABLE",
 }
-
-_SCORING_ROUTES = ("/score/v1", "/score/v1/batch")
 
 
 def _error(status: int, message: str, extra=()):
@@ -296,15 +304,18 @@ class AioScoringServer:
                         json.dumps({"error": f"injected fault: HTTP {injected}"}).encode(),
                         "application/json", (("Retry-After", str(chaos_retry_after)),))
         t0 = time.perf_counter()
+        # a disaggregated front end scores by enqueueing to the dispatcher
+        # over the row-queue; healthz/metrics read either app the same way
+        frontend = getattr(app, "is_frontend", False)
         routes = {
-            ("POST", "/score/v1"): self._score_single,
-            ("POST", "/score/v1/batch"): self._score_batch,
+            ("POST", "/score/v1"): self._fe_score_single if frontend else self._score_single,
+            ("POST", "/score/v1/batch"): self._fe_score_batch if frontend else self._score_batch,
             ("GET", "/healthz"): self._healthz,
             ("GET", "/metrics"): self._metrics,
         }
         known_path = any(p == path for _m, p in routes)
         tracer = app.tracer
-        traced = method == "POST" and path in _SCORING_ROUTES and tracer.enabled
+        traced = method == "POST" and path in SCORING_ROUTES and tracer.enabled
         trace_box: list = [None]
         if traced:
             traceparent = headers.get(TRACEPARENT_HEADER)
@@ -313,8 +324,8 @@ class AioScoringServer:
         try:
             handler = routes.get((method, path))
             if handler is None:
-                result = (_error(405, _METHOD_NOT_ALLOWED) if known_path
-                          else _error(404, _NOT_FOUND))
+                result = (_error(405, METHOD_NOT_ALLOWED) if known_path
+                          else _error(404, NOT_FOUND))
             else:
                 result = await handler(app, body, trace_box if traced else None,
                                        headers.get("content-type", ""))
@@ -325,7 +336,7 @@ class AioScoringServer:
         route = path if known_path else "unknown"
         app._m_requests.inc(route=route, status=str(status))
         trace = trace_box[0]
-        if path in _SCORING_ROUTES and status == 200:
+        if path in SCORING_ROUTES and status == 200:
             app._m_latency.observe(
                 time.perf_counter() - t0,
                 exemplar=trace.trace_id if trace is not None and trace.sampled else None,
@@ -471,6 +482,86 @@ class AioScoringServer:
             return self._render(app, served, "batch", predictions, trace)
 
         return await self._score_common(app, body, score, trace_box, content_type)
+
+    async def _fe_score_single(self, app, body: bytes, trace_box=None,
+                               content_type: str = ""):
+        return await self._fe_score(app, body, trace_box, content_type, single=True)
+
+    async def _fe_score_batch(self, app, body: bytes, trace_box=None,
+                              content_type: str = ""):
+        return await self._fe_score(app, body, trace_box, content_type, single=False)
+
+    async def _fe_score(self, app, body, trace_box, content_type, single: bool):
+        """The disaggregated scoring shell: admission (shed BEFORE parse,
+        as everywhere), parse via the shared wire helpers, then a
+        row-queue submit bridged to the loop like a coalescer submission;
+        the dispatcher's reply renders through the ``FrontendApp`` core,
+        so responses are byte-identical to the in-process engines'."""
+        trace = trace_box[0] if trace_box is not None else None
+        admission = self.admission
+        if admission is not None and not admission.try_admit():
+            if trace is not None and trace.sampled:
+                now = time.perf_counter()
+                trace.add("admission-shed", now, now, queue_depth=admission.queue_depth)
+            status, payload, extra = app.shed_parts()
+            return status, payload, "application/json", extra
+        if trace_box is not None and trace is None:
+            trace = trace_box[0] = app.tracer.begin(None, body)
+        sampled = trace is not None and trace.sampled
+        t_admit = time.perf_counter()
+        try:
+            t0 = time.perf_counter()
+            X, message = app.parse_rows(body, content_type)
+            t1 = time.perf_counter()
+            app._m_parse.observe(t1 - t0)
+            if sampled:
+                trace.add("parse", t0, t1)
+            if message is not None:
+                return _error(400, message)
+            loop = asyncio.get_running_loop()
+            future = loop.create_future()
+
+            def _resolve(outcome) -> None:
+                # reader thread -> event loop; the loop may be gone
+                def _set() -> None:
+                    if future.cancelled():
+                        return
+                    if isinstance(outcome, Exception):
+                        future.set_exception(outcome)
+                    else:
+                        future.set_result(outcome)
+
+                try:
+                    loop.call_soon_threadsafe(_set)
+                except RuntimeError:
+                    pass
+
+            t_submit = time.perf_counter()
+            try:
+                app.submit(X, single, _resolve,
+                           trace_id=trace.trace_id if sampled else None)
+            except DispatcherUnavailable:
+                status, payload, extra = app.unavailable_parts()
+                return status, payload, "application/json", extra
+            except SlotsExhausted:
+                count_shed("rowqueue")
+                status, payload, extra = app.shed_parts()
+                return status, payload, "application/json", extra
+            try:
+                reply = await asyncio.wait_for(future, COALESCE_TIMEOUT_S)
+            except DispatcherUnavailable:
+                # died mid-request: the epoch bump failed the wait
+                status, payload, extra = app.unavailable_parts()
+                return status, payload, "application/json", extra
+            except asyncio.TimeoutError:
+                return _error(500, "internal server error")
+            if sampled:
+                trace.add("rowqueue", t_submit, time.perf_counter())
+            status, payload, extra = app.render_reply(reply, single)
+            return status, payload, "application/json", extra
+        finally:
+            if admission is not None:
+                admission.release(time.perf_counter() - t_admit)
 
     async def _healthz(self, app, body: bytes, trace_box=None, content_type: str = ""):
         payload, status, retry_after = app.healthz_response()

@@ -71,14 +71,23 @@ import numpy as np
 
 from bodywork_tpu_torch.obs import get_registry
 from bodywork_tpu_torch.obs.tracing import (
-    TRACE_ID_HEADER,
     get_tracer,
     parse_traceparent,
     reset_active_span,
     set_active_span,
 )
-from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
 from bodywork_tpu_torch.serve.batcher import CoalescerSaturated
+from bodywork_tpu_torch.serve.httpcore import (
+    FAST_PHASE_BUCKETS,
+    JSON_HEADERS,
+    METHOD_NOT_ALLOWED,
+    METRICS_CONTENT_TYPE,
+    NOT_FOUND,
+    RETRY_AFTER_S,
+    SCORING_ROUTES,
+    json_response,
+    with_trace_id,
+)
 from bodywork_tpu_torch.serve.wire import (
     BINARY_CONTENT_TYPE,
     MODEL_KEY_HEADER,
@@ -90,28 +99,6 @@ from bodywork_tpu_torch.serve.wire import (
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("serve.app")
-
-_NOT_FOUND = (
-    "The requested URL was not found on the server. If you entered the URL "
-    "manually please check your spelling and try again."
-)
-_METHOD_NOT_ALLOWED = "The method is not allowed for the requested URL."
-_JSON = {"Content-Type": "application/json"}
-#: the Prometheus text exposition's content type
-METRICS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-
-#: parse/serialize are µs-scale host work (the JAX app's buckets)
-_FAST_PHASE_BUCKETS = (
-    0.00001, 0.00005, 0.0001, 0.0005, 0.001, 0.005, 0.025, 0.1,
-)
-
-#: routes whose successful requests count into the scoring-latency histogram
-_SCORING_ROUTES = ("/score/v1", "/score/v1/batch")
-
-#: Retry-After (seconds) on a no-model 503 from an app without admission
-#: control; with admission, every backpressure answer carries its EWMA
-RETRY_AFTER_S = 5
-
 
 class PredictionSanityError(RuntimeError):
     """A production prediction failed the sanity firewall (non-finite).
@@ -167,17 +154,6 @@ def sanity_violation(predictions, bounds: tuple[float, float] | None) -> str | N
         if np.any(arr < lo) or np.any(arr > hi):
             return "out_of_range"
     return None
-
-
-def _json_response(payload: dict, status: int = 200, headers=None):
-    return status, {**_JSON, **(headers or {})}, json.dumps(payload).encode()
-
-
-def _with_trace_id(response, trace):
-    """``response`` with the trace id header: the only place an id leaves
-    the service (never a body, so bodies stay byte-identical)."""
-    status, headers, body = response
-    return status, {**headers, TRACE_ID_HEADER: trace.trace_id}, body
 
 
 def _is_json(content_type: str | None) -> bool:
@@ -281,7 +257,7 @@ class ScoringApp:
         self._m_parse = reg.histogram(
             "bodywork_tpu_request_parse_seconds",
             "Request-parse phase: JSON body -> validated feature array",
-            buckets=_FAST_PHASE_BUCKETS,
+            buckets=FAST_PHASE_BUCKETS,
         )
         self._m_dispatch = reg.histogram(
             "bodywork_tpu_device_dispatch_seconds",
@@ -290,7 +266,7 @@ class ScoringApp:
         self._m_serialize = reg.histogram(
             "bodywork_tpu_response_serialize_seconds",
             "Serialization phase: prediction -> JSON response",
-            buckets=_FAST_PHASE_BUCKETS,
+            buckets=FAST_PHASE_BUCKETS,
         )
         self._m_swaps = reg.counter(
             "bodywork_tpu_model_hot_swaps_total",
@@ -508,6 +484,21 @@ class ScoringApp:
             return canary, "canary"
         return served, "production"
 
+    def stream_metrics_active(self) -> bool:
+        """Whether per-stream accounting is on (a canary is live): the
+        check a scoring path makes before paying labelled metric writes."""
+        return self._canary is not None
+
+    def count_stream_request(self, served, stream: str) -> None:
+        """Count one request on ``stream`` (the dispatcher's accounting,
+        where the request's latency belongs to its front end)."""
+        self._m_stream_requests.inc(model_key=served.model_key or "unknown",
+                                    stream=stream)
+
+    def sanity_reason(self, served, predictions) -> str | None:
+        """The firewall's cheap precheck of ``served``'s predictions."""
+        return sanity_violation(predictions, served.bounds)
+
     @contextlib.contextmanager
     def stream_accounting(self, served, stream: str, trace=None):
         """The per-stream accounting of one scoring request routed to
@@ -561,7 +552,7 @@ class ScoringApp:
         POST's trace id is minted from the body only once admitted."""
         path = path.split("?", 1)[0]
         t0 = time.perf_counter()
-        scoring_post = method == "POST" and path in _SCORING_ROUTES
+        scoring_post = method == "POST" and path in SCORING_ROUTES
         tracer = self.tracer
         traced = scoring_post and tracer.enabled
         trace = None
@@ -578,7 +569,7 @@ class ScoringApp:
                         trace.add("admission-shed", now, now,
                                   queue_depth=admission.queue_depth)
                     tracer.finish(trace, path, response[0])
-                    response = _with_trace_id(response, trace)
+                    response = with_trace_id(response, trace)
                 self._m_requests.inc(route=path, status=str(response[0]))
                 return response
             admitted = True
@@ -588,14 +579,14 @@ class ScoringApp:
             handler = self._routes.get((method, path))
             if handler is None:
                 if self.known_path(path):
-                    response = _json_response({"error": _METHOD_NOT_ALLOWED}, 405)
+                    response = json_response({"error": METHOD_NOT_ALLOWED}, 405)
                 else:
-                    response = _json_response({"error": _NOT_FOUND}, 404)
+                    response = json_response({"error": NOT_FOUND}, 404)
             else:
                 response = handler(body, content_type, trace)
         except Exception as exc:  # don't leak tracebacks to clients
             log.error(f"unhandled error serving {path}: {exc!r}")
-            response = _json_response({"error": "internal server error"}, 500)
+            response = json_response({"error": "internal server error"}, 500)
         finally:
             if admitted:
                 # admission -> response ready: the EWMA behind Retry-After
@@ -603,7 +594,7 @@ class ScoringApp:
         status = response[0]
         route = path if self.known_path(path) else "unknown"
         self._m_requests.inc(route=route, status=str(status))
-        if path in _SCORING_ROUTES and status == 200:
+        if path in SCORING_ROUTES and status == 200:
             # a sampled request leaves its trace id as the bucket's exemplar
             self._m_latency.observe(
                 time.perf_counter() - t0,
@@ -611,7 +602,7 @@ class ScoringApp:
             )
         if trace is not None:
             tracer.finish(trace, route, status)
-            response = _with_trace_id(response, trace)
+            response = with_trace_id(response, trace)
         return response
 
     # -- parsing and backpressure ------------------------------------------
@@ -639,7 +630,7 @@ class ScoringApp:
         if trace is not None and trace.sampled:
             trace.add("parse", t0, t1)
         if message is not None:
-            return None, _json_response({"error": message}, 400)
+            return None, json_response({"error": message}, 400)
         return X, None
 
     def retry_after_s(self) -> int:
@@ -651,11 +642,11 @@ class ScoringApp:
 
     def shed_response(self):
         """The admission-shed 429."""
-        return _json_response({"error": "server over capacity; request shed"}, 429,
+        return json_response({"error": "server over capacity; request shed"}, 429,
                               {"Retry-After": str(self.retry_after_s())})
 
     def _no_model_response(self):
-        return _json_response({"error": "no model loaded yet; retry shortly"}, 503,
+        return json_response({"error": "no model loaded yet; retry shortly"}, 503,
                               {"Retry-After": str(self.retry_after_s())})
 
     def _traced_dispatch(self, served: _Served, X, trace=None):
@@ -751,7 +742,7 @@ class ScoringApp:
         self._m_serialize.observe(t1 - t0)
         if trace is not None and trace.sampled:
             trace.add("serialize", t0, t1)
-        headers = dict(_JSON)
+        headers = dict(JSON_HEADERS)
         if served.model_key:
             headers[MODEL_KEY_HEADER] = served.model_key
         return 200, headers, payload
@@ -818,6 +809,7 @@ class ScoringApp:
         ``engine``, ``device``, ``launches`` (of the serving kernel since
         the counts were last reset; null for a plain engine) and
         ``graph_cache``."""
+        from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES
         from bodywork_tpu_torch.serve.predictor import GRAPH_CACHE
 
         served = self.served
@@ -877,7 +869,7 @@ class ScoringApp:
     def healthz(self, body: bytes, content_type: str | None, trace=None):
         payload, status, retry_after = self.healthz_response()
         headers = {"Retry-After": str(retry_after)} if retry_after is not None else None
-        return _json_response(payload, status, headers)
+        return json_response(payload, status, headers)
 
     def metrics_endpoint(self, body: bytes, content_type: str | None, trace=None):
         """This process's registry in the Prometheus text format, merged

@@ -84,9 +84,10 @@ class _Submission:
     member's trace, linked across the batch."""
 
     __slots__ = ("row", "served", "event", "result", "error", "enqueued_at", "on_done",
-                 "trace", "enqueued_perf")
+                 "trace", "enqueued_perf", "source")
 
-    def __init__(self, row: np.ndarray, served, on_done=None, trace=None):
+    def __init__(self, row: np.ndarray, served, on_done=None, trace=None,
+                 source=None):
         self.row = row
         self.served = served
         self.event = threading.Event()
@@ -98,6 +99,10 @@ class _Submission:
         # perf_counter twin of enqueued_at: spans live on the perf_counter
         # timeline (obs.tracing); taken only when traced
         self.enqueued_perf = time.perf_counter() if trace is not None else 0.0
+        #: which ingress this row arrived through (a front-end id in the
+        #: disaggregated split; None in-process): the flush accounting
+        #: uses it to show batches merge rows across front-ends
+        self.source = source
 
 
 class RequestCoalescer:
@@ -134,6 +139,11 @@ class RequestCoalescer:
         self.batches_dispatched = 0
         self.rows_dispatched = 0
         self.max_batch_rows = 0
+        # cross-ingress merge accounting: under the disaggregated split
+        # one coalescer sees every front-end's rows, and flushes mixing
+        # sources are the evidence that batches concentrate
+        self.multi_source_flushes = 0
+        self.sources_seen: set = set()
         # phase histograms (obs.registry): queue wait is the latency the
         # coalescer COSTS, device dispatch the work it AMORTISES — the
         # same bodywork_tpu_device_dispatch_seconds the app's direct
@@ -172,6 +182,12 @@ class RequestCoalescer:
             "(window=deadline elapsed, max_rows=batch filled during the "
             "window, saturation=a full batch was already queued — no "
             "window wait at all)",
+        )
+        self._m_multisource = reg.counter(
+            "bodywork_tpu_coalesced_multisource_flush_total",
+            "Coalesced flushes whose batch merged rows from more than "
+            "one ingress source (disaggregated mode: cross-front-end "
+            "batch formation actually happening)",
         )
         self._thread = threading.Thread(
             target=self._run, name="request-coalescer", daemon=True
@@ -238,15 +254,17 @@ class RequestCoalescer:
 
     # -- request path ------------------------------------------------------
     def submit_nowait(self, served, row: np.ndarray, on_done=None,
-                      trace=None) -> _Submission:
+                      trace=None, source=None) -> _Submission:
         """Enqueue one row WITHOUT waiting: returns the submission whose
         ``event`` (pull) or ``on_done`` callback (push — must be set
         HERE, before the enqueue, or the dispatcher can complete the
         batch first and the callback never fires) signals completion.
         The asyncio front-end's bridge into the coalescer; raises
         :class:`CoalescerSaturated` exactly as :meth:`submit` does.
-        ``trace``: the request's sampled span context, or None."""
-        sub = _Submission(np.asarray(row, dtype=np.float32), served, on_done, trace)
+        ``trace``: the request's sampled span context, or None.
+        ``source``: the ingress this row arrived through (the serving
+        dispatcher tags each row with its front-end id)."""
+        sub = _Submission(np.asarray(row, dtype=np.float32), served, on_done, trace, source)
         with self._cond:
             if self._stopped or not self._started:
                 self._m_saturated.inc()
@@ -375,6 +393,12 @@ class RequestCoalescer:
         self._m_batch_rows.observe(len(batch))
         self._m_occupancy.observe(len(batch) / self.max_rows)
         self._m_flush_reason.inc(reason=reason)
+        sources = {sub.source for sub in batch if sub.source is not None}
+        if sources:
+            self.sources_seen.update(sources)
+            if len(sources) > 1:
+                self.multi_source_flushes += 1
+                self._m_multisource.inc()
         # trace fan-in: each SAMPLED member gets its queue-wait span and
         # the batch's shared device-dispatch span, which carries every
         # member's request span id as links (obs.tracing). The dispatch
@@ -426,4 +450,6 @@ class RequestCoalescer:
                 "max_batch_rows": self.max_batch_rows,
                 "window_ms": round(self.window_s * 1e3, 3),
                 "max_rows": self.max_rows,
+                "multi_source_flushes": self.multi_source_flushes,
+                "sources_seen": sorted(self.sources_seen),
             }

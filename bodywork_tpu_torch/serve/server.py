@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import itertools
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import torch
 
@@ -43,9 +42,9 @@ from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
 from bodywork_tpu_torch.models.mlp import MLPRegressor
 from bodywork_tpu_torch.obs import get_registry
-from bodywork_tpu_torch.obs.tracing import TRACEPARENT_HEADER
 from bodywork_tpu_torch.serve.admission import build_admission
 from bodywork_tpu_torch.serve.app import create_app
+from bodywork_tpu_torch.serve.httpcore import ServiceHandle
 from bodywork_tpu_torch.store import open_store
 from bodywork_tpu_torch.utils.logging import get_logger
 from bodywork_tpu_torch.utils.shutdown import ShutdownRequested
@@ -276,124 +275,6 @@ class RoundRobinApp:
         with self._lock:
             app = self.apps[next(self._counter) % len(self.apps)]
         return app.handle(method, path, body, content_type, **request)
-
-
-class _ThreadingServer(ThreadingHTTPServer):
-    # one daemon thread per connection; a listen backlog of werkzeug's
-    # 128 (the standard library's 5 resets a burst of connections)
-    daemon_threads = True
-    request_queue_size = 128
-
-
-def _handler_for(app):
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        # one segment per response, sent at once: unbuffered, the headers
-        # and the body leave as two writes, and on a keep-alive connection
-        # the second waits out the client's delayed ACK (~40 ms)
-        wbufsize = -1
-        disable_nagle_algorithm = True
-
-        def _respond(self, method: str) -> None:
-            length = int(self.headers.get("Content-Length") or 0)
-            body = self.rfile.read(length) if length else b""
-            status, headers, payload = app.handle(
-                method, self.path, body, self.headers.get("Content-Type"),
-                traceparent=self.headers.get(TRACEPARENT_HEADER),
-            )
-            self.send_response(status)
-            for name, value in headers.items():
-                self.send_header(name, value)
-            self.send_header("Content-Length", str(len(payload)))
-            self.end_headers()
-            self.wfile.write(payload)
-
-        def do_GET(self):
-            self._respond("GET")
-
-        def do_POST(self):
-            self._respond("POST")
-
-        def log_message(self, format, *args):
-            log.debug(format % args)
-
-    return Handler
-
-
-class ServiceHandle:
-    """A scoring service on a ``ThreadingHTTPServer`` (the ``thread``
-    engine: one thread per connection). ``port=0`` lets the OS pick a
-    free port. :meth:`stop` runs the registered cleanups (the apps'
-    coalescers flush and stop) before it closes the listener."""
-
-    def __init__(self, app, host: str = "127.0.0.1", port: int = 5000, sock=None):
-        self.app = app
-        #: the scoring apps behind the front (one unless replicated)
-        self.replica_apps = list(getattr(app, "apps", [app]))
-        if sock is None:
-            self._server = _ThreadingServer((host, port), _handler_for(app))
-        else:
-            # a bound socket handed in (a ``serve --workers`` replica's
-            # SO_REUSEPORT socket): listen on it instead of binding one
-            self._server = _ThreadingServer(sock.getsockname(), _handler_for(app),
-                                            bind_and_activate=False)
-            self._server.socket.close()
-            self._server.socket = sock
-            self._server.server_address = sock.getsockname()
-            self._server.server_name = host
-            self._server.server_port = sock.getsockname()[1]
-            self._server.server_activate()
-        self.host = host
-        self.port = self._server.server_port
-        self._cleanups: list = []
-        #: the checkpoint watcher (``serve.reload``) of a watched service
-        self.watcher = None
-        self._thread = threading.Thread(
-            # poll_interval bounds how long shutdown() blocks
-            target=lambda: self._server.serve_forever(poll_interval=0.005),
-            name="scoring-service",
-            daemon=True,
-        )
-
-    @property
-    def base_url(self) -> str:
-        host = "127.0.0.1" if self.host in ("0.0.0.0", "") else self.host
-        return f"http://{host}:{self.port}"
-
-    @property
-    def url(self) -> str:
-        return f"{self.base_url}/score/v1"
-
-    def add_cleanup(self, fn) -> None:
-        """Run ``fn`` on :meth:`stop`."""
-        self._cleanups.append(fn)
-
-    def start(self) -> "ServiceHandle":
-        self._thread.start()
-        log.info(f"scoring service listening on {self.url}")
-        return self
-
-    def serve_forever(self) -> None:
-        """Serve in the calling thread (pod-entrypoint mode)."""
-        log.info(f"scoring service listening on {self.url}")
-        try:
-            self._server.serve_forever()
-        finally:
-            self._server.server_close()
-
-    def wait(self) -> None:
-        """Block until the server thread exits: a service pod's lifetime
-        (``cli run-stage`` of a service stage)."""
-        self._thread.join()
-
-    def stop(self) -> None:
-        for fn in self._cleanups:
-            fn()
-        self._server.shutdown()
-        self._server.server_close()
-        if self._thread.ident is not None:
-            self._thread.join(timeout=10)
-        log.info("scoring service stopped")
 
 
 def registry_bounds(store, key: str | None):

@@ -496,11 +496,6 @@ def test_manifest_validator_covers_service_ingress_cronjob_paths():
 
 
 @pytest.mark.parametrize("name,value,item", [
-    ("BODYWORK_TPU_SERVE_TRANSPORT", "tcp", 15),
-    ("BODYWORK_TPU_SERVE_STANDBY", "1", 15),
-    ("BODYWORK_TPU_FRONTENDS", "2", 15),
-    ("BODYWORK_TPU_DISPATCHER_ADDR", "x:9091", 15),
-    ("BODYWORK_TPU_SERVE_ROLE", "frontend", 15),
     ("BODYWORK_TPU_MESH_DATA", "2", 19),
     ("BODYWORK_TPU_MESH_MODEL", "4", 19),
 ])
@@ -510,11 +505,118 @@ def test_a_mode_the_port_lacks_is_refused_by_its_roadmap_item(name, value, item)
     spec.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={name: value})
     with pytest.raises(ValueError, match=rf"{name}=.*item {item}\b"):
         generate_manifests(spec, store_path="/mnt/store")
-    # the inert defaults (empty, a 1-device mesh) are emitted
-    spec.stages["stage-2-serve-model"] = dataclasses.replace(
-        serve, env={name: "1" if "MESH" in name else ""})
+    # the inert default (a 1-device mesh) is emitted
+    spec.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={name: "1"})
     docs = generate_manifests(spec, store_path="/mnt/store")
     assert not any("dispatcher" in filename for filename in docs)
+
+
+def _split_pair(env: dict, model: str = "linear"):
+    """The port's and the JAX generator's manifests for a serve stage
+    with ``env``."""
+    from bodywork_tpu.pipeline import default_pipeline as jax_pipeline
+    from bodywork_tpu.pipeline import generate_manifests as jax_manifests
+
+    spec, jax_spec = default_pipeline(model), jax_pipeline(model)
+    for s in (spec, jax_spec):
+        serve = s.stages["stage-2-serve-model"]
+        s.stages["stage-2-serve-model"] = dataclasses.replace(serve, env=dict(env))
+    return (generate_manifests(spec, store_path="/mnt/store"),
+            jax_manifests(jax_spec, store_path="/mnt/store"))
+
+
+@pytest.mark.parametrize("env", [
+    {"BODYWORK_TPU_SERVE_TRANSPORT": "tcp"},
+    {"BODYWORK_TPU_SERVE_TRANSPORT": "tcp", "BODYWORK_TPU_SERVE_STANDBY": "1"},
+    {"BODYWORK_TPU_FRONTENDS": "2"},
+    {"BODYWORK_TPU_DISPATCHER_ADDR": "x:9091"},
+    {"BODYWORK_TPU_SERVE_ROLE": "frontend"},
+    {"BODYWORK_TPU_SERVE_TRANSPORT": "unix", "BODYWORK_TPU_SERVE_STANDBY": "yes"},
+], ids=["transport-tcp", "standby-pair", "frontends", "dispatcher-addr", "role",
+        "unix-standby"])
+def test_a_split_serving_knob_emits_the_jax_generators_manifests(env):
+    """The five split-topology env knobs emit, under the parity mapping,
+    the JAX generator's documents: on tcp the front-end Deployment (no
+    GPU) plus the dispatcher Deployment (the stage's GPU, ``--standby``
+    and two replicas with the pair) and its ``rowqueue`` Service; the
+    other knobs ride the serve container's env. A deployment document's
+    key order follows the declared knob, as the tuned knobs' does."""
+    port, jax = _split_pair(env)
+    assert list(port) == list(jax)
+    mapped, masked = _map_jax(jax), _mask_port(port)
+    assert masked == mapped
+    dumped, jax_dumped = _dump_all(masked), _dump_all(mapped)
+    for f, doc in port.items():
+        if doc["kind"] == "Deployment":
+            for c, jax_c in zip(_containers(doc), _containers(jax[f])):
+                assert list(c) == list(jax_c)
+        else:
+            assert dumped[f] == jax_dumped[f], f
+    split = env.get("BODYWORK_TPU_SERVE_TRANSPORT") == "tcp"
+    assert any(f.endswith("-dispatcher-deployment.yaml") for f in port) == split
+    for f, doc in port.items():
+        if doc["kind"] != "Deployment" or doc["metadata"]["name"].startswith(
+                "bodywork-ml-pipeline-project--daily"):
+            continue
+        gpu = _containers(doc)[-1]["resources"].get("limits", {}).get("nvidia.com/gpu")
+        assert bool(gpu) == (not split or f.endswith("-dispatcher-deployment.yaml")), f
+
+
+def test_the_split_validator_refuses_a_scaled_dispatcher():
+    """Two unfenced dispatchers would split the coalescer's rows: the
+    port's validator refuses a scaled singleton and an HPA aimed at it,
+    with the JAX validator's errors for the same documents."""
+    from bodywork_tpu.pipeline.k8s_validate import validate_split_serving as jax_validate
+    from bodywork_tpu_torch.pipeline.k8s_validate import validate_split_serving
+
+    port, jax = _split_pair({"BODYWORK_TPU_SERVE_TRANSPORT": "tcp"})
+    assert validate_split_serving(port) == []
+    for docs in (port, jax):
+        disp = next(d for d in docs.values() if d["kind"] == "Deployment"
+                    and d["metadata"]["name"].endswith("--dispatcher"))
+        disp["spec"]["replicas"] = 3
+    errors = validate_split_serving(port)
+    assert errors == jax_validate(jax) and any("exactly 1 replica" in e for e in errors)
+    for docs in (port, jax):
+        disp = next(d for d in docs.values() if d["kind"] == "Deployment"
+                    and d["metadata"]["name"].endswith("--dispatcher"))
+        disp["spec"]["replicas"] = 1
+        hpa = next(d for d in docs.values() if d["kind"] == "HorizontalPodAutoscaler")
+        hpa["spec"]["scaleTargetRef"]["name"] = disp["metadata"]["name"]
+    errors = validate_split_serving(port)
+    assert errors == jax_validate(jax) and any("front-end" in e and "HPA" in e
+                                               for e in errors)
+    with pytest.raises(ManifestError):
+        validate_manifests(port)
+
+
+def test_the_standby_pair_round_trips_and_validates_both_ways(tmp_path):
+    """The standby pair written to disk reads back to the same documents,
+    passes every layer, and the replica rule holds both ways: 3 refused,
+    1 accepted with standby; 2 refused without."""
+    from bodywork_tpu_torch.pipeline.k8s_validate import validate_split_serving
+
+    spec = default_pipeline()
+    serve = spec.stages["stage-2-serve-model"]
+    spec.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={
+        "BODYWORK_TPU_SERVE_TRANSPORT": "tcp", "BODYWORK_TPU_SERVE_STANDBY": "1"})
+    paths = write_manifests(spec, tmp_path, store_path="/mnt/store")
+    docs = {p.name: yaml.safe_load(p.read_text()) for p in paths}
+    assert docs == generate_manifests(spec, store_path="/mnt/store")
+    validate_manifests(docs)
+    disp = next(d for d in docs.values() if d["kind"] == "Deployment"
+                and d["metadata"]["name"].endswith("--dispatcher"))
+    assert disp["spec"]["replicas"] == 2
+    assert "--standby" in disp["spec"]["template"]["spec"]["containers"][0]["command"]
+    disp["spec"]["replicas"] = 3
+    assert any("1 or 2 replicas" in e for e in validate_split_serving(docs))
+    disp["spec"]["replicas"] = 1
+    assert validate_split_serving(docs) == []
+    single, _ = _split_pair({"BODYWORK_TPU_SERVE_TRANSPORT": "tcp"})
+    disp = next(d for d in single.values() if d["kind"] == "Deployment"
+                and d["metadata"]["name"].endswith("--dispatcher"))
+    disp["spec"]["replicas"] = 2
+    assert any("exactly 1 replica" in e for e in validate_split_serving(single))
 
 
 @pytest.mark.parametrize("name,value", [

@@ -5,7 +5,10 @@ scores, hot reload reaching every replica, the supervisor's respawn and
 the respawn policy's three rules), then the service-wide admission budget,
 the aggregated ``/metrics`` text (byte-equal to the JAX package's for the
 same snapshots), a worker that cannot start, and the split topology's
-refusal. Every spawn is bounded by its own start-up timeout."""
+arguments, which build the JAX service's topology or refuse as it does
+(the split fleets themselves: ``test_torch_dispatch.py``,
+``test_torch_netqueue.py``). Every spawn is bounded by its own start-up
+timeout."""
 import os
 import time
 from datetime import date
@@ -263,11 +266,60 @@ def test_a_multi_worker_service_sheds_and_aggregates_across_processes(tmp_path):
         assert counted >= 12, text
 
 
-@pytest.mark.parametrize("name,value", [("frontends", 2), ("transport", "tcp"),
-                                        ("standby", True), ("dispatcher_addr", "x:9091")])
-def test_the_split_topology_is_refused_by_its_roadmap_item(tmp_path, name, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 15"):
-        MultiProcessService(str(tmp_path), device="cpu", **{name: value})
+#: the four arguments alone (a fleet of front ends; the rest refused or
+#: inert without it, as in the JAX service), then their combinations
+SPLIT_ARGUMENTS = {
+    "frontends": {"frontends": 2},
+    "transport": {"transport": "tcp"},
+    "standby": {"standby": True},
+    "dispatcher_addr": {"dispatcher_addr": "x:9091"},
+    "bad-transport": {"transport": "carrier-pigeon", "frontends": 1},
+    "external-over-shm": {"frontends": 1, "external_dispatcher": True},
+    "standby-over-shm": {"frontends": 1, "standby": True},
+    "standby-external": {"frontends": 1, "transport": "tcp", "standby": True,
+                         "external_dispatcher": True, "dispatcher_addr": "x:9091"},
+    "dispatcher-only": {"frontends": 0, "transport": "tcp"},
+    "external-without-addr": {"frontends": 2, "transport": "tcp",
+                              "external_dispatcher": True},
+    "tcp-split": {"frontends": 2, "transport": "tcp", "dispatcher_addr": "127.0.0.1:9191"},
+    "unix-standby": {"frontends": 1, "transport": "unix", "standby": True},
+    "standby-pair": {"frontends": 0, "transport": "tcp", "standby": True,
+                     "dispatcher_addr": "0.0.0.0:9191"},
+}
+
+
+def _construct(cls, root, kwargs):
+    """``(error type, message)`` or the constructed topology."""
+    try:
+        svc = cls(str(root), **kwargs)
+    except Exception as exc:  # noqa: BLE001 - the outcome is compared
+        return type(exc).__name__, str(exc)
+    try:
+        addr = svc.dispatcher_addr
+        if addr is not None and addr[0] == "unix":
+            addr = ("unix", "<temp>")
+        return {"workers": svc.workers, "frontends": svc.frontends,
+                "transport": svc.transport, "standby": svc.standby,
+                "external": svc.external_dispatcher, "addr": addr,
+                "queue": svc._queue is not None, "metrics": svc._metrics_enabled,
+                "shared_budget": svc._shared_budget is not None}
+    finally:
+        svc._reserved.close()
+        if svc._unix_dir is not None:
+            import shutil
+
+            shutil.rmtree(svc._unix_dir, ignore_errors=True)
+
+
+@pytest.mark.parametrize("name", sorted(SPLIT_ARGUMENTS))
+def test_the_split_arguments_are_validated_as_jaxs(tmp_path, name):
+    """Every split argument of ``MultiProcessService`` builds the same
+    topology as the JAX service, or refuses with the same error."""
+    from bodywork_tpu.serve.multiproc import MultiProcessService as JaxService
+
+    kwargs = SPLIT_ARGUMENTS[name]
+    got = _construct(MultiProcessService, tmp_path, {**kwargs, "device": "cpu"})
+    assert got == _construct(JaxService, tmp_path, kwargs)
 
 
 def test_cli_serve_workers_refuses_a_bad_worker_count_and_parses(tmp_path):

@@ -50,6 +50,9 @@ import bodywork_tpu_torch.tenancy.namespace, bodywork_tpu_torch.tenancy.scenario
 import bodywork_tpu_torch.tenancy.scheduler, bodywork_tpu_torch.tenancy.stacked
 import bodywork_tpu_torch.tenancy.fleet, bodywork_tpu_torch.utils.sync
 import bodywork_tpu_torch.obs.multiproc, bodywork_tpu_torch.serve.multiproc
+import bodywork_tpu_torch.serve.rowqueue, bodywork_tpu_torch.serve.netqueue
+import bodywork_tpu_torch.serve.leadership, bodywork_tpu_torch.serve.frontend
+import bodywork_tpu_torch.serve.dispatch, bodywork_tpu_torch.serve.httpcore
 import chip_smoke
 # nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
 # standard library, numpy and torch alone
@@ -140,7 +143,14 @@ _TORCH_FREE = ["cli.py", "pipeline/__init__.py", "pipeline/runner.py", "pipeline
                # module loads torch only inside the spawned worker
                "tenancy/__init__.py", "tenancy/namespace.py", "tenancy/scenarios.py",
                "tenancy/scheduler.py", "utils/sync.py", "obs/multiproc.py",
-               "serve/multiproc.py"]
+               "serve/multiproc.py",
+               # the disaggregated front end's stack (serve --frontends): the
+               # dispatcher's module loads torch only inside the spawned
+               # dispatcher
+               "serve/__init__.py", "serve/wire.py", "serve/httpcore.py",
+               "serve/admission.py", "serve/batcher.py", "serve/app.py", "serve/aio.py",
+               "serve/rowqueue.py", "serve/netqueue.py", "serve/leadership.py",
+               "serve/frontend.py", "serve/dispatch.py"]
 
 
 @pytest.mark.parametrize("name", _TORCH_FREE)
