@@ -21,15 +21,19 @@ report|compact|deploy|registry|trace|traffic|chaos|fsck|tune|fleet-sim``.
   hot-swaps the checkpoint serving should run, the SLO watchdog judging
   a live canary on each poll; with it a store with no checkpoint yet
   boots a service answering 503. SIGTERM closes admission, stops the
-  watcher, flushes the coalescer and exits 143;
+  watcher, flushes the coalescer and exits 143. ``--mesh-data N
+  --mesh-model M`` (defaults from ``BODYWORK_TPU_MESH_DATA|_MODEL``)
+  serve through the plain engine over a ``data x model`` device mesh
+  (``parallel``), refused beside ``--workers``/``--frontends``;
 - ``test --store S --scoring-url URL [--mode single|batch]
   [--max-rows N]`` black-box tests the live service on the latest day
   and persists the test metrics;
-- ``train --store S [--model linear|mlp] [--mode full|incremental]`` fits
-  and persists the checkpoint and its metrics: a full refit on all
-  history, or the incremental fold (default from
-  ``BODYWORK_TPU_TRAIN_MODE``), which prints its fallback reason when it
-  ran as a full refit;
+- ``train --store S [--model linear|mlp] [--mode full|incremental]
+  [--mesh-data N] [--mesh-model M]`` fits and persists the checkpoint
+  and its metrics: a full refit on all history (an MLP's sharded over a
+  ``data x model`` device mesh with the mesh flags), or the incremental
+  fold (default from ``BODYWORK_TPU_TRAIN_MODE``), which prints its
+  fallback reason when it ran as a full refit;
 - ``run-day --store S [--date D] [--no-resume]`` runs one simulated day
   of the default pipeline (train -> registry gate -> serve -> generate ->
   test) in-process, crash-resumable through the day's run journal, with
@@ -330,6 +334,11 @@ def cmd_serve(args) -> int:
         frontends = frontends or 1
     if (args.workers and args.workers > 1) or (
             frontends is not None and (frontends >= 1 or standby)):
+        if (args.mesh_data and args.mesh_data > 1) or args.mesh_model > 1:
+            # each replica or dispatcher owns its own single-device model
+            log.error("--workers/--frontends is per-process serving; drop "
+                      "--mesh-data/--mesh-model")
+            return 1
         return _serve_workers(args, batch_window, log, frontends=frontends,
                               transport=transport, standby=standby,
                               external_dispatcher=role == "frontend")
@@ -347,7 +356,8 @@ def cmd_serve(args) -> int:
                 tuned_config=args.tuned_config, online_tune=args.online_tune,
                 tune_request_logs=tuple(args.tune_request_log or ()),
                 tune_results_logs=tuple(args.tune_results_log or ()),
-                cost_budget_s=args.cost_budget_s,
+                cost_budget_s=args.cost_budget_s, mesh_data=args.mesh_data,
+                mesh_model=args.mesh_model,
             )
         except ShutdownRequested:
             log.warning("SIGTERM during service startup; exiting")
@@ -480,7 +490,8 @@ def cmd_train(args) -> int:
 
     result = train_on_history(_store(args), args.model,
                               model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
-                              device=args.device)
+                              device=args.device, mesh_data=args.mesh_data,
+                              mesh_model=args.mesh_model)
     m = result.metrics
     fallback = f" fallback={result.fallback_reason}" if result.fallback_reason else ""
     print(f"{result.model_artefact_key} MAPE={m['MAPE']:.4f} r2={m['r_squared']:.4f} "
@@ -1695,6 +1706,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=5000)
     p.add_argument(
+        "--mesh-data", type=int, default=_env_number("BODYWORK_TPU_MESH_DATA", int, 1),
+        help="shard each padded request batch over this many devices (the mesh's data "
+             "axis; env BODYWORK_TPU_MESH_DATA overrides, the knob the k8s serve "
+             "Deployment materialises; BODYWORK_TPU_VIRTUAL_DEVICES=N repeats each card "
+             "N times). Default: single-device serving",
+    )
+    p.add_argument(
+        "--mesh-model", type=int, default=_env_number("BODYWORK_TPU_MESH_MODEL", int, 1) or 1,
+        help="tensor-parallel mesh axis for sharded serving (MLP checkpoints only: "
+             "weights Megatron-split across this many devices; env "
+             "BODYWORK_TPU_MESH_MODEL overrides). Combines with --mesh-data into a "
+             "data x model mesh served through the plain torch engine",
+    )
+    p.add_argument(
         "--engine", default="auto", choices=SERVE_ENGINES,
         help="plain torch (f32, bf16, or int8 weights), the fused CUDA kernel "
              "(f32, bf16 or int8 weights), or auto (the f32 kernel for an MLP whose "
@@ -1930,6 +1955,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "linear model, a warm-started fine-tune for the mlp, both "
                         "falling back to a full refit (reason printed) when the store "
                         "lacks what they need")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel mesh axis for sharded training (mlp only)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel mesh axis for sharded training (mlp only)")
 
     for name, fn, help_ in (
         ("run-day", cmd_run_day, "run one simulated day in-process"),

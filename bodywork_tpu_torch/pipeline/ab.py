@@ -7,11 +7,12 @@ concurrently in one process, each on its own thread:
 - **store isolation**: each variant writes under ``<root>/<name>/``, so
   the artefact schema never collides;
 - **devices**: a pool that divides among the variants is split into
-  equal contiguous groups (the JAX package's ``split_devices``), and each
+  equal contiguous groups (``parallel.split_devices``), and each
   variant's :class:`LocalRunner` computes on its group's first device,
   worker threads included. A pool that does not divide is shared: on one
   card both variants run on the same H100, their kernels interleaving.
-  The mesh inside a group is ROADMAP Queue 1 item 19.
+  A serving mesh a variant's spec asks for (``BODYWORK_TPU_MESH_DATA``)
+  is built over the process's devices, as in the JAX package.
 
 The process-wide serving graph cache serves every variant. Variants of
 one architecture share its weight slot, and a dispatch for the other
@@ -76,13 +77,13 @@ def _device_groups(n_variants: int, devices) -> list:
     """Each variant's device: the first of its group where the pool
     divides evenly, else the pool's first device for every variant."""
     from bodywork_tpu_torch.device import resolve_device
+    from bodywork_tpu_torch.parallel.mesh import split_devices
 
     pool = list(devices) if devices is not None else [resolve_device(None)]
     if not pool:
         raise ValueError("an empty device pool")
     if n_variants > 1 and len(pool) % n_variants == 0:
-        per = len(pool) // n_variants
-        return [pool[i * per] for i in range(n_variants)]
+        return [group[0] for group in split_devices(n_variants, pool)]
     if n_variants > 1:
         log.warning(f"{len(pool)} device(s) not partitionable into {n_variants} groups; "
                     "variants share the pool")

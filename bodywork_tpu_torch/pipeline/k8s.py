@@ -29,10 +29,13 @@ serve --role frontend``, no GPU) and one device-owning dispatcher (``cli
 serve --role dispatcher``, the stage's GPU) behind its own ``rowqueue``
 Service; ``BODYWORK_TPU_SERVE_STANDBY`` scales the dispatcher to the
 active/standby pair. The serve Deployment's HPA scales the front ends on
-the row-queue's ``bodywork_tpu_rowqueue`` metrics. A serving mesh
-(``BODYWORK_TPU_MESH_DATA`` / ``_MODEL`` > 1) is refused by name rather
-than emitted as pods that would run a command the port does not have:
-ROADMAP Queue 1 item 19.
+the row-queue's ``bodywork_tpu_rowqueue`` metrics. The serving mesh
+knobs (``BODYWORK_TPU_MESH_DATA`` / ``_MODEL``) ride the serve container's
+env. A batch stage with ``gpu_hosts`` > 1 is an Indexed Job of one pod a
+host, as the JAX generator's ``tpu_hosts``: a headless Service makes pod
+0 the coordinator that ``parallel.multihost_init`` joins
+(``JAX_COORDINATOR_ADDRESS``, ``NUM_PROCESSES`` and the pod's
+``JOB_COMPLETION_INDEX``).
 
 The daily loop is a CronJob running ``run-day`` (the reference re-runs the
 whole deployment daily, README.md:5), with the history compaction, the
@@ -46,6 +49,9 @@ from pathlib import Path
 from bodywork_tpu_torch.pipeline import _yaml
 from bodywork_tpu_torch.pipeline.images import stage_image_tag
 from bodywork_tpu_torch.pipeline.spec import PipelineSpec, ResourceSpec, StageSpec
+from bodywork_tpu_torch.utils.logging import get_logger
+
+log = get_logger("pipeline.k8s")
 
 _STORE_VOLUME = "artefact-store"
 _SPEC_VOLUME = "pipeline-spec"
@@ -58,23 +64,54 @@ STORE_VOLUME_MODES = ("auto", "pvc", "hostpath", "gcs")
 
 DEFAULT_DAILY_SCHEDULE = "0 6 * * *"
 
-_MESH_ENV = ("BODYWORK_TPU_MESH_DATA", "BODYWORK_TPU_MESH_MODEL")
+#: the coordinator port of a multi-host stage's headless Service
+_COORDINATOR_PORT = 8476
 
 
-def _refuse_unported_modes(spec: PipelineSpec) -> None:
+def _refuse_multihost_services(spec: PipelineSpec) -> None:
     for stage in spec.stages.values():
-        for name, value in stage.env.items():
-            value = str(value).strip()
-            if name in _MESH_ENV and value:
-                try:
-                    size = int(value)
-                except ValueError:
-                    size = 1
-                if size > 1:
-                    raise ValueError(
-                        f"stage {stage.name!r}: {name}={value!r} selects a serving "
-                        "mesh, which the port does not run until ROADMAP Queue 1 item 19"
-                    )
+        if stage.kind == "service" and stage.resources.gpu_hosts > 1:
+            # a single-host Deployment would defer the misconfiguration to
+            # runtime (a model sharded for N hosts cannot fit one host)
+            raise ValueError(
+                f"stage {stage.name!r}: gpu_hosts > 1 is only supported for batch "
+                "stages (Indexed Jobs); multi-host serving Deployments are not "
+                "materialisable"
+            )
+
+
+def _make_indexed(job_spec: dict, stage: StageSpec, meta: dict, labels: dict) -> dict:
+    """Turn a batch stage's Job spec into the multi-host Indexed Job (one
+    pod a host, pod 0 the coordinator) and return its headless Service."""
+    n_hosts = stage.resources.gpu_hosts
+    # one worker's failure takes down every pod of the group, so a logical
+    # retry costs n pod failures: scale the budget
+    job_spec["backoffLimit"] = stage.retries * n_hosts
+    job_name = meta["name"]
+    job_spec["completions"] = n_hosts
+    job_spec["parallelism"] = n_hosts
+    job_spec["completionMode"] = "Indexed"
+    pod = job_spec["template"]["spec"]
+    pod["subdomain"] = job_name
+    pod["containers"][0].setdefault("env", []).extend([
+        {"name": "JAX_COORDINATOR_ADDRESS",
+         "value": f"{job_name}-0.{job_name}:{_COORDINATOR_PORT}"},
+        # with the pod's JOB_COMPLETION_INDEX: the whole topology, explicit
+        {"name": "NUM_PROCESSES", "value": str(n_hosts)},
+    ])
+    return {
+        "apiVersion": "v1",
+        "kind": "Service",
+        "metadata": meta,
+        "spec": {
+            "clusterIP": "None",
+            # per-pod DNS before readiness, or workers racing ahead of pod
+            # 0 fail to resolve the coordinator at start-up
+            "publishNotReadyAddresses": True,
+            "selector": {"app": labels["app"]},
+            "ports": [{"port": _COORDINATOR_PORT, "name": "jax-coord"}],
+        },
+    }
 
 
 def _offset_schedule(schedule: str, minutes: int) -> str:
@@ -526,9 +563,12 @@ def generate_manifests(spec: PipelineSpec, store_path: str = "/mnt/artefact-stor
     otherwise; ``"hostpath"`` is a single-node-cluster opt-in.
     ``storage_class`` defaults to GKE Filestore CSI's ``standard-rwx``: a
     ReadWriteMany claim cannot provision against the usual RWO-only
-    default class. A stage env knob selecting a mode the port lacks
-    raises ``ValueError`` naming the ROADMAP item."""
-    _refuse_unported_modes(spec)
+    default class. A service stage with ``gpu_hosts`` > 1 raises
+    ``ValueError``; so does an explicit ``daily_schedule`` for a spec
+    with a multi-host stage (one CronJob pod cannot drive the hosts), and
+    the default one is left out with a warning."""
+    _refuse_multihost_services(spec)
+    multihost = any(s.resources.gpu_hosts > 1 for s in spec.stages.values())
     store = _resolve_store_medium(spec, store_path, store_volume, storage_class, pvc_size)
     docs: dict[str, dict] = {
         "00-namespace.yaml": {
@@ -552,23 +592,40 @@ def generate_manifests(spec: PipelineSpec, store_path: str = "/mnt/artefact-stor
             meta = {"name": spec.service_dns(stage.name), "namespace": namespace,
                     "labels": labels}
             if stage.kind == "batch":
+                job_spec = {
+                    "backoffLimit": stage.retries,
+                    "activeDeadlineSeconds": int(stage.max_completion_time_s),
+                    "template": {
+                        "metadata": {"labels": labels},
+                        "spec": _pod_spec(spec, stage, store, image, command, "Never"),
+                    },
+                }
+                if stage.resources.gpu_hosts > 1:
+                    docs[f"{i:02d}-{stage.name}-workers-headless.yaml"] = _make_indexed(
+                        job_spec, stage, meta, labels)
                 docs[f"{i:02d}-{stage.name}-job.yaml"] = {
                     "apiVersion": "batch/v1",
                     "kind": "Job",
                     "metadata": meta,
-                    "spec": {
-                        "backoffLimit": stage.retries,
-                        "activeDeadlineSeconds": int(stage.max_completion_time_s),
-                        "template": {
-                            "metadata": {"labels": labels},
-                            "spec": _pod_spec(spec, stage, store, image, command, "Never"),
-                        },
-                    },
+                    "spec": job_spec,
                 }
             else:
                 docs.update(_serve_docs(i, spec, stage, store, image, command, meta, labels,
                                         store_path))
-    if daily_schedule:
+    if daily_schedule and multihost:
+        # run-day in ONE CronJob pod cannot drive a multi-host stage; the
+        # daily loop of such a spec is re-applying the per-stage Jobs
+        if daily_schedule is not DEFAULT_DAILY_SCHEDULE:
+            raise ValueError(
+                "daily_schedule is not materialisable for a spec with multi-host "
+                "stages (gpu_hosts > 1): a single CronJob pod cannot drive them; pass "
+                "daily_schedule=None and schedule re-application of the per-stage "
+                "Jobs instead"
+            )
+        log.warning("daily-loop CronJob omitted: spec has multi-host stages "
+                    "(gpu_hosts > 1); schedule re-application of the per-stage Jobs "
+                    "instead")
+    elif daily_schedule:
         docs.update(_cron_docs(spec, store, image, namespace, daily_schedule, labels_base))
     # strict structural validation: a typo'd field name fails here, at
     # generation, not at `kubectl apply`

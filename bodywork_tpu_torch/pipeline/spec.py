@@ -44,6 +44,10 @@ class ResourceSpec:
     gpu_accelerator: str | None = None
     #: GPUs requested per pod, as the ``nvidia.com/gpu`` resource
     gpu_count: int = 0
+    #: hosts of a multi-host batch stage (the JAX spec's ``tpu_hosts``):
+    #: > 1 emits an Indexed Job of one pod a host, joined by
+    #: ``parallel.multihost_init`` into one process group
+    gpu_hosts: int = 1
 
 
 #: the JAX package's TPU resource fields: a pod asking for ``google.com/tpu``

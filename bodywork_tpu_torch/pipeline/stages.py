@@ -155,13 +155,14 @@ def _serve_env_dtype() -> str:
     return _env_choice("BODYWORK_TPU_SERVE_DTYPE", SERVE_DTYPES, "float32")
 
 
-def _serve_env_knobs() -> tuple[str, int | None, float | None, str]:
+def _serve_env_knobs() -> tuple[str, int | None, float | None, str, int | None, int]:
     """The deployed serving knobs ``(server_engine, max_pending,
-    retry_after_max_s, dtype)`` from the pod environment
-    (``BODYWORK_TPU_SERVER_ENGINE``, ``BODYWORK_TPU_MAX_PENDING``,
-    ``BODYWORK_TPU_RETRY_AFTER_MAX_S``, ``BODYWORK_TPU_SERVE_DTYPE``): the
-    JAX stage's, without its mesh knobs. A malformed value is ignored with
-    a warning and the default applies, never a crashed pod."""
+    retry_after_max_s, dtype, mesh_data, mesh_model)`` from the pod
+    environment (``BODYWORK_TPU_SERVER_ENGINE``, ``BODYWORK_TPU_MAX_PENDING``,
+    ``BODYWORK_TPU_RETRY_AFTER_MAX_S``, ``BODYWORK_TPU_SERVE_DTYPE``,
+    ``BODYWORK_TPU_MESH_DATA``, ``BODYWORK_TPU_MESH_MODEL``): the JAX
+    stage's. A malformed value is ignored with a warning and the default
+    applies (no mesh axis: None and 1), never a crashed pod."""
     from bodywork_tpu_torch.serve.server import SERVER_ENGINES
     from bodywork_tpu_torch.utils.env import number_env
 
@@ -170,6 +171,8 @@ def _serve_env_knobs() -> tuple[str, int | None, float | None, str]:
         number_env("BODYWORK_TPU_MAX_PENDING", int, 1),
         number_env("BODYWORK_TPU_RETRY_AFTER_MAX_S", float, 1.0),
         _serve_env_dtype(),
+        number_env("BODYWORK_TPU_MESH_DATA", int, 1),
+        number_env("BODYWORK_TPU_MESH_MODEL", int, 1) or 1,
     )
 
 
@@ -296,7 +299,8 @@ def train_stage(ctx: StageContext, model_type: str = "linear", mode: str | None 
 
 def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
                 buckets: tuple[int, ...] | None = None, replicas: int = 1,
-                engine: str = "auto", tuned_config: str | None = None):
+                engine: str = "auto", tuned_config: str | None = None,
+                mesh_data: int | None = None, mesh_model: int | None = None):
     """Load the checkpoint to serve (the registry's ``production`` alias
     where the store has one) onto the device and start the scoring
     service on a background thread (reference stage 2); returns the
@@ -316,11 +320,19 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
     left unset: spec args, then the per-knob env vars, then the tuned
     document, then the built-in defaults, and a malformed document
     degrades to the defaults (``tune.config``). A quantized dtype serves
-    only if the shadow quality gate admits it."""
+    only if the shadow quality gate admits it. ``mesh_data`` /
+    ``mesh_model`` (default: the pod's ``BODYWORK_TPU_MESH_DATA|_MODEL``)
+    shard the forward over a ``data x model`` device mesh
+    (``serve.server.build_predictor``)."""
     from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
     from bodywork_tpu_torch.serve.server import registry_bounds, serve_model
 
-    env_engine, env_max_pending, env_retry_max, env_dtype = _serve_env_knobs()
+    (env_engine, env_max_pending, env_retry_max, env_dtype, env_mesh_data,
+     env_mesh_model) = _serve_env_knobs()
+    if mesh_data is None:
+        mesh_data = env_mesh_data
+    if mesh_model is None:
+        mesh_model = env_mesh_model
     env_frontends = _serve_fleet_env_knobs()
     if env_frontends:
         log.warning(
@@ -350,7 +362,7 @@ def serve_stage(ctx: StageContext, host: str = "127.0.0.1", port: int = 0,
         store=ctx.store,
         batch_window_ms=env_window, batch_max_rows=env_max_rows, server_engine=env_engine,
         max_pending=env_max_pending, retry_after_max_s=env_retry_max,
-        tuned_config=tuned_config,
+        tuned_config=tuned_config, mesh_data=mesh_data, mesh_model=mesh_model,
     )
 
 

@@ -106,6 +106,15 @@ class PredictionSanityError(RuntimeError):
     (500) rather than serialise garbage to the client."""
 
 
+def _predictor_mesh(predictor) -> dict | None:
+    """The device-mesh shape a predictor dispatches over, or None for a
+    single-device predictor: the ``/healthz`` ``mesh`` block."""
+    mesh = getattr(predictor, "mesh", None)
+    if mesh is None:
+        return None
+    return {"data": int(mesh.shape["data"]), "model": int(mesh.shape["model"])}
+
+
 def routes_to_canary(seed: int, fraction: float, X) -> bool:
     """Whether a request routes to the canary: a pure function of the
     seed and the request's float32 feature bytes (no RNG, no clock), so
@@ -805,7 +814,7 @@ class ScoringApp:
     def healthz_response(self) -> tuple[dict, int, int | None]:
         """``(payload, status, retry_after_s or None)``: the health document
         both front ends serve. The keys are the JAX app's, in its order
-        (``mesh`` null: a later slice), then the port's
+        (``mesh``: the serving mesh's shape, null single-device), then the port's
         ``engine``, ``device``, ``launches`` (of the serving kernel since
         the counts were last reset; null for a plain engine) and
         ``graph_cache``."""
@@ -846,7 +855,7 @@ class ScoringApp:
             "model_key": served.model_key,
             "model_source": served.source,
             "serving_dtype": getattr(predictor, "dtype", "float32"),
-            "mesh": None, **common,
+            "mesh": _predictor_mesh(predictor), **common,
             "degraded": reason is not None,
             "queue_depth": queue_depth,
             "admission": admission_state,

@@ -131,6 +131,17 @@ class _WeightSlot:
         #: a hint that a dispatch found the lock taken since the last yield
         self.contended = False
 
+    def bind(self, owner: int, weights, cache: "GraphCache") -> None:
+        """Hold ``owner``'s ``weights``: copy them in (a rebind) if another
+        predictor's are here. The caller holds the lock."""
+        if self.owner != owner:
+            # every leaf in one call (a fused copy on the card), not one
+            # copy launch per leaf on the request path
+            with torch.no_grad():
+                torch._foreach_copy_(list(_leaves(self.weights)), list(_leaves(weights)))
+            self.owner = owner
+            cache.count_rebind()
+
     def acquire(self) -> None:
         if not self.lock.acquire(blocking=False):
             self.contended = True
@@ -155,13 +166,13 @@ class _CapturedProgram:
     buckets (:class:`_BucketGraph`) and the tenant stack
     (``tenancy.stacked``) both dispatch through it."""
 
-    def __init__(self, runner, shape: tuple, device: torch.device):
+    def __init__(self, runner, shape: tuple, device: torch.device, capture: bool = True):
         self.device = device
         self.graph = None
         self.runner = runner
         with torch.no_grad():
             self.x = torch.zeros(shape, dtype=torch.float32, device=device)
-            if device.type != "cuda":
+            if device.type != "cuda" or not capture:
                 runner(self.x)  # a shape or weight fault raises here, at build
                 return
             # warm on the side stream the capture uses (workspaces, kernel
@@ -188,9 +199,13 @@ class _CapturedProgram:
         ``on_replay()`` is called after each replay is launched. The caller
         holds whatever lock guards the buffers and the weights."""
         with torch.no_grad():
-            if self.graph is None:
+            if self.graph is None and self.device.type != "cuda":
                 self.x.numpy()[...] = X
                 return self.runner(self.x).numpy().copy()
+            if self.graph is None:
+                # ``capture=False`` on the card: the program runs eagerly
+                self.x.copy_(torch.from_numpy(np.ascontiguousarray(X)))
+                return self.runner(self.x).cpu().numpy()
             stream = torch.cuda.current_stream(self.device)
             self.staging.numpy()[...] = X
             self.x.copy_(self.staging, non_blocking=True)
@@ -220,13 +235,7 @@ class _BucketGraph(_CapturedProgram):
         slot = self.slot
         slot.acquire()
         try:
-            if slot.owner != owner:
-                # every leaf in one call (a fused copy on the card), not
-                # one copy launch per leaf on the request path
-                with torch.no_grad():
-                    torch._foreach_copy_(list(_leaves(slot.weights)), list(_leaves(weights)))
-                slot.owner = owner
-                cache.count_rebind()
+            slot.bind(owner, weights, cache)
             return super().run(Xp, lambda: cache.count_replay(self.engine))
         finally:
             slot.release()
@@ -446,8 +455,7 @@ class PaddedPredictor:
 
         def build() -> _BucketGraph:
             with _CAPTURE_LOCK:
-                return _BucketGraph(slot, self._graph_runner(slot.weights), bucket,
-                                    n_features, self.device, self._launch_engine())
+                return self._build_program(slot, bucket, n_features)
 
         misses_before = GRAPH_CACHE.misses
         with slot.lock:
@@ -456,6 +464,12 @@ class PaddedPredictor:
         annotate_active(aot_cache="miss" if GRAPH_CACHE.misses > misses_before else "hit",
                         bucket=bucket)
         return entry
+
+    def _build_program(self, slot: _WeightSlot, bucket: int, n_features: int) -> _BucketGraph:
+        """The program of one bucket over ``slot``'s weights (a graph cache
+        miss builds it)."""
+        return _BucketGraph(slot, self._graph_runner(slot.weights), bucket, n_features,
+                            self.device, self._launch_engine())
 
     def _predict_padded(self, Xp: np.ndarray) -> np.ndarray:
         """Score an exactly-bucket-sized batch through its program."""

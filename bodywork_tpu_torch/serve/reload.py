@@ -29,8 +29,10 @@ before the swap.
 The watcher's thread is not a daemon, unlike the JAX package's: a daemon
 thread still inside a torch call at interpreter teardown aborts the
 process. :meth:`CheckpointWatcher.stop` stops and joins it; a service's
-cleanups (its SIGTERM drain included) call it. Mesh swaps are a later
-slice (ROADMAP Queue 1 item 19) and raise.
+cleanups (its SIGTERM drain included) call it. Over a device mesh
+(``mesh_data`` / ``mesh_model``) a swap goes through the same
+``build_serving_predictor`` and re-places the new checkpoint over the
+same mesh shape: a same-architecture, same-mesh swap captures nothing.
 """
 from __future__ import annotations
 
@@ -66,11 +68,9 @@ class CheckpointWatcher:
                  buckets: tuple[int, ...] | None = None, slo_watchdog=None,
                  dtype: str = "float32", device=None, mesh_data: int | None = None,
                  mesh_model: int = 1, tune_controller=None):
-        if (mesh_data or 0) > 1 or mesh_model > 1:
-            raise NotImplementedError(
-                "serving over a device mesh is not ported yet (ROADMAP Queue 1 item 19, "
-                "the mesh on torch.distributed)"
-            )
+        #: the serving mesh a swapped-in checkpoint is placed over
+        self.mesh_data = mesh_data
+        self.mesh_model = mesh_model
         self.apps = list(app) if isinstance(app, (list, tuple)) else [app]
         self.store = store
         self.poll_interval_s = poll_interval_s
@@ -180,9 +180,10 @@ class CheckpointWatcher:
         from bodywork_tpu_torch.serve.server import build_serving_predictor, resolve_engine
 
         current = self.apps[0].predictor  # None on a degraded boot
-        old_resolved = (resolve_engine(self.engine, current.model, current.device)
+        mesh = {"mesh_data": self.mesh_data, "mesh_model": self.mesh_model}
+        old_resolved = (resolve_engine(self.engine, current.model, current.device, **mesh)
                         if current is not None and hasattr(current, "model") else None)
-        new_resolved = resolve_engine(self.engine, model, model.device)
+        new_resolved = resolve_engine(self.engine, model, model.device, **mesh)
         if self.buckets is not None:
             swap_buckets = self.buckets
         elif current is not None and new_resolved == old_resolved:
@@ -190,7 +191,7 @@ class CheckpointWatcher:
         else:
             swap_buckets = None
         predictor, _served_dtype = build_serving_predictor(
-            self.store, model, new_resolved, buckets=swap_buckets, dtype=self.dtype)
+            self.store, model, new_resolved, buckets=swap_buckets, dtype=self.dtype, **mesh)
         use_serving_lane(predictor, current, canary)
         # every bucket captured (or rebound) and run before the swap
         predictor.warmup()

@@ -74,13 +74,15 @@ KERNEL_AUTO_MIN_WIDTH = 256
 
 
 def resolve_engine(engine: str, model, device, n_sms: int | None = None,
-                   smem_budget: int | None = None, max_active=None) -> str:
+                   smem_budget: int | None = None, max_active=None,
+                   mesh_data: int | None = None, mesh_model: int = 1) -> str:
     """Resolve ``engine="auto"``: on a CUDA device, the fused f32 kernel
     for an MLP whose narrowest hidden layer is at least
     :data:`KERNEL_AUTO_MIN_WIDTH` wide and that the kernel can launch;
-    the plain ``torch`` engine otherwise. Explicit engine choices pass
-    through untouched (and a kernel that cannot launch the model raises
-    when the predictor is built).
+    the plain ``torch`` engine otherwise, and always over a device mesh
+    (``mesh_data`` / ``mesh_model`` > 1: the kernel is single-device).
+    Explicit engine choices pass through untouched (and a kernel that
+    cannot launch the model raises when the predictor is built).
 
     Whether the kernel can launch is a plan-time question
     (:func:`~bodywork_tpu_torch.ops.mlp_kernel.launch_refusal`): the
@@ -90,6 +92,8 @@ def resolve_engine(engine: str, model, device, n_sms: int | None = None,
     kernel's own when not given). A refusal is logged with its reason."""
     if engine != "auto":
         return engine
+    if _use_mesh(mesh_data, mesh_model):
+        return "torch"  # the kernel is single-device; the mesh path is plain torch
     if not isinstance(model, MLPRegressor) or device.type != "cuda":
         return "torch"
     layers = model.net.layers
@@ -112,11 +116,49 @@ def resolve_engine(engine: str, model, device, n_sms: int | None = None,
     return "kernel"
 
 
+def _use_mesh(mesh_data: int | None, mesh_model: int) -> bool:
+    return bool(mesh_data and mesh_data > 1) or mesh_model > 1
+
+
+def _mesh_predictor(model, mesh_data: int | None, mesh_model: int,
+                    buckets: tuple[int, ...] | None):
+    """The predictor over a ``data x model`` mesh of the model's kind of
+    device: an MLP Megatron-sharded (``parallel.ShardedMLPPredictor``),
+    anything else data-parallel. The knobs are fleet-wide env settings, so
+    a model axis over a checkpoint that is not an MLP, and a mesh larger
+    than the devices, degrade with a warning rather than crash-loop a
+    pod."""
+    from bodywork_tpu_torch.parallel import DataParallelPredictor, ShardedMLPPredictor, make_mesh
+    from bodywork_tpu_torch.parallel.mesh import available_devices
+
+    data = mesh_data if mesh_data and mesh_data > 1 else 1
+    model_axis = mesh_model
+    if model_axis > 1 and not isinstance(model, MLPRegressor):
+        log.warning(f"mesh_model={model_axis} requires an MLP checkpoint; serving "
+                    f"{model.info} data-parallel over {data} device(s) instead")
+        model_axis = 1
+    devices = available_devices(model.device)
+    if data * model_axis > len(devices):
+        requested = f"{data}x{model_axis}"
+        if model_axis > len(devices):
+            model_axis = 1
+        data = max(len(devices) // model_axis, 1)
+        log.warning(f"mesh {requested} needs more than the {len(devices)} available "
+                    f"device(s); serving {data}x{model_axis} instead")
+    mesh = make_mesh(data=data, model=model_axis, devices=devices[:data * model_axis])
+    if isinstance(model, MLPRegressor):
+        return ShardedMLPPredictor(model, mesh, buckets=buckets)
+    return DataParallelPredictor(model, mesh, buckets=buckets)
+
+
 def build_predictor(model, engine: str = "auto",
-                    buckets: tuple[int, ...] | None = None):
+                    buckets: tuple[int, ...] | None = None,
+                    mesh_data: int | None = None, mesh_model: int = 1):
     """The predictor for an engine choice (``auto`` resolved against the
     model's device). The quantized engines refuse a model that is not an
-    MLP with ``ValueError``."""
+    MLP with ``ValueError``. ``mesh_data`` / ``mesh_model`` > 1 serve
+    through the plain engine over a device mesh (:func:`_mesh_predictor`);
+    the kernel and quantized engines, single-device, refuse one."""
     from bodywork_tpu_torch.serve.predictor import (
         DEFAULT_BUCKETS,
         BF16MLPPredictor,
@@ -125,7 +167,13 @@ def build_predictor(model, engine: str = "auto",
         PaddedPredictor,
     )
 
-    engine = resolve_engine(engine, model, model.device)
+    engine = resolve_engine(engine, model, model.device, mesh_data=mesh_data,
+                            mesh_model=mesh_model)
+    if _use_mesh(mesh_data, mesh_model) and engine in ENGINE_NAMES.values():
+        if engine != "torch":
+            raise ValueError(f"engine={engine!r} is single-device; drop --mesh-data/"
+                             "--mesh-model")
+        return _mesh_predictor(model, mesh_data, mesh_model, buckets)
     if engine in _KERNEL_DTYPES:
         return KernelMLPPredictor(model, buckets, compute_dtype=_KERNEL_DTYPES[engine])
     if engine == "torch":
@@ -192,7 +240,8 @@ def quantized_engine_for(engine: str, dtype: str) -> str:
 
 def build_serving_predictor(store, model, engine: str = "auto",
                             buckets: tuple[int, ...] | None = None,
-                            dtype: str = "float32", policy=None):
+                            dtype: str = "float32", policy=None,
+                            mesh_data: int | None = None, mesh_model: int = 1):
     """The predictor serving runs for an (engine, dtype) choice, and the
     dtype that serves: ``(predictor, served_dtype)``.
 
@@ -205,9 +254,20 @@ def build_serving_predictor(store, model, engine: str = "auto",
     the variant fails the gate (``rejected_quality``), when the store has
     no dataset to shadow over (``no_shadow_data``) or when the model has
     no such variant (``unsupported_model``, a ``ValueError`` building
-    it). A kernel that fails to build or launch raises."""
+    it). A kernel that fails to build or launch raises. Over a device
+    mesh (``mesh_data`` / ``mesh_model``) a quantized dtype keeps f32
+    serving over the mesh (``unsupported_mesh``): the quantized engines
+    are single-device, and the mesh is the capacity knob."""
     if dtype in (None, "float32"):
-        return build_predictor(model, engine, buckets=buckets), "float32"
+        return build_predictor(model, engine, buckets=buckets, mesh_data=mesh_data,
+                               mesh_model=mesh_model), "float32"
+    if _use_mesh(mesh_data, mesh_model):
+        log.warning(f"dtype={dtype} is single-device; keeping f32 serving over the "
+                    f"{mesh_data or 1}x{mesh_model} mesh (quantization gate "
+                    "outcome=unsupported_mesh)")
+        _count_quantization_gate(dtype, "unsupported_mesh")
+        return build_predictor(model, engine, buckets=buckets, mesh_data=mesh_data,
+                               mesh_model=mesh_model), "float32"
     from bodywork_tpu_torch.registry.gates import GatePolicy, evaluate_quantization
     from bodywork_tpu_torch.registry.shadow import shadow_compare
 
@@ -320,7 +380,8 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 tuned_config: str | None = None, online_tune: bool = False,
                 tune_request_logs: tuple = (), tune_results_logs: tuple = (),
                 cost_budget_s: float | None = None, sock=None, shared_slot=None,
-                metrics_dir: str | None = None):
+                metrics_dir: str | None = None, mesh_data: int | None = None,
+                mesh_model: int = 1):
     """Serve a loaded model from its device: build the predictor for the
     engine and dtype (:func:`build_serving_predictor`; a quantized dtype
     shadows over ``store``'s datasets), warm every bucket (a capture or a
@@ -362,7 +423,11 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
     (its bound ``SO_REUSEPORT`` socket, listened on instead of
     ``host:port``), ``shared_slot`` (its slot of the service-wide
     admission budget, ``serve.admission.SharedBudgetSlot``) and
-    ``metrics_dir`` (the shared snapshot directory ``/metrics`` merges)."""
+    ``metrics_dir`` (the shared snapshot directory ``/metrics`` merges).
+
+    ``mesh_data`` / ``mesh_model`` > 1 serve through a sharded predictor
+    over a ``data x model`` device mesh (:func:`build_predictor`), and a
+    hot swap re-places the new checkpoint over the same mesh."""
     if server_engine not in SERVER_ENGINES:
         raise ValueError(f"unknown server engine {server_engine!r}; "
                          f"expected one of {SERVER_ENGINES}")
@@ -390,7 +455,9 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
     predictor = None
     if model is not None:
         predictor, served_dtype = build_serving_predictor(store, model, engine,
-                                                          buckets=buckets, dtype=dtype)
+                                                          buckets=buckets, dtype=dtype,
+                                                          mesh_data=mesh_data,
+                                                          mesh_model=mesh_model)
         log.info(f"serving {model.info} on {model.device} through engine "
                  f"{predictor.engine!r} in {served_dtype} ({max(replicas, 1)} "
                  f"replica(s), {server_engine} front end)")
@@ -441,7 +508,7 @@ def serve_model(model, model_date=None, host: str = "0.0.0.0", port: int = 5000,
                 served_key=model_key if model is not None else NOTHING_SERVED,
                 buckets=buckets, slo_watchdog=SloWatchdog(store, apps, policy=policy_from_env()),
                 dtype=dtype, device=model.device if model is not None else resolve_device(device),
-                tune_controller=tune_controller,
+                tune_controller=tune_controller, mesh_data=mesh_data, mesh_model=mesh_model,
             )
         elif online_tune:
             log.warning("--online-tune requested without a watch interval; the "
@@ -485,7 +552,8 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        tuned_config: str | None = None, online_tune: bool = False,
                        tune_request_logs: tuple = (), tune_results_logs: tuple = (),
                        cost_budget_s: float | None = None, sock=None, shared_slot=None,
-                       metrics_dir: str | None = None):
+                       metrics_dir: str | None = None, mesh_data: int | None = None,
+                       mesh_model: int = 1):
     """Load the checkpoint to serve (the ``production`` alias where the
     store has a registry, else the newest checkpoint the gate has not
     rejected: :func:`resolve_serving_key`) onto ``device`` (the card
@@ -501,7 +569,8 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
     started handle. ``tuned_config``, ``cost_budget_s``, ``online_tune``
     and the ``tune_*_logs`` are :func:`serve_model`'s (the tuned knobs
     resolve there, before any predictor is built), and so are a
-    replica's ``sock``, ``shared_slot`` and ``metrics_dir``."""
+    replica's ``sock``, ``shared_slot`` and ``metrics_dir`` and the mesh
+    knobs ``mesh_data`` / ``mesh_model``."""
     from bodywork_tpu_torch.registry.records import RegistryCorrupt
     from bodywork_tpu_torch.store.base import ArtefactNotFound
 
@@ -526,4 +595,5 @@ def serve_latest_model(store, host: str = "0.0.0.0", port: int = 5000,
                        tuned_config=tuned_config, online_tune=online_tune,
                        tune_request_logs=tune_request_logs,
                        tune_results_logs=tune_results_logs, cost_budget_s=cost_budget_s,
-                       sock=sock, shared_slot=shared_slot, metrics_dir=metrics_dir)
+                       sock=sock, shared_slot=shared_slot, metrics_dir=metrics_dir,
+                       mesh_data=mesh_data, mesh_model=mesh_model)

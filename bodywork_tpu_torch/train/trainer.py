@@ -15,9 +15,12 @@ Each fit exports the JAX package's ``bodywork_tpu_train_*`` metrics
 (:func:`_record_train_metrics`), its seconds read after a fence on the
 fitted parameters (kernels launch asynchronously: without the fence the
 clock would stop at the last launch, not at the end of the fit).
-Not ported yet (ROADMAP): the device mesh (``mesh_data`` /
-``mesh_model``) raises; there is no compile prewarm, which is XLA
-machinery.
+``mesh_data`` / ``mesh_model`` > 1 fit the MLP over a ``data x model``
+device mesh (:func:`~bodywork_tpu_torch.parallel.train_mlp_sharded`),
+joining the process group the coordinator env names first
+(:func:`~bodywork_tpu_torch.parallel.multihost_init`); in a group of
+several processes only process 0 persists. There is no compile prewarm,
+which is XLA machinery.
 """
 from __future__ import annotations
 
@@ -205,6 +208,39 @@ def persist_train_result(store: ArtefactStore, result: TrainResult) -> TrainResu
     )
 
 
+def _multihost_nonzero_process() -> bool:
+    """True in a process of a several-process group that is not process
+    0: the processes that must not persist (one cluster, one writer)."""
+    from bodywork_tpu_torch.parallel.mesh import process_layout
+
+    rank, world = process_layout()
+    return world > 1 and rank != 0
+
+
+def _fit_sharded(model, model_type, split, mesh_data, mesh_model, fit_seed, device):
+    """Fit over a data x model mesh of ``device``'s kind and evaluate on
+    the held-out split."""
+    if model_type != "mlp":
+        raise ValueError(
+            f"sharded training (mesh_data={mesh_data}, mesh_model={mesh_model}) "
+            f"requires model_type='mlp', got {model_type!r}"
+        )
+    from bodywork_tpu_torch.parallel import make_mesh, multihost_init, train_mlp_sharded
+    from bodywork_tpu_torch.parallel.mesh import available_devices, process_layout
+
+    multihost_init(device)
+    devices = available_devices(device)
+    world = process_layout()[1]
+    n_global = len(devices) * world
+    data = mesh_data if mesh_data else max(n_global // mesh_model, 1)
+    n_needed = data * mesh_model
+    if n_needed > n_global:
+        raise ValueError(f"mesh {data}x{mesh_model} needs {n_needed} devices, have {n_global}")
+    mesh = make_mesh(data=data, model=mesh_model, devices=devices[:n_needed // world])
+    fitted = train_mlp_sharded(split.X_train, split.y_train, model.config, mesh, seed=fit_seed)
+    return fitted, fitted.evaluate(split.X_test, split.y_test)
+
+
 def train_on_history(
     store: ArtefactStore,
     model_type: str = "linear",
@@ -223,15 +259,18 @@ def train_on_history(
     routes to :func:`~bodywork_tpu_torch.train.incremental.train_incremental`,
     which degrades to this full refit (with ``fallback_reason`` set) where
     it cannot run. ``persist=False`` leaves the artefact writes to the
-    caller (:func:`persist_train_result`)."""
+    caller (:func:`persist_train_result`). ``mesh_data`` / ``mesh_model``
+    > 1 fit an MLP over a device mesh (:func:`_fit_sharded`); the fitted
+    model checkpoints and serves like a single-device one."""
     if mode not in TRAIN_MODES:
         raise ValueError(f"unknown train mode {mode!r}; expected one of {TRAIN_MODES}")
-    if (mesh_data or 0) > 1 or mesh_model > 1:
-        raise NotImplementedError(
-            "training over a device mesh is not ported yet (ROADMAP Queue 1 item 19, "
-            "the mesh on torch.distributed)"
-        )
+    use_mesh = (mesh_data or 0) > 1 or mesh_model > 1
     if mode == "incremental":
+        if use_mesh:
+            raise ValueError(
+                "incremental training does not support a device mesh (the "
+                "fold/fine-tune workloads are O(tail); shard the full refit instead)"
+            )
         from bodywork_tpu_torch.train.incremental import train_incremental
 
         return train_incremental(store, model_type, model_kwargs=model_kwargs,
@@ -242,10 +281,14 @@ def train_on_history(
     split = train_test_split(ds.X, ds.y, test_size=test_size, seed=split_seed)
     model = make_model(model_type, **(model_kwargs or {}))
     fit_t0 = perf_counter()
-    fitted, metrics = model.fit_and_evaluate(
-        split.X_train, split.y_train, split.X_test, split.y_test,
-        seed=fit_seed, device=dev,
-    )
+    if use_mesh:
+        fitted, metrics = _fit_sharded(model, model_type, split, mesh_data, mesh_model,
+                                       fit_seed, dev)
+    else:
+        fitted, metrics = model.fit_and_evaluate(
+            split.X_train, split.y_train, split.X_test, split.y_test,
+            seed=fit_seed, device=dev,
+        )
     fence(fitted.params)
     _record_train_metrics(fitted, metrics, perf_counter() - fit_t0, len(ds))
     log.info(
@@ -257,4 +300,9 @@ def train_on_history(
         fitted, metrics, ds.date, None, None, len(ds),
         prediction_bounds=_prediction_bounds(ds.y), rows_touched=len(ds),
     )
+    if persist and use_mesh and _multihost_nonzero_process():
+        # one global fit replicated into every process: only process 0
+        # writes its (identical) artefacts
+        log.info("non-zero process in a multihost cluster: skipping persist")
+        persist = False
     return persist_train_result(store, result) if persist else result

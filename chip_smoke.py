@@ -236,7 +236,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
    fleet with ``--standby`` and a 1 s leader TTL: a 120 requests/s drive,
    the active dispatcher SIGKILLed at 3 s, the blackout within 6 s (TTL +
    ``RECONNECT_MAX_S``), no hung request and no error but 503, the
-   standby's graph captures unchanged by its takeover;
+   standby's graph captures unchanged by its takeover; ``mesh``: the
+   device mesh (``parallel``) on virtual shards of ``cuda:0``, the served
+   1024-wide MLP: (a) data-parallel serving at 2x1 and 4x1, buckets 256
+   and 4096, byte-equal to a single-device ``torch`` predictor at the
+   shard's own bucket (the largest ulp gap to the full-bucket predictor
+   printed), each bucket's replay timed; (b) tensor-parallel 1x2 and 2x2
+   within 1e-4 of single-device, each shard holding its slice of W0;
+   (c) no capture across a same-mesh, same-architecture swap and separate
+   graphs for 2x1 and 1x2; (d) ``cli serve --mesh-data 2 --mesh-model 2``
+   answering the in-process 2x2 predictor's values, ``/healthz`` ``mesh``
+   2x2, the sharded dispatch counter, and under ``--dtype bfloat16`` f32
+   serving counted ``unsupported_mesh``; (e) ``train_mlp_sharded`` at the
+   loop's settings on 2x2: the index stream bit-equal to the CPU's, the
+   first step's loss and gradients within 1e-5 of the single-device
+   ones on the same draws, the final loss, ``staging_s`` and ``scan_s``
+   beside a single-device fit's seconds, the fit then served through
+   ``kernel``; (f) one MLP day with the train stage on a 2x2 mesh, gated
+   and served; (g) a 1-rank NCCL group through ``multihost_init``: an
+   all-reduce and a broadcast on the card, the fit inside the group
+   byte-equal to the one without, ``multihost_shutdown``;
 9. ``deploy`` — ``cli deploy --out DIR --emit-images DIR2`` of
    ``default_pipeline("mlp")`` with the day loop's 1024-wide MLP in a
    fresh process whose own import log shows no pyyaml, jsonschema or
@@ -416,6 +435,12 @@ CRASH = {"days": 2, "boundaries": (7,), "store_op_samples": 1, "seed": 0}
 TENANCY = {"fleet_sizes": (2, 4, 8), "small_widths": (1, 32, 32, 1), "small_buckets": (8,),
            "small_rows": 8, "wide_tenants": 8, "wide_buckets": (8, 64, 512)}
 FLEET = {"tenants": 4, "days": 3, "sabotage": "tenant-01", "samples_per_day": 1440}
+#: mesh: the virtual shards of cuda:0, the serving buckets and meshes,
+#: tensor parallelism's bar (the JAX test's, tests/test_sharded_serve.py),
+#: the sharded fit's mesh and the first step's bar (PARITY_BARS'), the
+#: 1-rank group's fit steps
+MESH = {"virtual": 4, "dp": ((2, 1), (4, 1)), "tp": ((1, 2), (2, 2)), "buckets": (256, 4096),
+        "tp_bar": 1e-4, "fit": (2, 2), "step0_bar": 1e-5, "group_steps": 100}
 #: (6 closed-loop clients stay under the budget of 8: the load drive sheds nothing)
 WORKERS = {"workers": 2, "max_pending": 8, "burst": 64, "clients": 6, "per_client": 50,
            "drill_requests": 40, "kill_at": 10, "reload_s": 0.5}
@@ -4910,6 +4935,405 @@ def phase_split(torch, dev, workdir: str) -> dict:
     return {"launches": launches}
 
 
+def _metric_sum(base_url: str, name: str, **labels) -> float:
+    """The sum of a family's samples on ``/metrics`` whose labels include
+    ``labels`` (in whatever order the exposition writes them)."""
+    wanted = [f'{k}="{v}"' for k, v in labels.items()]
+    total = 0.0
+    with urllib.request.urlopen(base_url + "/metrics", timeout=60) as resp:
+        for line in resp.read().decode().splitlines():
+            if line.startswith(name + "{") and all(w in line for w in wanted):
+                total += float(line.rsplit(" ", 1)[1])
+    return total
+
+
+def _ulp_gap(a, b) -> int:
+    """The most float32 ulps between two host arrays."""
+    import numpy as np
+
+    a, b = np.ascontiguousarray(a, np.float32), np.ascontiguousarray(b, np.float32)
+    return int(np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32)).max())
+
+
+def _replay_ms(torch, predictor, bucket: int) -> float:
+    """Device ms of one replay of ``predictor``'s captured bucket graph."""
+    return _median_ms(torch, predictor._graph_for(bucket, 1).graph.replay)
+
+
+def _mesh_graph_cache(torch, dev, first, second, X, smi: str) -> dict:
+    """(c): from a cold graph cache, a 2x1 predictor captures its buckets;
+    a same-mesh predictor of a same-architecture checkpoint captures
+    nothing, rebinds, and answers its own weights; a 1x2 predictor of the
+    first checkpoint captures graphs of its own."""
+    import numpy as np
+
+    from bodywork_tpu_torch.parallel import ShardedMLPPredictor, make_mesh
+    from bodywork_tpu_torch.parallel.mesh import available_devices
+    from bodywork_tpu_torch.serve import GRAPH_CACHE, PaddedPredictor
+
+    devices = available_devices(dev)
+    buckets = MESH["buckets"]
+    GRAPH_CACHE.reset()
+    p21 = ShardedMLPPredictor(first, make_mesh(2, 1, devices[:2]), buckets=buckets)
+    p21.warmup()
+    cold = GRAPH_CACHE.stats()
+    swapped = ShardedMLPPredictor(second, make_mesh(2, 1, devices[:2]), buckets=buckets)
+    swapped.warmup()
+    after_swap = GRAPH_CACHE.stats()
+    shard = buckets[0] // 2
+    own = PaddedPredictor(second, (shard,))
+    want = np.concatenate([own.predict(X[i * shard:(i + 1) * shard]) for i in range(2)])
+    answers_own = bool(np.array_equal(swapped.predict(X[:buckets[0]]), want))
+    before_tp = GRAPH_CACHE.stats()
+    p12 = ShardedMLPPredictor(first, make_mesh(1, 2, devices[:2]), buckets=buckets)
+    p12.warmup()
+    after_tp = GRAPH_CACHE.stats()
+    separate = all(p21._graph_for(b, 1) is not p12._graph_for(b, 1) for b in buckets)
+    out = {"buckets": list(buckets), "builds_cold_2x1": cold["misses"],
+           "captures_cold_2x1": cold["captures"],
+           "swap_captures": after_swap["captures"] - cold["captures"],
+           "swap_builds": after_swap["misses"] - cold["misses"],
+           "swap_rebinds": after_swap["rebinds"] - cold["rebinds"],
+           "swap_answers_own_weights": answers_own,
+           "builds_1x2": after_tp["misses"] - before_tp["misses"],
+           "captures_1x2": after_tp["captures"] - before_tp["captures"],
+           "separate_programs_2x1_1x2": separate, "smi": smi}
+    emit("mesh-graph-cache", **out)
+    # on the card every build is a capture
+    captured = dev.type != "cuda" or (out["captures_cold_2x1"], out["captures_1x2"]) == (
+        len(buckets), len(buckets))
+    if (cold["misses"] != len(buckets) or out["swap_captures"] or out["swap_builds"]
+            or out["swap_rebinds"] < 1 or not answers_own or not captured
+            or out["builds_1x2"] != len(buckets) or not separate):
+        raise RuntimeError(f"mesh: the graph cache does not keep meshes apart: {out}")
+    return out
+
+
+def _mesh_serving(torch, dev, model, smi: str) -> dict:
+    """(a) data-parallel meshes byte-equal to single-device at the shard's
+    own bucket, (b) tensor-parallel ones within 1e-4 of single-device,
+    each shard holding its slice of W0; each bucket's replay timed
+    against the single-device one's."""
+    import numpy as np
+
+    from bodywork_tpu_torch.parallel import ShardedMLPPredictor, make_mesh
+    from bodywork_tpu_torch.parallel.mesh import available_devices
+    from bodywork_tpu_torch.serve import PaddedPredictor
+
+    devices = available_devices(dev)
+    rng = np.random.default_rng(17)
+    rows = {b: rng.uniform(0, 100, (b, 1)).astype(np.float32) for b in MESH["buckets"]}
+    single = {}
+    for b, X in rows.items():
+        pred = PaddedPredictor(model, (b,))
+        single[b] = {"answers": pred.predict(X), "replay_ms": _replay_ms(torch, pred, b)}
+    lines = {}
+    for kind, meshes in (("dp", MESH["dp"]), ("tp", MESH["tp"])):
+        for data, m in meshes:
+            mesh = make_mesh(data, m, devices[:data * m])
+            for b, X in rows.items():
+                pred = ShardedMLPPredictor(model, mesh, buckets=(b,))
+                pred.warmup()
+                got = pred.predict(X)
+                line = {"kind": kind, "mesh": mesh.label, "bucket": b,
+                        "replay_ms": _replay_ms(torch, pred, b),
+                        "single_replay_ms": single[b]["replay_ms"],
+                        "ulps_vs_single_bucket": _ulp_gap(got, single[b]["answers"]),
+                        "max_abs_diff_vs_single": float(np.abs(got - single[b]["answers"]).max()),
+                        "smi": smi}
+                line["rows_per_s"] = b / line["replay_ms"] * 1e3
+                line["single_rows_per_s"] = b / single[b]["replay_ms"] * 1e3
+                if kind == "dp":
+                    shard = b // data
+                    own = PaddedPredictor(model, (shard,))
+                    want = np.concatenate([own.predict(X[i * shard:(i + 1) * shard])
+                                           for i in range(data)])
+                    line["byte_equal_at_shard_bucket"] = bool(np.array_equal(got, want))
+                    ok = line["byte_equal_at_shard_bucket"]
+                else:
+                    w0 = model.net.layers[0].w
+                    slices = [row["net"]["layers"][0]["w"] for row in pred.shard_params]
+                    line["w0_shards"] = [list(t.shape) for t in slices[0]]
+                    line["w0_sliced"] = all(
+                        torch.equal(torch.cat(s, dim=1), w0)
+                        and len({t.data_ptr() for t in s} | {w0.data_ptr()}) == m + 1
+                        and all(t.shape[1] == w0.shape[1] // m for t in s) for s in slices)
+                    line["within_bar"] = bool(np.allclose(got, single[b]["answers"],
+                                                          rtol=MESH["tp_bar"],
+                                                          atol=MESH["tp_bar"]))
+                    ok = line["w0_sliced"] and line["within_bar"]
+                emit(f"mesh-{kind}", **line)
+                lines[f"{kind}-{mesh.label}-{b}"] = line
+                if not ok:
+                    raise RuntimeError(f"mesh: {kind} serving at {mesh.label} fails: {line}")
+    return lines
+
+
+def _mesh_cli_serve(torch, dev, store, model, smi: str) -> dict:
+    """(d): ``cli serve --mesh-data 2 --mesh-model 2`` on the card (four
+    virtual shards) answers the in-process 2x2 predictor's values, reports
+    its mesh and counts its sharded dispatches; under ``--dtype
+    bfloat16`` it serves f32 over the mesh and counts
+    ``unsupported_mesh``."""
+    import numpy as np
+
+    from bodywork_tpu_torch.parallel import ShardedMLPPredictor, make_mesh
+    from bodywork_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV, available_devices
+
+    in_process = ShardedMLPPredictor(model, make_mesh(2, 2, available_devices(dev)[:4]))
+    env = {VIRTUAL_DEVICES_ENV: str(MESH["virtual"])}
+    mesh_args = ["--mesh-data", "2", "--mesh-model", "2"]
+    xs = [0.5, 42.0, 99.9]
+    batch = np.linspace(0.0, 100.0, 300, dtype=np.float32)
+    svc = _ServeProcess(str(store.root), args=mesh_args, env=env)
+    try:
+        health = svc.health()
+        singles = [post(svc.base_url + "/score/v1", {"X": x})["prediction"] for x in xs]
+        batched = post(svc.base_url + "/score/v1/batch",
+                       {"X": [float(v) for v in batch]})["predictions"]
+        dispatches = _metric_sum(svc.base_url, "bodywork_tpu_serve_sharded_dispatch_total",
+                                 mesh="2x2")
+    finally:
+        stopped = svc.stop()
+    want_singles = [float(in_process.predict(np.array([[x]], np.float32))[0]) for x in xs]
+    want_batch = [float(v) for v in in_process.predict(batch[:, None])]
+    bf16 = _ServeProcess(str(store.root), args=[*mesh_args, "--dtype", "bfloat16"], env=env)
+    try:
+        bf16_health = bf16.health()
+        bf16_answer = post(bf16.base_url + "/score/v1", {"X": xs[1]})["prediction"]
+        unsupported = _metric_sum(bf16.base_url, "bodywork_tpu_serve_quantization_gate_total",
+                                  dtype="bfloat16", outcome="unsupported_mesh")
+    finally:
+        bf16.stop()
+    out = {"mesh": health["mesh"], "engine": health["engine"], "launches": health["launches"],
+           "singles_equal": singles == want_singles, "batch_equal": batched == want_batch,
+           "sharded_dispatches": dispatches, "sigterm": stopped,
+           "bf16_serving_dtype": bf16_health["serving_dtype"], "bf16_mesh": bf16_health["mesh"],
+           "bf16_answer_equal_f32": bf16_answer == want_singles[1],
+           "unsupported_mesh": unsupported, "smi": smi}
+    emit("mesh-cli-serve", **out)
+    if (out["mesh"] != {"data": 2, "model": 2} or not out["singles_equal"]
+            or not out["batch_equal"] or dispatches < 1
+            or out["bf16_serving_dtype"] != "float32" or out["bf16_mesh"] != out["mesh"]
+            or not out["bf16_answer_equal_f32"] or unsupported != 1):
+        raise RuntimeError(f"mesh: cli serve over a 2x2 mesh fails: {out}")
+    return out
+
+
+def _mesh_fit(torch, dev, store, smi: str) -> tuple[dict, object]:
+    """(e): the sharded fit at the loop's settings on 2x2 virtual shards:
+    its index stream bit-equal to the CPU's; its first step's loss and
+    gradients within 1e-5 of the single-device ones on the same draws;
+    the fit's seconds beside a single-device fit's; then the fitted
+    checkpoint served single-device through ``kernel`` and held to the
+    plain version. Returns the line and the fitted model."""
+    import numpy as np
+
+    from bodywork_tpu_torch.data import load_all_datasets, prng
+    from bodywork_tpu_torch.models import MLPConfig, MLPRegressor
+    from bodywork_tpu_torch.models.checkpoint import load_model_bytes, save_model_bytes
+    from bodywork_tpu_torch.models.mlp import _loss, draw_indices, init_mlp_params, mlp_apply
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.parallel import make_mesh, train_mlp_sharded
+    from bodywork_tpu_torch.parallel.mesh import available_devices
+    from bodywork_tpu_torch.parallel.train_step import _standardised, sharded_loss_and_grads
+    from bodywork_tpu_torch.serve import build_predictor
+
+    ds = load_all_datasets(store)
+    X, y = ds.X.astype(np.float32), ds.y.astype(np.float32)
+    cfg = MLPConfig(**LOOP_MLP)
+    data, m = MESH["fit"]
+    mesh = make_mesh(data, m, available_devices(dev)[:data * m])
+    k_init, k_batch = prng.split(prng.PRNGKey(cfg.seed))
+    n = X.shape[0]
+    idx = draw_indices(k_batch, cfg.n_steps, cfg.batch_size, n, device=dev)
+    idx_cpu = draw_indices(k_batch, cfg.n_steps, cfg.batch_size, n, device="cpu")
+    Xs, ys, _ = _standardised(X.reshape(n, -1), y, dev)
+    net = init_mlp_params(k_init, (1, *cfg.hidden, 1), device=dev)
+    loss_s, grads_s = sharded_loss_and_grads(net, Xs, ys, idx[0], mesh, cfg)
+    leaves = [t.clone().requires_grad_(True) for layer in net["layers"]
+              for t in (layer["w"], layer["b"])]
+    shaped = {"layers": [{"w": leaves[2 * i], "b": leaves[2 * i + 1]}
+                         for i in range(len(net["layers"]))]}
+    i0 = idx[0]
+    loss_1 = _loss(shaped, Xs[i0], ys[i0], torch.ones(cfg.batch_size, device=dev))
+    grads_1 = torch.autograd.grad(loss_1, leaves)
+    loss_1 = float(loss_1.detach())
+    loss_gap = abs(float(loss_s) - loss_1) / abs(loss_1)
+    grad_gap = max(float((a - b).norm() / b.norm()) for a, b in zip(grads_s, grads_1))
+    timings = {}
+    t0 = time.perf_counter()
+    fitted = train_mlp_sharded(X, y, cfg, mesh, timings=timings)
+    sharded_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    solo = MLPRegressor(cfg).fit(X, y, device=dev)
+    single_s = time.perf_counter() - t0
+    served = load_model_bytes(save_model_bytes(fitted), device=dev)
+    reset_launches()
+    predictor = build_predictor(served, "kernel")
+    predictor.warmup()
+    Xq = np.random.default_rng(23).uniform(0, 100, (300, 1)).astype(np.float32)
+    got = predictor.predict(Xq)
+    with torch.no_grad():
+        plain = mlp_apply(served.params, torch.as_tensor(Xq, device=dev)).cpu().numpy()
+    launches = dict(LAUNCHES)
+    err = float(np.abs(got - plain).max() / max(1.0, float(np.abs(plain).max())))
+    out = {"mesh": mesh.label, "rows": n, "steps": cfg.n_steps, "batch_size": cfg.batch_size,
+           "widths": [1, *cfg.hidden, 1], "indices_bit_equal_cpu": bool(
+               torch.equal(idx.cpu(), idx_cpu)),
+           "step0_loss_gap": loss_gap, "step0_grad_gap": grad_gap, "bar": MESH["step0_bar"],
+           "final_loss": fitted.final_loss, "single_final_loss": solo.final_loss,
+           "staging_s": timings["staging_s"], "scan_s": timings["scan_s"],
+           "sharded_fit_s": sharded_s, "single_fit_s": single_s,
+           "served_engine": predictor.engine, "served_err": err, "served_bar": BARS["kernel"],
+           "served_launches": launches, "smi": smi}
+    emit("mesh-fit", **out)
+    if (not out["indices_bit_equal_cpu"] or loss_gap >= MESH["step0_bar"]
+            or grad_gap >= MESH["step0_bar"] or not math.isfinite(fitted.final_loss)
+            or err > BARS["kernel"] or launches["kernel"] < 1):
+        raise RuntimeError(f"mesh: the sharded fit fails: {out}")
+    return out, fitted
+
+
+def _mesh_group(torch, dev, store, smi: str) -> dict:
+    """(g): a 1-rank NCCL group through ``multihost_init`` on a local
+    coordinator: an all-reduce and a broadcast on the card, the sharded
+    fit inside the group byte-equal to the one without, then
+    ``multihost_shutdown``."""
+    import torch.distributed as dist
+
+    from bodywork_tpu_torch.data import load_all_datasets
+    from bodywork_tpu_torch.models import MLPConfig
+    from bodywork_tpu_torch.parallel import (
+        make_mesh,
+        multihost_init,
+        multihost_shutdown,
+        train_mlp_sharded,
+    )
+    from bodywork_tpu_torch.parallel.collectives import broadcast_, sum_over_processes
+    from bodywork_tpu_torch.parallel.mesh import available_devices
+
+    ds = load_all_datasets(store)
+    cfg = MLPConfig(**{**LOOP_MLP, "n_steps": MESH["group_steps"]})
+    devices = available_devices(dev)
+    alone = train_mlp_sharded(ds.X, ds.y, cfg, make_mesh(2, 2, devices[:4]))
+    names = ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID")
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update({"COORDINATOR_ADDRESS": f"127.0.0.1:{_free_port()}",
+                       "NUM_PROCESSES": "1", "PROCESS_ID": "0"})
+    left = None
+    try:
+        joined = multihost_init(dev)
+        again = multihost_init(dev)
+        backend = dist.get_backend()
+        t = torch.arange(4, dtype=torch.float32, device=dev)
+        broadcast_([t], dist.group.WORLD)
+        summed = sum_over_processes(t, dist.group.WORLD)
+        dist.all_reduce(t)
+        collectives_ok = bool(torch.equal(summed, t) and torch.equal(
+            t, torch.arange(4, dtype=torch.float32, device=dev)))
+        grouped = train_mlp_sharded(ds.X, ds.y, cfg, make_mesh(2, 2, devices[:4]))
+    finally:
+        left = multihost_shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = all(torch.equal(a.w, b.w) and torch.equal(a.b, b.b)
+               for a, b in zip(alone.net.layers, grouped.net.layers))
+    out = {"joined": joined, "second_call": again, "backend": backend,
+           "collectives_ok": collectives_ok, "steps": cfg.n_steps,
+           "fit_bytes_equal_no_group": same, "shutdown": left,
+           "shutdown_again": multihost_shutdown(), "smi": smi,
+           "unverified": "a group of several processes on several cards (NCCL refuses two "
+                         "ranks on one card)"}
+    emit("mesh-group", **out)
+    if not (joined and again and backend == "nccl" and collectives_ok and same and left) \
+            or out["shutdown_again"]:
+        raise RuntimeError(f"mesh: the 1-rank NCCL group fails: {out}")
+    return out
+
+
+def _mesh_day(torch, dev, workdir: str, smi: str) -> dict:
+    """(f): one MLP day of the default pipeline whose train stage fits
+    over a 2x2 mesh (the spec's ``mesh_data`` / ``mesh_model``), gated
+    and served from ``production`` (through ``kernel`` on ``auto``), the
+    launches counted over the day."""
+    import bodywork_tpu_torch.parallel as parallel
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.pipeline import LocalRunner, default_pipeline
+    from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+    from bodywork_tpu_torch.serve import GRAPH_CACHE
+    from bodywork_tpu_torch.store import FilesystemStore
+
+    spec = default_pipeline("mlp", "batch")
+    spec.stages[TRAIN_STAGE].args.update({**LOOP_MLP, "mesh_data": 2, "mesh_model": 2})
+    runner = LocalRunner(spec, FilesystemStore(os.path.join(workdir, "mesh-day")), device=dev)
+    real, fits = parallel.train_mlp_sharded, []
+
+    def spy(X, y, cfg, mesh, *args, **kwargs):
+        fits.append(mesh.label)
+        return real(X, y, cfg, mesh, *args, **kwargs)
+
+    GRAPH_CACHE.reset()
+    reset_launches()
+    parallel.train_mlp_sharded = spy
+    try:
+        (result,) = runner.run_simulation(LOOP_START, 1)
+    finally:
+        parallel.train_mlp_sharded = real
+    launches = dict(LAUNCHES)
+    line = {**_day_line("mlp", result, launches["kernel"]), "fit_meshes": fits, "smi": smi}
+    emit("mesh-day", **line)
+    if fits != ["2x2"] or (dev.type == "cuda" and line["engine"] != "kernel"):
+        raise RuntimeError(f"mesh: the day did not fit over 2x2 and serve on kernel: {line}")
+    return {**line, "launches": launches}
+
+
+def phase_mesh(torch, dev, workdir: str, smi: str) -> dict:
+    """``mesh``: the device mesh on virtual shards of ``cuda:0`` (see the
+    module docstring, (a)-(g)). The kernels' launches are set to 0 before
+    the mesh's own dispatches ((a)-(d), which must launch none) and
+    counted over (e)'s and (f)'s serving."""
+    import numpy as np
+
+    from bodywork_tpu_torch.models.checkpoint import load_model, resolve_serving_key
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, reset_launches
+    from bodywork_tpu_torch.parallel.mesh import VIRTUAL_DEVICES_ENV
+
+    saved = os.environ.get(VIRTUAL_DEVICES_ENV)
+    os.environ[VIRTUAL_DEVICES_ENV] = str(MESH["virtual"])
+    t_phase = time.perf_counter()
+    try:
+        store, second, _hist = _serving_models(torch, dev, workdir)
+        first, _ = load_model(store, resolve_serving_key(store)[0], device=dev)
+        rows = np.random.default_rng(3).uniform(
+            0, 100, (MESH["buckets"][0], 1)).astype(np.float32)
+        reset_launches()
+        graph = _mesh_graph_cache(torch, dev, first, second, rows, smi)
+        serving = _mesh_serving(torch, dev, first, smi)
+        cli = _mesh_cli_serve(torch, dev, store, first, smi)
+        dispatch_launches = dict(LAUNCHES)
+        if any(dispatch_launches.values()):
+            raise RuntimeError(f"mesh: the mesh's dispatches launched a kernel: "
+                               f"{dispatch_launches}")
+        fit, _fitted = _mesh_fit(torch, dev, store, smi)
+        day = _mesh_day(torch, dev, workdir, smi)
+        group = _mesh_group(torch, dev, store, smi)
+    finally:
+        if saved is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = saved
+    launches = {k: fit["served_launches"][k] + day["launches"][k] for k in VARIANTS}
+    out = {"seconds": time.perf_counter() - t_phase, "virtual_shards": MESH["virtual"],
+           "dispatch_launches": dispatch_launches, "launches": launches, "smi": smi}
+    emit("mesh", **out)
+    return {**out, "graph_cache": graph, "serving": serving, "cli": cli, "fit": fit,
+            "group": group}
+
+
 def _free_port() -> int:
     import socket
 
@@ -5592,7 +6016,7 @@ def main(argv=None) -> int:
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
                 "canary,tune,online-tune,tenancy,ab,day-loop,incremental,quantized,resume,"
                 "sigterm,day-report,profile,audit,chaos-sim,bit-rot,crash-sim,fleet-sim,"
-                "workers,split,deploy,pods,timing",
+                "workers,split,mesh,deploy,pods,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -5631,12 +6055,12 @@ def main(argv=None) -> int:
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
     tuned, online_tuned = {}, {}
     audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
-    fleeted, workers, split = {}, {}, {}
+    fleeted, workers, split, meshed = {}, {}, {}, {}
     for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "tune",
                   "online-tune", "tenancy", "ab", "day-loop",
                   "incremental", "resume", "sigterm", "day-report", "profile", "audit",
                   "chaos-sim", "bit-rot", "crash-sim", "fleet-sim", "workers", "split",
-                  "deploy", "pods"):
+                  "mesh", "deploy", "pods"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
@@ -5679,6 +6103,8 @@ def main(argv=None) -> int:
                 workers = phase_workers(torch, dev, workdir)
             elif phase == "split":
                 split = phase_split(torch, dev, workdir)
+            elif phase == "mesh":
+                meshed = phase_mesh(torch, dev, workdir, card["smi"])
             elif phase == "deploy":
                 phase_deploy(torch, dev, workdir)
             elif phase == "pods":
@@ -5741,7 +6167,8 @@ def main(argv=None) -> int:
                                       ("workers", workers, "launches"),
                                       ("workers-one-process", workers,
                                        "one_process_launches"),
-                                      ("split", split, "launches")):
+                                      ("split", split, "launches"),
+                                      ("mesh", meshed, "launches")):
                 if result:
                     by_path[path] = result[key][engine]
             # the serve pod's launches, read from its /healthz, and the

@@ -23,6 +23,7 @@ from bodywork_tpu_torch.pipeline import (
 )
 from bodywork_tpu_torch.pipeline.ab import _device_groups
 from bodywork_tpu_torch.pipeline.spec import TRAIN_STAGE
+from bodywork_tpu_torch.store import FilesystemStore
 
 torch.set_num_threads(1)
 
@@ -84,12 +85,43 @@ def test_each_variant_of_a_concurrent_pair_equals_its_solo_run(pair):
         assert any(k.startswith("registry/") for k in got)
 
 
-def test_compare_report_rows_equal_jaxs_records(pair):
-    _root, results = pair
+#: how far pandas' default CSV float parser (the JAX report reads the
+#: metrics with ``pd.read_csv``) may land from a field's decimal text: over
+#: random values it was off by more than two ulps for 99.7% of values in
+#: [1e-4, 1e-3] and 96.9% in [1e-3, 1e-2], at most 7360 ulps (1.6e-12
+#: relative), with pandas 3.0.3; ``float_precision="round_trip"`` read every
+#: one exactly. The port reads each field with ``float()``, exactly.
+PANDAS_PARSE_RTOL = 1e-11
+
+
+def _csv_fields(results) -> dict:
+    """(variant, date, column) -> the decimal text of that field in the
+    variant's metrics CSVs, the column suffixed as the report names it (a
+    later record of a date wins, as in the report)."""
+    import csv
+    import io
+
+    from bodywork_tpu_torch.store.schema import MODEL_METRICS_PREFIX, TEST_METRICS_PREFIX
+
+    fields = {}
+    for name, vr in results.items():
+        for prefix, suffix in ((MODEL_METRICS_PREFIX, "_train"), (TEST_METRICS_PREFIX, "_live")):
+            for key, _d in vr.store.history(prefix):
+                for rec in csv.DictReader(io.StringIO(vr.store.get_bytes(key).decode())):
+                    day = rec.pop("date")[:10]
+                    fields.update(((name, day, c + suffix), v) for c, v in rec.items())
+    return fields
+
+
+def _assert_rows_hold_the_csv_text(results):
+    """The port's rows hold every float exactly at its CSV field's decimal
+    text; the JAX records within pandas' parse error of it; everything
+    else equal."""
     rows = compare_report(results)
     jax_results = {name: JaxVariantResult(name, [], JaxStore(vr.store.root))
                    for name, vr in results.items()}
     records = jax_compare_report(jax_results).to_dict("records")
+    fields = _csv_fields(results)
     assert len(rows) == len(records) == 6
     for row, record in zip(rows, records):
         assert list(row) == list(record)
@@ -98,13 +130,43 @@ def test_compare_report_rows_equal_jaxs_records(pair):
             if isinstance(value, float) and math.isnan(value):
                 assert got is None
             elif isinstance(value, float):
-                # pandas' default CSV float parser may land an ulp off the
-                # decimal text; the port's float() reads it exactly
-                assert math.isclose(got, value, rel_tol=2 * 2**-52), key
+                text = float(fields[(row["variant"], str(row["date"]), key)])
+                assert got == text, key
+                assert math.isclose(value, text, rel_tol=PANDAS_PARSE_RTOL), key
             else:
                 assert got == value, key
+    return rows
+
+
+def test_compare_report_rows_equal_jaxs_records(pair):
+    _root, results = pair
+    rows = _assert_rows_hold_the_csv_text(results)
     table = format_compare_report(rows).splitlines()
     assert len(table) == 7 and table[0].split() == list(rows[0])
+
+
+def test_compare_report_reads_a_fixed_response_time_exactly(pair, tmp_path):
+    """A response time of the load-dependent size that pandas' default
+    parser lands hundreds of ulps off: the port reads it exactly, the JAX
+    record within the parser's measured error."""
+    import shutil
+
+    from bodywork_tpu_torch.pipeline.ab import VariantResult
+    from bodywork_tpu_torch.store.schema import TEST_METRICS_PREFIX
+
+    _root, results = pair
+    copies = {}
+    for name, vr in results.items():
+        store = FilesystemStore(shutil.copytree(vr.store.root, tmp_path / name))
+        for key, _d in store.history(TEST_METRICS_PREFIX):
+            lines = store.get_bytes(key).decode().splitlines()
+            i = lines[0].split(",").index("mean_response_time")
+            cells = lines[1].split(",")
+            cells[i] = "0.00031234567891234"
+            store.put_text(key, "\n".join([lines[0], ",".join(cells), *lines[2:]]) + "\n")
+        copies[name] = VariantResult(name, [], store)
+    rows = _assert_rows_hold_the_csv_text(copies)
+    assert {r["mean_response_time_live"] for r in rows} - {None} == {0.00031234567891234}
 
 
 def test_a_failed_variant_is_contained(tmp_path):

@@ -30,10 +30,11 @@ torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 SHARED = ("buckets", "batch_window_ms", "batch_max_rows", "server_engine", "max_pending",
-          "retry_after_max_s", "dtype", "host", "port")
+          "retry_after_max_s", "dtype", "host", "port", "mesh_data", "mesh_model")
 ENV = ("BODYWORK_TPU_BATCH_WINDOW_MS", "BODYWORK_TPU_BATCH_MAX_ROWS",
        "BODYWORK_TPU_SERVER_ENGINE", "BODYWORK_TPU_MAX_PENDING",
-       "BODYWORK_TPU_RETRY_AFTER_MAX_S", "BODYWORK_TPU_SERVE_DTYPE", "BODYWORK_TPU_BUCKETS")
+       "BODYWORK_TPU_RETRY_AFTER_MAX_S", "BODYWORK_TPU_SERVE_DTYPE", "BODYWORK_TPU_BUCKETS",
+       "BODYWORK_TPU_MESH_DATA", "BODYWORK_TPU_MESH_MODEL")
 
 
 def _parse(build, argv, env):
@@ -69,6 +70,10 @@ def _parse(build, argv, env):
     (["--buckets", "a,b"], {}),
     (["--dtype", "int8", "--host", "127.0.0.1", "--port", "5999"], {}),
     ([], {"BODYWORK_TPU_SERVE_DTYPE": "bfloat16"}),
+    (["--mesh-data", "4", "--mesh-model", "2"], {}),
+    ([], {"BODYWORK_TPU_MESH_DATA": "4", "BODYWORK_TPU_MESH_MODEL": "2"}),
+    ([], {"BODYWORK_TPU_MESH_DATA": "0", "BODYWORK_TPU_MESH_MODEL": "-2"}),
+    (["--mesh-data", "2"], {"BODYWORK_TPU_MESH_DATA": "two", "BODYWORK_TPU_MESH_MODEL": "x"}),
 ])
 def test_serve_parses_like_jax(argv, env):
     # repr: a NaN window compares equal to itself
@@ -87,11 +92,14 @@ def test_serve_parses_like_jax(argv, env):
     {"BODYWORK_TPU_BATCH_WINDOW_MS": "-1", "BODYWORK_TPU_BATCH_MAX_ROWS": "0",
      "BODYWORK_TPU_BUCKETS": "1,-8"},
     {"BODYWORK_TPU_BATCH_WINDOW_MS": "2.5", "BODYWORK_TPU_BUCKETS": " 4096 ,256,"},
+    {"BODYWORK_TPU_MESH_DATA": "4", "BODYWORK_TPU_MESH_MODEL": "2"},
+    {"BODYWORK_TPU_MESH_DATA": "0", "BODYWORK_TPU_MESH_MODEL": "-2"},
+    {"BODYWORK_TPU_MESH_DATA": "two", "BODYWORK_TPU_MESH_MODEL": "x"},
 ])
 def test_the_serve_stage_reads_the_pod_knobs_like_jax(env):
     clean = {k: v for k, v in os.environ.items() if k not in ENV}
     with patch.dict(os.environ, {**clean, **env}, clear=True):
-        assert repr(stages._serve_env_knobs()) == repr(jax_stages._serve_env_knobs()[:4])
+        assert repr(stages._serve_env_knobs()) == repr(jax_stages._serve_env_knobs())
         assert (repr(stages._serve_tuned_env_knobs())
                 == repr(jax_stages._serve_tuned_env_knobs()[:3]))
 

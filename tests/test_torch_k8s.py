@@ -495,20 +495,78 @@ def test_manifest_validator_covers_service_ingress_cronjob_paths():
     assert any("missing required field 'schedule'" in e for e in errs)
 
 
-@pytest.mark.parametrize("name,value,item", [
-    ("BODYWORK_TPU_MESH_DATA", "2", 19),
-    ("BODYWORK_TPU_MESH_MODEL", "4", 19),
-])
-def test_a_mode_the_port_lacks_is_refused_by_its_roadmap_item(name, value, item):
+@pytest.mark.parametrize("env", [
+    {"BODYWORK_TPU_MESH_DATA": "2"},
+    {"BODYWORK_TPU_MESH_MODEL": "4"},
+    {"BODYWORK_TPU_MESH_DATA": "2", "BODYWORK_TPU_MESH_MODEL": "2"},
+], ids=["data", "model", "data-model"])
+def test_a_serving_mesh_knob_emits_the_jax_generators_manifests(env):
+    """The mesh knobs ride the serve container's env, as the JAX
+    generator emits them: the same documents under the parity mapping."""
+    port, jax = _split_pair(env, model="mlp")
+    assert list(port) == list(jax)
+    assert _mask_port(port) == _map_jax(jax)
+    serve = next(d for d in port.values() if d["kind"] == "Deployment"
+                 and d["metadata"]["name"].endswith("serve-model"))
+    got = {e["name"]: e.get("value") for e in _containers(serve)[-1]["env"]}
+    assert all(got[k] == v for k, v in env.items())
+
+
+def _multihost_pair(hosts: int, daily):
+    """The port's manifests for a spec whose train stage runs on
+    ``hosts`` GPU hosts, and the JAX generator's for ``tpu_hosts``."""
+    from bodywork_tpu.pipeline import default_pipeline as jax_pipeline
+    from bodywork_tpu.pipeline import generate_manifests as jax_manifests
+    from bodywork_tpu.pipeline.k8s import DEFAULT_DAILY_SCHEDULE as JAX_DEFAULT
+    from bodywork_tpu_torch.pipeline.k8s import DEFAULT_DAILY_SCHEDULE
+
+    # each generator tells its own default schedule apart by identity
+    port_daily, jax_daily = ((DEFAULT_DAILY_SCHEDULE, JAX_DEFAULT) if daily == "default"
+                             else (daily, daily))
+    spec, jax_spec = default_pipeline("mlp"), jax_pipeline("mlp")
+    train = spec.stages["stage-1-train-model"]
+    spec.stages["stage-1-train-model"] = dataclasses.replace(
+        train, resources=dataclasses.replace(train.resources, gpu_hosts=hosts))
+    jtrain = jax_spec.stages["stage-1-train-model"]
+    jax_spec.stages["stage-1-train-model"] = dataclasses.replace(
+        jtrain, resources=dataclasses.replace(jtrain.resources, tpu_hosts=hosts))
+    return (generate_manifests(spec, store_path="/mnt/store", daily_schedule=port_daily),
+            jax_manifests(jax_spec, store_path="/mnt/store", daily_schedule=jax_daily))
+
+
+@pytest.mark.parametrize("hosts", [2, 4])
+def test_gpu_hosts_emit_the_jax_generators_indexed_job(hosts):
+    """``gpu_hosts`` > 1 is the JAX spec's ``tpu_hosts``: the Indexed Job
+    (one pod a host, the scaled ``backoffLimit``, ``subdomain``, the
+    coordinator env) and its headless Service, the same documents under
+    the parity mapping; the daily-loop CronJob is left out of both."""
+    port, jax = _multihost_pair(hosts, None)
+    assert list(port) == list(jax)
+    assert _mask_port(port) == _map_jax(jax)
+    job = port["01-stage-1-train-model-job.yaml"]["spec"]
+    assert (job["completions"], job["parallelism"], job["completionMode"]) == (
+        hosts, hosts, "Indexed")
+    assert job["backoffLimit"] == 2 * hosts
+    env = {e["name"]: e["value"] for e in _containers(port["01-stage-1-train-model-job.yaml"])
+           [-1]["env"]}
+    assert env["NUM_PROCESSES"] == str(hosts)
+    assert env["JAX_COORDINATOR_ADDRESS"].endswith(":8476")
+    headless = port["01-stage-1-train-model-workers-headless.yaml"]
+    assert headless["spec"]["clusterIP"] == "None"
+    port_default, jax_default = _multihost_pair(hosts, "default")
+    assert list(port_default) == list(jax_default)
+    assert not any("daily-loop" in f for f in port_default)
+
+
+def test_a_multihost_service_stage_and_an_explicit_schedule_are_refused():
     spec = default_pipeline()
     serve = spec.stages["stage-2-serve-model"]
-    spec.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={name: value})
-    with pytest.raises(ValueError, match=rf"{name}=.*item {item}\b"):
+    spec.stages["stage-2-serve-model"] = dataclasses.replace(
+        serve, resources=dataclasses.replace(serve.resources, gpu_hosts=2))
+    with pytest.raises(ValueError, match="gpu_hosts > 1 is only supported for batch"):
         generate_manifests(spec, store_path="/mnt/store")
-    # the inert default (a 1-device mesh) is emitted
-    spec.stages["stage-2-serve-model"] = dataclasses.replace(serve, env={name: "1"})
-    docs = generate_manifests(spec, store_path="/mnt/store")
-    assert not any("dispatcher" in filename for filename in docs)
+    with pytest.raises(ValueError, match="daily_schedule is not materialisable"):
+        _multihost_pair(2, "0 5 * * *")
 
 
 def _split_pair(env: dict, model: str = "linear"):

@@ -53,6 +53,9 @@ import bodywork_tpu_torch.obs.multiproc, bodywork_tpu_torch.serve.multiproc
 import bodywork_tpu_torch.serve.rowqueue, bodywork_tpu_torch.serve.netqueue
 import bodywork_tpu_torch.serve.leadership, bodywork_tpu_torch.serve.frontend
 import bodywork_tpu_torch.serve.dispatch, bodywork_tpu_torch.serve.httpcore
+import bodywork_tpu_torch.parallel, bodywork_tpu_torch.parallel.mesh
+import bodywork_tpu_torch.parallel.collectives, bodywork_tpu_torch.parallel.sharding
+import bodywork_tpu_torch.parallel.train_step
 import chip_smoke
 # nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
 # standard library, numpy and torch alone

@@ -38,7 +38,7 @@ from bodywork_tpu_torch.serve import (
     create_app,
     serve_latest_model,
 )
-from bodywork_tpu_torch.serve.reload import NOTHING_SERVED, CheckpointWatcher
+from bodywork_tpu_torch.serve.reload import CheckpointWatcher
 from bodywork_tpu_torch.serve.wire import MODEL_KEY_HEADER
 from bodywork_tpu_torch.store import FilesystemStore
 from bodywork_tpu_torch.utils.shutdown import SIGTERM_EXIT
@@ -232,14 +232,6 @@ def test_an_empty_store_boots_degraded_until_the_first_checkpoint(tmp_path):
         _wait_for(lambda: _healthz(handle)["model_key"] == ckpt.model_key(D1))
     finally:
         handle.stop()
-
-
-def test_the_later_slices_hooks_refuse():
-    app = create_app(_mlp(8), D1)
-    for kwargs in ({"mesh_data": 2}, {"mesh_model": 2}):
-        with pytest.raises(NotImplementedError):
-            CheckpointWatcher(app, FilesystemStore.__new__(FilesystemStore),
-                              served_key=NOTHING_SERVED, **kwargs)
 
 
 def test_watchers_resolve_the_same_serving_state_as_jaxs(tmp_path):

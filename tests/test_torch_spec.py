@@ -26,7 +26,7 @@ def _jax_doc_mapped(jax_spec) -> dict:
         block["resources"] = {
             "cpu_request": res["cpu_request"], "memory_mb": res["memory_mb"],
             "gpu_accelerator": "nvidia-h100-80gb" if res["tpu_chips"] else None,
-            "gpu_count": res["tpu_chips"],
+            "gpu_count": res["tpu_chips"], "gpu_hosts": res["tpu_hosts"],
         }
         block["requirements"] = port.stages[name].requirements
     return doc
