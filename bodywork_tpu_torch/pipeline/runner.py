@@ -542,7 +542,18 @@ class LocalRunner:
         clock already stopped), at most one refresh in flight."""
         from bodywork_tpu_torch.data.snapshot import refresh_due, write_snapshot
 
+        # the lookahead this day started reads the history, and this
+        # refresh writes a snapshot covering the lookahead's newest day: a
+        # lookahead that lists snapshots/ after the write reads the new
+        # snapshot back, one more read than a lookahead that lists first.
+        # It lists first in every run once the refresh waits for it, so
+        # a run's reads (and a chaos soak's fault draws) do not depend on
+        # which thread the scheduler ran first
+        lookahead = self._pending_train[1]["thread"] if self._pending_train else None
+
         def _work():
+            if lookahead is not None:
+                lookahead.join()
             try:
                 if refresh_due(self.store):
                     with self.recorder.span("snapshot-refresh", "compact"):

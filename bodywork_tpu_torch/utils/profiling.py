@@ -12,16 +12,36 @@ sees every kernel the process runs, whether PyTorch's dispatcher, a
 ``ctypes`` library or a CUDA-graph replay launched it. A profile of a
 run on the card without that activity would look complete and show no
 device time, so it is refused rather than written.
+
+The trace keeps a device record only if its timestamp, converted to the
+host's clock, falls inside the profile's window. In a process's first
+profile the conversion holds (a graph-replayed kernel within 0.1 ms of
+its launch on an H100); in a later one it can drift by tens of
+milliseconds within seconds, either way (``tools/profile_repeat.py``
+measures it), and a kernel launched in the region's last tens of
+milliseconds went missing from the trace although the region ended in a
+synchronize. So on the card the profile opens :data:`EDGE_S` before
+the region, and stays open after the region's synchronize for
+:data:`EDGE_S` or :data:`TAIL_SHARE` of the region's duration, whichever
+is longer: the region's records, drifted or late, stay inside the
+window.
 """
 from __future__ import annotations
 
 import contextlib
 import re
+import time
 from pathlib import Path
 
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("profiling")
+
+#: seconds a profile on the card stays open before and after its region
+EDGE_S = 0.25
+#: the share of the region's duration the profile stays open after it,
+#: where that is longer than EDGE_S: above the largest drift measured
+TAIL_SHARE = 0.1
 
 
 def trace_path(trace_dir: str | Path, label: str = "") -> Path:
@@ -63,12 +83,17 @@ def maybe_trace(trace_dir: str | Path | None, label: str = "", device=None):
     log.info(f"profiling {label or 'region'} ({', '.join(a.name for a in activities)}) "
              f"-> {path}")
     with profile(activities=activities) as prof:
+        if dev.type == "cuda":
+            time.sleep(EDGE_S)  # the region's first records stay inside the window
+        t0 = time.perf_counter()
         try:
             yield prof
         finally:
             if dev.type == "cuda":
-                # the region's kernels end inside the profile, not after it
+                # the region's kernels end inside the profile, not after it,
+                # and their drifted timestamps too (the module docstring)
                 torch.cuda.synchronize(dev)
+                time.sleep(max(EDGE_S, TAIL_SHARE * (time.perf_counter() - t0)))
     prof.export_chrome_trace(str(path))
 
 

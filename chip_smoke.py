@@ -191,7 +191,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the MLP with its fits cut to 200 steps, between two unprofiled runs:
    the trace's CUDA device events, the f32 kernel by name (one event per
    counted launch) or inside graph launches, the trace's bytes and the
-   run's seconds with the profiler on and off;
+   run's seconds with the profiler on and off (the same check runs once
+   more right after ``day-loop``, as ``profile-after-day-loop``: the
+   first profile after the process's first profiler session);
 8. ``audit`` — two 1024-wide MLP days through ``cli run-day --scrub``
    processes (the audited store the command line opens): each day's
    ``fsck:`` line clean, the sidecars by class, each process's seconds
@@ -3783,16 +3785,28 @@ def phase_day_report(torch, dev, workdir: str) -> dict:
 
 def _kernel_events(path: str) -> dict:
     """What a torch.profiler Chrome trace holds: device events by
-    category, the f32 kernel's events by name, and the graph launches."""
+    category, the f32 kernel's events by name, and the graph launches;
+    by correlation id, the f32 kernels' and the graph launches', and for
+    each graph launch whose kernel the trace names, the kernel's
+    timestamp less the launch's (us)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     device_cats = ("kernel", "gpu_memcpy", "gpu_memset")
     device = [e for e in events if e.get("cat") in device_cats]
+    f32 = [e for e in device if "mlp_f32_kernel" in e.get("name", "")]
+    graph = [e for e in events if e.get("name") == "cudaGraphLaunch"]
+    f32_at = {(e.get("args") or {}).get("correlation"): e["ts"] for e in f32}
+    graph_at = {(e.get("args") or {}).get("correlation"): e["ts"] for e in graph}
+    launches = sorted(c for c in graph_at if c is not None)
     return {
         "events": len(events),
         "device_events": {c: sum(e.get("cat") == c for e in device) for c in device_cats},
-        "f32_kernel_named": sum("mlp_f32_kernel" in e.get("name", "") for e in device),
-        "graph_launches": sum(e.get("name") == "cudaGraphLaunch" for e in events),
+        "f32_kernel_named": len(f32),
+        "graph_launches": len(graph),
+        "f32_kernel_correlations": sorted(c for c in f32_at if c is not None),
+        "graph_launch_correlations": launches,
+        "graph_kernel_skew_us": [round(f32_at[c] - graph_at[c], 1) for c in launches
+                                 if c in f32_at],
     }
 
 
@@ -5706,7 +5720,7 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
             "run_day_launches": served["launches_by_kernel"]}
 
 
-def phase_profile(torch, dev, workdir: str) -> dict:
+def phase_profile(torch, dev, workdir: str, label: str = "profile") -> dict:
     """``profile``: ``cli run-sim --profile-dir`` of the 1024-wide MLP for
     2 days, its fits cut to PROFILE_SIM's steps, between two unprofiled
     runs of the same command (the first captures the serving graphs, so
@@ -5714,7 +5728,13 @@ def phase_profile(torch, dev, workdir: str) -> dict:
     f32 kernel appears either by its symbol (then one event per launch
     the wrapper counted over the same window) or only inside graph
     launches (then at least one graph launch per counted launch); the
-    trace's bytes and the run's seconds with the profiler on and off."""
+    trace's bytes and the run's seconds with the profiler on and off.
+    The line (``label``) prints the kernels and graph launches by
+    correlation id before the checks. The whole script runs it twice:
+    as ``profile-after-day-loop`` right after ``day-loop``, whose
+    ``day-loop-train-profile`` is the process's first profiler session
+    (a later session is the one whose device timestamps drift:
+    ``utils/profiling.py``), and as ``profile`` in its place."""
     import contextlib
     import io
     import re
@@ -5751,7 +5771,7 @@ def phase_profile(torch, dev, workdir: str) -> dict:
            "f32_kernel_appears_as": mode, "launch_counter_kernel": launched, **seen,
            "seconds_profiled": runs["on"]["seconds"], "seconds_unprofiled": runs["off"]["seconds"],
            "runs": runs}
-    emit("profile", **out)
+    emit(label, **out)
     if not sum(seen["device_events"].values()) or launched < 1:
         raise RuntimeError(f"the profile holds no device events or no f32 launch: {out}")
     if seen["f32_kernel_named"] and seen["f32_kernel_named"] != launched:
@@ -6051,7 +6071,7 @@ def main(argv=None) -> int:
         phase_build()
     errors = phase_kernels(torch, dev) if "kernels" in phases else {}
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
-    serving, traced, reported, profiled = {}, {}, {}, {}
+    serving, traced, reported, profiled, profiled_after_loop = {}, {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
     tuned, online_tuned = {}, {}
     audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
@@ -6112,6 +6132,10 @@ def main(argv=None) -> int:
                     loop["mlp"]["median_days_2_7_s"] if loop else None))
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
+                if "profile" in phases:
+                    profiled_after_loop = phase_profile(
+                        torch, dev, os.path.join(workdir, "profile-after-day-loop"),
+                        label="profile-after-day-loop")
             elif phase == "resume":
                 resume = phase_resume(torch, dev, workdir)
             elif phase == "sigterm":
@@ -6160,6 +6184,8 @@ def main(argv=None) -> int:
                                       ("ab", ab, "launches"),
                                       ("day-report", reported, "launches"),
                                       ("profile", profiled, "launches"),
+                                      ("profile-after-day-loop", profiled_after_loop,
+                                       "launches"),
                                       ("audit", audited, "launches"),
                                       ("chaos-sim", chaos_sim, "launches"),
                                       ("bit-rot", bit_rot, "launches"),

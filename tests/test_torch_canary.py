@@ -470,7 +470,9 @@ def test_chaos_canary_verdicts_equal_jaxs(scenario, tmp_path):
     # the dump keys carry a digest of the dump, whose span timings differ
     for summary in (got, want):
         assert len(summary.pop("flight_record_keys")) == 1
-    assert got == want
+    assert got == want, {side: {k: s[k] for k in ("aborted", "abort_at_request", "promoted",
+                                                  "promote_at_request")}
+                         for side, s in (("port", got), ("jax", want))}
     assert got["ok"] is True
     assert (got["aborted"], got["promoted"]) == (
         (False, True) if scenario == "healthy" else (True, False))

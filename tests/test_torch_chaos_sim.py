@@ -3,6 +3,7 @@ sizes: the faulted-twin soak (``run_chaos_sim``), the at-rest bit-rot soak
 (``run_bit_rot_sim``), the crash-resume sweep (``run_crash_sim``, one day),
 the flaky scoring service on both front ends, and ``cli chaos run-sim``."""
 import json
+import threading
 import urllib.error
 import urllib.request
 from datetime import date
@@ -54,21 +55,40 @@ def _without_plan(summary: dict) -> dict:
     return {k: v for k, v in summary.items() if k not in ("plan", "seconds", "breaker_opens")}
 
 
+def _draws(plan, kind: str) -> set:
+    """Every ``(stream, n)`` decision of ``kind`` the plan drew."""
+    return {(stream, n) for (k, stream), count in plan._draws.items() if k == kind
+            for n in range(count)}
+
+
+def _which_side(plan, jax_plan, port: dict, ref: dict) -> str:
+    """Which package counted what, and the decisions only one of them drew."""
+    lines = [f"faults_injected: port {port['faults_injected']}, jax {ref['faults_injected']}"]
+    for kind in sorted({k for k, _ in plan._draws} | {k for k, _ in jax_plan._draws}):
+        mine, theirs = _draws(plan, kind), _draws(jax_plan, kind)
+        if mine != theirs:
+            lines.append(f"{kind} draws only the port's: {sorted(mine - theirs)}; "
+                         f"only the JAX package's: {sorted(theirs - mine)}")
+    return "\n".join(lines)
+
+
 def test_three_day_linear_chaos_soak_equals_jaxs(tmp_path, jax_days):
     """The same seeded adversity on the same days: the same faults by
     kind, the same retries by backend and op, the breaker closed, and the
     same comparison (every final artefact byte-identical to the
-    fault-free twin, none torn)."""
-    port = run_chaos_sim(tmp_path / "port", START, 3, FaultPlan.default(0),
+    fault-free twin, none torn). A mismatch names each package's counts
+    and the decisions only one of them drew."""
+    plan, jax_plan = FaultPlan.default(0), JaxFaultPlan.default(0)
+    port = run_chaos_sim(tmp_path / "port", START, 3, plan,
                          drift=DriftConfig(n_samples=SAMPLES), device="cpu")
-    ref = jax_run_chaos_sim(tmp_path / "jax", START, 3, JaxFaultPlan.default(0),
+    ref = jax_run_chaos_sim(tmp_path / "jax", START, 3, jax_plan,
                             drift=JaxDriftConfig(n_samples=SAMPLES))
     assert port["ok"] and ref["ok"]
     # the background compactor lists the store beside the day's stages in
     # both packages, so the one op whose retries depend on that race is
     # list_keys: its count may differ by one between any two runs
     retries, ref_retries = port.pop("retries"), ref.pop("retries")
-    assert _without_plan(port) == _without_plan(ref)
+    assert _without_plan(port) == _without_plan(ref), _which_side(plan, jax_plan, port, ref)
     assert port["plan"] == ref["plan"]
     for name, by_op in retries.items():
         assert by_op.keys() == ref_retries[name].keys(), name
@@ -78,6 +98,71 @@ def test_three_day_linear_chaos_soak_equals_jaxs(tmp_path, jax_days):
     assert port["breaker_opens"] == 0 and set(port["seconds"]) == {"baseline", "faulted"}
     assert port["faults_injected"]["kind=transient"] > 0
     assert retries["bodywork_tpu_scoring_client_retries_total"]
+
+
+def _hold_lookaheads_until_the_refresh_wrote(monkeypatch, snapshot, store_cls, active_plan,
+                                             snapshots_prefix, timeout_s: float):
+    """Hold a lookahead train of the faulted twin, after it has found its
+    day missing from the parse cache and before it lists ``snapshots/``,
+    until the day's snapshot refresh has written (or ``timeout_s``)."""
+    written = threading.Event()
+    real_write, real_history = snapshot.write_snapshot, store_cls.history
+
+    def write_snapshot(store, *args, **kwargs):
+        try:
+            return real_write(store, *args, **kwargs)
+        finally:
+            written.set()
+
+    def history(store, prefix):
+        if prefix == snapshots_prefix and active_plan() is not None and \
+                threading.current_thread().name.startswith("lookahead-train-"):
+            written.clear()  # the fault-free twin's refresh wrote already
+            written.wait(timeout=timeout_s)
+        return real_history(store, prefix)
+
+    monkeypatch.setattr(snapshot, "write_snapshot", write_snapshot)
+    monkeypatch.setattr(store_cls, "history", history)
+
+
+def _snapshot_reads(plan, prefix: str) -> list:
+    return sorted((kind, stream) for kind, stream in plan._draws
+                  if stream.startswith(f"store|get_bytes|{prefix}"))
+
+
+def test_a_lookahead_the_compactor_outruns_reads_no_snapshot(tmp_path, jax_days, monkeypatch):
+    """The soak's reads do not depend on which background thread runs
+    first. Day 1's lookahead train (day 2's fit) is held, after it has
+    found day 2 missing from the parse cache and before it lists
+    ``snapshots/``, until day 1's snapshot refresh has written (the port's
+    waits 3 s: its refresh waits for the lookahead; the JAX package's
+    refresh does not, so it is waited for). Under load that is the
+    order the scheduler sometimes picks: a lookahead that lists after the
+    write reads the snapshot back and draws faults on it that no unloaded
+    run draws. The port's soak draws no decision on a snapshot read; the
+    JAX package's, under the same hold, does (its refresh does not wait),
+    which is what its soak does now and then under load."""
+    from bodywork_tpu.chaos.plan import get_active_plan as jax_active_plan
+    from bodywork_tpu.data import snapshot as jax_snapshot
+    from bodywork_tpu.store.base import ArtefactStore as JaxArtefactStore
+    from bodywork_tpu.store.schema import SNAPSHOTS_PREFIX as JAX_SNAPSHOTS_PREFIX
+    from bodywork_tpu_torch.chaos.plan import get_active_plan
+    from bodywork_tpu_torch.data import snapshot
+    from bodywork_tpu_torch.store.base import ArtefactStore
+    from bodywork_tpu_torch.store.schema import SNAPSHOTS_PREFIX
+
+    _hold_lookaheads_until_the_refresh_wrote(monkeypatch, snapshot, ArtefactStore,
+                                             get_active_plan, SNAPSHOTS_PREFIX, 3.0)
+    _hold_lookaheads_until_the_refresh_wrote(monkeypatch, jax_snapshot, JaxArtefactStore,
+                                             jax_active_plan, JAX_SNAPSHOTS_PREFIX, 120.0)
+    plan, jax_plan = FaultPlan.default(0), JaxFaultPlan.default(0)
+    port = run_chaos_sim(tmp_path / "port", START, 2, plan,
+                         drift=DriftConfig(n_samples=SAMPLES), device="cpu")
+    ref = jax_run_chaos_sim(tmp_path / "jax", START, 2, jax_plan,
+                            drift=JaxDriftConfig(n_samples=SAMPLES))
+    assert port["ok"] and ref["ok"]
+    assert _snapshot_reads(plan, SNAPSHOTS_PREFIX) == []
+    assert _snapshot_reads(jax_plan, JAX_SNAPSHOTS_PREFIX)
 
 
 def test_a_chaos_soak_refuses_a_used_store(tmp_path):

@@ -6,6 +6,8 @@ profiling``, the port of ``bodywork_tpu.utils.profiling``): ``maybe_trace
 whose profiler cannot record the CUDA activity is refused before it
 starts rather than written CPU-only (mocked here: there is no card)."""
 import json
+import threading
+import time
 from datetime import date
 
 import pytest
@@ -92,6 +94,50 @@ def test_a_card_run_records_the_cuda_activity(tmp_path, monkeypatch):
     assert seen["activities"] == [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     assert seen["synced"] == torch.device("cuda", 0)
     assert seen["path"] == str(tmp_path / "day.pt.trace.json")
+
+
+def test_a_card_profile_stays_open_around_its_region(tmp_path, monkeypatch):
+    """On the card the profile opens ``EDGE_S`` before the region and
+    closes ``TAIL_SHARE`` of the region's duration (at least ``EDGE_S``)
+    after its synchronize: in a later profile of a process the device
+    timestamps drift by tens of milliseconds, and a kernel the region
+    launched last went missing from the trace. The clock and the
+    profiler are stubbed; a 10 s region keeps it open 1 s after."""
+    order = []
+    clock = iter([100.0, 110.0])
+
+    class _Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            order.append("open")
+            return self
+
+        def __exit__(self, *exc):
+            order.append("close")
+            return False
+
+        def export_chrome_trace(self, path):
+            order.append("export")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: order.append("sync"))
+    monkeypatch.setattr(torch.profiler, "supported_activities",
+                        lambda: {ProfilerActivity.CPU, ProfilerActivity.CUDA})
+    monkeypatch.setattr(torch.profiler, "profile", _Profile)
+    # the time module is the process's: other threads keep the real clock
+    me, sleep, perf_counter = threading.get_ident(), time.sleep, time.perf_counter
+    monkeypatch.setattr(time, "sleep", lambda s: order.append(("sleep", s))
+                        if threading.get_ident() == me else sleep(s))
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock)
+                        if threading.get_ident() == me else perf_counter())
+    with profiling.maybe_trace(tmp_path, "day", device="cuda"):
+        order.append("region")
+    assert order == ["open", ("sleep", profiling.EDGE_S), "region", "sync",
+                     ("sleep", 10.0 * profiling.TAIL_SHARE), "close", "export"]
+    assert 10.0 * profiling.TAIL_SHARE > profiling.EDGE_S > 0
 
 
 def test_run_simulation_profiles_the_loop(tmp_path):

@@ -79,7 +79,25 @@ request, and ``host`` what the host did across the drive: the CPU time's
 shares by kind (``steal`` included), the load average, the pressure
 stall, the processes that took the most CPU and the threads alive at
 each watcher poll (``threads_in_drive``). ``--no-sampler`` leaves the
-``nvidia-smi`` sampler off.
+``nvidia-smi`` sampler off. ``first_request`` gives the drive's first
+request's time, its stream latency and the checkpoint that answered it.
+
+Where the rest of a request goes, on the host: each slow request's
+``host_ms`` splits the canary'd app's ``handle`` by what it called
+(``trace``: the tracer's begin and finish; ``parse``; ``route``;
+``chaos``: the fault-plan lookup; ``dispatch``: the whole predictor
+call, ``run_ms`` inside it; ``sanity``; ``render``; ``stream_metrics``:
+the stream's counter and latency histogram; ``metrics``: ``handle``'s
+own request counter and latency histogram; ``other``: the rest of
+``handle``), and ``stream_ms`` is the latency the watchdog judged
+(the stream histogram's observation). ``minflt`` and ``majflt`` count
+the page faults of the request's thread and ``proc_minflt`` the
+process's, ``py_blocks`` the change in the interpreter's allocated
+blocks, and ``cuda_allocs`` / ``cuda_segments`` the caching allocator's
+allocations and ``cudaMalloc`` segments made inside the request
+(``torch.cuda.memory_stats_as_nested_dict``, read outside the timed
+call). Each line's
+``median_host_ms`` gives the same split for every request.
 """
 from __future__ import annotations
 
@@ -279,7 +297,10 @@ def main(argv=None) -> int:
 
         def timed(*a, **k):
             current.update(run_s=0.0, rebind=False, gc=0, lock_s=0.0, sync_s=0.0, events=[],
-                           gap_s=None, calls={})
+                           gap_s=None, calls={}, host={}, stream_s=None)
+            mem0 = _allocator_counts(torch, dev)
+            proc_ru0 = resource.getrusage(resource.RUSAGE_SELF)
+            blocks0 = sys.getallocatedblocks()
             probe_before = _busy_probe()
             psi0 = _cpu_pressure_us()
             wall0 = time.time()
@@ -295,12 +316,24 @@ def main(argv=None) -> int:
                 other = max(0.0, time.process_time() - proc0 - cpu)
                 ru1 = resource.getrusage(resource.RUSAGE_THREAD)
                 sched1 = schedstat()
+                blocks1 = sys.getallocatedblocks()
+                proc_ru1 = resource.getrusage(resource.RUSAGE_SELF)
+                mem1 = _allocator_counts(torch, dev)
                 sched = ((sched1[0] - sched0[0]) / 1e9, (sched1[1] - sched0[1]) / 1e9) if (
                     sched0 and sched1) else (None, None)
                 psi1 = _cpu_pressure_us()
                 sync_s = current["sync_s"]
                 replay_ms, span_ms = device_ms()
+                host = dict(current["host"])
+                host["other"] = max(0.0, seconds - sum(host.values()))
                 requests.append({"s": seconds, "wall": wall0, "gap_s": current["gap_s"],
+                                 "host": host, "stream_s": current["stream_s"],
+                                 "minflt": ru1.ru_minflt - ru0.ru_minflt,
+                                 "majflt": ru1.ru_majflt - ru0.ru_majflt,
+                                 "proc_minflt": proc_ru1.ru_minflt - proc_ru0.ru_minflt,
+                                 "py_blocks": blocks1 - blocks0,
+                                 "cuda_allocs": mem1[0] - mem0[0],
+                                 "cuda_segments": mem1[1] - mem0[1],
                                  "calls": dict(current["calls"]),
                                  "run_s": current["run_s"], "sync_s": sync_s,
                                  "replay_ms": replay_ms, "device_ms": span_ms,
@@ -333,7 +366,11 @@ def main(argv=None) -> int:
                 after_poll[0] = True
 
         app.handle, watcher.check_once, twin_app.handle = timed, timed_check, twin
-        trace = drive(app, twin_app, watcher, xs, *rest)
+        restore = _split_host(app, current)
+        try:
+            trace = drive(app, twin_app, watcher, xs, *rest)
+        finally:
+            restore()
         host = _host_delta(host0, _host_snapshot())
         host["threads_in_drive"] = sorted(threads_seen)
         drives.append((trace, requests, polls, host))
@@ -404,6 +441,13 @@ def main(argv=None) -> int:
                              "replay_ms": round(r["replay_ms"], 3),
                              "device_ms": round(r["device_ms"], 3),
                              "calls_ms": {k: round(1e3 * v, 3) for k, v in r["calls"].items()},
+                             "host_ms": {k: round(1e3 * v, 3) for k, v in r["host"].items()},
+                             "stream_ms": None if r["stream_s"] is None
+                             else round(1e3 * r["stream_s"], 3),
+                             "minflt": r["minflt"], "majflt": r["majflt"],
+                             "proc_minflt": r["proc_minflt"], "py_blocks": r["py_blocks"],
+                             "cuda_allocs": r["cuda_allocs"],
+                             "cuda_segments": r["cuda_segments"],
                              "gap_ms": None if r["gap_s"] is None
                              else round(1e3 * r["gap_s"], 3),
                              "sm_mhz": [c[1] for c in samples
@@ -428,8 +472,14 @@ def main(argv=None) -> int:
         dumps = summary["flight_record_keys"]
         window = (json.loads(FilesystemStore(root).get_bytes(dumps[-1]))["window"]
                   if dumps else None)
+        first = requests[0]
         print(json.dumps({
             "rep": rep, "pinned": pinned, "ok": summary["ok"],
+            "first_request": {"ms": round(1e3 * first["s"], 3),
+                              "stream_ms": None if first["stream_s"] is None
+                              else round(1e3 * first["stream_s"], 3),
+                              "answered_by": "candidate" if trace["keys"][0] != summary["production_key"]
+                              else "production"},
             "abort_at_request": summary["abort_at_request"],
             "promote_at_request": summary["promote_at_request"], "window": window,
             "median_ms": {k: statistics.median(ms for ms, _i in v)
@@ -452,6 +502,12 @@ def main(argv=None) -> int:
                 name: round(1e3 * statistics.median(r["calls"].get(name, 0.0) for r in requests), 4)
                 for name in ("lock", "stage", "h2d", "replay", "count", "d2h", "record", "wait",
                              "out")},
+            "median_host_ms": {
+                name: round(1e3 * statistics.median(r["host"].get(name, 0.0) for r in requests), 4)
+                for name in _HOST_PARTS + ("other",)},
+            "median_minflt": statistics.median(r["minflt"] for r in requests),
+            "requests_with_cuda_allocs": sum(1 for r in requests if r["cuda_allocs"]),
+            "requests_with_cuda_segments": sum(1 for r in requests if r["cuda_segments"]),
             "median_gap_ms": statistics.median(
                 1e3 * r["gap_s"] for r in requests if r["gap_s"] is not None),
             "clock": {"samples": len(in_drive),
@@ -465,6 +521,98 @@ def main(argv=None) -> int:
             "host": host, "probes": _probe_summary(requests, slow, probes),
             "polls_ms": [round(p, 2) for p in polls]}), flush=True)
     return 0
+
+
+#: the parts of a request's host time ``_split_host`` times apart
+_HOST_PARTS = ("trace", "parse", "route", "chaos", "dispatch", "sanity", "render",
+               "stream_metrics", "metrics")
+
+
+class _Timed:
+    """A stand-in for ``obj`` whose ``methods`` add their seconds to
+    ``current["host"][part]``; ``observed`` (optional) receives the first
+    argument of ``observe`` (a histogram's observation)."""
+
+    def __init__(self, obj, part, current, methods, observed=None):
+        self._obj, self._part, self._current = obj, part, current
+        self._methods, self._observed = methods, observed
+
+    def __getattr__(self, name):
+        attr = getattr(self._obj, name)
+        if name not in self._methods:
+            return attr
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return attr(*args, **kwargs)
+            finally:
+                host = self._current["host"]
+                host[self._part] = host.get(self._part, 0.0) + time.perf_counter() - t0
+                if self._observed is not None and name == "observe":
+                    self._current[self._observed] = args[0]
+
+        return timed
+
+
+def _split_host(app, current):
+    """Time the canary'd app's host calls apart (``_HOST_PARTS``) for
+    the drive; returns the function that undoes it."""
+    from bodywork_tpu_torch.serve import app as app_module
+
+    saved = {}
+
+    def swap(name, value):
+        saved[name] = app.__dict__.get(name, _MISSING)
+        setattr(app, name, value)
+
+    def wrap(part, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                host = current["host"]
+                host[part] = host.get(part, 0.0) + time.perf_counter() - t0
+        return timed
+
+    for part, name in (("parse", "_parse"), ("route", "route_stream"),
+                       ("chaos", "apply_canary_chaos"), ("dispatch", "_traced_dispatch"),
+                       ("render", "render")):
+        swap(name, wrap(part, getattr(app, name)))
+    swap("tracer", _Timed(app.tracer, "trace", current, ("begin", "finish")))
+    swap("_m_stream_requests", _Timed(app._m_stream_requests, "stream_metrics", current, ("inc",)))
+    swap("_m_stream_latency", _Timed(app._m_stream_latency, "stream_metrics", current,
+                                     ("observe",), observed="stream_s"))
+    # the parse, serialize and dispatch histograms are written inside the
+    # calls timed above, so only handle's own two are timed here
+    for name in ("_m_requests", "_m_latency"):
+        swap(name, _Timed(getattr(app, name), "metrics", current, ("inc", "observe")))
+    sanity = app_module.sanity_violation
+    app_module.sanity_violation = wrap("sanity", sanity)
+
+    def restore():
+        app_module.sanity_violation = sanity
+        for name, value in saved.items():
+            if value is _MISSING:
+                delattr(app, name)
+            else:
+                setattr(app, name, value)
+
+    return restore
+
+
+_MISSING = object()
+
+
+def _allocator_counts(torch, dev) -> tuple[int, int]:
+    """The caching allocator's allocations and ``cudaMalloc`` segments so
+    far. ``memory_stats_as_nested_dict``, not ``memory_stats``: the flat
+    form is built by a recursive closure, a reference cycle per call
+    whose garbage the collector then frees inside the drive's requests."""
+    stats = torch.cuda.memory_stats_as_nested_dict(dev)
+    return (int(stats["allocation"]["all"]["allocated"]),
+            int(stats["segment"]["all"]["allocated"]))
 
 
 def _busy_probe() -> float:
