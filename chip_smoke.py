@@ -76,9 +76,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
    requests/s, 5 s each), an MMPP log at 1x, and the 1x log replayed
    from its file in the binary row framing, whose answers must be
    byte-identical to the JSON ones; every 200 held against the plain
-   version; offered and goodput rps, p50/p99 from the scheduled arrival
-   and the shed fraction printed; ``reload``: config 11's live swap, an
-   open-loop drive at 0.5x capacity across a ``CheckpointWatcher`` swap
+   version; offered and goodput rps, p50/p99 from the scheduled arrival,
+   the shed fraction, the real factor and the service's admission
+   counters printed, every drive sent by 4 spawned driver processes;
+   ``reload``: config 11's live swap, an open-loop drive at 0.5x capacity
+   sent by 4 driver processes (its send-lag p99 within 50 ms, or the
+   driver fails the phase) across a ``CheckpointWatcher`` swap
    to a second checkpoint of the same architecture (no capture, at least
    one rebind, every answer's model key and value its own checkpoint's,
    p99 per answering checkpoint), then ``cli registry rollback`` must
@@ -293,6 +296,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
    kernel can take at 256, 512 and 4096 rows; then one ``kernels`` line
    summing every kernel up.
 
+After every phase a ``processes`` line lists what the phase left
+running: a live process below the script's (by parent pid in ``/proc``,
+or by the run's mark in its environment) still there 10 s after the
+phase returned fails that phase, named by pid and command line.
 A ``total`` line gives the script's seconds. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
@@ -402,8 +409,10 @@ TRAFFIC = {"factors": (0.5, 1.0, 2.0), "cap_rps": 2000.0, "duration_s": 5.0,
            "window_ms": 2.0, "max_rows": 64, "probe_clients": 16, "probe_s": 3.0, "seed": 9,
            "shards": 4}
 #: reload: config 11's swap (``bench.py:1983``) at 0.5x capacity, the
-#: promotion this far into the drive, the watcher's poll
-RELOAD = {"factor": 0.5, "duration_s": 6.0, "swap_at_s": 2.0, "poll_s": 0.5}
+#: promotion this far into the drive, the watcher's poll, and the send-lag
+#: p99 past which the drive, not the service, is at fault
+RELOAD = {"factor": 0.5, "duration_s": 6.0, "swap_at_s": 2.0, "poll_s": 0.5,
+          "max_send_lag_ms": 50.0}
 #: canary: the chaos acceptance's requests and canary fraction (its defaults)
 CANARY = {"requests": 240, "fraction": 0.35}
 #: ab: the A/B simulation's days
@@ -450,6 +459,81 @@ WORKERS = {"workers": 2, "max_pending": 8, "burst": 64, "clients": 6, "per_clien
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+#: set by ``main`` to its pid; every process the script starts inherits it,
+#: so one whose parent ended (and which left the process tree) is still
+#: found as the run's
+RUN_ENV = "BODYWORK_TPU_SMOKE_RUN"
+#: seconds a process the phase started has to end after the phase returned
+PROCESS_GRACE_S = 10.0
+
+
+def _proc_read(path: str) -> bytes:
+    """A ``/proc`` file's bytes, empty once its process is gone."""
+    try:
+        with open(f"/proc/{path}", "rb") as f:
+            return f.read()
+    except OSError:
+        return b""
+
+
+def _descendants() -> list:
+    """The live processes below this one, read from each
+    ``/proc/<pid>/stat``'s parent pid, with those whose environment holds
+    ``RUN_ENV`` set to this pid: ``[{"pid", "ppid", "cmdline"}]``. Zombies
+    (ended, not yet reaped) are left out, and so is this process's
+    multiprocessing resource tracker, which lives as long as the process
+    that started it. Reads ``/proc`` and changes nothing."""
+    from multiprocessing import resource_tracker
+
+    root = os.getpid()
+    tracker = getattr(resource_tracker._resource_tracker, "_pid", None)
+    parent = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        stat = _proc_read(f"{pid}/stat").decode(errors="replace")
+        if stat:
+            state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+            if state != "Z":
+                parent[int(pid)] = int(ppid)
+    below, grew = {root}, True
+    while grew:
+        grew = False
+        for pid, ppid in parent.items():
+            if ppid in below and pid not in below:
+                below.add(pid)
+                grew = True
+    marker = f"\0{RUN_ENV}={root}\0".encode()
+    below |= {pid for pid in parent if pid not in below
+              and marker in b"\0" + _proc_read(f"{pid}/environ")}
+    return [{"pid": pid, "ppid": parent[pid],
+             "cmdline": _proc_read(f"{pid}/cmdline").replace(b"\0", b" ").decode(
+                 errors="replace").strip()[:300]}
+            for pid in sorted(below - {root, tracker}) if pid in parent]
+
+
+def _loadavg() -> list:
+    """``/proc/loadavg``'s three load averages and its runnable/total."""
+    return _proc_read("loadavg").decode().split()[:4]
+
+
+def _check_processes(phase: str) -> None:
+    """Fail ``phase`` if it left a process behind: a descendant of this
+    process (:func:`_descendants`) still alive ``PROCESS_GRACE_S`` after
+    the phase returned, named by pid and command line. Prints one
+    ``processes`` line: those left, and those that ended in the grace."""
+    t0 = time.perf_counter()
+    first = left = _descendants()
+    while left and time.perf_counter() - t0 < PROCESS_GRACE_S:
+        time.sleep(0.1)
+        left = _descendants()
+    alive = {p["pid"] for p in left}
+    emit("processes", after=phase, left=left,
+         ended_in_grace=[p for p in first if p["pid"] not in alive],
+         seconds=time.perf_counter() - t0)
+    if left:
+        raise RuntimeError(f"{phase} left {len(left)} process(es) behind: " + "; ".join(
+            f"pid {p['pid']} (parent {p['ppid']}): {p['cmdline']}" for p in left))
 
 
 def peaks(name: str) -> dict:
@@ -1709,19 +1793,161 @@ def _body_transport(base_url: str, kind: str, sink: dict, n_requests: int):
     return transport
 
 
-def _drive(base_url: str, log: list, kind: str = "json", results_log=None) -> tuple:
-    """A correctness drive: ``run_open_loop`` of ``log`` through
-    :func:`_body_transport`, ``(report dict, answers)``, each request's
-    outcome written to ``results_log`` where given. One event loop
-    sends it, so its latencies are bound by the driver; the load points'
-    numbers come from :func:`_measure`."""
-    from bodywork_tpu_torch.traffic import run_open_loop
+def _drive(base_url: str, log: list, kind: str = "json", results_log=None,
+           shards: int = TRAFFIC["shards"], on_start=None) -> tuple:
+    """A correctness drive: ``run_open_loop``'s one-loop drive of ``log``
+    through :func:`_body_transport`, ``(report dict, answers)``.
 
-    answers: dict = {}
-    transport = _body_transport(base_url, kind, answers, len(log))
-    report = run_open_loop(base_url, log, timeout_s=30.0, transport=transport,
-                           results_log=results_log)
-    return report.to_dict(), answers
+    One event loop cannot send ~2000 requests/s on time, and parsing
+    every answer slows it further: its late sends arrive in bunches that
+    admission sheds. ``shards=N`` splits the log round-robin (``log[i::N]``,
+    as ``run_open_loop``'s shards do) over N spawned processes, each
+    running the one-loop drive of its slice; all start their clocks on
+    one signal, and :func:`_merged_report` folds their per-request results
+    into one report (the send-lag p99 from every request's lag), with each
+    shard's own counts under ``by_shard``. ``shards=1`` drives in this
+    process and writes each request's outcome to ``results_log`` where
+    given. ``on_start`` is called just before the clocks start."""
+    shards = min(shards, len(log))
+    if shards == 1:
+        from bodywork_tpu_torch.traffic import run_open_loop
+
+        answers: dict = {}
+        transport = _body_transport(base_url, kind, answers, len(log))
+        if on_start is not None:
+            on_start()
+        report = run_open_loop(base_url, log, timeout_s=30.0, transport=transport,
+                               results_log=results_log)
+        return report.to_dict(), answers
+    if results_log is not None:
+        raise ValueError("a sharded drive writes no results log")
+    import multiprocessing
+
+    # spawn, not fork: this process holds threads and a CUDA context
+    ctx = multiprocessing.get_context("spawn")
+    procs, conns, outs = [], [], None
+    try:
+        for i in range(shards):
+            conn, child = ctx.Pipe()
+            proc = ctx.Process(target=_drive_shard, args=(base_url, log[i::shards], kind, child),
+                               daemon=True)
+            proc.start()
+            child.close()
+            procs.append(proc)
+            conns.append(conn)
+        for i, conn in enumerate(conns):
+            _shard_message(conn, i, 300.0)  # ready: imports done, transport built
+        if on_start is not None:
+            on_start()
+        for conn in conns:
+            conn.send("go")
+        deadline = 60.0 + 2 * max(r.t_s for r in log)
+        outs = [_shard_message(conn, i, deadline) for i, conn in enumerate(conns)]
+    finally:
+        for proc in procs:
+            proc.join(timeout=30 if outs is not None else 0)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    answers, results, timeouts, by_shard = {}, [], 0, []
+    for i, (_tag, shard_results, shard_timeouts, shard_answers) in enumerate(outs):
+        if answers.keys() & shard_answers.keys():
+            raise RuntimeError(f"shard {i} answered a request another shard answered")
+        answers.update(shard_answers)
+        results.extend(shard_results)
+        timeouts += shard_timeouts
+        by_shard.append(_merged_report(shard_results, shard_timeouts, log[i::shards]))
+    report = _merged_report(results, timeouts, log, shards)
+    report["by_shard"] = [{k: r[k] for k in ("requests", "ok", "shed", "send_lag_p99_s")}
+                          for r in by_shard]
+    return report, answers
+
+
+def _shard_message(conn, i: int, timeout_s: float) -> tuple:
+    """The next message of shard ``i`` of a sharded :func:`_drive`;
+    raises on a shard's error, death or silence past ``timeout_s``."""
+    if not conn.poll(timeout_s):
+        raise RuntimeError(f"drive shard {i} sent nothing in {timeout_s:.0f} s")
+    try:
+        message = conn.recv()
+    except EOFError:
+        raise RuntimeError(f"drive shard {i} died without a result") from None
+    if message[0] == "error":
+        raise RuntimeError(f"drive shard {i}: {message[1]}")
+    return message
+
+
+def _drive_shard(base_url: str, log: list, kind: str, conn) -> None:
+    """One process of a sharded :func:`_drive`: the one-loop body drive
+    of its slice, its clock started on the parent's signal; its
+    per-request results, timeouts and answers go back over ``conn``."""
+    try:
+        from bodywork_tpu_torch.traffic.runner import _drive_once
+
+        answers: dict = {}
+        transport = _body_transport(base_url, kind, answers, len(log))
+        conn.send(("ready",))
+        conn.recv()
+        results, timeouts, _peak = _drive_once(base_url, log, 30.0, transport, kind)
+        conn.send(("ok", results, timeouts, answers))
+    except BaseException as exc:  # noqa: BLE001 - sent to the parent
+        conn.send(("error", repr(exc)))
+    finally:
+        conn.close()
+
+
+def _merged_report(results: list, timeouts: int, log: list, shards: int = 1) -> dict:
+    """``run_open_loop``'s report of ``log`` from its per-request
+    ``results`` gathered from ``shards`` drives: counts summed, every
+    percentile (latency, send lag, each answering model key's) over the
+    requests together, the peak in flight from their send and end times."""
+    from bodywork_tpu_torch.traffic.runner import (
+        LoadReport,
+        _max_blackout_s,
+        _merged_max_in_flight,
+        _percentile,
+        _round6,
+    )
+
+    span = max(max(r.t_s for r in log), 1e-6)
+    ok = [r for r in results if r.status == 200]
+
+    def in_window(rs):
+        return sum(1 for r in rs if r.t_s + r.latency_s <= span)
+
+    def pct(values, q):
+        return _round6(_percentile(sorted(values), q))
+
+    def count(test):
+        return sum(1 for r in results if test(r.status))
+
+    per_model_key = {}
+    for key in sorted({r.model_key or "unknown" for r in ok}):
+        rs = [r for r in ok if (r.model_key or "unknown") == key]
+        per_model_key[key] = {
+            "ok": len(rs), "ok_in_window": in_window(rs), "goodput_rps": round(len(rs) / span, 3),
+            "latency": {"p50_s": pct([r.latency_s for r in rs], 50),
+                        "p99_s": pct([r.latency_s for r in rs], 99)}}
+    retry = [r.retry_after_s for r in results if r.retry_after_s is not None]
+    shed = count(lambda s: s == 429)
+    return LoadReport(
+        requests=len(results), duration_s=round(span, 6),
+        offered_rps=round(len(results) / span, 3), ok=len(ok), ok_in_window=in_window(ok),
+        shed=shed, unavailable=count(lambda s: s == 503),
+        client_error=count(lambda s: 400 <= s < 500 and s != 429),
+        server_error=count(lambda s: s >= 500 and s != 503),
+        transport_errors=count(lambda s: s == 0) - timeouts, timeouts=timeouts,
+        goodput_rps=round(len(ok) / span, 3), goodput_in_window_rps=round(in_window(ok) / span, 3),
+        shed_fraction=round(shed / len(results), 6),
+        latency={q: pct([r.latency_s for r in ok], p)
+                 for q, p in (("p50_s", 50), ("p99_s", 99), ("p999_s", 99.9))},
+        retry_after={"responses": len(retry),
+                     "mean_s": _round6(sum(retry) / len(retry)) if retry else None,
+                     "max_s": _round6(max(retry)) if retry else None},
+        send_lag_p99_s=pct([r.send_lag_s for r in results], 99),
+        max_in_flight=_merged_max_in_flight(results), max_blackout_s=_max_blackout_s(results),
+        traced_responses=sum(1 for r in results if r.trace_id is not None),
+        per_model_key=per_model_key, shards=shards).to_dict()
 
 
 def _measure(base_url: str, log: list, kind: str = "json") -> dict:
@@ -1733,6 +1959,58 @@ def _measure(base_url: str, log: list, kind: str = "json") -> dict:
 
     return run_open_loop(base_url, log, timeout_s=30.0, transport_kind=kind,
                          shards=TRAFFIC["shards"]).to_dict()
+
+
+class _AdmissionWatch:
+    """The service's admission block (``/healthz`` ``admission``) across
+    a drive: ``shed_total`` and ``pending`` before and after it, and the
+    highest ``queue_depth`` (what admission sheds on) and ``pending`` read
+    every ``poll_s`` between, as ``line()``. The service keeps no
+    high-water mark of its own that it reports, so the peaks are sampled."""
+
+    def __init__(self, base_url: str, poll_s: float = 0.05):
+        self.base_url, self.poll_s = base_url, poll_s
+
+    def _state(self) -> dict:
+        return get(self.base_url + "/healthz")["admission"]
+
+    def __enter__(self):
+        import threading
+
+        self.before = self._state()
+        self.peak = {k: self.before[k] for k in ("queue_depth", "pending")}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            state = self._state()
+            for k in self.peak:
+                self.peak[k] = max(self.peak[k], state[k])
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.after = self._state()
+
+    def line(self) -> dict:
+        return {"shed_total": [self.before["shed_total"], self.after["shed_total"]],
+                "pending": [self.before["pending"], self.after["pending"]],
+                "peak_queue_depth_sampled": self.peak["queue_depth"],
+                "peak_pending_sampled": self.peak["pending"],
+                "max_pending": self.after["max_pending"]}
+
+
+def _checked_line(report: dict, admission: _AdmissionWatch) -> dict:
+    """A correctness drive's own numbers: its shards and their send lag,
+    its counts and the service's admission across it."""
+    return {"shards": report["shards"], "send_lag_p99_ms": 1e3 * (report["send_lag_p99_s"] or 0.0),
+            "requests": report["requests"], "ok": report["ok"], "shed": report["shed"],
+            "p99_ms": None if report["latency"]["p99_s"] is None
+            else 1e3 * report["latency"]["p99_s"],
+            "by_shard": report.get("by_shard"), "admission": admission.line()}
 
 
 def _plain_check(torch, dev, layers: list, answers: dict) -> dict:
@@ -1813,7 +2091,7 @@ def _load_line(report: dict) -> dict:
             else 1e3 * report["latency"]["p99_s"],
             "shed_fraction": report["shed_fraction"], "requests": report["requests"],
             "ok": report["ok"], "send_lag_p99_ms": 1e3 * (report["send_lag_p99_s"] or 0.0),
-            "max_in_flight": report["max_in_flight"], "driver_shards": report["shards"]}
+            "max_in_flight": report["max_in_flight"], "shards": report["shards"]}
 
 
 class _ServeProcess:
@@ -1912,13 +2190,17 @@ def phase_traffic(torch, dev, workdir: str) -> dict:
     probe for capacity, then one seeded Poisson log at 0.5x, 1x and 2x of
     it (capped at 2000 requests/s), 5 s each, one MMPP log at 1x, and the
     1x log again, read back from its file, in the binary row framing.
-    Each point is driven twice: once by the sharded driver
+    Each point is driven twice, both times by ``TRAFFIC["shards"]``
+    spawned driver processes: once through the runner's own transport
     (:func:`_measure`, the printed numbers), once keeping every answer
-    (:func:`_drive`), whose 200s are held against the plain version at
-    the ``kernel`` bar, and whose binary answers must be byte-identical
-    to the JSON ones; the log read back must be the same requests. The
-    service's launches are read from its ``/healthz``; SIGTERM ends it
-    with 143."""
+    (:func:`_drive`, its own numbers under ``checked``), whose 200s are
+    held against the plain version at the ``kernel`` bar, and whose
+    binary answers must be byte-identical to the JSON ones; the log read
+    back must be the same requests. Each point prints its real factor
+    (offered over capacity) and the service's admission counters across
+    each drive (:class:`_AdmissionWatch`); its sheds are recorded, not
+    checked. The service's launches are read from its ``/healthz``;
+    SIGTERM ends it with 143."""
     from bodywork_tpu_torch.models import load_model
     from bodywork_tpu_torch.ops.mlp_kernel import make_kernel_mlp_apply
     from bodywork_tpu_torch.traffic import (
@@ -1949,10 +2231,14 @@ def phase_traffic(torch, dev, workdir: str) -> dict:
         answers = {}
         for name, config in logs.items():
             log = generate_request_log(config)
-            report = _measure(service.base_url, log)
-            checked, answers[name] = _drive(service.base_url, log)
-            points[name] = {"factor": config.rate_rps / capacity, **_load_line(report),
-                            "checked_drive_ok": checked["ok"],
+            with _AdmissionWatch(service.base_url) as measured:
+                report = _measure(service.base_url, log)
+            with _AdmissionWatch(service.base_url) as admission:
+                checked, answers[name] = _drive(service.base_url, log)
+            points[name] = {"factor": config.rate_rps / capacity,
+                            "real_factor": report["offered_rps"] / capacity,
+                            **_load_line(report), "admission": measured.line(),
+                            "checked": _checked_line(checked, admission),
                             **_plain_check(torch, dev, layers, answers[name])}
             emit("traffic", name=name, transport="json", arrival=config.arrival,
                  capacity_rps=capacity, **points[name])
@@ -1962,10 +2248,14 @@ def phase_traffic(torch, dev, workdir: str) -> dict:
         log = generate_request_log(config)
         write_request_log(path, config, log)
         back_config, replay = read_request_log(path)
-        report = _measure(service.base_url, replay, kind="binary")
-        checked, binary = _drive(service.base_url, replay, kind="binary")
+        with _AdmissionWatch(service.base_url) as measured:
+            report = _measure(service.base_url, replay, kind="binary")
+        with _AdmissionWatch(service.base_url) as admission:
+            checked, binary = _drive(service.base_url, replay, kind="binary")
         points["poisson-1x-binary"] = {"factor": config.rate_rps / capacity,
-                                       **_load_line(report), "checked_drive_ok": checked["ok"],
+                                       "real_factor": report["offered_rps"] / capacity,
+                                       **_load_line(report), "admission": measured.line(),
+                                       "checked": _checked_line(checked, admission),
                                        **_plain_check(torch, dev, layers, binary)}
         both = set(binary) & set(answers["poisson-1x"])
         same = [k for k in both if binary[k][0] == answers["poisson-1x"][k][0] == 200]
@@ -1992,8 +2282,11 @@ def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
     """``reload``: config 11's swap (``bench.py:1983``): ``cli serve
     --reload-interval`` in its own process (``aio``, coalescer 2 ms / 64
     rows) serving the registry's ``production``, the 1024-wide MLP, under
-    an open-loop Poisson drive at 0.5x capacity while the registry
-    promotes a second checkpoint of the same architecture: no graph
+    an open-loop Poisson drive at 0.5x capacity, sent by
+    ``TRAFFIC["shards"]`` driver processes (:func:`_drive`), while the
+    registry promotes a second checkpoint of the same architecture. The
+    drive's send-lag p99 must stay within ``RELOAD["max_send_lag_ms"]``
+    (past it the driver, not the service, fails the phase); then no graph
     capture or build across the drive, at least one rebind (the service's
     ``/healthz`` ``graph_cache``), every answer's model key and value its
     own checkpoint's (held against each checkpoint's plain version at the
@@ -2029,8 +2322,8 @@ def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
         before = service.health()["graph_cache"]
         promote = threading.Timer(RELOAD["swap_at_s"], lambda: ModelRegistry(store).promote(
             second_key, day=date(2026, 7, 4), reason="chip_smoke: live swap"))
-        promote.start()
-        report, answers = _drive(service.base_url, log)
+        with _AdmissionWatch(service.base_url) as admission:
+            report, answers = _drive(service.base_url, log, on_start=promote.start)
         promote.join()
         health = service.health()
         after = health["graph_cache"]
@@ -2046,7 +2339,9 @@ def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
         launches = {**dict.fromkeys(VARIANTS, 0), "kernel": service.health()["launches"]}
     finally:
         stopped = service.stop()
-    out = {"rate_rps": rate, **_load_line(report), "answering_keys": sorted(
+    out = {"rate_rps": rate, "real_factor": report["offered_rps"] / capacity_rps,
+           **_load_line(report), "by_shard": report["by_shard"],
+           "admission": admission.line(), "answering_keys": sorted(
                k or "none" for k in by_key),
            "captures_across_drive": after["captures"] - before["captures"],
            "misses_across_drive": after["misses"] - before["misses"],
@@ -2058,6 +2353,10 @@ def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
            "rollback_cli_s": rollback["seconds"], "rollback_reached_s": reached,
            "poll_s": RELOAD["poll_s"], "launches": launches, "sigterm": stopped}
     emit("reload", **out)
+    if out["send_lag_p99_ms"] > RELOAD["max_send_lag_ms"]:
+        raise RuntimeError(f"reload: the DRIVER sent late, not the service: send-lag p99 "
+                           f"{out['send_lag_p99_ms']:.1f} ms > {RELOAD['max_send_lag_ms']} ms, "
+                           f"so its sheds and latencies do not measure the service: {out}")
     if (out["captures_across_drive"] or out["misses_across_drive"]
             or out["rebinds_across_drive"] < 1 or set(by_key) != {first_key, second_key}
             or _own_checkpoint_failed(checks, crossed)
@@ -2086,7 +2385,9 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     capture or build during the drive (with one shared slot every canary
     request rebound it, which slowed them). Printed: the rebinds per 1000
     requests, the verdict's window, each stream's request times (the six
-    slowest with their index) and the interpreter's collections during the drive:
+    slowest with their index), the load average and this process's live
+    descendants as the drive ended (``beside_verdict``: what ran beside an
+    abort), and the interpreter's collections during the drive:
     at sub-millisecond requests the watchdog's p99 of a few dozen samples
     is their slowest, and a full collection of the heap the earlier
     phases left, landing in one canary request, decides it; so
@@ -2132,11 +2433,13 @@ def phase_canary(torch, dev, workdir: str) -> dict:
             trace = drive(app, twin_app, watcher, xs, *args)
         finally:
             gc.callbacks.remove(collected)
+        # what ran beside the drive as its verdict fell
+        beside = {"loadavg": _loadavg(), "processes": _descendants()}
         after = GRAPH_CACHE.stats()
         drives.append((xs, trace, seconds, lanes,
                        {k: after[k] - before[k] for k in ("rebinds", "captures", "misses")},
                        {"count": len(pauses), "gen2": sum(g == 2 for g, _ in pauses),
-                        "max_ms": max((ms for _g, ms in pauses), default=0.0)}))
+                        "max_ms": max((ms for _g, ms in pauses), default=0.0)}, beside))
         return trace
 
     out = {}
@@ -2158,7 +2461,7 @@ def phase_canary(torch, dev, workdir: str) -> dict:
     finally:
         canary_module._drive = drive
     launches = dict(LAUNCHES)
-    for scenario, (root, summary, (xs, trace, handled, lanes, in_drive, _gc), seconds,
+    for scenario, (root, summary, (xs, trace, handled, lanes, in_drive, _gc, beside), seconds,
                    before, after) in runs.items():
         store = FilesystemStore(root)
         keys = (summary["production_key"], summary["canary_key"])
@@ -2199,6 +2502,7 @@ def phase_canary(torch, dev, workdir: str) -> dict:
             "flight_record": dump, "trace_show_rc": shown["rc"] if shown else None,
             "verdict_window": doc.get("window") if dump is not None else None,
             "request_ms": request_ms, "collections": collections[scenario],
+            "beside_verdict": beside,
             "slot_lanes": lanes, "graph_cache_in_drive": in_drive,
             # what made canary requests slow before the repair: every one
             # rebound the shared weight slot (the twin's production request
@@ -2520,7 +2824,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
                                   seed=181)
             requests_a = generate_request_log(cfg_a)
             write_request_log(watch_log, cfg_a, requests_a)
-            report_a, answers_a = _drive(handle.base_url, requests_a)
+            report_a, answers_a = _drive(handle.base_url, requests_a, shards=1)
             reference = _wait_for(lambda: controller._reference, 20.0)
             # phase B: the shape shift appended to the watch log mid-drive
             requests_b = generate_request_log(TrafficConfig(
@@ -2537,7 +2841,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
             appender = threading.Timer(0.2 * cfg["phase_b_s"], append_phase_b)
             appender.start()
             try:
-                report_b, answers_b = _drive(handle.base_url, requests_b)
+                report_b, answers_b = _drive(handle.base_url, requests_b, shards=1)
             finally:
                 appender.join()
             t_wait = time.perf_counter()
@@ -2554,7 +2858,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
             # the sabotage: an absurd but valid window, through apply_tuned
             calibration = generate_request_log(TrafficConfig(
                 rate_rps=cfg["calibration_rps"], duration_s=cfg["calibration_s"], seed=183))
-            report_cal, answers_cal = _drive(handle.base_url, calibration)
+            report_cal, answers_cal = _drive(handle.base_url, calibration, shards=1)
             sab_knobs = {"batch_window_ms": cfg["sabotage_window_ms"]}
             sab_key, sab_digest = write_tuned_config(
                 store, {"knobs": sab_knobs, "decisions": [],
@@ -2568,7 +2872,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
             cas_sab_apply = store.cas_calls.get(CONFIG_LOG_KEY, 0) - cas_before
             sabotage = generate_request_log(TrafficConfig(
                 rate_rps=cfg["sabotage_rps"], duration_s=cfg["sabotage_drive_s"], seed=184))
-            report_sab, answers_sab = _drive(handle.base_url, sabotage)
+            report_sab, answers_sab = _drive(handle.base_url, sabotage, shards=1)
             reverted = bool(_wait_for(lambda: reverts() - base["reverts"] >= 1,
                                       cfg["verdict_polls"] * cfg["poll_s"] + 20.0))
             revert_s = time.perf_counter() - t_sab
@@ -2607,7 +2911,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
             rung_log = generate_request_log(TrafficConfig(
                 rate_rps=cfg["rung_rps"], duration_s=cfg["rung_drive_s"], seed=185))
             rung_results = os.path.join(workdir, "new-rung.results.jsonl")
-            report_rung, answers_rung = _drive(handle.base_url, rung_log,
+            report_rung, answers_rung = _drive(handle.base_url, rung_log, shards=1,
                                                results_log=rung_results)
             timer.join()
             _wait_for(lambda: "action" in rung_box, 10.0)
@@ -6061,15 +6365,24 @@ def main(argv=None) -> int:
     # stdout carries the JSON lines; the port's logs go to stderr
     configure_logger("WARNING", stream=sys.stderr)
 
+    # every process started from here on carries the run's mark
+    os.environ[RUN_ENV] = str(os.getpid())
     dev = resolve_device("cuda")
     card = phase_device(torch)
+    _check_processes("device")
     if "generator" in phases:
         phase_generator(torch, dev)
+        _check_processes("generator")
     if "mlp-draws" in phases:
         phase_mlp_draws(torch, dev)
+        _check_processes("mlp-draws")
     if "build" in phases:
         phase_build()
-    errors = phase_kernels(torch, dev) if "kernels" in phases else {}
+        _check_processes("build")
+    errors = {}
+    if "kernels" in phases:
+        errors = phase_kernels(torch, dev)
+        _check_processes("kernels")
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled, profiled_after_loop = {}, {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
@@ -6146,8 +6459,10 @@ def main(argv=None) -> int:
                     quantized = phase_quantized(torch, dev, incremental["store"])
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
+        _check_processes(phase)
     if "timing" in phases:
         timing = phase_timing(torch, dev, card)
+        _check_processes("timing")
     emit("total", seconds=time.perf_counter() - t_start, phases=sorted(phases))
     if phases >= {"kernels", "slice", "day-loop", "incremental", "quantized", "timing"}:
         kernels = []

@@ -72,12 +72,35 @@ def _which_side(plan, jax_plan, port: dict, ref: dict) -> str:
     return "\n".join(lines)
 
 
-def test_three_day_linear_chaos_soak_equals_jaxs(tmp_path, jax_days):
+def _jax_refresh_after_the_lookahead(monkeypatch) -> None:
+    """The JAX runner's day-end snapshot refresh waits for the lookahead
+    train the day started, as the port's does: the order an unloaded JAX
+    run takes. Without it a loaded machine sometimes runs the refresh
+    first, and the JAX lookahead then reads the new snapshot back, drawing
+    faults no unloaded run draws (forced in
+    ``test_a_lookahead_the_compactor_outruns_reads_no_snapshot``)."""
+    from bodywork_tpu.pipeline.runner import LocalRunner as JaxLocalRunner
+
+    refresh = JaxLocalRunner._refresh_snapshot_async
+
+    def refresh_after_the_lookahead(self):
+        pending = getattr(self, "_pending_train", None)
+        if pending is not None:
+            pending[1]["thread"].join()
+        return refresh(self)
+
+    monkeypatch.setattr(JaxLocalRunner, "_refresh_snapshot_async",
+                        refresh_after_the_lookahead)
+
+
+def test_three_day_linear_chaos_soak_equals_jaxs(tmp_path, jax_days, monkeypatch):
     """The same seeded adversity on the same days: the same faults by
     kind, the same retries by backend and op, the breaker closed, and the
     same comparison (every final artefact byte-identical to the
     fault-free twin, none torn). A mismatch names each package's counts
-    and the decisions only one of them drew."""
+    and the decisions only one of them drew. The JAX package's refresh
+    is held to its unloaded order (:func:`_jax_refresh_after_the_lookahead`)."""
+    _jax_refresh_after_the_lookahead(monkeypatch)
     plan, jax_plan = FaultPlan.default(0), JaxFaultPlan.default(0)
     port = run_chaos_sim(tmp_path / "port", START, 3, plan,
                          drift=DriftConfig(n_samples=SAMPLES), device="cpu")

@@ -97,7 +97,10 @@ blocks, and ``cuda_allocs`` / ``cuda_segments`` the caching allocator's
 allocations and ``cudaMalloc`` segments made inside the request
 (``torch.cuda.memory_stats_as_nested_dict``, read outside the timed
 call). Each line's
-``median_host_ms`` gives the same split for every request.
+``median_host_ms`` gives the same split for every request. Each slow
+request also gives ``loadavg`` (``/proc/loadavg`` as the request ended)
+and ``processes``, this process's live descendants then (the sampler
+and the probe among them; ``chip_smoke._descendants``).
 """
 from __future__ import annotations
 
@@ -346,7 +349,11 @@ def main(argv=None) -> int:
                                  "psi_s": None if psi0 is None or psi1 is None
                                  else (psi1 - psi0) / 1e6,
                                  "probe_before_s": probe_before,
-                                 "probe_after_s": _busy_probe()})
+                                 "probe_after_s": _busy_probe(),
+                                 # what ran beside a slow request, read as it ended
+                                 "beside": {"loadavg": cs._loadavg(),
+                                            "processes": cs._descendants()}
+                                 if 1e3 * seconds > args.slow_ms else None})
                 after_poll[0] = False
             last_key[0] = out[1].get(MODEL_KEY_HEADER)
             return out
@@ -461,6 +468,8 @@ def main(argv=None) -> int:
                                           round(1e6 * r["probe_after_s"], 1)],
                              "other_probe_max_us": _window_max(
                                  probes, r["wall"] - 0.002, r["wall"] + r["s"] + 0.002),
+                             "loadavg": r["beside"]["loadavg"],
+                             "processes": r["beside"]["processes"],
                              "flags": flags})
                 if name == "candidate":
                     label = "+".join(flags) or "none"
