@@ -7,7 +7,11 @@ soaks (:mod:`~bodywork_tpu_torch.chaos.sim`,
 (:mod:`~bodywork_tpu_torch.chaos.kill`) and the canary release-safety
 acceptance (:mod:`~bodywork_tpu_torch.chaos.canary`)."""
 from bodywork_tpu_torch.chaos.bitrot import inject_bit_rot, run_bit_rot_sim
-from bodywork_tpu_torch.chaos.canary import CANARY_SCENARIOS, run_canary_chaos
+from bodywork_tpu_torch.chaos.canary import (
+    CANARY_SCENARIOS,
+    run_canary_chaos,
+    sabotage_checkpoint_nan,
+)
 from bodywork_tpu_torch.chaos.http import FlakyScoringMiddleware, flaky_serve_stage
 from bodywork_tpu_torch.chaos.kill import (
     EXIT_KILLED,
@@ -31,4 +35,4 @@ __all__ = ["CANARY_SCENARIOS", "EXIT_KILLED", "FaultInjectingStore", "FaultPlan"
            "activate", "arm_from_env", "chaos_pipeline_spec", "compare_stores",
            "flaky_serve_stage", "get_active_plan", "hit_kill_point", "inject_bit_rot",
            "run_bit_rot_sim", "run_canary_chaos", "run_chaos_sim", "run_crash_sim",
-           "sweep_points"]
+           "sabotage_checkpoint_nan", "sweep_points"]

@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 
 from bodywork_tpu_torch.chaos.plan import FaultPlan, get_active_plan
+from bodywork_tpu_torch.serve.httpcore import LocalClient
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("chaos.http")
@@ -47,6 +48,11 @@ class FlakyScoringMiddleware:
                     "Retry-After": str(self.plan.http_retry_after_s),
                 }, json.dumps({"error": f"injected fault: HTTP {status}"}).encode()
         return self._app.handle(method, path, body, content_type, traceparent=traceparent)
+
+    def test_client(self) -> LocalClient:
+        """An in-process client through the injected faults (the wrapped
+        app's own client would bypass them)."""
+        return LocalClient(self)
 
     def __getattr__(self, name):
         # everything but the request path (healthz payloads, swaps, close)

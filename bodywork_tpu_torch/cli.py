@@ -152,6 +152,9 @@ import sys
 from datetime import date
 
 from bodywork_tpu_torch.utils.dates import date_range, parse_date
+from bodywork_tpu_torch.utils.logging import get_logger
+
+log = get_logger("cli")
 
 #: the train command's modes (``train.trainer.TRAIN_MODES``) and the
 #: serving dtypes (``serve.predictor.SERVE_DTYPES``), kept here so building
@@ -263,14 +266,11 @@ def _bucket_list(raw: str) -> tuple[int, ...]:
 
 def cmd_serve(args) -> int:
     from bodywork_tpu_torch.serve import serve_latest_model
-    from bodywork_tpu_torch.utils.logging import get_logger
     from bodywork_tpu_torch.utils.shutdown import (
         SIGTERM_EXIT,
         ShutdownRequested,
         graceful_sigterm,
     )
-
-    log = get_logger("cli")
 
     # None = unset, 0 = coalescing off, > 0 = on; negative degrades to unset
     batch_window = (args.batch_window_ms
@@ -487,11 +487,13 @@ def _mlp_kwargs(args) -> dict:
 
 def cmd_train(args) -> int:
     from bodywork_tpu_torch.train import train_on_history
+    from bodywork_tpu_torch.utils.profiling import maybe_trace
 
-    result = train_on_history(_store(args), args.model,
-                              model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
-                              device=args.device, mesh_data=args.mesh_data,
-                              mesh_model=args.mesh_model)
+    with maybe_trace(args.profile_dir, label="train", device=args.device):
+        result = train_on_history(_store(args), args.model,
+                                  model_kwargs=_mlp_kwargs(args) or None, mode=args.mode,
+                                  device=args.device, mesh_data=args.mesh_data,
+                                  mesh_model=args.mesh_model)
     m = result.metrics
     fallback = f" fallback={result.fallback_reason}" if result.fallback_reason else ""
     print(f"{result.model_artefact_key} MAPE={m['MAPE']:.4f} r2={m['r_squared']:.4f} "
@@ -539,10 +541,8 @@ def _day_loop(run, what: str) -> tuple[object, int | None]:
     at once, skipping interpreter teardown, which a daemon thread still
     inside a CUDA call or a first-use kernel build can crash."""
     from bodywork_tpu_torch.pipeline.journal import LEASE_LOST_EXIT, LeaseLost
-    from bodywork_tpu_torch.utils.logging import get_logger
     from bodywork_tpu_torch.utils.shutdown import SIGTERM_EXIT, ShutdownRequested, graceful_sigterm
 
-    log = get_logger("cli")
     try:
         with graceful_sigterm():
             return run(), None
@@ -702,11 +702,10 @@ def cmd_run_stage(args) -> int:
     from bodywork_tpu_torch.pipeline.runner import resolve_executable
     from bodywork_tpu_torch.pipeline.stages import StageContext
     from bodywork_tpu_torch.utils.errors import tag_stage
-    from bodywork_tpu_torch.utils.logging import get_logger
 
     spec = _pipeline_spec(args)
     if args.stage not in spec.stages:
-        get_logger("cli").error(f"unknown stage {args.stage!r}; have {sorted(spec.stages)}")
+        log.error(f"unknown stage {args.stage!r}; have {sorted(spec.stages)}")
         return 1
     # every stage pod reports under its own stage name, not the
     # 'cli-run-stage' tag main() set before the stage was known
@@ -716,7 +715,7 @@ def cmd_run_stage(args) -> int:
     ctx = StageContext(store=_store(args), today=_date(args), device=args.device,
                        scoring_url=args.scoring_url)
     fn = resolve_executable(stage.executable)
-    get_logger("cli").info(f"run-stage {stage.name} ({stage.kind}) for {ctx.today}")
+    log.info(f"run-stage {stage.name} ({stage.kind}) for {ctx.today}")
     if stage.kind == "service":
         handle = fn(ctx, host="0.0.0.0", port=stage.port or 5000, **stage.args)
         handle.wait()
@@ -744,7 +743,6 @@ def cmd_wait_for(args) -> int:
     import time
 
     from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, MODELS_PREFIX
-    from bodywork_tpu_torch.utils.logging import get_logger
 
     store = _store(args)
     deadline = time.monotonic() + args.timeout
@@ -763,7 +761,7 @@ def cmd_wait_for(args) -> int:
 
     while not _conditions_met():
         if time.monotonic() > deadline:
-            get_logger("cli").error(f"wait-for conditions not met within {args.timeout}s")
+            log.error(f"wait-for conditions not met within {args.timeout}s")
             return 1
         time.sleep(args.poll_interval)
     print("conditions met")
@@ -782,7 +780,6 @@ def cmd_report(args) -> int:
         drift_report,
         format_drift_report,
     )
-    from bodywork_tpu_torch.utils.logging import get_logger
 
     store = _store(args)
     report = drift_report(store)
@@ -798,7 +795,7 @@ def cmd_report(args) -> int:
         try:
             print(render_drift_dashboard(store, args.plot, report=report))
         except Exception as exc:  # noqa: BLE001
-            get_logger("cli").error(exc)
+            log.error(exc)
             return 1
     verdict = detect_drift(
         report, mape_ratio=args.mape_ratio, corr_floor=args.corr_floor,
@@ -829,9 +826,7 @@ def cmd_deploy(args) -> int:
     pull their image: refused (exit 1) unless ``--force``."""
     from bodywork_tpu_torch.pipeline.images import uses_derived_tag, write_stage_images
     from bodywork_tpu_torch.pipeline.k8s import write_manifests
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     spec = _pipeline_spec(args)
     derived = [s.name for s in spec.stages.values() if uses_derived_tag(s)]
     if derived and not args.emit_images:
@@ -866,9 +861,7 @@ def cmd_compact(args) -> int:
     a cold process loads it in O(1 + tail) reads; ``--dry-run`` prints
     what it would consolidate and writes nothing."""
     from bodywork_tpu_torch.data.snapshot import SNAPSHOT_KEEP, plan_compaction, write_snapshot
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     store = _store(args)
     plan = plan_compaction(store)
     if plan["days"] == 0:
@@ -926,12 +919,11 @@ def _registry_errors(fn):
     """Run a registry command; a registry error is logged and exits 1."""
     def run(args) -> int:
         from bodywork_tpu_torch.registry import RegistryCorrupt, RegistryError
-        from bodywork_tpu_torch.utils.logging import get_logger
 
         try:
             return fn(args)
         except (RegistryError, RegistryCorrupt) as exc:
-            get_logger("cli").error(exc)
+            log.error(exc)
             return 1
 
     return run
@@ -961,9 +953,7 @@ def cmd_registry_list(args) -> int:
 def cmd_registry_show(args) -> int:
     from bodywork_tpu_torch.registry import read_aliases, resolve_alias
     from bodywork_tpu_torch.registry.records import load_record
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     store = _store(args)
     what = args.what
     if what in _REGISTRY_ALIASES:
@@ -1005,13 +995,12 @@ def cmd_registry_promote(args) -> int:
 @_registry_errors
 def cmd_registry_rollback(args) -> int:
     from bodywork_tpu_torch.registry import ModelRegistry, RollbackBlocked
-    from bodywork_tpu_torch.utils.logging import get_logger
 
     try:
         doc = ModelRegistry(_store(args)).rollback(
             day=_date(args), reason="cli: operator rollback")
     except RollbackBlocked as exc:
-        get_logger("cli").error(
+        log.error(
             f"rollback refused: {exc} — the alias did not move; repair the "
             "checkpoint (or promote a known-good one) and retry"
         )
@@ -1049,9 +1038,7 @@ def cmd_registry_canary(args) -> int:
     """The canary lifecycle: every action one alias CAS through
     :class:`ModelRegistry` (the actions are ``registry.CANARY_ACTIONS``)."""
     from bodywork_tpu_torch.registry import ModelRegistry
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     registry = ModelRegistry(_store(args))
     action = args.canary_command
     if action == "start":
@@ -1095,9 +1082,7 @@ def cmd_traffic_run(args) -> int:
         write_request_log,
     )
     from bodywork_tpu_torch.traffic.runner import format_report
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     try:
         if args.log_in:
             config, requests = read_request_log(args.log_in)
@@ -1157,9 +1142,7 @@ def cmd_chaos_canary(args) -> int:
     PASS, 1 otherwise."""
     from bodywork_tpu_torch.chaos import run_canary_chaos
     from bodywork_tpu_torch.store import open_store
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     if "://" in args.store:
         log.error("chaos canary needs a fresh local store for the twin comparison; "
                   "point --store at a directory")
@@ -1198,9 +1181,7 @@ def _tune_status(store) -> int:
         _resolve_ref,
         load_tuned_config,
     )
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     try:
         log_doc = read_config_log(store)
     except ConfigLogCorrupt as exc:
@@ -1270,9 +1251,7 @@ def cmd_tune(args) -> int:
     )
     from bodywork_tpu_torch.tune.config import KNOB_DEFAULTS, write_tuned_config
     from bodywork_tpu_torch.tune.model import fit_tuned_config
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     store = _store(args)
     if args.action == "status":
         return _tune_status(store)
@@ -1423,9 +1402,7 @@ def cmd_fleet_sim(args) -> int:
     pass, 1 otherwise; ``--json`` prints exactly one JSON document."""
     from bodywork_tpu_torch.tenancy import zoo
     from bodywork_tpu_torch.tenancy.fleet import run_fleet_sim
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     if args.store.startswith("gs://"):
         log.error("fleet-sim needs fresh local stores for the byte-level "
                   "twin comparison; point --store at a directory, not gs://")
@@ -1461,9 +1438,7 @@ def cmd_chaos_run_sim(args) -> int:
     Seed precedence, as the JAX command's: ``--seed`` > a ``--plan``
     file's own seed > ``BODYWORK_TPU_CHAOS_SEED`` > 0."""
     from bodywork_tpu_torch.chaos import FaultPlan, run_chaos_sim
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     if args.store.startswith("gs://"):
         log.error("chaos run-sim needs two fresh local stores for the byte-level "
                   "comparison; point --store at a directory, not gs://")
@@ -1597,20 +1572,17 @@ def cmd_trace(args) -> int:
     through the Chrome trace-event emitter. The JAX command's output and
     exit codes: :data:`TRACE_ABSENT_EXIT` when nothing matches, 1 when
     the store or the output cannot be used."""
-    from bodywork_tpu_torch.utils.logging import get_logger
 
     try:
         return _trace(args)
     except OSError as exc:
-        get_logger("cli").error(exc)
+        log.error(exc)
         return 1
 
 
 def _trace(args) -> int:
     from bodywork_tpu_torch.obs.tracing import find_trace, flight_trace_spans, iter_flight_records
-    from bodywork_tpu_torch.utils.logging import get_logger
 
-    log = get_logger("cli")
     store = _store(args)
     command = args.trace_command
     if command == "show":
@@ -1686,6 +1658,12 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of the bodywork_tpu pipeline",
     )
     parser.add_argument("--log-level", default="INFO")
+    parser.add_argument(
+        "--compile-cache", default=None, metavar="DIR",
+        help="kernel-library cache dir, so cold processes (daily pods) load the "
+             "kernels earlier processes built instead of running nvcc again; "
+             "defaults to $BODYWORK_TPU_COMPILE_CACHE, else build/torch_kernels/",
+    )
     sub = parser.add_subparsers(dest="command", required=True)
     store = {"required": True, "help": "artefact store directory"}
     device = {
@@ -1959,6 +1937,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="data-parallel mesh axis for sharded training (mlp only)")
     p.add_argument("--mesh-model", type=int, default=1,
                    help="tensor-parallel mesh axis for sharded training (mlp only)")
+    p.add_argument("--profile-dir", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the training run here "
+                        "(CUDA activity included on the card)")
 
     for name, fn, help_ in (
         ("run-day", cmd_run_day, "run one simulated day in-process"),
@@ -2385,6 +2366,9 @@ def main(argv=None) -> int:
         except ValueError as exc:  # the JAX command's exit for a bad flag
             print(f"error: {exc}", file=sys.stderr)
             return 1
+    from bodywork_tpu_torch.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache(args.compile_cache)
     return args.fn(args)
 
 

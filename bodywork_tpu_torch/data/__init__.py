@@ -1,6 +1,9 @@
-"""Data generation and dataset I/O. ``generate_day`` and ``alpha`` (torch)
-load on first use, so the dataset I/O of a process that never generates
-(the test stage's pod) imports no torch."""
+"""Data generation, dataset I/O and the history snapshot. ``generate_day``
+and ``alpha`` (torch) and the snapshot functions load on first use, so the
+dataset I/O of a process that never generates (the test stage's pod)
+imports no torch."""
+import importlib
+
 from bodywork_tpu_torch.data.drift_config import DriftConfig
 from bodywork_tpu_torch.data.io import (
     Dataset,
@@ -19,12 +22,25 @@ __all__ = [
     "load_dataset",
     "load_latest_dataset",
     "persist_dataset",
+    "load_latest_snapshot",
+    "plan_compaction",
+    "refresh_due",
+    "write_snapshot",
 ]
+
+#: lazily loaded name -> its module
+_LAZY = {
+    "alpha": "generator",
+    "generate_day": "generator",
+    "load_latest_snapshot": "snapshot",
+    "plan_compaction": "snapshot",
+    "refresh_due": "snapshot",
+    "write_snapshot": "snapshot",
+}
 
 
 def __getattr__(name: str):
-    if name in ("alpha", "generate_day"):
-        from bodywork_tpu_torch.data import generator
-
-        return getattr(generator, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module = _LAZY.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{module}"), name)

@@ -121,26 +121,48 @@ class Regressor(abc.ABC):
         return pad_rows(*as_rows(X_train, y_train)) + pad_rows(*as_rows(X_test, y_test),
                                                                minimum=256)
 
-    def predict(self, X: np.ndarray) -> np.ndarray:
-        """Predict targets; accepts (n, d) or (n,) arrays."""
+    def _fitted_params(self) -> dict:
         if self.params is None:
             raise ValueError(f"{type(self).__name__} is not fitted")
+        return self.params
+
+    def host_params(self):
+        """The params as host numpy arrays, in their nested layout."""
+        from bodywork_tpu_torch.models.mlp import params_to_host
+
+        return params_to_host(self._fitted_params())
+
+    def predict_device(self, X: np.ndarray) -> torch.Tensor:
+        """Run the apply on the model's device and return the tensor there,
+        without the copy to the host."""
+        params = self._fitted_params()
         X = torch.as_tensor(as_features(X), device=self.device)
         with torch.no_grad():
-            return type(self).apply(self.params, X).cpu().numpy()
+            return type(self).apply(params, X)
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        """Predict targets; accepts (n, d) or (n,) arrays."""
+        return self.predict_device(X).cpu().numpy()
+
+    def predict_padded(self, X: np.ndarray, minimum: int = 256) -> np.ndarray:
+        """Predict through a power-of-two row bucket (zero rows appended,
+        their predictions dropped), so a growing held-out split runs at a
+        logarithmic number of shapes; serving has the richer
+        :class:`~bodywork_tpu_torch.serve.predictor.PaddedPredictor`."""
+        X = as_features(X)
+        Xp, _, _ = pad_rows(X, np.zeros(X.shape[0], np.float32), minimum)
+        return self.predict(Xp)[:X.shape[0]]
 
     def evaluate(self, X: np.ndarray, y: np.ndarray) -> dict[str, float]:
         """MAPE / R^2 / max-residual of this model on (X, y), computed on
         its device over padded rows and fetched in one transfer."""
-        from bodywork_tpu_torch.models.metrics import _metrics, metrics_dict
+        from bodywork_tpu_torch.models.metrics import make_eval_fn, metrics_dict
 
-        if self.params is None:
-            raise ValueError(f"{type(self).__name__} is not fitted")
+        params = self._fitted_params()
         Xp, yp, w = pad_rows(*as_rows(X, y), minimum=256)
         dev = self.device
-        with torch.no_grad():
-            pred = type(self).apply(self.params, torch.as_tensor(Xp, device=dev))
-            m = _metrics(torch.as_tensor(yp, device=dev), pred, torch.as_tensor(w, device=dev))
+        m = make_eval_fn(type(self).apply)(params, *(torch.as_tensor(a, device=dev)
+                                                     for a in (Xp, yp, w)))
         return metrics_dict(torch.stack(m).tolist())
 
     @property

@@ -43,6 +43,19 @@ def metrics_dict(tail) -> dict[str, float]:
     }
 
 
+def make_eval_fn(apply_fn):
+    """Model apply and the masked metrics as one function
+    ``eval_fn(params, Xp, yp, w) -> (MAPE, r_squared, max_residual)``
+    (0-d tensors on the params' device, fetched by the caller in one
+    transfer), as the JAX package fuses them into one program."""
+
+    def eval_fn(params, Xp: torch.Tensor, yp: torch.Tensor, w: torch.Tensor):
+        with torch.no_grad():
+            return _metrics(yp, apply_fn(params, Xp), w)
+
+    return eval_fn
+
+
 def regression_metrics(y_true, y_pred) -> dict[str, float]:
     """MAPE / R^2 / max-abs-residual of host arrays, matching the
     reference's metric record columns (``stage_1:85-89``)."""

@@ -7,8 +7,18 @@ from bodywork_tpu_torch.monitor.tester import (
     score_dataset,
     scoring_endpoint,
 )
+from bodywork_tpu_torch.monitor.analytics import (
+    detect_drift,
+    drift_report,
+    load_metric_history,
+    render_drift_dashboard,
+)
 
 __all__ = [
+    "detect_drift",
+    "drift_report",
+    "load_metric_history",
+    "render_drift_dashboard",
     "HttpScoringClient",
     "InProcessScoringClient",
     "compute_test_metrics",

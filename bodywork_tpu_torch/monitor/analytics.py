@@ -2,6 +2,8 @@
 ``drift_report`` and ``detect_drift`` from
 ``bodywork_tpu.monitor.analytics``; reference C12).
 
+:func:`load_metric_history` reads both histories as column tables (column
+name -> numpy array) with the JAX DataFrames' columns and rows.
 :func:`drift_report` joins the train stage's held-out metrics
 (``model-metrics/``) and the live test stage's metrics
 (``test-metrics/``) by date: one row a day, a dict with ``date`` (a
@@ -29,7 +31,8 @@ from bodywork_tpu_torch.store.schema import MODEL_METRICS_PREFIX, TEST_METRICS_P
 from bodywork_tpu_torch.utils.dates import parse_date
 from bodywork_tpu_torch.utils.logging import get_logger
 
-__all__ = ["detect_drift", "drift_report", "format_drift_report", "render_drift_dashboard"]
+__all__ = ["detect_drift", "drift_report", "format_drift_report", "load_metric_history",
+           "render_drift_dashboard"]
 
 log = get_logger("monitor.analytics")
 
@@ -49,17 +52,45 @@ def _field(value: str):
         return value
 
 
-def _load_history(store: ArtefactStore, prefix: str) -> list[dict]:
-    """Every metrics row under ``prefix``, oldest first."""
-    rows = []
+def _read_history(store: ArtefactStore, prefix: str) -> tuple[list[dict], list[str]]:
+    """Every metrics row under ``prefix``, oldest first, and the CSV
+    columns in order of first appearance."""
+    rows, columns = [], {}
     for key, _d in store.history(prefix):
-        text = store.get_bytes(key).decode("utf-8")
-        for row in csv.DictReader(io.StringIO(text)):
+        reader = csv.DictReader(io.StringIO(store.get_bytes(key).decode("utf-8")))
+        columns.update(dict.fromkeys(reader.fieldnames or ()))
+        for row in reader:
             rec = {k: _field(v) for k, v in row.items() if k != "date"}
             rec["date"] = parse_date(row["date"][:10])
             rows.append(rec)
     rows.sort(key=lambda r: r["date"])
-    return rows
+    return rows, list(columns)
+
+
+def _column(values: list) -> np.ndarray:
+    """One column as pandas types it: int64 when every value is an
+    integer, float64 (NaN where missing) when every value is a number,
+    else objects (the dates)."""
+    if all(isinstance(v, int) for v in values):
+        return np.array(values, dtype=np.int64)
+    if all(v is None or isinstance(v, (int, float)) for v in values):
+        return np.array([np.nan if v is None else v for v in values], dtype=np.float64)
+    return np.array(values, dtype=object)
+
+
+def _history_table(store: ArtefactStore, prefix: str) -> dict[str, np.ndarray]:
+    rows, columns = _read_history(store, prefix)
+    return {c: _column([row.get(c) for row in rows]) for c in columns}
+
+
+def load_metric_history(store: ArtefactStore) -> tuple[dict[str, np.ndarray],
+                                                       dict[str, np.ndarray]]:
+    """(train_metrics, test_metrics) histories, oldest first, as column
+    tables: column name -> numpy array, the JAX DataFrames' columns in
+    their order and their rows (``date`` a column of ``date``s); ``{}``
+    where the JAX frame is empty."""
+    return (_history_table(store, MODEL_METRICS_PREFIX),
+            _history_table(store, TEST_METRICS_PREFIX))
 
 
 def _columns(rows: list[dict]) -> list[str]:
@@ -80,7 +111,7 @@ def drift_report(store: ArtefactStore) -> list[dict]:
     ``MAPE_live`` over days is the concept-drift signal."""
     sides = []
     for prefix, suffix in ((MODEL_METRICS_PREFIX, "_train"), (TEST_METRICS_PREFIX, "_live")):
-        rows = _load_history(store, prefix)
+        rows = _read_history(store, prefix)[0]
         # a later record of a date wins where a side holds two
         by_date = {row["date"]: row for row in rows}
         sides.append((by_date, [(c, c + suffix) for c in _columns(rows)]))

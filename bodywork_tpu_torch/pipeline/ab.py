@@ -136,11 +136,11 @@ def _column_order(store, columns: list) -> None:
     """Append the store's metric columns to ``columns`` in the JAX
     report's order: the train metrics' CSV columns, then the live ones,
     each suffixed."""
-    from bodywork_tpu_torch.monitor.analytics import _load_history
+    from bodywork_tpu_torch.monitor.analytics import _read_history
     from bodywork_tpu_torch.store.schema import MODEL_METRICS_PREFIX, TEST_METRICS_PREFIX
 
     for prefix, suffix in ((MODEL_METRICS_PREFIX, "_train"), (TEST_METRICS_PREFIX, "_live")):
-        for row in _load_history(store, prefix):
+        for row in _read_history(store, prefix)[0]:
             for name in row:
                 if name != "date" and name + suffix not in columns:
                     columns.append(name + suffix)

@@ -49,6 +49,7 @@ from pathlib import Path
 from bodywork_tpu_torch.pipeline import _yaml
 from bodywork_tpu_torch.pipeline.images import stage_image_tag
 from bodywork_tpu_torch.pipeline.spec import PipelineSpec, ResourceSpec, StageSpec
+from bodywork_tpu_torch.utils.compile_cache import ENV_VAR as COMPILE_CACHE_ENV
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("pipeline.k8s")
@@ -254,6 +255,13 @@ def _container(spec: PipelineSpec, stage: StageSpec, store: _StoreMedium, image:
     if stage.resources.gpu_count:
         resources["limits"] = {"nvidia.com/gpu": stage.resources.gpu_count}
     env = [{"name": k, "value": str(v)} for k, v in stage.env.items()]
+    if store.mode != "gcs" and COMPILE_CACHE_ENV not in stage.env:
+        # the kernel-library cache on the shared store volume: a one-shot
+        # daily pod whose image lacks the prebuilt libraries (or whose
+        # package directory is read-only) would run nvcc again otherwise.
+        # Dotted dir: invisible to the store's prefix/date-key listings.
+        # gcs mode is skipped: nvcc writes to a filesystem
+        env.append({"name": COMPILE_CACHE_ENV, "value": f"{store.store_path}/.kernel-cache"})
     # required secrets fail fast at admission; optional ones back features
     # that are no-ops when unconfigured (utils/errors.py's DSN)
     env_from = [{"secretRef": {"name": s}} for s in stage.secrets]

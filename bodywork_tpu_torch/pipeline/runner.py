@@ -83,6 +83,7 @@ from bodywork_tpu_torch.pipeline.stages import StageContext, stage_artefact_keys
 from bodywork_tpu_torch.store.base import ArtefactStore
 from bodywork_tpu_torch.store.epoch import EpochGuardedStore
 from bodywork_tpu_torch.store.schema import DATASETS_PREFIX
+from bodywork_tpu_torch.utils.errors import StageError
 from bodywork_tpu_torch.utils.logging import configure_logger, get_logger
 
 log = get_logger("pipeline.runner")
@@ -109,13 +110,9 @@ def _is_simulated_crash(exc: BaseException) -> bool:
     return mod is not None and isinstance(exc, mod.SimulatedCrash)
 
 
-class StageFailure(RuntimeError):
+class StageFailure(StageError):
     """A stage failed (exhausted its attempts, timed out, or failed its
     health gate); carries the stage name."""
-
-    def __init__(self, stage: str, message: str):
-        super().__init__(f"stage '{stage}' failed: {message}")
-        self.stage = stage
 
 
 @dataclasses.dataclass

@@ -20,6 +20,7 @@ from bodywork_tpu_torch.registry.records import (
     RegistryCorrupt,
     read_aliases,
     register_candidate,
+    registry_exists,
     resolve_alias,
     resolve_canary,
 )
@@ -38,6 +39,7 @@ __all__ = [
     "evaluate_candidate",
     "read_aliases",
     "register_candidate",
+    "registry_exists",
     "resolve_alias",
     "resolve_canary",
     "shadow_evaluate",

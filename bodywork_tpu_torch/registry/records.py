@@ -290,6 +290,13 @@ def write_aliases(store: ArtefactStore, doc: dict, expected_token):
     return store.put_bytes_if_match(REGISTRY_ALIAS_KEY, _dumps(doc), expected_token)
 
 
+def registry_exists(store: ArtefactStore) -> bool:
+    """True when the store has an active registry, an alias document.
+    Records alone do not count: before the first promotion there is
+    nothing gated to serve, so serving keeps the latest checkpoint."""
+    return store.exists(REGISTRY_ALIAS_KEY)
+
+
 def resolve_alias(store: ArtefactStore, alias: str = "production") -> str | None:
     """The model key ``alias`` maps to, or None (no registry, or the
     alias unset). Raises :class:`RegistryCorrupt` for an unreadable alias

@@ -85,6 +85,7 @@ from bodywork_tpu_torch.serve.httpcore import (
     NOT_FOUND,
     RETRY_AFTER_S,
     SCORING_ROUTES,
+    LocalClient,
     json_response,
     with_trace_id,
 )
@@ -344,9 +345,21 @@ class ScoringApp:
         self._model_version_labels = labels
 
     @property
+    def served_bundle(self):
+        """The immutable served-model bundle (predictor and identity), or
+        None before the first model: one read is stable across a hot swap,
+        and both front ends score against it."""
+        return self.served
+
+    @property
     def predictor(self):
         served = self.served
         return None if served is None else served.predictor
+
+    @property
+    def model_info(self) -> str | None:
+        served = self.served
+        return None if served is None else served.model_info
 
     @property
     def model_date(self) -> str | None:
@@ -499,10 +512,23 @@ class ScoringApp:
         return self._canary is not None
 
     def count_stream_request(self, served, stream: str) -> None:
-        """Count one request on ``stream`` (the dispatcher's accounting,
-        where the request's latency belongs to its front end)."""
+        """Count one request on ``stream`` (alone: the dispatcher's
+        accounting, where the request's latency belongs to its front end)."""
         self._m_stream_requests.inc(model_key=served.model_key or "unknown",
                                     stream=stream)
+
+    def count_stream_error(self, served, stream: str) -> None:
+        self._m_stream_errors.inc(model_key=served.model_key or "unknown", stream=stream)
+
+    def observe_stream_latency(self, served, stream: str, seconds: float,
+                               exemplar: str | None = None) -> None:
+        self._m_stream_latency.observe(seconds, exemplar=exemplar,
+                                       model_key=served.model_key or "unknown",
+                                       stream=stream)
+
+    def count_sanity_violation(self, served, stream: str, reason: str) -> None:
+        self._m_sanity.inc(model_key=served.model_key or "unknown", stream=stream,
+                           reason=reason)
 
     def sanity_reason(self, served, predictions) -> str | None:
         """The firewall's cheap precheck of ``served``'s predictions."""
@@ -518,17 +544,15 @@ class ScoringApp:
         if self._canary is None:
             yield
             return
-        labels = {"model_key": served.model_key or "unknown", "stream": stream}
         t0 = time.perf_counter()
-        self._m_stream_requests.inc(**labels)
+        self.count_stream_request(served, stream)
         try:
             yield
         except Exception:
-            self._m_stream_errors.inc(**labels)
+            self.count_stream_error(served, stream)
             raise
-        self._m_stream_latency.observe(time.perf_counter() - t0,
-                                       exemplar=trace.trace_id if trace is not None else None,
-                                       **labels)
+        self.observe_stream_latency(served, stream, time.perf_counter() - t0,
+                                    exemplar=trace.trace_id if trace is not None else None)
 
     def canary_chaos_delay(self, stream: str) -> float | None:
         """The active fault plan's latency for the canary stream
@@ -613,6 +637,11 @@ class ScoringApp:
             tracer.finish(trace, route, status)
             response = with_trace_id(response, trace)
         return response
+
+    def test_client(self) -> LocalClient:
+        """An in-process client over :meth:`handle` (``get`` / ``post`` ->
+        status, headers and body bytes), as the JAX app's werkzeug one."""
+        return LocalClient(self)
 
     # -- parsing and backpressure ------------------------------------------
     def parse_rows(self, body: bytes, content_type: str | None,
@@ -766,8 +795,7 @@ class ScoringApp:
         Every violation counts into
         ``bodywork_tpu_serve_sanity_violations_total``. Returns the
         answering ``(bundle, predictions)``."""
-        self._m_sanity.inc(model_key=served.model_key or "unknown", stream=stream,
-                           reason=reason)
+        self.count_sanity_violation(served, stream, reason)
         if stream == "canary":
             production = self.served
             log.warning(f"canary prediction sanity violation ({reason}) on "
@@ -782,8 +810,7 @@ class ScoringApp:
                           answered_by=production.model_key)
             if sanity_violation(fallback, None) is not None:
                 # production's own answer is non-finite: nothing sane to send
-                self._m_sanity.inc(model_key=production.model_key or "unknown",
-                                   stream="production", reason="non_finite")
+                self.count_sanity_violation(production, "production", "non_finite")
                 raise PredictionSanityError("non_finite")
             return production, fallback
         if reason == "non_finite":

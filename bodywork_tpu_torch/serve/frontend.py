@@ -51,6 +51,7 @@ from bodywork_tpu_torch.serve.httpcore import (
     NOT_FOUND,
     RETRY_AFTER_S,
     SCORING_ROUTES,
+    LocalClient,
     json_response,
     with_trace_id,
 )
@@ -396,6 +397,11 @@ class FrontendApp:
 
     def metrics_endpoint(self, body: bytes, content_type: str | None, trace=None):
         return 200, {"Content-Type": METRICS_CONTENT_TYPE}, self.metrics_text().encode()
+
+    def test_client(self) -> LocalClient:
+        """An in-process client over :meth:`handle` (``get`` / ``post`` ->
+        status, headers and body bytes), as the JAX app's werkzeug one."""
+        return LocalClient(self)
 
     def close(self) -> None:
         """Nothing to flush: the front end holds no coalescer."""

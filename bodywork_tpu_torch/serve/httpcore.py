@@ -2,7 +2,8 @@
 engine's server and request handler, and the constants and helpers of the
 ``/score/v1`` contract that the in-process app (``serve.app``), the
 ``aio`` engine and the disaggregated front end (``serve.frontend``) all
-answer with.
+answer with, and :class:`LocalClient`, the apps' in-process
+``test_client()``.
 
 :class:`ServiceHandle` is the thread engine's service (``serve_model``
 and a ``serve --frontends`` front end serve through it). An app served
@@ -17,6 +18,7 @@ from __future__ import annotations
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from json import dumps
 
 from bodywork_tpu_torch.obs.tracing import TRACE_ID_HEADER, TRACEPARENT_HEADER
 from bodywork_tpu_torch.utils.logging import get_logger
@@ -57,6 +59,49 @@ def with_trace_id(response, trace):
     the service (never a body, so bodies stay byte-identical)."""
     status, headers, body = response
     return status, {**headers, TRACE_ID_HEADER: trace.trace_id}, body
+
+
+class LocalResponse:
+    """One in-process answer: ``status_code``, ``headers`` (with the
+    ``Content-Length`` the server would add) and ``data``, the body bytes."""
+
+    def __init__(self, status: int, headers: dict, body: bytes):
+        self.status_code = status
+        self.headers = {**headers, "Content-Length": str(len(body))}
+        self.data = body
+
+    def get_json(self):
+        return json.loads(self.data)
+
+
+class LocalClient:
+    """An in-process client of an app served here (what ``test_client()``
+    returns, the werkzeug client's calls): each request goes through
+    ``app.handle``, the handler code the servers run, with no socket."""
+
+    def __init__(self, app):
+        self.app = app
+
+    def open(self, path: str, method: str = "GET", data: bytes | str = b"",
+             json: dict | list | None = None, headers: dict | None = None,
+             content_type: str | None = None) -> LocalResponse:
+        headers = dict(headers or {})
+        if json is not None:
+            data = dumps(json)  # the parameter is werkzeug's name; it hides the module
+            content_type = content_type or "application/json"
+        if isinstance(data, str):
+            data = data.encode()
+        status, response_headers, body = self.app.handle(
+            method, path, data, content_type or headers.get("Content-Type"),
+            traceparent=headers.get(TRACEPARENT_HEADER),
+        )
+        return LocalResponse(status, response_headers, body)
+
+    def get(self, path: str, **kwargs) -> LocalResponse:
+        return self.open(path, "GET", **kwargs)
+
+    def post(self, path: str, **kwargs) -> LocalResponse:
+        return self.open(path, "POST", **kwargs)
 
 
 class ThreadingServer(ThreadingHTTPServer):

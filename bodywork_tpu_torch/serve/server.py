@@ -44,7 +44,7 @@ from bodywork_tpu_torch.models.mlp import MLPRegressor
 from bodywork_tpu_torch.obs import get_registry
 from bodywork_tpu_torch.serve.admission import build_admission
 from bodywork_tpu_torch.serve.app import create_app
-from bodywork_tpu_torch.serve.httpcore import ServiceHandle
+from bodywork_tpu_torch.serve.httpcore import LocalClient, ServiceHandle
 from bodywork_tpu_torch.store import open_store
 from bodywork_tpu_torch.utils.logging import get_logger
 from bodywork_tpu_torch.utils.shutdown import ShutdownRequested
@@ -335,6 +335,11 @@ class RoundRobinApp:
         with self._lock:
             app = self.apps[next(self._counter) % len(self.apps)]
         return app.handle(method, path, body, content_type, **request)
+
+    def test_client(self) -> LocalClient:
+        """An in-process client over the front (what ``InProcessScoringClient``
+        and the JAX front's werkzeug client do)."""
+        return LocalClient(self)
 
 
 def registry_bounds(store, key: str | None):

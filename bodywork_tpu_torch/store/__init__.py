@@ -12,9 +12,30 @@ from bodywork_tpu_torch.store.base import (
 )
 from bodywork_tpu_torch.store.filesystem import FilesystemStore
 from bodywork_tpu_torch.store.resilient import ResilientStore
+from bodywork_tpu_torch.store import schema
+from bodywork_tpu_torch.store.schema import (
+    DATASETS_PREFIX,
+    MODELS_PREFIX,
+    MODEL_METRICS_PREFIX,
+    REGISTRY_ALIAS_KEY,
+    REGISTRY_PREFIX,
+    REGISTRY_RECORDS_PREFIX,
+    SNAPSHOTS_PREFIX,
+    TEST_METRICS_PREFIX,
+    dataset_key,
+    model_key,
+    model_metrics_key,
+    registry_record_key,
+    snapshot_key,
+    test_metrics_key,
+)
 
 __all__ = ["ArtefactNotFound", "ArtefactStore", "CasConflict", "DelegatingStore",
-           "FilesystemStore", "ResilientStore", "open_scoped_store", "open_store"]
+           "FilesystemStore", "ResilientStore", "open_scoped_store", "open_store", "schema",
+           "DATASETS_PREFIX", "MODELS_PREFIX", "MODEL_METRICS_PREFIX", "REGISTRY_ALIAS_KEY",
+           "REGISTRY_PREFIX", "REGISTRY_RECORDS_PREFIX", "SNAPSHOTS_PREFIX",
+           "TEST_METRICS_PREFIX", "dataset_key", "model_key", "model_metrics_key",
+           "registry_record_key", "snapshot_key", "test_metrics_key"]
 
 
 def open_store(location: str | os.PathLike | ArtefactStore) -> ArtefactStore:

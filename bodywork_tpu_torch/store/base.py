@@ -255,3 +255,10 @@ def innermost_backend(store: ArtefactStore) -> ArtefactStore | None:
             return store
         store = getattr(store, "_inner", None)
     return None
+
+
+def innermost_backend_label(store: ArtefactStore) -> str | None:
+    """The real backend's ``backend_label`` under any wrapper stack, or
+    None: the label of wrapper-layer metrics (retries, breaker state)."""
+    backend = innermost_backend(store)
+    return None if backend is None else backend.backend_label

@@ -53,7 +53,12 @@ import torch
 from bodywork_tpu_torch.device import fence, require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.store.base import ArtefactNotFound, ArtefactStore, CasConflict
 from bodywork_tpu_torch.store.schema import DATASETS_PREFIX, trainstate_key
-from bodywork_tpu_torch.train.trainer import TrainResult, _record_train_metrics, make_model
+from bodywork_tpu_torch.train.trainer import (
+    TRAIN_MODES,  # noqa: F401 - re-exported where the JAX package defines it
+    TrainResult,
+    _record_train_metrics,
+    make_model,
+)
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("train.incremental")

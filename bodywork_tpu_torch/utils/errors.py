@@ -8,7 +8,8 @@ monitoring is an optional hook: with ``sentry_sdk`` importable and
 ``SENTRY_DSN`` set it is enabled, otherwise it is a no-op (the reference
 hard-fails when ``SENTRY_DSN`` is unset, ``stage_1:161-167``, and its
 stage 4 tags itself ``'stage-4-generate-next-dataset'``, ``stage_4:164``).
-``sentry_sdk`` is imported only when a DSN is set.
+``sentry_sdk`` is imported only when a DSN is set. :class:`StageError` is
+the failure type of a stage, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +18,14 @@ import os
 from bodywork_tpu_torch.utils.logging import get_logger
 
 log = get_logger("errors")
+
+
+class StageError(RuntimeError):
+    """A pipeline stage failed; carries the stage name for the orchestrator."""
+
+    def __init__(self, stage: str, message: str):
+        super().__init__(f"stage '{stage}' failed: {message}")
+        self.stage = stage
 
 
 def init_error_monitoring(stage: str, traces_sample_rate: float = 1.0) -> bool:

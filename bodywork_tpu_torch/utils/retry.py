@@ -18,9 +18,10 @@ from __future__ import annotations
 
 import dataclasses
 import random
-import sys
 import threading
 import time
+
+from bodywork_tpu_torch.utils.errors import StageError
 
 __all__ = [
     "TRANSIENT_ERROR_NAMES",
@@ -98,21 +99,15 @@ def is_permanent(exc: BaseException) -> bool:
     return classify_error(exc) == "permanent"
 
 
-def _is_stage_failure(exc: BaseException) -> bool:
-    """The runner's ``StageFailure`` (the JAX package's ``StageError``),
-    without importing the runner: none can exist before it is imported."""
-    mod = sys.modules.get("bodywork_tpu_torch.pipeline.runner")
-    return mod is not None and isinstance(exc, mod.StageFailure)
-
-
 def classify_error(exc: BaseException) -> str:
     """``"transient"`` | ``"permanent"`` | ``"unknown"``: a transient
     error anywhere in the cause chain wins, then the permanent denylist
-    (and a failed stage), then ``"unknown"``, which each caller treats
+    (and a failed stage, :class:`~bodywork_tpu_torch.utils.errors.StageError`),
+    then ``"unknown"``, which each caller treats
     per its own default."""
     if any(is_transient(e) for e in _chain(exc)):
         return "transient"
-    if isinstance(exc, PERMANENT_ERROR_TYPES) or _is_stage_failure(exc):
+    if isinstance(exc, (*PERMANENT_ERROR_TYPES, StageError)):
         return "permanent"
     return "unknown"
 

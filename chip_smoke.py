@@ -8,7 +8,10 @@ Run from the repository root with no arguments::
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. ``device``  — the card's name, compute capability (must be 9.0) and
-   ``nvidia-smi`` name and power limit; then ``generator``: the drift
+   ``nvidia-smi`` name and power limit, under the bring-up watchdog
+   (``utils/watchdog.py``: a card that hangs in these first CUDA calls
+   ends the run with exit 3 and one line on stderr after
+   ``BODYWORK_TPU_BACKEND_TIMEOUT_S``, default 120 s); then ``generator``: the drift
    generator's threefry draws for all 365 dates of 2026 on the card
    against the CPU (``X`` and the kept-row mask must be bit-equal; the
    ``eps`` and ``y`` gaps are printed in ulps) and the card's time for
@@ -143,7 +146,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
    model's loop (the ``torch`` engine, no kernel). One line per day (the
    engine, the launches, the gate's verdict and seconds, the served key
    and its source, the train and test metrics, the wall-clock and the
-   seconds of each stage), one line per loop, the float32 matrix
+   seconds of each stage, and the day's fit and eval row buckets, marked
+   where the process meets them first), one line per loop (with its
+   bucket-crossing days beside the spread of the other days' fits;
+   ``tools/bucket_crossing.py`` fits at buckets no loop reaches), the
+   float32 matrix
    product settings in force, and 20 Adam steps at width 1024 from one
    init and one index stream on the card and on the CPU: the first
    step's loss and gradients within 1e-5 (TF32 products must fail both
@@ -282,9 +289,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
    bar, the test Job's process import no torch (its own import log), and
    SIGTERM end the serve pod as it ends the JAX command; each pod's gate
    wait, start-up and body seconds and the pods' day beside the
-   in-process day; then ``pods-cronjobs``: each CronJob's command once,
-   the drift gate (exit 0 or 4 and its table), ``compact``, the ``fsck``
-   scrub (clean) and ``run-day`` of the next date, served on ``kernel``;
+   in-process day, and each pod's kernel libraries, loaded from the
+   image's prebuilt ``build/torch_kernels/`` or built into or loaded from
+   the store's ``.kernel-cache`` (the manifests'
+   ``BODYWORK_TPU_COMPILE_CACHE``), with their seconds; then
+   ``pods-cronjobs``: each CronJob's command once, the drift gate (exit 0
+   or 4 and its table), ``compact``, the ``fsck`` scrub (clean) and
+   ``run-day`` of the next date, served on ``kernel``; then
+   ``pods-kernel-cache``: every pod's libraries, and two processes with
+   the serve pod's env as from an image without the prebuild step; it
+   fails unless a library is built at most once and every later pod
+   loads, and the first of those two builds into the cache and the
+   second loads from it;
 10. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
@@ -311,6 +327,7 @@ import argparse
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -686,7 +703,9 @@ def get(url: str) -> dict:
         return json.loads(resp.read())
 
 
-def phase_device(torch) -> dict:
+def phase_device(torch, watchdog_s: float | None = None) -> dict:
+    """The card's name, capability and ``nvidia-smi`` line; ``main`` runs
+    it under the bring-up watchdog, whose seconds the line prints."""
     name = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = subprocess.run(
@@ -694,7 +713,8 @@ def phase_device(torch) -> dict:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     emit("device", name=name, capability=list(cap), count=torch.cuda.device_count(),
-         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
+         nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         watchdog_s=watchdog_s)
     print(smi, flush=True)
     if tuple(cap) != (9, 0):
         raise RuntimeError(f"expected a Hopper card (capability 9.0), got {cap}")
@@ -3116,6 +3136,48 @@ def _prefetch_box(runner) -> dict:
     return held
 
 
+#: (model, fit bucket, eval bucket) the script's day loops have trained at
+_LOOP_BUCKETS: set = set()
+
+
+def _row_buckets(model_type: str, n_rows: int) -> dict:
+    """The fit and eval row buckets a day's ``n_rows`` of history train at
+    (the trainer's split, ``train_test_split``, padded by
+    ``models/base.py::_bucket_rows``, the fit to >= 1024 rows, the
+    held-out split to >= 256), and whether
+    this process's day loops meet the pair for the first time: the day
+    the JAX package's prewarm exists for (an XLA compile per bucket)."""
+    import numpy as np
+
+    from bodywork_tpu_torch.models.base import _bucket_rows, train_test_split
+
+    split = train_test_split(np.empty((n_rows, 0)), np.empty(n_rows))
+    fit, held_out = _bucket_rows(len(split.y_train)), _bucket_rows(len(split.y_test), 256)
+    new = (model_type, fit, held_out) not in _LOOP_BUCKETS
+    _LOOP_BUCKETS.add((model_type, fit, held_out))
+    return {"fit": fit, "eval": held_out, "new_to_process": new}
+
+
+def _bucket_crossings(days: list) -> dict:
+    """Days 2 on whose row buckets are new to the process, each beside
+    the spread of the other days' fits: the lookahead's own train
+    seconds (the fit on its thread) and the train stage's."""
+    keys = ("lookahead_train_s", "train_stage_s")
+    steady = [d for d in days[1:] if not d["row_buckets"]["new_to_process"]]
+    spread = {}
+    for k in keys:
+        values = [d[k] for d in steady if d[k] is not None]
+        spread[k] = [min(values), max(values)] if values else None
+    crossings = []
+    for d in days[1:]:
+        if d["row_buckets"]["new_to_process"]:
+            crossings.append({"day": d["day"], **d["row_buckets"], **{k: d[k] for k in keys},
+                              "outside_spread": {k: None if spread[k] is None or d[k] is None
+                                                 else not spread[k][0] <= d[k] <= spread[k][1]
+                                                 for k in keys}})
+    return {"crossings": crossings, "steady_days": len(steady), "steady_spread_s": spread}
+
+
 def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
               n_days: int = LOOP_DAYS, line: str = "day-loop-day", on_day=None,
               overlap_generate: bool = False) -> dict:
@@ -3143,9 +3205,11 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
         launched = LAUNCHES["kernel"] - seen["kernel"]
         seen["kernel"] = LAUNCHES["kernel"]
         captures = GRAPH_CACHE.stats()["captures"]
-        days.append({**_day_line(model_type, r, launched),
-                     "graph_captures": captures - seen["captures"],
-                     "buckets": r.stage_results[SERVE_STAGE].app.predictor.buckets})
+        day = _day_line(model_type, r, launched)
+        days.append({**day, "graph_captures": captures - seen["captures"],
+                     "buckets": r.stage_results[SERVE_STAGE].app.predictor.buckets,
+                     "row_buckets": _row_buckets(model_type, day["train_rows"]),
+                     "train_stage_s": r.stage_seconds[TRAIN_STAGE]})
         seen["captures"] = captures
         emit(line, **days[-1])
         if not box:
@@ -3176,6 +3240,8 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
                "prefetched": prefetched, "lookaheads_collected": collected,
                "lookahead_train_s": [r.lookahead_train_s for r in results],
                "graph_captures_per_day": [d["graph_captures"] for d in days],
+               "row_buckets_per_day": [d["row_buckets"] for d in days],
+               "bucket_crossings": _bucket_crossings(days),
                "prefetch_box_after_day_1": box,
                "runs_through": "run_simulation: journal, horizon prefetch, lookahead train and "
                        "compactor; the train stage's seconds are its wait "
@@ -5808,10 +5874,52 @@ def _manifest_commands(out_dir: str, store: str, spec_file: str, stage_dns: str)
             "kind": doc["kind"],
             "init": [swap(a) for a in init[0]["command"]] if init else None,
             "command": [swap(a) for a in container["command"]],
-            "env": {e["name"]: e["value"] for e in container.get("env", [])},
+            "env": {e["name"]: swap(e["value"]) for e in container.get("env", [])},
             "replicas": spec.get("replicas"),
         }
     return commands
+
+
+_LIBRARY_LINE = re.compile(r"kernel library (\S+): (built|loaded) (\S+) in ([0-9.]+) s")
+
+
+def _library_events(log: str) -> list:
+    """Each kernel library a process built or loaded (``ops/_build.py``'s
+    log line): name, built or loaded, path, seconds."""
+    return [{"library": m[0], "action": m[1], "path": m[2], "seconds": float(m[3])}
+            for m in _LIBRARY_LINE.findall(log)]
+
+
+_FRESH_IMAGE_LOAD = """\
+import json, sys, time
+from pathlib import Path
+from bodywork_tpu_torch.ops import _build
+_build.DEFAULT_BUILD_DIR = Path(sys.argv[1])
+t0 = time.perf_counter()
+info = _build.build_all(["mlp_kernel"])["mlp_kernel"]
+_build.load_library("mlp_kernel")
+print(json.dumps({"built": info["built"], "dir": str(Path(info["path"]).parent),
+                  "nvcc_s": info["seconds"], "seconds": time.perf_counter() - t0}))
+"""
+
+
+def _image_without_prebuild(env: dict, cache_dir: str, empty_dir: str) -> dict:
+    """Two processes with the serve pod's env, each as from an image
+    whose build step left no library (``DEFAULT_BUILD_DIR`` an empty
+    directory): the first builds ``mlp_kernel`` into the store's cache,
+    the second loads it from there. Each one's build or load seconds."""
+    os.makedirs(empty_dir, exist_ok=True)
+    out = {}
+    for which in ("first", "second"):
+        proc = subprocess.run([sys.executable, "-c", _FRESH_IMAGE_LOAD, empty_dir], cwd=ROOT,
+                              env=env, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"a pod from an image without the prebuild step failed "
+                               f"({which}): {proc.stderr[-2000:]}")
+        out[which] = json.loads(proc.stdout.strip().splitlines()[-1])
+    if os.listdir(empty_dir):
+        raise RuntimeError(f"a build went into the empty image's directory: {os.listdir(empty_dir)}")
+    return out
 
 
 def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) -> dict:
@@ -5855,7 +5963,7 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
     commands = _manifest_commands(run["out"], store_dir, configmap,
                                   spec.service_dns("stage-2-serve-model"))
     reduced = {
-        "python": sys.executable, "/mnt/artefact-store": "the phase's store directory",
+        "python": sys.executable, "/mnt/artefact-store": "the phase's store directory (commands and env)",
         "/etc/bodywork/pipeline.yaml": "the ConfigMap's data written to a file",
         spec.service_dns("stage-2-serve-model"): f"127.0.0.1 (port {port}, free at generate)",
         "serve replicas": "2 -> 1",
@@ -5944,6 +6052,12 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
                              "start_to_body_s": None if body is None else body - rec["proc_start"],
                              "body_s": None if body is None or end is None else end - body}
         day_s = recs["test"]["exited"] - t_pods
+        # each pod's kernel libraries, built into or loaded from the
+        # store's .kernel-cache (BODYWORK_TPU_COMPILE_CACHE as emitted)
+        libraries = {}
+        for name, rec in recs.items():
+            with open(rec["log"]) as f:
+                libraries[name] = _library_events(f.read())
         with open(recs["test"]["log"]) as f:
             test_log = f.read()
         test_torch = sorted({line.rsplit("|", 1)[-1].strip() for line in test_log.splitlines()
@@ -5971,6 +6085,8 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
     pods_out = {
         "day": str(day), "reduced": reduced, "order": order, "seconds": seconds,
         "day_s": day_s, "in_process_day_s": in_process_day_s,
+        "kernel_cache": {"env": commands[jobs["serve"]]["env"].get("BODYWORK_TPU_COMPILE_CACHE"),
+                         "libraries": libraries},
         "serve": {"engine": health["engine"], "device": health["device"],
                   "model_key": health["model_key"],
                   "launches_before_test": before["launches"],
@@ -6014,8 +6130,34 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
         "run_day": {"exit": loop_day["rc"], "day": str(next_day),
                     "day_s": _day_seconds(loop_day["out"], next_day), "served": served},
         "seconds": {name: c["seconds"] for name, c in cron.items()},
+        "kernel_cache_libraries": {name: _library_events(c["err"]) for name, c in cron.items()},
     }
     emit("pods-cronjobs", **cron_out)
+    # every pod loads a library from the image's prebuilt directory (the
+    # checkout's build/torch_kernels, which the build phase filled, as an
+    # image's build step does) or from the store's cache; a library is
+    # built at most once, and every later pod loads it
+    cache_dir = os.path.join(store_dir, ".kernel-cache")
+    image_dir = os.path.join(ROOT, "build", "torch_kernels")
+    ordered = [e for name in jobs for e in libraries[name]] + [
+        e for events in cron_out["kernel_cache_libraries"].values() for e in events]
+    cache = {"dir": cache_dir, "image_dir": image_dir, "events": len(ordered),
+             "from_image": sum(os.path.dirname(e["path"]) == image_dir for e in ordered),
+             "from_cache": sum(os.path.dirname(e["path"]) == cache_dir for e in ordered),
+             "outside": [e for e in ordered
+                         if os.path.dirname(e["path"]) not in (cache_dir, image_dir)],
+             "rebuilt": [e for i, e in enumerate(ordered) if e["action"] == "built"
+                         and any(o["library"] == e["library"] for o in ordered[:i])],
+             "later_loads": sum(e["action"] == "loaded" for e in ordered[1:]),
+             "image_without_prebuild": _image_without_prebuild(
+                 {**cron_env, **commands[jobs["serve"]]["env"]}, cache_dir,
+                 os.path.join(workdir, "empty-image"))}
+    emit("pods-kernel-cache", **cache)
+    fresh = cache["image_without_prebuild"]
+    if (cache["outside"] or cache["rebuilt"] or not ordered or not cache["later_loads"]
+            or not fresh["first"]["built"] or fresh["second"]["built"]
+            or {fresh["first"]["dir"], fresh["second"]["dir"]} != {cache_dir}):
+        raise RuntimeError(f"pods: the kernel cache was not shared as emitted: {cache}")
     if (gate["rc"] not in (0, 4) or cron["99-compact-history-cronjob.yaml"]["rc"] != 0
             or fsck is None or fsck["findings"] or loop_day["rc"] != 0 or served is None
             or served["engine"] != "kernel" or cron_out["run_day"]["day_s"] is None):
@@ -6350,10 +6492,6 @@ def main(argv=None) -> int:
 
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; the port's smoke runs on the card",
-              file=sys.stderr)
-        return 2
     if not os.path.isdir(os.path.join(ROOT, "bodywork_tpu_torch")):
         print("chip_smoke: bodywork_tpu_torch/ is not beside this script; run "
               "it from a checkout of the repository", file=sys.stderr)
@@ -6361,14 +6499,23 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from bodywork_tpu_torch.device import resolve_device
     from bodywork_tpu_torch.utils.logging import configure_logger
+    from bodywork_tpu_torch.utils.watchdog import abort_if_backend_hangs, backend_timeout_from_env
 
     # stdout carries the JSON lines; the port's logs go to stderr
     configure_logger("WARNING", stream=sys.stderr)
 
     # every process started from here on carries the run's mark
     os.environ[RUN_ENV] = str(os.getpid())
-    dev = resolve_device("cuda")
-    card = phase_device(torch)
+    # the first CUDA calls and nvidia-smi under the watchdog: a card that
+    # hangs in them ends the run with exit 3 and one line on stderr
+    watchdog_s = backend_timeout_from_env()
+    with abort_if_backend_hangs(watchdog_s, what="CUDA device"):
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; the port's smoke runs on the card",
+                  file=sys.stderr)
+            return 2
+        dev = resolve_device("cuda")
+        card = phase_device(torch, watchdog_s)
     _check_processes("device")
     if "generator" in phases:
         phase_generator(torch, dev)

@@ -39,16 +39,10 @@ from bodywork_tpu_torch.pipeline.k8s_schema import (
 
 ROOT = Path(__file__).resolve().parents[1]
 _TAG = re.compile(r"-(stage-[1-4]-[a-z-]+):[0-9a-f]{12}$")
-_JAX_ENV = {"JAX_COMPILATION_CACHE_DIR", "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"}
-
-
-def _serve_knobs() -> set[str]:
-    from bodywork_tpu_torch.pipeline.k8s import _SERVE_ENV_DEFAULTS
-
-    return {name for name, _ in _SERVE_ENV_DEFAULTS}
-
-
-_SERVE_KNOBS = _serve_knobs()
+#: the JAX generator's XLA compile-cache pair -> the port's one kernel-cache
+#: entry (the store path's dotted directory, under the port's variable)
+_JAX_CACHE_DIR = "JAX_COMPILATION_CACHE_DIR"
+_JAX_CACHE_FLOOR = "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"
 
 
 def _containers(doc):
@@ -84,21 +78,12 @@ def _map_jax(docs: dict) -> dict:
                 c["resources"]["limits"] = {"nvidia.com/gpu": limits.pop("google.com/tpu")}
                 assert not limits
             if "env" in c:
-                kept = [e for e in c["env"] if e["name"] not in _JAX_ENV]
-                dropped = len(kept) < len(c["env"])
-                c["env"] = kept
-                if not kept:
-                    del c["env"]
-                elif dropped and "envFrom" in c and {e["name"] for e in kept} <= _SERVE_KNOBS:
-                    # the dropped compile-cache entries are what created
-                    # the key ahead of envFrom; without them the serve
-                    # knobs land after it, as in the JAX gcs pods
-                    items = [(k, v) for k, v in c.items() if k != "env"]
-                    c.clear()
-                    for k, v in items:
-                        c[k] = v
-                        if k == "envFrom":
-                            c["env"] = kept
+                c["env"] = [
+                    {"name": "BODYWORK_TPU_COMPILE_CACHE",
+                     "value": e["value"].removesuffix("/.xla-cache") + "/.kernel-cache"}
+                    if e["name"] == _JAX_CACHE_DIR else e
+                    for e in c["env"] if e["name"] != _JAX_CACHE_FLOOR
+                ]
         if doc["kind"] in ("Job", "Deployment", "CronJob") and "nodeSelector" in _pod(doc):
             _pod(doc)["nodeSelector"] = {"cloud.google.com/gke-accelerator": "nvidia-h100-80gb"}
     return docs
@@ -704,8 +689,7 @@ def test_a_tuned_serve_stage_emits_the_jax_generators_manifests(name, value):
         if f != serve_file:
             assert dumped[f] == jax_dumped[f], f
     # the declared knob creates the serve container's env key ahead of
-    # envFrom in both generators (the mapping's reorder is for the
-    # compile-cache entries only): the key order is the JAX generator's
+    # envFrom in both generators: the key order is the JAX generator's
     for c, jax_c in zip(_containers(port[serve_file]), _containers(jax[serve_file])):
         assert list(c) == list(jax_c)
     serve_env = [e for c in _containers(port[serve_file]) for e in c.get("env", [])]

@@ -56,6 +56,7 @@ import bodywork_tpu_torch.serve.dispatch, bodywork_tpu_torch.serve.httpcore
 import bodywork_tpu_torch.parallel, bodywork_tpu_torch.parallel.mesh
 import bodywork_tpu_torch.parallel.collectives, bodywork_tpu_torch.parallel.sharding
 import bodywork_tpu_torch.parallel.train_step
+import bodywork_tpu_torch.utils.compile_cache, bodywork_tpu_torch.utils.watchdog
 import chip_smoke
 # nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
 # standard library, numpy and torch alone
