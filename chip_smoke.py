@@ -76,7 +76,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    0, 0.1, 1.0, 1.0, 0.1, 0; then ``traffic``: config 9's open-loop ramp
    on ``aio`` (coalescer 2 ms, 64 rows): a closed-loop capacity probe,
    one seeded Poisson log at 0.5x, 1x and 2x of it (capped at 2000
-   requests/s, 5 s each), an MMPP log at 1x, and the 1x log replayed
+   requests/s, 3 s each), an MMPP log at 1x, and the 1x log replayed
    from its file in the binary row framing, whose answers must be
    byte-identical to the JSON ones; every 200 held against the plain
    version; offered and goodput rps, p50/p99 from the scheduled arrival,
@@ -115,7 +115,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    across an eviction, a never-seen admission and a re-admission, the
    stacked replay's device ms against the sequential solo replays';
    ``ab``: ``run_ab_simulation`` of
-   ``["linear", "mlp"]`` for 3 days, the pair concurrently then each
+   ``["linear", "mlp"]`` for 3 days (the MLP's fits at 200 Adam steps),
+   the pair concurrently then each
    variant solo, each variant's artefacts byte-identical to its solo
    run, the pair's wall-clock against the sum of the solos;
 5. ``day-loop`` — the daily train -> registry gate -> serve -> generate
@@ -123,7 +124,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    the horizon's draws, trains each next day as a lookahead on a
    background thread and refreshes the history snapshot; every loop of
    the script fails unless every day used its prefetched draws and every
-   day but the first collected its lookahead) for 7 simulated days on the card: the
+   day but the first collected its lookahead) for 5 simulated days on the card: the
    MLP at hidden (1024, 1024, 1024) trained with Adam (lr 1e-3, batch 256,
    2000 steps), registered as a candidate, gated, and served from the
    registry's ``production`` alias by ``auto``, which must resolve to
@@ -137,7 +138,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    store (``day-loop-gate-rejection``: a candidate whose metrics fail
    ``min_r2`` is rejected, and the serve stage serves the previous
    production through ``kernel``, launches counted); ``pipelined``: the
-   MLP loop's first 3 days against a serial loop of plain ``run_day``
+   MLP loop's first 2 days against a serial loop of plain ``run_day``
    calls with nothing prefetched or trained ahead, datasets, checkpoints,
    metrics and registry records byte-identical, with each day's train
    stage seconds (the wait for the lookahead), the lookahead's own train
@@ -167,7 +168,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    every covered day from the history snapshot, whose load is
    byte-identical to a plain load without it (both cold loads timed, the
    snapshot's bytes printed); (b) the
-   1024-wide MLP loop for 7 days, day 1 a full refit, days 2-7 fine-tunes
+   1024-wide MLP loop for 5 days, day 1 a full refit, days 2-5 fine-tunes
    of production (500 steps), each gated with 3 shadow days and served
    through ``kernel`` (``incremental-day`` lines, ``incremental-mlp``);
    (c) on a copy of (b)'s store, a day whose fine-tune is made to fail:
@@ -197,7 +198,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``--trace-out``/``--report-out``: the report's schema, every stage
    span's trace duration equal to its ``stage_seconds``, the gate and day
    spans, the gate's seconds and the day's seconds outside its stage and
-   gate spans; then ``profile``: ``run-sim --profile-dir`` for 2 days of
+   gate spans; then ``profile``: ``run-sim --profile-dir`` for 1 day of
    the MLP with its fits cut to 200 steps, between two unprofiled runs:
    the trace's CUDA device events, the f32 kernel by name (one event per
    counted launch) or inside graph launches, the trace's bytes and the
@@ -220,7 +221,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
    ``crash-sim``: ``run_crash_sim`` of 2 linear days at 1 stage boundary
    and 1 seeded store-op point, each child killed there (exit 86) and its
    restart converging, the seconds of each point; ``fleet-sim``:
-   ``run_fleet_sim`` of 4 scenario-zoo tenants for 3 days in one store,
+   ``run_fleet_sim`` of 4 scenario-zoo tenants for 2 days in one store,
    one NaN-sabotaged, linear and then the 1024-wide MLP (fits cut to 200
    steps): every healthy tenant byte-identical to its solo twin, the
    sabotaged gate rejecting, ``kernel``'s launches; ``workers``: ``cli
@@ -260,7 +261,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
    answering the in-process 2x2 predictor's values, ``/healthz`` ``mesh``
    2x2, the sharded dispatch counter, and under ``--dtype bfloat16`` f32
    serving counted ``unsupported_mesh``; (e) ``train_mlp_sharded`` at the
-   loop's settings on 2x2: the index stream bit-equal to the CPU's, the
+   loop's settings at 500 Adam steps on 2x2: the index stream bit-equal to
+   the CPU's, the
    first step's loss and gradients within 1e-5 of the single-device
    ones on the same draws, the final loss, ``staging_s`` and ``scan_s``
    beside a single-device fit's seconds, the fit then served through
@@ -301,7 +303,21 @@ Phases, each printing one JSON line (any failure exits non-zero):
    fails unless a library is built at most once and every later pod
    loads, and the first of those two builds into the cache and the
    second loads from it;
-10. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
+10. ``examples`` — the port's eight example scripts (``examples_torch/``,
+   the JAX ``examples/`` name for name) on the card in the README's order,
+   on one store seeded with the JAX example test's two days, each
+   script's ``main()`` run in this process under a patched ``argv`` but
+   ``02``, which serves from a process of its own on a free port until
+   SIGTERM: 01's MAPE and R^2, 03's rows and 08's first flagged live day
+   within the JAX example tests' bars, 04 scoring 03's day through 02 with
+   no failure, 02 on the card, 05's report, 06's pair (2 days) and its
+   s/day; 07 at full width (hidden (1024, 1024, 1024), 1024 rows, 20
+   steps): ``auto`` must serve it on ``kernel``, the f32 kernel's and the
+   bf16 kernel's deltas to the f32 apply within the JAX test's bars and
+   their answers within ``BARS`` of their plain versions; ``kernel`` and
+   ``kernel-bf16`` launched on the path (counts set to 0 before 01, read
+   after 08);
+11. ``timing``  — per variant at the 256- and 4096-row buckets, with CUDA
    events (warm-up, then the median of 30): the kernel as one call
    (``kernel_ms``) and as replays of a captured CUDA graph, which leaves
    out the host's launch gaps (``kernel_graph_ms``), its plain version,
@@ -316,7 +332,10 @@ After every phase a ``processes`` line lists what the phase left
 running: a live process below the script's (by parent pid in ``/proc``,
 or by the run's mark in its environment) still there 10 s after the
 phase returned fails that phase, named by pid and command line.
-A ``total`` line gives the script's seconds. The last line is
+A ``phase-seconds`` line gives each phase's wall-clock seconds (its
+process check included; ``day-loop-without-profile`` is ``day-loop``
+before its ``profile-after-day-loop``) and a ``total`` line the script's
+seconds. The last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository beside it, the script exits non-zero
 and prints no result.
@@ -366,13 +385,18 @@ BARS = {"kernel": 1e-4, "kernel-bf16": 4.5e-3, "kernel-int8": 1e-4}
 KERNEL_ROWS = (1, 8, 300, 4096)
 TIMING_ROWS = (256, 4096)
 TIMING_REPS = 30
-#: the day loop: 7 simulated days from this date; the MLP trained with the
+#: The phases' depths (days, Adam steps, drive seconds, windows) are cut
+#: so that the whole script keeps within 960 s, 80% of the 1200 s it is
+#: given; PERF.md §7 says what each cut no longer shows. Widths are never
+#: cut.
+#: the day loop: 5 simulated days from this date (days 2 and 4 cross into
+#: a new fit bucket, days 3 and 5 do not); the MLP trained with the
 #: repository's wide-training settings (``bench.py:1092-1094``)
-LOOP_DAYS = 7
+LOOP_DAYS = 5
 LOOP_START = date(2026, 7, 1)
 LOOP_MLP = {"hidden": HIDDEN, "learning_rate": 1e-3, "batch_size": 256, "n_steps": 2000}
 #: the serial loop the pipelined MLP loop is held to, over its first days
-SERIAL_DAYS = 3
+SERIAL_DAYS = 2
 #: card against CPU: Adam steps, and the bars on the largest relative
 #: gaps of the first step's loss and gradients, computed from the same
 #: params on both sides: IEEE float32 differs there by summation order
@@ -416,13 +440,13 @@ ADMISSION = {"max_pending": 8, "burst": 64}
 #: turns (each fraction twice, mirrored: the spread between calls is wide)
 TRACE = {"singles": 20, "batch_rows": 4096, "ingress": f"00-{'4b' * 16}-{'9c' * 8}-01",
          "fractions": (0.0, 0.1, 1.0, 1.0, 0.1, 0.0)}
-#: profile: the 2-day MLP simulation's Adam steps a fit, cut from the
-#: loop's 2000 so the profile holds ~25k kernel events a day, not ~125k
-PROFILE_SIM = {"days": 2, "n_steps": 200}
+#: profile: the 1-day MLP simulation and its Adam steps a fit, cut from
+#: the loop's 2000 so the profile holds ~25k kernel events a day, not ~125k
+PROFILE_SIM = {"days": 1, "n_steps": 200}
 #: traffic: config 9's load factors and rate cap (``bench.py:1550-1554``),
 #: its coalescer and closed-loop probe, seconds a point, the log's seed,
 #: the sharded driver's processes (bench.py's ``driver_shards``)
-TRAFFIC = {"factors": (0.5, 1.0, 2.0), "cap_rps": 2000.0, "duration_s": 5.0,
+TRAFFIC = {"factors": (0.5, 1.0, 2.0), "cap_rps": 2000.0, "duration_s": 3.0,
            "window_ms": 2.0, "max_rows": 64, "probe_clients": 16, "probe_s": 3.0, "seed": 9,
            "shards": 4}
 #: reload: config 11's swap (``bench.py:1983``) at 0.5x capacity, the
@@ -448,7 +472,10 @@ ONLINE_TUNE = {"poll_s": 0.25, "phase_a_s": 5.0, "phase_a_rps": 60.0, "phase_b_s
                "cost_budget_s": 4.0, "new_rung": 1024, "rung_drive_s": 4.0, "rung_rps": 60.0,
                "slow_factor": 5.0}
 #: the store-integrity and chaos soaks: the loop's 1024-wide MLP,
-#: its fits in the soaks cut to the profile's 200 Adam steps
+#: its fits in the soaks cut to the profile's 200 Adam steps; so are the
+#: MLP days of ``resume``, ``day-report``, ``audit`` and ``pods``, the
+#: canary's two checkpoints a scenario and the A/B pair's MLP (``sigterm``
+#: keeps 2000, since it signals 1 s into the Adam loop)
 SOAK_MLP = {**LOOP_MLP, "n_steps": PROFILE_SIM["n_steps"]}
 SOAK_DAYS = 3
 #: what the soaks cut from the loop's configuration
@@ -462,16 +489,28 @@ CRASH = {"days": 2, "boundaries": (7,), "store_op_samples": 1, "seed": 0}
 #: bucket 8, hidden (32, 32)), then 8 tenants of the served width
 TENANCY = {"fleet_sizes": (2, 4, 8), "small_widths": (1, 32, 32, 1), "small_buckets": (8,),
            "small_rows": 8, "wide_tenants": 8, "wide_buckets": (8, 64, 512)}
-FLEET = {"tenants": 4, "days": 3, "sabotage": "tenant-01", "samples_per_day": 1440}
+FLEET = {"tenants": 4, "days": 2, "sabotage": "tenant-01", "samples_per_day": 1440}
 #: mesh: the virtual shards of cuda:0, the serving buckets and meshes,
 #: tensor parallelism's bar (the JAX test's, tests/test_sharded_serve.py),
 #: the sharded fit's mesh and the first step's bar (PARITY_BARS'), the
 #: 1-rank group's fit steps
 MESH = {"virtual": 4, "dp": ((2, 1), (4, 1)), "tp": ((1, 2), (2, 2)), "buckets": (256, 4096),
         "tp_bar": 1e-4, "fit": (2, 2), "step0_bar": 1e-5, "group_steps": 100}
+#: the sharded fit, its single-device yardstick and the mesh day: the
+#: loop's MLP at 500 Adam steps
+MESH_MLP = {**LOOP_MLP, "n_steps": 500}
 #: (6 closed-loop clients stay under the budget of 8: the load drive sheds nothing)
 WORKERS = {"workers": 2, "max_pending": 8, "burst": 64, "clients": 6, "per_client": 50,
            "drill_requests": 40, "kill_at": 10, "reload_s": 0.5}
+
+
+#: examples: the port's example scripts on one store seeded with the JAX
+#: example test's days; the A/B example's days (the JAX test's; the
+#: script's default is 7)
+EXAMPLES = {"seed_days": 2, "seed_start": date(2026, 1, 1), "ab_days": 2}
+#: the JAX example test's bars (``tests/test_examples.py``)
+EXAMPLE_BARS = {"MAPE": (0.5, 1.2), "r_squared": (0.55, 0.75), "rows": (1200, 1440),
+                "live_day": (35, 53), "f32_delta": 0.01, "bf16_rel": 0.05}
 
 
 def emit(phase: str, **fields) -> None:
@@ -2208,7 +2247,7 @@ def phase_traffic(torch, dev, workdir: str) -> dict:
     ``cli serve`` in its own process on ``aio`` with the coalescer at 2 ms
     / 64 rows, the 1024-wide MLP on ``auto`` (-> ``kernel``): a closed-loop
     probe for capacity, then one seeded Poisson log at 0.5x, 1x and 2x of
-    it (capped at 2000 requests/s), 5 s each, one MMPP log at 1x, and the
+    it (capped at 2000 requests/s), 3 s each, one MMPP log at 1x, and the
     1x log again, read back from its file, in the binary row framing.
     Each point is driven twice, both times by ``TRAFFIC["shards"]``
     spawned driver processes: once through the runner's own transport
@@ -2393,7 +2432,8 @@ def phase_reload(torch, dev, workdir: str, capacity_rps: float | None) -> dict:
 def phase_canary(torch, dev, workdir: str) -> dict:
     """``canary``: ``run_canary_chaos`` on the card for ``nan``,
     ``latency`` and ``healthy``, the two checkpoints 1024-wide MLPs
-    (the loop's training settings) served on ``auto`` (-> ``kernel``):
+    (the loop's training settings at 200 Adam steps) served on ``auto``
+    (-> ``kernel``):
     the watchdog's verdicts must be abort, abort and promote, production
     byte-identical to its canary-free twin, each verdict's flight record
     must open with ``cli trace show`` (exit 0). Every 200 of the
@@ -2474,7 +2514,7 @@ def phase_canary(torch, dev, workdir: str) -> dict:
             summary = run_canary_chaos(
                 FilesystemStore(root), scenario=scenario, seed=0,
                 n_requests=CANARY["requests"], fraction=CANARY["fraction"],
-                model_type="mlp", model_kwargs=LOOP_MLP, device=dev)
+                model_type="mlp", model_kwargs=SOAK_MLP, device=dev)
             runs[scenario] = (root, summary, drives[-1], time.perf_counter() - t0,
                               before, GRAPH_CACHE.stats())
             collections[scenario] = drives[-1][5]
@@ -3010,7 +3050,7 @@ def phase_online_tune(torch, dev, workdir: str) -> dict:
 
 def phase_ab(torch, dev, workdir: str) -> dict:
     """``ab``: ``run_ab_simulation`` of ``["linear", "mlp"]`` on the card,
-    3 days, the MLP at hidden (1024, 1024, 1024) with the loop's training
+    3 days, the MLP at hidden (1024, 1024, 1024) with the soaks' training
     settings: the pair concurrently, then each variant solo in this
     process; each variant's datasets, checkpoints, metrics and registry
     records byte-identical to its solo run (journals and snapshots left
@@ -3029,7 +3069,7 @@ def phase_ab(torch, dev, workdir: str) -> dict:
         vs = variants_from_model_types(models)
         for v in vs:
             if v.name.endswith("mlp"):
-                v.spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
+                v.spec.stages[TRAIN_STAGE].args.update(SOAK_MLP)
         return vs
 
     reset_launches()
@@ -3232,11 +3272,11 @@ def _run_loop(torch, dev, root: str, model_type: str, train_args: dict,
                "gate_verdicts": [d["gate"]["promote"] for d in days],
                "served_sources": sorted({d["served_source"] for d in days}),
                "gate_seconds": [r.gate_seconds for r in results],
-               "median_gate_seconds_days_2_7": statistics.median(
+               "median_gate_seconds_days_2_on": statistics.median(
                    r.gate_seconds for r in results[1:]),
                "wall_clock_s": walls, "day1_s": walls[0],
-               "median_days_2_7_s": statistics.median(walls[1:]),
-               "median_stage_seconds_days_2_7": stages,
+               "median_days_2_on_s": statistics.median(walls[1:]),
+               "median_stage_seconds_days_2_on": stages,
                "prefetched": prefetched, "lookaheads_collected": collected,
                "lookahead_train_s": [r.lookahead_train_s for r in results],
                "graph_captures_per_day": [d["graph_captures"] for d in days],
@@ -3763,7 +3803,7 @@ def _incremental_linear(torch, dev, workdir: str) -> dict:
 
 def _incremental_mlp(torch, dev, workdir: str) -> dict:
     """(b) The 1024-wide MLP loop for LOOP_DAYS days in ``mode=
-    "incremental"``: day 1 a full refit (no donor yet), days 2-7
+    "incremental"``: day 1 a full refit (no donor yet), days 2-5
     fine-tunes of production (a quarter of the steps), each gated with
     shadow evaluation, production served through ``kernel``."""
     loop = _run_loop(torch, dev, workdir, "mlp", {**LOOP_MLP, "mode": "incremental"},
@@ -3883,11 +3923,12 @@ def _cli(args: list, env: dict | None = None, timeout: float = 300,
     return out
 
 
-def _mlp_day_args(store: str, day: date) -> list:
-    """``run-day`` of the 1024-wide MLP day (the loop's settings)."""
+def _mlp_day_args(store: str, day: date, mlp: dict = SOAK_MLP) -> list:
+    """``run-day`` of the 1024-wide MLP day (the loop's settings, its fit
+    at ``mlp``'s Adam steps)."""
     return ["run-day", "--store", store, "--date", str(day), "--model", "mlp",
             "--mlp-hidden", ",".join(map(str, HIDDEN)),
-            "--mlp-steps", str(LOOP_MLP["n_steps"]), "--mlp-lr", str(LOOP_MLP["learning_rate"])]
+            "--mlp-steps", str(mlp["n_steps"]), "--mlp-lr", str(mlp["learning_rate"])]
 
 
 def _served(out: str) -> dict | None:
@@ -3968,7 +4009,7 @@ def phase_resume(torch, dev, workdir: str) -> dict:
     from bodywork_tpu_torch.store.schema import model_key, run_journal_key
 
     spec = default_pipeline("mlp", "batch")
-    spec.stages[TRAIN_STAGE].args.update(LOOP_MLP)
+    spec.stages[TRAIN_STAGE].args.update(SOAK_MLP)
     day = LOOP_START
     # audited stores, as the command line opens them: both sides carry
     # the write-time digest sidecars
@@ -4063,7 +4104,7 @@ def phase_sigterm(torch, dev, workdir: str) -> dict:
     key = run_journal_key(day)
     t0 = time.perf_counter()
     proc = subprocess.Popen([sys.executable, "-m", "bodywork_tpu_torch.cli",
-                             *_mlp_day_args(root, day)], cwd=ROOT,
+                             *_mlp_day_args(root, day, LOOP_MLP)], cwd=ROOT,
                             env={**os.environ, "PYTHONPATH": ROOT},
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
@@ -4081,7 +4122,7 @@ def phase_sigterm(torch, dev, workdir: str) -> dict:
             proc.kill()
             proc.wait()
     doc = json.loads(store.get_bytes(key))
-    restart = _cli(_mlp_day_args(root, day))
+    restart = _cli(_mlp_day_args(root, day, LOOP_MLP))
     after = json.loads(store.get_bytes(key))
     line = {"rc": proc.returncode, "want": SIGTERM_EXIT, "signalled_after_s": signalled_s,
             "process_s": time.perf_counter() - t0 - restart["seconds"],
@@ -4216,7 +4257,7 @@ sys.exit(cli.main(sys.argv[1:]))
 
 def phase_audit(torch, dev, workdir: str) -> dict:
     """``audit``: two 1024-wide MLP days through ``cli run-day --scrub``,
-    each in a process of its own on the card (the loop's settings, served
+    each in a process of its own on the card (the soaks' settings, served
     by ``kernel``), writing through the audited store the command line
     opens: every day's ``fsck:`` line must read ``clean``. Printed: the
     sidecars by class, the seconds each process spent writing sidecars by
@@ -4902,7 +4943,7 @@ def phase_workers(torch, dev, workdir: str) -> dict:
 #: seeded 120 requests/s drive for 10 s, the active dispatcher SIGKILLed
 #: at 3 s, leader TTL 1 s, blackout bound TTL + RECONNECT_MAX_S)
 SPLIT = {"frontends": 2, "occupancy_rps": 250.0, "occupancy_s": 3.0, "occupancy_seed": 23,
-         "occupancy_windows": 2,
+         "occupancy_windows": 1,
          "failover_rps": 120.0, "failover_s": 10.0, "failover_seed": 61, "kill_at_s": 3.0,
          "leader_ttl_s": 1.0, "drill_timeout_s": 120.0}
 #: config 14's byte-identity case set (``bench.py::_byte_identity_check``)
@@ -5165,7 +5206,7 @@ def phase_split(torch, dev, workdir: str) -> dict:
     before it); (c) ``kernel``'s
     launches rise in the dispatcher, from its ready report to its exit
     report; (d) config 14's fixed-rate window (250 requests/s, 3 s; one
-    warm-up drive, then two windows pooled) merges rows across the front
+    warm-up drive, then one measured window) merges rows across the front
     ends (multi-source flushes > 0), and its mean flush occupancy at 1
     and 2 front ends is printed with config 14's verdict (``holds``: 2's
     not below 0.95 of 1's); (e) the dispatcher
@@ -5505,7 +5546,7 @@ def _mesh_cli_serve(torch, dev, store, model, smi: str) -> dict:
 
 
 def _mesh_fit(torch, dev, store, smi: str) -> tuple[dict, object]:
-    """(e): the sharded fit at the loop's settings on 2x2 virtual shards:
+    """(e): the sharded fit at ``MESH_MLP``'s settings on 2x2 virtual shards:
     its index stream bit-equal to the CPU's; its first step's loss and
     gradients within 1e-5 of the single-device ones on the same draws;
     the fit's seconds beside a single-device fit's; then the fitted
@@ -5525,7 +5566,7 @@ def _mesh_fit(torch, dev, store, smi: str) -> tuple[dict, object]:
 
     ds = load_all_datasets(store)
     X, y = ds.X.astype(np.float32), ds.y.astype(np.float32)
-    cfg = MLPConfig(**LOOP_MLP)
+    cfg = MLPConfig(**MESH_MLP)
     data, m = MESH["fit"]
     mesh = make_mesh(data, m, available_devices(dev)[:data * m])
     k_init, k_batch = prng.split(prng.PRNGKey(cfg.seed))
@@ -5652,7 +5693,7 @@ def _mesh_day(torch, dev, workdir: str, smi: str) -> dict:
     from bodywork_tpu_torch.store import FilesystemStore
 
     spec = default_pipeline("mlp", "batch")
-    spec.stages[TRAIN_STAGE].args.update({**LOOP_MLP, "mesh_data": 2, "mesh_model": 2})
+    spec.stages[TRAIN_STAGE].args.update({**MESH_MLP, "mesh_data": 2, "mesh_model": 2})
     runner = LocalRunner(spec, FilesystemStore(os.path.join(workdir, "mesh-day")), device=dev)
     real, fits = parallel.train_mlp_sharded, []
 
@@ -5733,7 +5774,7 @@ def _pods_spec(port: int):
     from bodywork_tpu_torch.pipeline import default_pipeline
 
     spec = default_pipeline("mlp", "batch", port=port)
-    spec.stages["stage-1-train-model"].args.update({**LOOP_MLP, "hidden": list(HIDDEN)})
+    spec.stages["stage-1-train-model"].args.update({**SOAK_MLP, "hidden": list(HIDDEN)})
     return spec
 
 
@@ -6168,9 +6209,9 @@ def phase_pods(torch, dev, workdir: str, in_process_day_s: float | None = None) 
 
 def phase_profile(torch, dev, workdir: str, label: str = "profile") -> dict:
     """``profile``: ``cli run-sim --profile-dir`` of the 1024-wide MLP for
-    2 days, its fits cut to PROFILE_SIM's steps, between two unprofiled
-    runs of the same command (the first captures the serving graphs, so
-    the three serve alike): the trace holds CUDA device events, and the
+    PROFILE_SIM's days, its fits cut to PROFILE_SIM's steps, between two
+    unprofiled runs of the same command (the first captures the serving
+    graphs, so the three serve alike): the trace holds CUDA device events, and the
     f32 kernel appears either by its symbol (then one event per launch
     the wrapper counted over the same window) or only inside graph
     launches (then at least one graph launch per counted launch); the
@@ -6374,6 +6415,187 @@ def phase_quantized(torch, dev, store) -> dict:
     return {"launches": launches, "paths": out}
 
 
+def _example(name: str, *argv: str) -> tuple:
+    """Run ``examples_torch/<name>.py``'s ``main()`` in this process under a
+    patched ``argv``, as ``tests/test_examples.py`` runs the JAX scripts,
+    so the kernels' launch counts can be read: ``(stdout, main()'s
+    return, seconds)``. A script's exit other than 0 fails the phase."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from bodywork_tpu_torch.utils.logging import configure_logger
+
+    path = os.path.join(ROOT, "examples_torch", f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    saved, sys.argv = sys.argv, [path, *argv]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            result = module.main()
+    except SystemExit as exc:
+        if exc.code not in (None, 0):
+            raise RuntimeError(f"examples: {name} exited {exc.code}: {out.getvalue()}") from exc
+        result = None
+    finally:
+        sys.argv = saved
+        # the scripts log at INFO; the smoke's logs stay at WARNING on stderr
+        configure_logger("WARNING", stream=sys.stderr)
+    return out.getvalue(), result, time.perf_counter() - t0
+
+
+def _found(pattern: str, out: str, name: str):
+    m = re.search(pattern, out)
+    if m is None:
+        raise RuntimeError(f"examples: {name} printed no {pattern!r}: {out}")
+    return m
+
+
+def phase_examples(torch, dev, workdir: str) -> dict:
+    """``examples``: the port's eight examples (``examples_torch/``) on the
+    card in the README's order, on one store seeded with the JAX example
+    test's two days: 01 trains (MAPE and R^2 within the JAX test's bars),
+    02 serves in a process of its own on a free port, 03 generates the
+    next day (its rows within the bars), 04 black-box tests it through
+    02, 05 reports; 06 runs the A/B pair, 07 the 1024-wide MLP (``auto``
+    must serve it on ``kernel``; ``kernel`` and ``kernel-bf16`` within the
+    JAX test's bars of the f32 apply and within ``BARS`` of their plain
+    versions), 08 the drift gate (the first flagged live day within the
+    bars). Launch counts set to 0 just before 01 and read after 08."""
+    from bodywork_tpu_torch.data import Dataset, generate_day, persist_dataset
+    from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES, mlp_stack_plain, reset_launches
+    from bodywork_tpu_torch.store import open_store
+
+    store = os.path.join(workdir, "store")
+    seeded = open_store(store)
+    for i in range(EXAMPLES["seed_days"]):
+        d = EXAMPLES["seed_start"] + timedelta(days=i)
+        X, y = generate_day(d, device=dev)
+        persist_dataset(seeded, Dataset(X, y, d))
+    bars, seconds, out = EXAMPLE_BARS, {}, {}
+    failures = []
+    reset_launches()
+    printed, _, seconds["01"] = _example("01_train_model", "--store", store)
+    m = _found(r"'MAPE': ([\d.]+).*'r_squared': ([\d.]+)", printed, "01")
+    out["01"] = {"MAPE": float(m.group(1)), "r_squared": float(m.group(2))}
+    if not (bars["MAPE"][0] < out["01"]["MAPE"] < bars["MAPE"][1]
+            and bars["r_squared"][0] < out["01"]["r_squared"] < bars["r_squared"][1]):
+        failures.append(f"01 outside the JAX test's regime: {out['01']}")
+
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    server = subprocess.Popen(
+        [sys.executable, os.path.join(ROOT, "examples_torch", "02_serve_model.py"),
+         "--store", store, "--host", "127.0.0.1", "--port", str(port)],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    try:
+        def ready():
+            if server.poll() is not None:
+                raise RuntimeError(f"examples: 02 exited {server.returncode} before serving: "
+                                   f"{server.stderr.read()[-2000:]}")
+            try:
+                return get(base + "/healthz")
+            except OSError:
+                return None
+
+        health = _wait_for(ready, timeout_s=180.0, tick_s=0.2)
+        if not health:
+            raise RuntimeError("examples: 02 did not answer /healthz within 180 s")
+        seconds["02_ready"] = time.perf_counter() - t0
+        printed, _, seconds["03"] = _example("03_generate_next_dataset", "--store", store)
+        m = _found(r"generated (\d+) rows for (\S+) \(alpha = ([\d.]+)\)", printed, "03")
+        out["03"] = {"rows": int(m.group(1)), "date": m.group(2), "alpha": float(m.group(3))}
+        if not bars["rows"][0] <= out["03"]["rows"] <= bars["rows"][1]:
+            failures.append(f"03 rows outside {bars['rows']}: {out['03']}")
+        printed, _, seconds["04"] = _example("04_test_model_scoring_service", "--store", store,
+                                             "--url", base)
+        header, row = printed.strip().splitlines()[-2:]
+        out["04"] = dict(zip(header.split(), row.split()))
+        if out["04"].get("n_failures") != "0" or out["04"].get("date") != out["03"]["date"]:
+            failures.append(f"04 did not score 03's day cleanly: {out['04']}")
+        health = get(base + "/healthz")
+        out["02"] = {k: health.get(k) for k in ("engine", "device", "model_info", "model_date")}
+        if not str(health.get("device", "")).startswith("cuda"):
+            failures.append(f"02 does not serve on the card: {out['02']}")
+    finally:
+        server.terminate()
+        try:
+            server.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            server.kill()
+            server.wait()
+        server.stderr.close()
+    seconds["02"] = time.perf_counter() - t0
+    out["02"]["exit"] = server.returncode
+    if server.returncode not in (0, 143, -15):
+        failures.append(f"02 exited {server.returncode} on SIGTERM")
+    printed, _, seconds["05"] = _example("05_model_performance_analytics", "--store", store)
+    header = printed.strip().splitlines()[0].split()
+    # the gap needs a day with both a train and a live record: in the
+    # README's order the live test scores the day after the training's
+    m = re.search(r"mean live-vs-train MAPE gap over (\d+) day\(s\): ([-+\d.]+)", printed)
+    out["05"] = {"columns": header, "gap": None if m is None else float(m.group(2))}
+    if not {"MAPE_train", "MAPE_live"} <= set(header):
+        failures.append(f"05: {printed}")
+
+    printed, _, seconds["06"] = _example(
+        "06_ab_model_comparison", "--root", os.path.join(workdir, "ab"),
+        "--days", str(EXAMPLES["ab_days"]))
+    out["06"] = {"s_per_day": {k: float(v) for k, v in re.findall(
+        r"(\S+): ([\d.]+)s/day steady-state", printed)}}
+    if sorted(out["06"]["s_per_day"]) != ["a-linear", "b-mlp"] or "FAILED" in printed:
+        failures.append(f"06: {printed}")
+
+    printed, result, seconds["07"] = _example("07_wide_model", "--store",
+                                              os.path.join(workdir, "wide"))
+    delta = float(_found(r"delta on 8 rows: ([\d.]+) \((.*)\)", printed, "07").group(1))
+    rel = {engine: float(_found(rf"{label} max rel delta vs f32: ([\d.]+)", printed,
+                                "07").group(1))
+           for engine, label in (("torch-bf16", "torch-bf16 "), ("kernel-bf16", "kernel-bf16"))}
+    launches_07 = dict(LAUNCHES)
+    plain = {}
+    for engine in ("kernel", "kernel-bf16"):
+        apply, got = result["applies"][engine], result["answers"][engine]
+        if not got.is_cuda or apply.launch is None:
+            failures.append(f"07: {engine} did not run on the card")
+            continue
+        plain[engine] = rel_err(got, mlp_stack_plain(apply.layers, result["rows"],
+                                                     VARIANTS[engine]))[1]
+        if plain[engine] >= BARS[engine]:
+            failures.append(f"07: {engine} {plain[engine]:.3g} from its plain version "
+                            f"(bar {BARS[engine]})")
+    out["07"] = {"engine": result["engine"], "f32_max_abs_delta": delta,
+                 "bf16_max_rel_delta": rel, "err_over_scale_vs_plain": plain,
+                 "launches_through_07": launches_07}
+    if result["engine"] != "kernel":
+        failures.append(f"07: auto served on {result['engine']}, not kernel")
+    if delta >= bars["f32_delta"] or max(rel.values()) >= bars["bf16_rel"]:
+        failures.append(f"07 outside the JAX test's bars: {out['07']}")
+
+    printed, _, seconds["08"] = _example("08_drift_gate", "--store",
+                                         os.path.join(workdir, "drift"))
+    m = _found(r"DRIFT detected: (\d+)/(\d+) day\(s\) flagged, first (\S+) "
+               r"\(live day (\d+)\)", printed, "08")
+    out["08"] = {"flagged": int(m.group(1)), "days": int(m.group(2)), "first": m.group(3),
+                 "first_live_day": int(m.group(4))}
+    if not (bars["live_day"][0] <= out["08"]["first_live_day"] <= bars["live_day"][1]
+            and "drifted=False" in printed and "last 7 days: drifted=True" in printed):
+        failures.append(f"08: {printed}")
+    launches = dict(LAUNCHES)
+    for engine in ("kernel", "kernel-bf16"):
+        if launches[engine] < 1:
+            failures.append(f"{engine} never launched on the examples' path")
+    emit("examples", seconds=seconds, results=out, launches=launches,
+         reduced=[f"06: {EXAMPLES['ab_days']} days (the script's default 7)"])
+    if failures:
+        raise RuntimeError("examples: " + "; ".join(failures))
+    return {"launches": launches, "seconds": seconds, "results": out}
+
+
 def _median_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     for _ in range(3):
         fn()
@@ -6482,7 +6704,7 @@ def main(argv=None) -> int:
         default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
                 "canary,tune,online-tune,tenancy,ab,day-loop,incremental,quantized,resume,"
                 "sigterm,day-report,profile,audit,chaos-sim,bit-rot,crash-sim,fleet-sim,"
-                "workers,split,mesh,deploy,pods,timing",
+                "workers,split,mesh,deploy,pods,examples,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -6516,33 +6738,45 @@ def main(argv=None) -> int:
             return 2
         dev = resolve_device("cuda")
         card = phase_device(torch, watchdog_s)
-    _check_processes("device")
+    #: each phase's wall-clock seconds, its process check included
+    phase_seconds = {}
+
+    def finished(phase: str, t0: float) -> None:
+        _check_processes(phase)
+        phase_seconds[phase] = time.perf_counter() - t0
+
+    finished("device", t_start)
     if "generator" in phases:
+        t0 = time.perf_counter()
         phase_generator(torch, dev)
-        _check_processes("generator")
+        finished("generator", t0)
     if "mlp-draws" in phases:
+        t0 = time.perf_counter()
         phase_mlp_draws(torch, dev)
-        _check_processes("mlp-draws")
+        finished("mlp-draws", t0)
     if "build" in phases:
+        t0 = time.perf_counter()
         phase_build()
-        _check_processes("build")
+        finished("build", t0)
     errors = {}
     if "kernels" in phases:
+        t0 = time.perf_counter()
         errors = phase_kernels(torch, dev)
-        _check_processes("kernels")
+        finished("kernels", t0)
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled, profiled_after_loop = {}, {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}
     tuned, online_tuned = {}, {}
     audited, chaos_sim, bit_rot, podded = {}, {}, {}, {}
-    fleeted, workers, split, meshed = {}, {}, {}, {}
+    fleeted, workers, split, meshed, examples = {}, {}, {}, {}, {}
     for phase in ("slice", "serving", "trace", "traffic", "reload", "canary", "tune",
                   "online-tune", "tenancy", "ab", "day-loop",
                   "incremental", "resume", "sigterm", "day-report", "profile", "audit",
                   "chaos-sim", "bit-rot", "crash-sim", "fleet-sim", "workers", "split",
-                  "mesh", "deploy", "pods"):
+                  "mesh", "deploy", "pods", "examples"):
         if phase not in phases and not (phase == "incremental" and "quantized" in phases):
             continue
+        t0 = time.perf_counter()
         workdir = tempfile.mkdtemp(prefix="chip-smoke-", dir=_scratch_dir())
         try:
             if phase == "slice":
@@ -6589,10 +6823,13 @@ def main(argv=None) -> int:
                 phase_deploy(torch, dev, workdir)
             elif phase == "pods":
                 podded = phase_pods(torch, dev, workdir, in_process_day_s=(
-                    loop["mlp"]["median_days_2_7_s"] if loop else None))
+                    loop["mlp"]["median_days_2_on_s"] if loop else None))
+            elif phase == "examples":
+                examples = phase_examples(torch, dev, workdir)
             elif phase == "day-loop":
                 loop = phase_day_loop(torch, dev, workdir)
                 if "profile" in phases:
+                    phase_seconds["day-loop-without-profile"] = time.perf_counter() - t0
                     profiled_after_loop = phase_profile(
                         torch, dev, os.path.join(workdir, "profile-after-day-loop"),
                         label="profile-after-day-loop")
@@ -6606,10 +6843,12 @@ def main(argv=None) -> int:
                     quantized = phase_quantized(torch, dev, incremental["store"])
         finally:
             shutil.rmtree(workdir, ignore_errors=True)
-        _check_processes(phase)
+        finished(phase, t0)
     if "timing" in phases:
+        t0 = time.perf_counter()
         timing = phase_timing(torch, dev, card)
-        _check_processes("timing")
+        finished("timing", t0)
+    emit("phase-seconds", **phase_seconds)
     emit("total", seconds=time.perf_counter() - t_start, phases=sorted(phases))
     if phases >= {"kernels", "slice", "day-loop", "incremental", "quantized", "timing"}:
         kernels = []
@@ -6656,7 +6895,8 @@ def main(argv=None) -> int:
                                       ("workers-one-process", workers,
                                        "one_process_launches"),
                                       ("split", split, "launches"),
-                                      ("mesh", meshed, "launches")):
+                                      ("mesh", meshed, "launches"),
+                                      ("examples", examples, "launches")):
                 if result:
                     by_path[path] = result[key][engine]
             # the serve pod's launches, read from its /healthz, and the

@@ -9,7 +9,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "bodywork_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
+PORT_FILES = (sorted((ROOT / "bodywork_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + EXAMPLES)
 
 _PROBE = """
 import sys
@@ -58,14 +60,23 @@ import bodywork_tpu_torch.parallel.collectives, bodywork_tpu_torch.parallel.shar
 import bodywork_tpu_torch.parallel.train_step
 import bodywork_tpu_torch.utils.compile_cache, bodywork_tpu_torch.utils.watchdog
 import chip_smoke
-# nor pyyaml, jsonschema, matplotlib or sentry_sdk: the port runs on the
-# standard library, numpy and torch alone
+# the port's examples, loaded as modules (their main() not run)
+import importlib.util, pathlib
+for path in sorted(pathlib.Path("examples_torch").glob("*.py")):
+    spec = importlib.util.spec_from_file_location("example_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+# nor pyyaml, jsonschema, matplotlib, sentry_sdk, pandas or flask: the port
+# runs on the standard library, numpy and torch alone
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "bodywork_tpu", "yaml", "jsonschema",
-                                    "matplotlib", "sentry_sdk"))
+                                    "matplotlib", "sentry_sdk", "pandas", "flask"))
 print(",".join(bad))
 sys.exit(1 if bad else 0)
 """
+
+
+def test_the_port_has_its_eight_examples():
+    assert [p.name[:3] for p in EXAMPLES] == [f"{i:02d}_" for i in range(1, 9)]
 
 
 def test_fresh_process_imports_the_port_without_jax():
