@@ -26,9 +26,19 @@ derives from ``PRNGKey(seed)``. The index stream is drawn up front as an
 are drawn with weight 0 exactly as in the JAX loop: :func:`draw_indices`
 walks the scan's key chain on the host and hashes every step's indices
 in one batched pass on the model's device.
+
+A fit records its phases as spans on the recorder a caller installed with
+:func:`bodywork_tpu_torch.obs.spans.recording` (:class:`FitPhases`): the
+host's set-up, the first :data:`HEAD_STEPS` steps' enqueues one by one,
+the dispatch of the whole loop and the drain to the loss on the host.
+Each phase is a ``record_function`` range too, so a profile shows it
+beside the kernels. With no recorder and no profiler a fit records
+nothing, and a step pays one boolean test.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import numpy as np
@@ -38,9 +48,78 @@ from torch import nn
 from bodywork_tpu_torch.data import prng
 from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.base import Regressor, as_rows, pad_rows
+from bodywork_tpu_torch.obs.spans import CATEGORY_FIT, SpanRecorder, current_recorder
+from bodywork_tpu_torch.utils.profiling import annotate
 
 #: Adam's constants as ``optax.adam`` sets them
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
+#: the steps whose enqueue a traced fit times one by one: on an H100 the
+#: launch queue holds ~16 of the wide fit's steps (~63 launches each), so
+#: the first 8 never wait on the card and their spans time the host alone
+HEAD_STEPS = 8
+
+
+class FitPhases:
+    """The spans of one fit (``fit`` and its phases) on ``recorder``, each
+    one a ``record_function`` range too, all sharing the recorder's next
+    id as ``meta["fit"]``. ``on`` is false where there is neither a
+    recorder nor a profiler; then nothing is recorded."""
+
+    def __init__(self, recorder: SpanRecorder | None = None, profiling: bool = False):
+        self.recorder = recorder
+        self.on = profiling or recorder is not None
+        self.fit = recorder.next_id() if recorder is not None else None
+
+    @classmethod
+    def current(cls) -> "FitPhases":
+        """This context's: the recorder :func:`recording` installed, and
+        ranges where a profiler is active."""
+        return cls(current_recorder(), torch.autograd._profiler_enabled())
+
+    @contextlib.contextmanager
+    def root(self):
+        """The ``fit`` span around a whole fit; inside it, :func:`_fit_phases`
+        is this fit's. Yields the span's meta, as :meth:`span` does."""
+        if not self.on:
+            yield {}
+            return
+        token = _FIT.set(self)
+        try:
+            with self.span("fit", None) as meta:
+                yield meta
+        finally:
+            _FIT.reset(token)
+
+    @contextlib.contextmanager
+    def span(self, name: str, parent: str | None = "fit", **meta):
+        """Time the block as span ``name`` under ``parent``; yields the
+        span's meta, which the block may fill with counts it learns."""
+        if not self.on:
+            yield meta
+            return
+        rec = self.recorder
+        with annotate(name):
+            if rec is None:  # a profiler alone: the range, no span
+                yield meta
+                return
+            start = rec.now()
+            try:
+                yield meta
+            finally:
+                rec.add(name, CATEGORY_FIT, start, rec.now() - start, parent=parent,
+                        fit=self.fit, **meta)
+
+
+#: the phases of the fit in progress in this context (set by ``FitPhases.root``)
+_FIT: contextvars.ContextVar[FitPhases | None] = contextvars.ContextVar(
+    "bodywork_tpu_torch_fit_phases", default=None)
+_UNTRACED = FitPhases()
+
+
+def _fit_phases() -> FitPhases:
+    """The phases of the fit in progress here; outside a traced fit, ones
+    that record nothing (``train_core`` called on its own)."""
+    return _FIT.get() or _UNTRACED
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,7 +266,10 @@ def train_core(net_params: dict, X: torch.Tensor, y: torch.Tensor, w: torch.Tens
     """The minibatch Adam loop (``mlp.py:108-130``): one step per row of
     ``idx``, on fresh copies of ``net_params`` (which stay untouched).
     Returns ``(trained net params, per-step losses)``, every tensor on
-    the data's device and detached; nothing is fetched to the host."""
+    the data's device and detached; nothing is fetched to the host.
+    Inside a traced fit the loop is its ``fit.dispatch`` span and the first
+    :data:`HEAD_STEPS` steps are ``fit.step`` spans (``meta["step"]`` the
+    step's count, 1-based)."""
     layers = net_params["layers"]
     params = [t.detach().clone().requires_grad_(True)
               for layer in layers for t in (layer["w"], layer["b"])]
@@ -195,14 +277,26 @@ def train_core(net_params: dict, X: torch.Tensor, y: torch.Tensor, w: torch.Tens
     nu = [torch.zeros_like(p) for p in params]
     net = {"layers": [{"w": params[2 * i], "b": params[2 * i + 1]}
                       for i in range(len(layers))]}
-    losses = torch.empty(idx.shape[0], device=X.device)
-    for step in range(idx.shape[0]):
+    n_steps = idx.shape[0]
+    losses = torch.empty(n_steps, device=X.device)
+
+    def run_step(step: int) -> None:
         i = idx[step]
         loss = _loss(net, X[i], y[i], w[i], cfg.compute_dtype)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             _adam_update(params, list(grads), mu, nu, step + 1, cfg.learning_rate)
             losses[step] = loss
+
+    phases = _fit_phases()
+    with phases.span("fit.dispatch", steps=n_steps):
+        head = phases.on
+        for step in range(n_steps):
+            if head and step < HEAD_STEPS:
+                with phases.span("fit.step", "fit.dispatch", step=step + 1):
+                    run_step(step)
+            else:
+                run_step(step)
     trained = {"layers": [{"w": layer["w"].detach(), "b": layer["b"].detach()}
                           for layer in net["layers"]]}
     return trained, losses
@@ -263,20 +357,32 @@ class MLPRegressor(Regressor):
         with the JAX fit's draws for ``seed`` (the config's when None);
         returns (params, losses)."""
         cfg = self.config
-        k_init, k_train = fit_keys(cfg.seed if seed is None else seed)
-        Xs, ys, scaler = _scaled_splits(Xp, yp, w)
-        net = init_mlp_params(k_init, (Xp.shape[1],) + cfg.hidden + (1,), device=Xp.device)
-        idx = draw_indices(k_train, cfg.n_steps, cfg.batch_size, Xp.shape[0], device=Xp.device)
+        phases = _fit_phases()
+        with phases.span("fit.init"):
+            k_init, k_train = fit_keys(cfg.seed if seed is None else seed)
+            Xs, ys, scaler = _scaled_splits(Xp, yp, w)
+            net = init_mlp_params(k_init, (Xp.shape[1],) + cfg.hidden + (1,), device=Xp.device)
+        with phases.span("fit.indices", steps=cfg.n_steps):
+            idx = draw_indices(k_train, cfg.n_steps, cfg.batch_size, Xp.shape[0],
+                               device=Xp.device)
         net, losses = train_core(net, Xs, ys, w, idx, cfg)
         return {"net": net, "scaler": scaler}, losses
 
     def fit(self, X, y, seed: int | None = None, device=None) -> "MLPRegressor":
-        dev = resolve_device(device)
-        require_ieee_f32_matmul(dev)
-        arrays = pad_rows(*as_rows(X, y))
-        params, losses = self._train(seed, *(torch.as_tensor(a, device=dev) for a in arrays))
-        fitted = MLPRegressor(self.config, params)
-        fitted.final_loss = float(losses[-1])
+        phases = FitPhases.current()
+        with phases.root() as meta:
+            with phases.span("fit.prepare"):
+                dev = resolve_device(device)
+                require_ieee_f32_matmul(dev)
+                X, y = as_rows(X, y)
+                Xp, yp, w = (torch.as_tensor(a, device=dev) for a in pad_rows(X, y))
+            meta.update(rows=X.shape[0], padded_rows=Xp.shape[0],
+                        batch=self.config.batch_size, steps=self.config.n_steps)
+            params, losses = self._train(seed, Xp, yp, w)
+            with phases.span("fit.drain"):
+                final_loss = float(losses[-1])
+            fitted = MLPRegressor(self.config, params)
+            fitted.final_loss = final_loss
         return fitted
 
     def fit_and_evaluate(self, X_train, y_train, X_test, y_test,
@@ -285,18 +391,24 @@ class MLPRegressor(Regressor):
         metrics and the final loss come back in one transfer."""
         from bodywork_tpu_torch.models.metrics import _metrics, metrics_dict
 
-        dev = resolve_device(device)
-        require_ieee_f32_matmul(dev)
-        Xp, yp, w, Xe, ye, we = (
-            torch.as_tensor(a, device=dev)
-            for a in self._pad_splits(X_train, y_train, X_test, y_test)
-        )
-        params, losses = self._train(seed, Xp, yp, w)
-        with torch.no_grad():
-            m = _metrics(ye, mlp_apply(params, Xe), we)
-        tail = torch.stack([*m, losses[-1]]).tolist()
-        fitted = MLPRegressor(self.config, params)
-        fitted.final_loss = tail[3]
+        phases = FitPhases.current()
+        with phases.root() as meta:
+            with phases.span("fit.prepare"):
+                dev = resolve_device(device)
+                require_ieee_f32_matmul(dev)
+                Xp, yp, w, Xe, ye, we = (
+                    torch.as_tensor(a, device=dev)
+                    for a in self._pad_splits(X_train, y_train, X_test, y_test)
+                )
+            meta.update(rows=len(X_train), padded_rows=Xp.shape[0],
+                        batch=self.config.batch_size, steps=self.config.n_steps)
+            params, losses = self._train(seed, Xp, yp, w)
+            with phases.span("fit.drain"):
+                with torch.no_grad():
+                    m = _metrics(ye, mlp_apply(params, Xe), we)
+                tail = torch.stack([*m, losses[-1]]).tolist()
+            fitted = MLPRegressor(self.config, params)
+            fitted.final_loss = tail[3]
         return fitted, metrics_dict(tail)
 
     def fine_tune(self, X, y, n_steps: int, seed: int | None = None) -> "MLPRegressor":
@@ -309,21 +421,30 @@ class MLPRegressor(Regressor):
         The tuned model carries the original config."""
         if self.net is None:
             raise ValueError("cannot fine-tune an unfitted model")
-        dev = self.device
-        require_ieee_f32_matmul(dev)
         cfg = dataclasses.replace(self.config, n_steps=n_steps)
-        Xp, yp, w = pad_rows(*as_rows(X, y))
-        s = params_to_host(self.scaler)
-        # standardise with the DONOR's scaler, on the host; the padding
-        # rows stay harmless (weight 0 in the loss)
-        Xs = torch.as_tensor((Xp - s["x_mean"]) / s["x_std"], device=dev)
-        ys = torch.as_tensor((yp - s["y_mean"]) / s["y_std"], device=dev)
-        key = prng.PRNGKey(self.config.seed if seed is None else seed)
-        idx = draw_indices(key, n_steps, cfg.batch_size, Xp.shape[0], device=dev)
-        net, losses = train_core(self.net.params(), Xs, ys,
-                                 torch.as_tensor(w, device=dev), idx, cfg)
-        tuned = MLPRegressor(self.config, {"net": net, "scaler": dict(self.scaler)})
-        tuned.final_loss = float(losses[-1])
+        phases = FitPhases.current()
+        with phases.root() as meta:
+            with phases.span("fit.prepare"):
+                dev = self.device
+                require_ieee_f32_matmul(dev)
+                X, y = as_rows(X, y)
+                Xp, yp, w = pad_rows(X, y)
+                s = params_to_host(self.scaler)
+                # standardise with the DONOR's scaler, on the host; the padding
+                # rows stay harmless (weight 0 in the loss)
+                Xs = torch.as_tensor((Xp - s["x_mean"]) / s["x_std"], device=dev)
+                ys = torch.as_tensor((yp - s["y_mean"]) / s["y_std"], device=dev)
+                w = torch.as_tensor(w, device=dev)
+            meta.update(rows=X.shape[0], padded_rows=Xp.shape[0], batch=cfg.batch_size,
+                        steps=n_steps)
+            with phases.span("fit.indices", steps=n_steps):
+                key = prng.PRNGKey(self.config.seed if seed is None else seed)
+                idx = draw_indices(key, n_steps, cfg.batch_size, Xp.shape[0], device=dev)
+            net, losses = train_core(self.net.params(), Xs, ys, w, idx, cfg)
+            with phases.span("fit.drain"):
+                final_loss = float(losses[-1])
+            tuned = MLPRegressor(self.config, {"net": net, "scaler": dict(self.scaler)})
+            tuned.final_loss = final_loss
         return tuned
 
     @property

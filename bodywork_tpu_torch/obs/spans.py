@@ -22,10 +22,20 @@ intervals: one around device work ends where the host waited for the
 device (a stage returns after its results are on the host or in the
 store), never at a kernel launch.
 
+Work below the stages records into the recorder a caller installs with
+:func:`recording`, and only then: an MLP fit's phases
+(:mod:`bodywork_tpu_torch.models.mlp`) look it up with
+:func:`current_recorder` once a fit. Nothing installs one by default, so
+the day's documents hold the stages alone; the recorder lives in a
+``contextvars.ContextVar``, which a ``threading.Thread`` does not inherit.
+Such a span names the span that caused it (``parent``), and the spans of
+one unit of work share an id in their meta (:meth:`SpanRecorder.next_id`).
+
 Stdlib-only, like the rest of :mod:`bodywork_tpu_torch.obs`.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import json
 import threading
@@ -37,7 +47,9 @@ __all__ = [
     "Span",
     "SpanRecorder",
     "chrome_trace",
+    "current_recorder",
     "day_report",
+    "recording",
     "write_chrome_trace",
     "write_day_report",
 ]
@@ -47,6 +59,7 @@ CATEGORY_STAGE = "stage"      # a DAG stage at its DAG position
 CATEGORY_OVERLAP = "overlap"  # background work overlapping the DAG (lookahead)
 CATEGORY_PREFETCH = "prefetch"  # dataset prefetch worker
 CATEGORY_DAY = "day"          # the whole run_day envelope
+CATEGORY_FIT = "fit"          # a model fit's phases (recorded under ``recording``)
 
 
 @dataclasses.dataclass
@@ -60,6 +73,10 @@ class Span:
     duration_s: float
     thread: str
     meta: dict = dataclasses.field(default_factory=dict)
+    # the name of the span that caused this one (None: a root span), set
+    # by ``SpanRecorder.add``; a plain attribute, not a dataclass field, so
+    # the fields (``dataclasses.asdict``) stay the JAX package's
+    parent = None
 
     @property
     def end_s(self) -> float:
@@ -73,6 +90,8 @@ class Span:
             "duration_s": round(self.duration_s, 6),
             "thread": self.thread,
         }
+        if self.parent is not None:
+            d["parent"] = self.parent
         if self.meta:
             d["meta"] = dict(self.meta)
         return d
@@ -93,6 +112,7 @@ class SpanRecorder:
         self.epoch_unix_s = time.time()
         self._lock = threading.Lock()
         self._spans: list[Span] = []
+        self._ids = 0
 
     def now(self) -> float:
         """Seconds since the recorder's epoch."""
@@ -104,6 +124,8 @@ class SpanRecorder:
         category: str,
         start_s: float,
         duration_s: float,
+        *,
+        parent: str | None = None,
         **meta,
     ) -> Span:
         """Record an already-measured interval (the runner's stage path:
@@ -116,6 +138,7 @@ class SpanRecorder:
             thread=threading.current_thread().name,
             meta=meta,
         )
+        span.parent = parent
         with self._lock:
             self._spans.append(span)
         return span
@@ -129,6 +152,13 @@ class SpanRecorder:
         finally:
             self.add(name, category, start, self.now() - start, **meta)
 
+    def next_id(self) -> int:
+        """The next of this recorder's sequence numbers (1, 2, ...): the id
+        the spans of one unit of work share."""
+        with self._lock:
+            self._ids += 1
+            return self._ids
+
     def mark(self) -> int:
         """Position token for :meth:`since` (spans recorded so far)."""
         with self._lock:
@@ -141,6 +171,26 @@ class SpanRecorder:
     def spans(self) -> list[Span]:
         with self._lock:
             return list(self._spans)
+
+
+_CURRENT: contextvars.ContextVar[SpanRecorder | None] = contextvars.ContextVar(
+    "bodywork_tpu_torch_span_recorder", default=None)
+
+
+@contextmanager
+def recording(recorder: SpanRecorder):
+    """Install ``recorder`` as :func:`current_recorder` in this context
+    (this thread, or this task) for the block's duration."""
+    token = _CURRENT.set(recorder)
+    try:
+        yield recorder
+    finally:
+        _CURRENT.reset(token)
+
+
+def current_recorder() -> SpanRecorder | None:
+    """The recorder :func:`recording` installed here, or None."""
+    return _CURRENT.get()
 
 
 def day_report(result, spans: list[Span] | None = None, fsck: dict | None = None,
@@ -210,7 +260,7 @@ def chrome_trace(
                 "dur": round(span.duration_s * 1e6, 3),
                 "pid": 1,
                 "tid": tid,
-                **({"args": dict(span.meta)} if span.meta else {}),
+                **_args(span),
             }
         )
     meta_events = [
@@ -232,6 +282,15 @@ def chrome_trace(
             }
         )
     return {"traceEvents": meta_events + events, "displayTimeUnit": "ms"}
+
+
+def _args(span: Span) -> dict:
+    """A trace event's ``args``: the span's meta, and its parent where it
+    has one (none at all for a root span without meta)."""
+    args = dict(span.meta)
+    if span.parent is not None:
+        args["parent"] = span.parent
+    return {"args": args} if args else {}
 
 
 def write_chrome_trace(
