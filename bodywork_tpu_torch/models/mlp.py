@@ -14,7 +14,9 @@ Training is the JAX package's ``lax.scan`` loop as a Python loop of
 plain torch ops with autograd (``mlp.py:108-130``): each step gathers a
 minibatch by index, takes the gradient of the weighted MSE and applies
 Adam as ``optax.adam(lr)`` configures it (b1 0.9, b2 0.999, eps 1e-8
-outside the square root, bias-corrected). ``compute_dtype="bfloat16"``
+outside the square root, bias-corrected). In float32 the large weight
+gradients run on the tensor cores, f32-accurate
+(:mod:`bodywork_tpu_torch.ops.train_gemm`). ``compute_dtype="bfloat16"``
 casts the matmul operands to bf16; params, optimizer state and loss stay
 f32.
 
@@ -49,6 +51,7 @@ from bodywork_tpu_torch.data import prng
 from bodywork_tpu_torch.device import require_ieee_f32_matmul, resolve_device
 from bodywork_tpu_torch.models.base import Regressor, as_rows, pad_rows
 from bodywork_tpu_torch.obs.spans import CATEGORY_FIT, SpanRecorder, current_recorder
+from bodywork_tpu_torch.ops.train_gemm import kernel_layers, step_products, train_product
 from bodywork_tpu_torch.utils.profiling import annotate
 
 #: Adam's constants as ``optax.adam`` sets them
@@ -226,9 +229,38 @@ def _scaled_splits(Xp: torch.Tensor, yp: torch.Tensor, w: torch.Tensor):
     return Xs, ys, scaler
 
 
-def _loss(net_params: dict, xb, yb, wb, compute_dtype: str | None = None) -> torch.Tensor:
-    """Weighted MSE over a minibatch, divided by max(sum(wb), 1)."""
-    pred = mlp_forward(net_params, xb, compute_dtype)
+def _train_forward(net_params: dict, x: torch.Tensor, tc_layers: tuple) -> torch.Tensor:
+    """:func:`mlp_forward` in float32 as a training step runs it when some
+    layer's weight gradient takes the tensor-core kernel: each layer
+    flagged in ``tc_layers`` is
+    :func:`~bodywork_tpu_torch.ops.train_gemm.train_product` (on the CPU
+    ``h @ w`` bit for bit), every other ``h @ w``."""
+    layers = net_params["layers"]
+
+    def dense(h, layer, tc):
+        return (train_product(h, layer["w"]) if tc else h @ layer["w"]) + layer["b"]
+
+    h = x
+    for layer, tc in zip(layers[:-1], tc_layers):
+        h = torch.relu(dense(h, layer, tc))
+    return dense(h, layers[-1], tc_layers[-1])[:, 0]
+
+
+def _tc_products(cfg: "MLPConfig", d_in: int, device: torch.device) -> int:
+    """The products of one of ``cfg``'s training steps that take the
+    tensor-core kernel on ``device`` (the ``fit`` span's ``tc_products``)."""
+    return step_products((d_in, *cfg.hidden, 1), cfg.batch_size, device.type,
+                         cfg.compute_dtype)
+
+
+def _loss(net_params: dict, xb, yb, wb, compute_dtype: str | None = None,
+          tc_layers: tuple = ()) -> torch.Tensor:
+    """Weighted MSE over a minibatch, divided by max(sum(wb), 1). With a
+    layer flagged in ``tc_layers``
+    (:func:`~bodywork_tpu_torch.ops.train_gemm.kernel_layers`) the
+    forward is :func:`_train_forward`, else :func:`mlp_forward`."""
+    pred = (_train_forward(net_params, xb, tc_layers) if any(tc_layers)
+            else mlp_forward(net_params, xb, compute_dtype))
     return torch.sum(wb * (pred - yb) ** 2) / torch.clamp(torch.sum(wb), min=1.0)
 
 
@@ -279,10 +311,12 @@ def train_core(net_params: dict, X: torch.Tensor, y: torch.Tensor, w: torch.Tens
                       for i in range(len(layers))]}
     n_steps = idx.shape[0]
     losses = torch.empty(n_steps, device=X.device)
+    tc_layers = kernel_layers([tuple(layer["w"].shape) for layer in layers], idx.shape[1],
+                              X.device.type, cfg.compute_dtype)
 
     def run_step(step: int) -> None:
         i = idx[step]
-        loss = _loss(net, X[i], y[i], w[i], cfg.compute_dtype)
+        loss = _loss(net, X[i], y[i], w[i], cfg.compute_dtype, tc_layers)
         grads = torch.autograd.grad(loss, params)
         with torch.no_grad():
             _adam_update(params, list(grads), mu, nu, step + 1, cfg.learning_rate)
@@ -377,7 +411,8 @@ class MLPRegressor(Regressor):
                 X, y = as_rows(X, y)
                 Xp, yp, w = (torch.as_tensor(a, device=dev) for a in pad_rows(X, y))
             meta.update(rows=X.shape[0], padded_rows=Xp.shape[0],
-                        batch=self.config.batch_size, steps=self.config.n_steps)
+                        batch=self.config.batch_size, steps=self.config.n_steps,
+                        tc_products=_tc_products(self.config, Xp.shape[1], dev))
             params, losses = self._train(seed, Xp, yp, w)
             with phases.span("fit.drain"):
                 final_loss = float(losses[-1])
@@ -401,7 +436,8 @@ class MLPRegressor(Regressor):
                     for a in self._pad_splits(X_train, y_train, X_test, y_test)
                 )
             meta.update(rows=len(X_train), padded_rows=Xp.shape[0],
-                        batch=self.config.batch_size, steps=self.config.n_steps)
+                        batch=self.config.batch_size, steps=self.config.n_steps,
+                        tc_products=_tc_products(self.config, Xp.shape[1], dev))
             params, losses = self._train(seed, Xp, yp, w)
             with phases.span("fit.drain"):
                 with torch.no_grad():
@@ -436,7 +472,7 @@ class MLPRegressor(Regressor):
                 ys = torch.as_tensor((yp - s["y_mean"]) / s["y_std"], device=dev)
                 w = torch.as_tensor(w, device=dev)
             meta.update(rows=X.shape[0], padded_rows=Xp.shape[0], batch=cfg.batch_size,
-                        steps=n_steps)
+                        steps=n_steps, tc_products=_tc_products(cfg, Xp.shape[1], dev))
             with phases.span("fit.indices", steps=n_steps):
                 key = prng.PRNGKey(self.config.seed if seed is None else seed)
                 idx = draw_indices(key, n_steps, cfg.batch_size, Xp.shape[0], device=dev)

@@ -48,6 +48,7 @@ SOURCES = {
     "mlp_kernel": _CSRC / "mlp_kernel.cu",
     "mlp_bf16_tc": _CSRC / "mlp_bf16_tc.cu",
     "mlp_int8": _CSRC / "mlp_int8.cu",
+    "train_gemm": _CSRC / "train_gemm.cu",
 }
 
 #: where an image's build step puts the libraries, and where they are built
@@ -226,6 +227,13 @@ DECLARATIONS = {
         "mlp_int8_forward": (_CLUSTER_FORWARD + [_PTRS, _I, _I, _P], _I),
         "mlp_int8_max_active_clusters": ([_I, _I], _I),
         "mlp_int8_error_string": ([_I], ctypes.c_char_p),
+    },
+    # (dy, K, N, hi, lo, stream); (h, b_hi, b_lo, c, workspace, M, N, K,
+    # splits, stream)
+    "train_gemm": {
+        "train_gemm_split": ([_P, _I, _I, _P, _P, _P], _I),
+        "train_gemm": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+        "train_gemm_error_string": ([_I], ctypes.c_char_p),
     },
 }
 

@@ -31,6 +31,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
    which each bar must refuse; ``kernels-ragged`` runs a ragged 3 -> 1100
    -> 40 -> 1 stack the same way at every cluster size the card schedules
    and checks that a stack past each kernel's shared memory is refused;
+   then ``train-gemm``: the trainer's tensor-core weight gradients
+   (``ops/train_gemm.py``, ``ops/csrc/train_gemm.cu``) of a hidden 1024 x
+   1024 layer at config 6's batch 32768 and of a ragged one (1064 rows out,
+   batch 8192), each against float64 within ``TRAIN_GEMM_BAR`` (which a
+   1xTF32 control must fail), run twice for the same bits, with its
+   launches; config 6's timed (its split pass included, and apart) beside
+   its bound and ``torch.matmul``;
 4. ``slice``   — the serving main path at full width: three days of drift
    data generated on the card, a (1024, 1024, 1024) MLP checkpoint with
    seeded He-init weights, ``serve_latest_model(engine="auto")`` (which
@@ -533,6 +540,16 @@ EXAMPLE_BARS = {"MAPE": (0.5, 1.2), "r_squared": (0.55, 0.75), "rows": (1200, 14
 #: reductions on another device), and each notebook's time limit
 NOTEBOOK_RTOL = 1e-4
 NOTEBOOK_TIMEOUT_S = 240.0
+#: train-gemm: the weight gradient h.T @ dY of a hidden 1024 x 1024 layer
+#: at config 6's batch, and one with a ragged output (1064 = 8 x 128 + 40
+#: rows: h of 1064 features) at batch 8192; timed reps
+TRAIN_GEMM = {"batch": 32768, "width": 1024, "ragged_batch": 8192, "ragged_width": 1064,
+              "reps": 20}
+#: the products' bar against float64, as max|C - C64| / max|C64|: the CPU
+#: emulation of the kernel's split arithmetic reads up to 1.3e-6 at
+#: K = 32768 and a 1xTF32 product 3e-4 (tests/test_torch_train_gemm.py);
+#: the bar must refuse the 1xTF32 control on the card too
+TRAIN_GEMM_BAR = 1e-5
 #: the cell appended to each notebook to read its interpreter's launch counts
 _NOTEBOOK_LAUNCHES = ("from bodywork_tpu_torch.ops.mlp_kernel import LAUNCHES\n"
                       "dict(LAUNCHES)")
@@ -850,6 +867,76 @@ def phase_build() -> None:
     emit("build", seconds=seconds,
          libraries={n: {"built": r["built"], "nvcc_seconds": r["seconds"]} for n, r in info.items()},
          ptxas=report)
+
+
+def _tf32(torch, x):
+    """x rounded to TF32 (nearest, ties away), its low 13 bits cleared."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def phase_train_gemm(torch, dev, card: dict) -> None:
+    """The trainer's tensor-core weight gradients (``ops/train_gemm.py``)
+    against float64, their plain version (``h.T @ dY``, TF32 off) and a
+    1xTF32 control, twice each (split K must give the same bits), with
+    their launches; then config 6's timed (the split pass included)
+    beside its bound and ``torch.matmul``."""
+    from bodywork_tpu_torch.ops import train_gemm as tg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(26)
+    width = TRAIN_GEMM["width"]
+
+    def operands(rows, k_in):
+        h = torch.relu(torch.randn(rows, k_in, generator=gen, device=dev))
+        dy = torch.randn(rows, width, generator=gen, device=dev) * 1e-3
+        return h, dy
+
+    cases = {"weight-grad": operands(TRAIN_GEMM["batch"], width),
+             "weight-grad-ragged": operands(TRAIN_GEMM["ragged_batch"],
+                                            TRAIN_GEMM["ragged_width"])}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, (h, dy) in cases.items():
+        k, m = h.shape
+        n = dy.shape[1]
+        if not tg.engages(m, n, k, "cuda"):
+            raise RuntimeError(f"train-gemm {name}: the gate refuses {m} x {n} x {k}")
+        splits = tg.split_count(m, n, k, sms)
+        tg.reset_launches()
+        got = tg.weight_grad(h, dy)
+        again = tg.weight_grad(h, dy)
+        torch.cuda.synchronize()
+        launches = dict(tg.LAUNCHES)
+        want = {"split": 2, "product": 2, "reduce": 2 if splits > 1 else 0}
+        if launches != want:
+            raise RuntimeError(f"train-gemm {name}: launches {launches}, expected {want}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"train-gemm {name}: two runs differ")
+        exact, plain = h.double().t() @ dy.double(), h.t() @ dy
+        scale = float(exact.abs().max())
+
+        def err(c):
+            return float((c.double() - exact).abs().max()) / scale
+
+        row = {"m": m, "n": n, "k": k, "splits": splits, "bar": TRAIN_GEMM_BAR,
+               "err_over_scale": err(got), "plain_err_over_scale": err(plain),
+               "tf32_control_err_over_scale": err(_tf32(torch, h).t() @ _tf32(torch, dy)),
+               "max_abs_vs_plain": float((got - plain).abs().max()), "launches": launches}
+        del exact, plain
+        if row["err_over_scale"] >= TRAIN_GEMM_BAR:
+            raise RuntimeError(f"train-gemm {name} disagrees with float64: {row}")
+        if row["tf32_control_err_over_scale"] < TRAIN_GEMM_BAR:
+            raise RuntimeError(f"train-gemm {name}: the bar does not refuse 1xTF32: {row}")
+        if name == "weight-grad":
+            reps = TRAIN_GEMM["reps"]
+            row["kernel_ms"] = _median_ms(torch, lambda: tg.weight_grad(h, dy), reps)
+            row["split_ms"] = _median_ms(torch, lambda: tg.split_dy(dy), reps)
+            row["library_ms"] = _median_ms(torch, lambda: h.t() @ dy, reps)
+            row["bound_ms"] = 1e3 * max(2.0 * m * n * k / (card["tf32"] / 3),
+                                        4.0 * (m * k + k * n + m * n) / card["bytes_s"])
+            row["library_over_kernel"] = row["library_ms"] / row["kernel_ms"]
+        emit("train-gemm", product=name, **row)
+    torch.cuda.synchronize()
 
 
 def phase_kernels(torch, dev) -> dict:
@@ -6851,10 +6938,10 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument(
         "--phases",
-        default="device,generator,mlp-draws,build,kernels,slice,serving,trace,traffic,reload,"
-                "canary,tune,online-tune,tenancy,ab,day-loop,incremental,quantized,resume,"
-                "sigterm,day-report,profile,audit,chaos-sim,bit-rot,crash-sim,fleet-sim,"
-                "workers,split,mesh,deploy,pods,examples,notebooks,timing",
+        default="device,generator,mlp-draws,build,kernels,train-gemm,slice,serving,trace,"
+                "traffic,reload,canary,tune,online-tune,tenancy,ab,day-loop,incremental,"
+                "quantized,resume,sigterm,day-report,profile,audit,chaos-sim,bit-rot,crash-sim,"
+                "fleet-sim,workers,split,mesh,deploy,pods,examples,notebooks,timing",
         help="comma-separated subset of the phases to run (default: all; quantized "
              "serves incremental's production, so it runs incremental too)",
     )
@@ -6913,6 +7000,10 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         errors = phase_kernels(torch, dev)
         finished("kernels", t0)
+    if "train-gemm" in phases:
+        t0 = time.perf_counter()
+        phase_train_gemm(torch, dev, card)
+        finished("train-gemm", t0)
     launches, loop, incremental, quantized, timing, resume, sigterm = {}, {}, {}, {}, {}, {}, {}
     serving, traced, reported, profiled, profiled_after_loop = {}, {}, {}, {}, {}
     traffic, reloaded, canaried, ab = {}, {}, {}, {}

@@ -86,7 +86,7 @@ def test_a_recorded_fit_records_its_phase_tree(entry, n_steps):
     steps = [s for s in got if s.name == "fit.step"]
     assert [s.meta["step"] for s in steps] == list(range(1, n_head + 1))
     assert by_name["fit"].meta == {"fit": 1, "rows": ROWS, "padded_rows": 1024, "batch": 32,
-                                   "steps": n_steps}
+                                   "steps": n_steps, "tc_products": 0}
     assert by_name["fit.indices"].meta["steps"] == n_steps
     assert by_name["fit.dispatch"].meta["steps"] == n_steps
     # the phases follow one another in the order they run
